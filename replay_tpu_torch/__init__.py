@@ -1,0 +1,17 @@
+"""PyTorch/CUDA port of ``replay_tpu``, for NVIDIA Hopper.
+
+A second package beside the JAX one, mirroring its layout and names: each
+module here has its counterpart at the same path under ``replay_tpu/``, which
+stays the reference the port is tested against. The port imports ``torch`` and
+numpy and nothing of JAX or of the JAX package.
+
+Every Pallas kernel of the JAX package becomes a kernel written by hand for
+Hopper under ``replay_tpu_torch/csrc/``, with a plain PyTorch version of the
+same function beside it (:mod:`replay_tpu_torch.ops`). Entry points default to
+``device="cuda"`` and raise when there is none; ``device="cpu"`` runs the plain
+versions.
+
+Ported so far: SASRec serving through ``ScoringEngine`` on kernel K4 (fused
+attention). Still to come, in ``ROADMAP.md``'s order: training, the other
+kernels, the service, retrieval and the other models.
+"""

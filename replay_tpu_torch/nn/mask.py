@@ -1,0 +1,89 @@
+"""Attention-mask construction.
+
+Counterpart of ``replay_tpu/nn/mask.py``: merge a causal (lower-triangular)
+constraint with the key-padding mask and a diagonal rescue (a fully-masked row
+attends to itself instead of producing NaNs). The additive mask uses ``-inf``
+during training and ``finfo(dtype).min`` at evaluation, so fully-masked softmax
+rows stay finite in eval.
+
+Masks are additive float tensors of shape [B, 1, L, L], broadcast over heads.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+
+def padding_mask_from_ids(ids: torch.Tensor, padding_value: int = 0) -> torch.Tensor:
+    """Boolean [B, L] mask, True where the position holds a real token."""
+    return ids != padding_value
+
+
+def _additive(allowed: torch.Tensor, deterministic: bool, dtype: torch.dtype) -> torch.Tensor:
+    """[B, L, L] bool → additive [B, 1, L, L] with the diagonal rescue applied."""
+    eye = torch.eye(allowed.shape[-1], dtype=torch.bool, device=allowed.device)
+    neg = torch.finfo(dtype).min if deterministic else float("-inf")
+    mask = torch.zeros(allowed.shape, dtype=dtype, device=allowed.device)
+    return mask.masked_fill_(~(allowed | eye), neg)[:, None, :, :]
+
+
+def causal_attention_mask(
+    padding_mask: torch.Tensor,
+    deterministic: bool = False,
+    dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Additive causal+padding mask [B, 1, L, L].
+
+    :param padding_mask: boolean [B, L], True at real tokens.
+    :param deterministic: eval mode — use ``finfo.min`` instead of ``-inf`` so rows
+        that are fully masked (cold queries) don't produce NaN softmax outputs.
+    """
+    length = padding_mask.shape[1]
+    causal = torch.ones((length, length), dtype=torch.bool, device=padding_mask.device).tril()
+    return _additive(causal[None] & padding_mask[:, None, :], deterministic, dtype)
+
+
+def bidirectional_attention_mask(
+    padding_mask: torch.Tensor,
+    deterministic: bool = False,
+    dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Additive padding-only mask [B, 1, L, L] (BERT4Rec-style full attention)."""
+    batch, length = padding_mask.shape
+    return _additive(padding_mask[:, None, :].expand(batch, length, length), deterministic, dtype)
+
+
+def require_ported_route(use_flash) -> None:
+    """Raise for the attention routes the port does not have yet."""
+    if use_flash in ("tiled", "ring"):
+        item = "the long-sequence route (K5)" if use_flash == "tiled" else "distributed training"
+        msg = f"use_flash={use_flash!r} is not ported yet: ROADMAP.md queue 1, {item}"
+        raise NotImplementedError(msg)
+
+
+def attention_mask_for_route(
+    use_flash,
+    padding_mask: torch.Tensor,
+    causal: bool = True,
+    deterministic: bool = False,
+    dtype: torch.dtype = torch.float32,
+    segment_ids: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The additive mask a model body hands its encoder.
+
+    The port has the unfused route (``use_flash=False``) and the single-block
+    kernel route (``use_flash=True``); both take the [B, 1, L, L] mask. The
+    ``"tiled"`` and ``"ring"`` routes, and packed rows (``segment_ids``), are
+    later slices of the port and raise here.
+    """
+    if segment_ids is not None:
+        msg = (
+            "packed batches (segment_ids) are not ported yet: ROADMAP.md queue 1, "
+            "'The rest of the SASRec family'"
+        )
+        raise NotImplementedError(msg)
+    require_ported_route(use_flash)
+    make_mask = causal_attention_mask if causal else bidirectional_attention_mask
+    return make_mask(padding_mask, deterministic=deterministic, dtype=dtype)

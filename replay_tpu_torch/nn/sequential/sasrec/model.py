@@ -1,0 +1,169 @@
+"""SASRec: causal-attention next-item model.
+
+Counterpart of ``replay_tpu/nn/sequential/sasrec/model.py``: ``SasRecBody``
+(embedder → position-aware aggregator → causal mask → transformer encoder →
+final norm) and ``SasRec`` with a weight-tying dot-product head. ``forward``
+returns hidden states; ``get_logits`` scores them against the catalog or given
+candidates; ``forward_inference`` scores the LAST position.
+
+Module names follow the flax param tree (``body.embedder.embedding_item_id.
+table``, ``body.aggregator.positional_embedding``, ``body.encoder.block_<i>``,
+``body.final_norm``), so :mod:`replay_tpu_torch.convert` maps weights one to
+one. Weights are drawn from an explicit ``torch.Generator`` on the CPU and then
+moved to ``device``, so one seed gives the same model on every device.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from replay_tpu_torch.data.nn.schema import TensorMap, TensorSchema
+from replay_tpu_torch.device import DeviceLike, resolve_device
+from replay_tpu_torch.nn.agg import PositionAwareAggregator
+from replay_tpu_torch.nn.embedding import SequenceEmbedding
+from replay_tpu_torch.nn.head import EmbeddingTyingHead
+from replay_tpu_torch.nn.mask import attention_mask_for_route
+
+from .transformer import LAYER_NORM_EPS, SasRecTransformerLayer
+
+
+class SasRecBody(nn.Module):
+    """Embed → aggregate(+position) → causally-masked encoder → final LayerNorm."""
+
+    def __init__(
+        self,
+        schema: TensorSchema,
+        embedding_dim: int = 64,
+        num_blocks: int = 2,
+        num_heads: int = 1,
+        max_sequence_length: int = 50,
+        hidden_dim: Optional[int] = None,
+        dropout_rate: float = 0.0,
+        activation: str = "relu",  # the reference SASRec construction pins relu
+        use_flash=False,  # False | True (kernel K4)
+        excluded_features: tuple = (),
+    ) -> None:
+        super().__init__()
+        self.use_flash = use_flash
+        self.embedder = SequenceEmbedding(schema, excluded_features=excluded_features)
+        self.aggregator = PositionAwareAggregator(embedding_dim, max_sequence_length, dropout_rate)
+        self.encoder = SasRecTransformerLayer(
+            embedding_dim,
+            num_blocks=num_blocks,
+            num_heads=num_heads,
+            hidden_dim=hidden_dim or embedding_dim * 4,
+            dropout_rate=dropout_rate,
+            activation=activation,
+            use_flash=use_flash,
+        )
+        self.final_norm = nn.LayerNorm(embedding_dim, eps=LAYER_NORM_EPS)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.embedder.reset_parameters(generator)
+        self.aggregator.reset_parameters(generator)
+        self.encoder.reset_parameters(generator)
+        self.final_norm.reset_parameters()
+
+    def forward(
+        self,
+        feature_tensors: TensorMap,
+        padding_mask: torch.Tensor,  # [B, L] bool
+        deterministic: bool = True,
+        segment_ids: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        x = self.aggregator(self.embedder(feature_tensors), deterministic=deterministic)
+        attention_mask = attention_mask_for_route(
+            self.use_flash, padding_mask, causal=True, deterministic=deterministic,
+            dtype=x.dtype, segment_ids=segment_ids,
+        )
+        x = self.encoder(x, attention_mask, padding_mask, deterministic=deterministic)
+        return self.final_norm(x)
+
+
+class SasRec(nn.Module):
+    """SASRec with an embedding-tying head."""
+
+    def __init__(
+        self,
+        schema: TensorSchema,
+        embedding_dim: int = 64,
+        num_blocks: int = 2,
+        num_heads: int = 1,
+        max_sequence_length: int = 50,
+        hidden_dim: Optional[int] = None,
+        dropout_rate: float = 0.0,
+        activation: str = "relu",
+        use_flash=False,  # False | True (kernel K4)
+        excluded_features: tuple = (),
+        device: DeviceLike = "cuda",
+        generator: Optional[torch.Generator] = None,
+    ) -> None:
+        super().__init__()
+        device = resolve_device(device)
+        self.embedding_dim = embedding_dim
+        self.num_blocks = num_blocks
+        self.max_sequence_length = max_sequence_length
+        self.body = SasRecBody(
+            schema,
+            embedding_dim=embedding_dim,
+            num_blocks=num_blocks,
+            num_heads=num_heads,
+            max_sequence_length=max_sequence_length,
+            hidden_dim=hidden_dim,
+            dropout_rate=dropout_rate,
+            activation=activation,
+            use_flash=use_flash,
+            excluded_features=excluded_features,
+        )
+        self.head = EmbeddingTyingHead()
+        self.body.reset_parameters(generator if generator is not None else torch.Generator().manual_seed(0))
+        self.to(device)
+
+    def forward(
+        self,
+        feature_tensors: TensorMap,
+        padding_mask: torch.Tensor,
+        deterministic: bool = True,
+        segment_ids: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """Hidden states [B, L, E]."""
+        return self.body(
+            feature_tensors, padding_mask, deterministic=deterministic, segment_ids=segment_ids
+        )
+
+    def get_logits(
+        self, hidden: torch.Tensor, candidates_to_score: Optional[torch.Tensor] = None
+    ) -> torch.Tensor:
+        """Score hidden states against the catalog (or given candidate ids).
+
+        Candidate shapes follow the loss protocol: None → [..., num_items];
+        [K] → [..., K]; [B, ..., K] → per-position candidate scores.
+        """
+        if candidates_to_score is None:
+            return self.head(hidden, self.body.embedder.get_item_weights())
+        embedded = self.body.embedder.get_item_weights(candidates_to_score)
+        if candidates_to_score.dim() == 1:
+            return self.head(hidden, embedded)
+        # [B, ..., K, E] x hidden [B, ..., E] -> [B, ..., K]
+        return torch.einsum("...e,...ke->...k", hidden, embedded)
+
+    def forward_inference(
+        self,
+        feature_tensors: TensorMap,
+        padding_mask: torch.Tensor,
+        candidates_to_score: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """Scores of the NEXT item after each sequence: [B, num_items] or [B, K]."""
+        hidden = self.body(feature_tensors, padding_mask, deterministic=True)
+        return self.get_logits(hidden[:, -1, :], candidates_to_score)
+
+    def get_query_embeddings(self, feature_tensors: TensorMap, padding_mask: torch.Tensor) -> torch.Tensor:
+        """Last-position hidden state per query [B, E]."""
+        return self.body(feature_tensors, padding_mask, deterministic=True)[:, -1, :]
+
+    def get_item_weights(self) -> torch.Tensor:
+        """Item-embedding table [num_items, E]."""
+        return self.body.embedder.get_item_weights()

@@ -1,0 +1,120 @@
+"""Kernel K4: fused masked softmax attention, forward, on Hopper.
+
+Replaces ``replay_tpu/ops/flash_attention.py::_attention_kernel`` (the Pallas
+kernel behind ``SasRec(use_flash=True)``): for each (batch, head),
+``softmax(Q·Kᵀ/√D + bias)·V`` in f32 whatever the input type, denominator
+clamped at 1e-30, output in ``q.dtype``. ``bias`` is ``[B, 1 or H, L, L]``; one
+with a single head is read per head, never broadcast in memory.
+
+The kernel is ``replay_tpu_torch/csrc/flash_attention.cu`` (CUDA C++ for
+``sm_90a``, plain C interface, loaded with ctypes; built at first use by
+:mod:`replay_tpu_torch.ops.build`). Its design: one block per (query tile of 16
+rows, head, batch) walking the keys in tiles of 32 with an online softmax, so
+nothing O(L²) is held on chip; K and V are staged in shared memory as f32.
+
+What bounds it at the serving shape: B=64, H=1, L=50, D=64 in f32 moves 3.3 MB
+of q/k/v/out and 0.64 MB of bias, about 1.2 µs at the H100's 3.35 TB/s, and
+does 4·B·H·L²·D = 41 MFLOP, 0.6 µs at 67 TFLOP/s of f32 outside the tensor
+cores. So it is bound by memory and, below a few µs, by launch latency. The
+design reads each input once (the bias once per head), writes the output once,
+and keeps scores and probabilities in registers; it uses no tensor cores
+(``wgmma``/TMA are later work). Its time on the card is in ``PERF.md``,
+measured by ``chip_smoke.py``.
+
+Serving needs the forward only. The ``torch.autograd.Function`` whose backward
+mirrors the JAX ``_flash_bwd`` comes with the training slice.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from replay_tpu_torch.ops import build
+
+KERNEL = "flash_attention"
+MAX_HEAD_DIM = 256
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def flash_attention_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor
+) -> torch.Tensor:
+    """The plain PyTorch version of the kernel: the Pallas kernel's arithmetic,
+    step for step, in f32."""
+    qf, kf, vf = (t.to(torch.float32) for t in (q, k, v))
+    scores = torch.einsum("bhqd,bhkd->bhqk", qf, kf) / math.sqrt(q.shape[-1])
+    scores = scores + bias.to(torch.float32)
+    probs = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    denom = probs.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    return torch.einsum("bhqk,bhkd->bhqd", probs / denom, vf).to(q.dtype)
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor) -> None:
+    """Raise on anything the kernel does not take."""
+    devices = {t.device for t in (q, k, v, bias)}
+    if len(devices) != 1 or q.device.type != "cuda":
+        msg = f"flash_attention kernel needs q, k, v and bias on one CUDA device, got {devices}"
+        raise ValueError(msg)
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        msg = f"q, k, v must share one dtype of {_DTYPES}, got {q.dtype}, {k.dtype}, {v.dtype}"
+        raise TypeError(msg)
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        msg = f"q, k, v must be [B, H, L, D] of one shape, got {q.shape}, {k.shape}, {v.shape}"
+        raise ValueError(msg)
+    batch, heads, length, dim = q.shape
+    if not 1 <= dim <= MAX_HEAD_DIM:
+        msg = f"head dim {dim} outside the kernel's 1..{MAX_HEAD_DIM}"
+        raise ValueError(msg)
+    if bias.dim() != 4 or bias.shape[1] not in (1, heads) or bias.shape != (batch, bias.shape[1], length, length):
+        msg = f"bias must be [B, 1 or H, L, L] = [{batch}, 1|{heads}, {length}, {length}], got {tuple(bias.shape)}"
+        raise ValueError(msg)
+    if not bias.is_floating_point():
+        msg = f"bias must be a float tensor, got {bias.dtype}"
+        raise TypeError(msg)
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """Launch the CUDA kernel on the current stream; raises if the launch is refused."""
+    _check(q, k, v, bias)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    bias = bias.to(torch.float32).contiguous()
+    out = torch.empty_like(q)
+    batch, heads, length, dim = q.shape
+    if out.numel() == 0:
+        return out
+    lib = build.load(KERNEL)
+    fn = lib.replay_flash_attention_forward
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(q.device):
+        err = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            batch, heads, length, dim, bias.shape[1], int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if err != 0:
+        msg = f"flash_attention kernel launch failed: CUDA error {err} at q{tuple(q.shape)} {q.dtype}"
+        raise RuntimeError(msg)
+    flash_attention.launches += 1
+    return out
+
+
+def flash_attention(
+    q: torch.Tensor,  # [B, H, L, D]
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: torch.Tensor,  # [B, 1 or H, L, L] additive mask
+) -> torch.Tensor:
+    """Fused softmax attention, forward.
+
+    On CPU tensors this is the plain version; on CUDA tensors it launches the
+    kernel or raises. ``flash_attention.launches`` counts kernel launches."""
+    if all(t.device.type == "cpu" for t in (q, k, v, bias)):
+        return flash_attention_reference(q, k, v, bias)
+    return _launch(q, k, v, bias)
+
+
+flash_attention.launches = 0

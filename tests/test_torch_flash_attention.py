@@ -1,0 +1,120 @@
+"""Kernel K4 of the PyTorch port against the JAX package's Pallas kernel.
+
+On the CPU the port's ``flash_attention`` is its plain version; the JAX side
+runs the Pallas kernel in interpret mode, as ``tests/ops/test_flash_attention.py``
+does. Inputs come from numpy with a seed and go through both. Tolerance in f32:
+rtol 2e-5 / atol 2e-6, the JAX test's own; in bf16 both sides compute in f32 and
+round once, so they agree to one bf16 ulp.
+
+The CUDA kernel itself is tested on the card in ``test_torch_kernels_cuda.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from replay_tpu.nn import mask as jax_mask
+from replay_tpu.ops import flash_attention as jax_flash_attention
+from replay_tpu_torch.nn import mask as torch_mask
+from replay_tpu_torch.nn.attention import dot_product_attention
+from replay_tpu_torch.ops.flash_attention import flash_attention
+
+B, H, L, D = 2, 2, 16, 8
+
+
+def _qkv(seed, shape=(B, H, L, D)):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=shape).astype(np.float32) for _ in range(3)]
+
+
+def _padding(seed, batch=B, length=L):
+    """Left-padded [B, L] mask with one all-padding row."""
+    lengths = np.random.default_rng(seed).integers(1, length + 1, batch)
+    lengths[-1] = 0
+    return np.arange(length)[None, :] >= length - lengths[:, None]
+
+
+def _both(q, k, v, bias, bf16=False):
+    """(port, JAX) outputs as f32 numpy; q, k, v cast to bf16 on both sides if asked."""
+    jdtype = jnp.bfloat16 if bf16 else jnp.float32
+    tdtype = torch.bfloat16 if bf16 else torch.float32
+    want = jax_flash_attention(*(jnp.asarray(t).astype(jdtype) for t in (q, k, v)), jnp.asarray(bias), interpret=True)
+    got = flash_attention(*(torch.tensor(t).to(tdtype) for t in (q, k, v)), torch.tensor(bias))
+    assert got.dtype == tdtype and want.dtype == jdtype
+    return got.float().numpy(), np.asarray(want.astype(jnp.float32))
+
+
+def _causal(neg):
+    return np.where(np.tril(np.ones((L, L), bool)), 0.0, neg).astype(np.float32)[None, None]
+
+
+@pytest.mark.parametrize(
+    "case",
+    ["shared_head_bias", "per_head_bias", "eval_mask", "train_mask"],
+)
+def test_plain_version_matches_pallas(case):
+    q, k, v = _qkv(0)
+    rng = np.random.default_rng(1)
+    if case == "shared_head_bias":
+        bias = np.broadcast_to(_causal(-1e30), (B, 1, L, L)) + rng.normal(size=(B, 1, L, L)).astype(np.float32)
+    elif case == "per_head_bias":
+        bias = rng.normal(size=(B, H, L, L)).astype(np.float32)
+    else:
+        padding = _padding(2)
+        bias = np.asarray(
+            jax_mask.causal_attention_mask(jnp.asarray(padding), deterministic=case == "eval_mask")
+        )
+        ported = torch_mask.causal_attention_mask(torch.tensor(padding), deterministic=case == "eval_mask")
+        np.testing.assert_array_equal(ported.numpy(), bias)
+    got, want = _both(q, k, v, np.ascontiguousarray(bias))
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-6)
+
+
+def test_all_masked_rows_give_the_mean_of_v():
+    q, k, v = _qkv(3)
+    bias = np.full((B, 1, L, L), -1e30, np.float32)
+    got, want = _both(q, k, v, bias)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-6)
+    np.testing.assert_allclose(got, np.broadcast_to(v.mean(axis=2, keepdims=True), v.shape), rtol=2e-5, atol=2e-6)
+
+
+def test_bf16_inputs_keep_their_dtype():
+    q, k, v = _qkv(4)
+    bias = np.asarray(jax_mask.causal_attention_mask(jnp.asarray(_padding(5)), deterministic=True))
+    got, want = _both(q, k, v, bias, bf16=True)
+    # one ulp of bf16 (8 significant bits) at the outputs' magnitude
+    np.testing.assert_allclose(got, want, rtol=2 ** -7, atol=2 ** -7)
+
+
+@pytest.mark.parametrize("deterministic", [False, True])
+def test_flash_route_matches_unfused_route(deterministic):
+    """dot_product_attention's two routes agree (the JAX test's MHA check)."""
+    q, k, v = (torch.tensor(t) for t in _qkv(6))
+    mask = torch_mask.causal_attention_mask(torch.tensor(_padding(7)), deterministic=deterministic)
+    fused = dot_product_attention(q, k, v, mask, use_flash=True)
+    plain = dot_product_attention(q, k, v, mask, use_flash=False)
+    np.testing.assert_allclose(fused.numpy(), plain.numpy(), rtol=2e-5, atol=2e-6)
+
+
+def test_cpu_path_launches_nothing():
+    q, k, v = (torch.tensor(t) for t in _qkv(8))
+    bias = torch.zeros(B, 1, L, L)
+    before = flash_attention.launches
+    flash_attention(q, k, v, bias)
+    assert flash_attention.launches == before
+
+
+@pytest.mark.parametrize("route", ["tiled", "ring", "segment_ids"])
+def test_routes_not_ported_yet_raise(route):
+    padding = torch.tensor(_padding(9))
+    use_flash = False if route == "segment_ids" else route
+    segment_ids = padding.long() if route == "segment_ids" else None
+    with pytest.raises(NotImplementedError, match="not ported yet: ROADMAP.md queue 1"):
+        torch_mask.attention_mask_for_route(use_flash, padding, segment_ids=segment_ids)
+    if route != "segment_ids":
+        q, k, v = (torch.tensor(t) for t in _qkv(10))
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            dot_product_attention(q, k, v, None, use_flash=route)

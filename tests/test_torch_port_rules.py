@@ -1,0 +1,159 @@
+"""The rules the PyTorch port keeps.
+
+* ``replay_tpu_torch`` and ``chip_smoke.py`` import nothing of JAX, flax, optax
+  or the JAX package, at run time or in their sources.
+* Entry points run on the GPU unless the caller asks for the CPU by name.
+* Kernel wrappers never fall back: the plain version runs only for tensors that
+  all lie on the CPU; anything else launches the kernel or raises, and a kernel
+  that fails to build raises.
+"""
+
+import ast
+import inspect
+import pkgutil
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import replay_tpu_torch
+from replay_tpu_torch.data import FeatureHint, FeatureType
+from replay_tpu_torch.data.nn import TensorFeatureInfo, TensorSchema
+from replay_tpu_torch.nn.compiled import CompiledInference
+from replay_tpu_torch.nn.sequential.sasrec import SasRec
+from replay_tpu_torch.ops import build
+from replay_tpu_torch.ops import flash_attention as flash_module
+from replay_tpu_torch.ops.flash_attention import flash_attention
+from replay_tpu_torch.serve import ScoringEngine
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "replay_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "replay_tpu")
+
+
+def _forbidden(module: str) -> bool:
+    return module.split(".")[0] in FORBIDDEN
+
+
+def _sources():
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def test_importing_the_port_loads_no_jax():
+    names = [m.name for m in pkgutil.walk_packages(replay_tpu_torch.__path__, "replay_tpu_torch.")]
+    assert "replay_tpu_torch.serve.engine" in names
+    code = (
+        "import importlib, sys\n"
+        f"for name in {['replay_tpu_torch', *names]!r}:\n"
+        "    importlib.import_module(name)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120, check=False
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(REPO)))
+def test_no_source_imports_jax_or_the_jax_package(path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            modules = [alias.name for alias in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            modules = [node.module]
+        else:
+            continue
+        assert not any(_forbidden(m) for m in modules), f"{path}:{node.lineno} imports {modules}"
+
+
+def _schema():
+    return TensorSchema(
+        TensorFeatureInfo(
+            "item_id", FeatureType.CATEGORICAL, is_seq=True,
+            feature_hint=FeatureHint.ITEM_ID, cardinality=20, embedding_dim=8,
+        )
+    )
+
+
+def test_entry_points_need_cuda_unless_asked_for_the_cpu(monkeypatch):
+    model = SasRec(_schema(), embedding_dim=8, num_blocks=1, max_sequence_length=4, device="cpu")
+    params = model.state_dict()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = {
+        "SasRec": lambda **kw: SasRec(_schema(), embedding_dim=8, num_blocks=1, max_sequence_length=4, **kw),
+        "CompiledInference.compile": lambda **kw: CompiledInference.compile(model, params, 4, **kw),
+        "ScoringEngine": lambda **kw: ScoringEngine(model, params, **kw),
+    }
+    for name, call in calls.items():
+        for kwargs in ({}, {"device": "cuda"}):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                call(**kwargs)
+        assert call(device="cpu") is not None, name
+
+
+def _qkv_bias():
+    rng = np.random.default_rng(0)
+    q = torch.tensor(rng.normal(size=(2, 1, 4, 8)).astype(np.float32))
+    return q, q.clone(), q.clone(), torch.zeros(2, 1, 4, 4)
+
+
+@pytest.mark.parametrize("misplaced", ["bias", "q", "all"])
+def test_kernel_wrapper_never_falls_back_to_the_plain_version(misplaced):
+    """Tensors not all on the CPU take the kernel path, whose checks refuse a
+    non-CUDA device, instead of quietly running the plain version."""
+    q, k, v, bias = _qkv_bias()
+    if misplaced == "bias":
+        bias = bias.to("meta")
+    elif misplaced == "q":
+        q = q.to("meta")
+    else:
+        q, k, v, bias = (t.to("meta") for t in (q, k, v, bias))
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match="one CUDA device"):
+        flash_attention(q, k, v, bias)
+    assert flash_attention.launches == before
+
+
+def test_kernel_wrapper_has_no_fallback_branch():
+    for fn in (flash_module.flash_attention, flash_module._launch):
+        tree = ast.parse(inspect.getsource(fn))
+        assert not any(isinstance(node, ast.Try) for node in ast.walk(tree)), fn.__name__
+
+
+def test_a_failed_kernel_build_raises(tmp_path, monkeypatch):
+    (tmp_path / "broken.cu").write_text("this is not CUDA\n")
+    monkeypatch.setattr(build, "CSRC_DIR", tmp_path)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(build, "find_nvcc", lambda: shutil.which("false") or "/bin/false")
+    with pytest.raises(RuntimeError, match="nvcc failed on broken.cu"):
+        build.load("broken")
+    assert not list((tmp_path / "_build").glob("*.so"))
+
+
+def test_build_names_the_library_by_source_and_flags(tmp_path, monkeypatch):
+    monkeypatch.setattr(build, "CSRC_DIR", tmp_path)
+    (tmp_path / "k.cu").write_text("// one\n")
+    first = build.library_path("k")
+    (tmp_path / "k.cu").write_text("// two\n")
+    assert build.library_path("k") != first
+    assert first.parent == build.BUILD_DIR and first.name.startswith("libk-")
+
+
+def test_chip_smoke_refuses_to_run_without_a_gpu(tmp_path):
+    """No CUDA device, or a directory holding only the script: non-zero exit and no result line."""
+    script = REPO / "chip_smoke.py"
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text(script.read_text())
+    for path, cwd, visible in ((script, REPO, ""), (alone, tmp_path, "0")):
+        proc = subprocess.run(
+            [sys.executable, str(path)], cwd=cwd, capture_output=True, text=True, timeout=120,
+            check=False, env={"PATH": "/usr/bin:/bin", "CUDA_VISIBLE_DEVICES": visible},
+        )
+        assert proc.returncode != 0
+        assert '"ok": true' not in proc.stdout

@@ -4,17 +4,26 @@
     python3 chip_smoke.py
 
 Drives the port (``replay_tpu_torch``, never the JAX package) through its
-serving path at the ``bench_serve.py`` width and holds every kernel of that
-path against its plain PyTorch version. Phases, one JSON line each:
+serving path at the ``bench_serve.py`` width and its training path at the
+``bench.py`` width, and holds every kernel of those paths against its plain
+PyTorch version. Phases, one JSON line each:
 
 1. ``env``     — the card's name and power limit (``nvidia-smi``), torch and CUDA versions;
-2. ``build``   — compile the kernels from ``replay_tpu_torch/csrc/`` with nvcc for sm_90a;
+2. ``build``   — compile the kernels from ``replay_tpu_torch/csrc/`` with nvcc for sm_90a,
+                 one nvcc per source, all at once; each build's time and ``-Xptxas -v`` report;
 3. ``kernel``  — K4 against ``flash_attention_reference`` at three shapes, f32 and bf16,
                  with the kernel's, the plain version's and ``scaled_dot_product_attention``'s
-                 times and the card's bound for the same work;
+                 times and the card's bound for the same work; K1, K2, K3 against their
+                 plain versions at the training width (f32, and bf16 hidden states) and a
+                 ragged case; K4's gradient at the training shape against autograd
+                 through the plain version;
 4. ``serve``   — ``SasRec(use_flash=True)`` behind ``ScoringEngine`` answering requests,
                  checked against an engine on the same weights with ``use_flash=False``;
-5. ``kernels`` — every ported kernel with its launches on the serving path.
+5. ``train``   — ``Trainer(CEFused(), SasRec(use_flash=True))`` against
+                 ``Trainer(CE(), SasRec(use_flash=False))`` from the same weights: 20
+                 steps with matching losses and kernel launch counts, validation and
+                 top-k on held-out windows, then step times, device time and memory;
+6. ``kernels`` — every ported kernel with its launches on the paths driven.
 
 Then the card's name and power limit on a line of their own, one JSON object
 listing the kernels, and, as the last line, ``{"ok": true, "device": ...}``.
@@ -50,6 +59,40 @@ KERNEL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 # serving logits, kernel route vs unfused route on the same weights: two encoder
 # blocks, each with f32 rounding differences of ~1e-6, amplified by the head
 SERVE_TOL = 1e-4
+
+# bench.py's training width: batch 512 windows of L=50, the same model
+TRAIN_BATCH = 512
+TRAIN_STEPS, WARMUP_STEPS, TIMED_STEPS, PROFILED_STEPS = 20, 5, 50, 10
+# K1–K3 vs their plain versions, max abs error over max |plain|: f32 products
+# summed in another order, over E = 64 per logit and up to 25,600 rows per dW
+# entry; K1's lse (about 9 at this width) against an absolute 1e-4. A bf16 dh
+# adds its own rounding, half an ulp: 2**-9 relative.
+FUSED_TOL = {"K1": 1e-4, "K2": 1e-4, "K3": 1e-4}
+FUSED_TOL_BF16_DH = 4e-3
+# K4's gradient vs autograd through the plain version: the same f32 recompute
+# by other formulas (softmax vs exp/sum/clamp), through four contractions
+FLASH_GRAD_TOL = 1e-4
+# train losses, fused vs plain trainer, per step: rtol 1e-4, the JAX package's
+# own CEFused-vs-CE tolerance; f32 throughout, summation orders differ
+TRAIN_LOSS_RTOL = 1e-4
+# the loss's gradient w.r.t. all weights at the same weights, relative L2
+# error, two comparisons:
+# - CEFused (K1–K3) vs CE on the unfused attention route: f32 sums in other
+#   orders, incoherent from token to token;
+# - the K4 route vs the unfused attention route, both with CE: the two routes'
+#   rounding differs the same way at every token, while on random labels the
+#   true gradient is a sum of N = 25,600 random-sign token terms, about sqrt(N)
+#   smaller than their absolute sum; the relative error is then about
+#   sqrt(N) · 1e-6 ≈ 1.6e-4
+TRAIN_GRAD_RTOL = {"cefused_vs_ce": 1e-5, "k4_route_vs_unfused": 1e-3}
+# (name, N rows, I items, num_valid, hidden dtype): the bench.py width
+# (B·L = 25,600 rows, the MovieLens-1M catalog), the same with bf16 hidden
+# states against the f32 table, and a ragged case with masked columns
+FUSED_CASES = (
+    ("train_f32", TRAIN_BATCH * SEQ_LEN, NUM_ITEMS, None, torch.float32),
+    ("train_bf16_hidden", TRAIN_BATCH * SEQ_LEN, NUM_ITEMS, None, torch.bfloat16),
+    ("ragged", 1000, 1000, 900, torch.float32),
+)
 
 # (name, B, H, L, D, bias heads, mask): the serving width (bench_serve.py), the
 # SasRec.from_params width (E=192, 4 heads), and a long row over 32 key tiles
@@ -346,6 +389,363 @@ def serve_phase(device) -> dict:
     return {"launches": launches}
 
 
+def fused_case(rows, items, dtype, device, seed):
+    """hidden (LayerNorm-scale rows), table (the embedding init's scale), g."""
+    rng = np.random.default_rng(seed)
+    hidden = torch.tensor(rng.standard_normal((rows, EMBEDDING_DIM), dtype=np.float32)).to(device, dtype)
+    table = torch.tensor(rng.standard_normal((items, EMBEDDING_DIM), dtype=np.float32) / math.sqrt(EMBEDDING_DIM))
+    grad = torch.tensor(rng.standard_normal(rows, dtype=np.float32))
+    return hidden, table.to(device), grad.to(device)
+
+
+def fused_bound(kernel, hidden, table):
+    """Least time for one K1/K2/K3 call: inputs read once and outputs written
+    once over HBM rate; 2·N·E·I (K1) or 4·N·E·I (K2, K3) FLOP over the peak
+    for the hidden states' type. Returns (ms, bound_by, bytes, flop)."""
+    rows, dim = hidden.shape
+    items = table.shape[0]
+    inputs = hidden.numel() * hidden.element_size() + table.numel() * table.element_size()
+    moved = {
+        "K1": inputs + rows * 4,  # lse out
+        "K2": inputs + 2 * rows * 4 + hidden.numel() * hidden.element_size(),  # g, lse in; dh out
+        "K3": inputs + 2 * rows * 4 + table.numel() * table.element_size(),  # g, lse in; dW out
+    }[kernel]
+    flop = (2 if kernel == "K1" else 4) * rows * dim * items
+    byte_ms = moved / HBM_BYTES_PER_S * 1e3
+    flop_ms = flop / PEAK_FLOPS[hidden.dtype] * 1e3
+    return max(byte_ms, flop_ms), ("bytes" if byte_ms >= flop_ms else "operations"), moved, flop
+
+
+def fused_ce_phase(device) -> dict:
+    """K1, K2, K3 vs their plain versions at every case; returns the records of
+    the f32 training-width case by kernel."""
+    from replay_tpu_torch.ops import fused_ce as fc
+
+    records = {}
+    for index, (name, rows, items, num_valid, dtype) in enumerate(FUSED_CASES):
+        hidden, table, grad = fused_case(rows, items, dtype, device, 100 + index)
+        valid = items if num_valid is None else num_valid
+        lse = fc.fused_lse_forward(hidden, table, num_valid)
+        want_lse = fc.fused_lse_reference(hidden, table, num_valid)
+        dh = fc.fused_lse_dh(hidden, table, grad, want_lse, num_valid)
+        dw = fc.fused_lse_dw(hidden, table, grad, want_lse, num_valid)
+        # the plain versions on the same input values, their f32 results not
+        # rounded: for a bf16 dh the error is then its own rounding
+        want_dh = fc.fused_lse_dh_reference(hidden.float(), table, grad, want_lse, num_valid)
+        want_dw = fc.fused_lse_dw_reference(hidden.float(), table, grad, want_lse, num_valid)
+        torch.cuda.synchronize()
+        if dh.dtype != hidden.dtype or dw.dtype != table.dtype or lse.shape != (rows,):
+            raise AssertionError(f"fused_ce {name}: got {lse.shape} {dh.dtype} {dw.dtype}")
+
+        # the library's call for the same function: the valid columns only
+        # (masked ones add exactly 0), TF32 off; timed, never used by the port
+        h32, w32 = hidden.float(), table[:valid].float()
+
+        def library(kernel):
+            if kernel == "K1":
+                return lambda: torch.logsumexp(h32 @ w32.T, -1)
+            weights = lambda: grad[:, None] * torch.softmax(h32 @ w32.T, -1)  # noqa: E731
+            if kernel == "K2":
+                return lambda: weights() @ w32
+            return lambda: weights().T @ h32
+
+        cases = {
+            "K1": (lse, want_lse, lambda: fc.fused_lse_forward(hidden, table, num_valid),
+                   lambda: fc.fused_lse_reference(hidden, table, num_valid)),
+            "K2": (dh, want_dh, lambda: fc.fused_lse_dh(hidden, table, grad, want_lse, num_valid),
+                   lambda: fc.fused_lse_dh_reference(hidden, table, grad, want_lse, num_valid)),
+            "K3": (dw, want_dw, lambda: fc.fused_lse_dw(hidden, table, grad, want_lse, num_valid),
+                   lambda: fc.fused_lse_dw_reference(hidden, table, grad, want_lse, num_valid)),
+        }
+        for kernel, (got, want, run, plain) in cases.items():
+            if not torch.isfinite(got.float()).all():
+                raise AssertionError(f"{kernel} {name}: non-finite output")
+            err = (got.float() - want.float()).abs().max().item()
+            scale = 1.0 if kernel == "K1" else want.float().abs().max().item()
+            tol = FUSED_TOL[kernel] * scale
+            if kernel == "K2" and dtype == torch.bfloat16:
+                tol = FUSED_TOL_BF16_DH * scale
+            bound_ms, bound_by, moved, flop = fused_bound(kernel, hidden, table)
+            record = {
+                "kernel": kernel, "case": name, "N": rows, "I": items, "E": EMBEDDING_DIM,
+                "num_valid": valid, "hidden_dtype": str(dtype).removeprefix("torch."), "table_dtype": "float32",
+                "max_abs_err": err, "tol": tol, "max_abs_plain": scale if kernel != "K1" else None,
+                "ms": graph_ms(run, launches=10, reps=5), "eager_ms": eager_ms(run, launches=10, reps=5),
+                "plain_ms": graph_ms(plain, launches=5, reps=5),
+                "library_ms": graph_ms(library(kernel), launches=5, reps=5),
+                "bound_ms": bound_ms, "bound_by": bound_by, "bytes": moved, "flop": flop,
+            }
+            emit("kernel", **record)
+            if err > tol:
+                raise AssertionError(f"{kernel} {name}: max abs err {err} > {tol}")
+            if name == "train_f32":
+                records[kernel] = record
+    # run to run, the kernels' fixed summation order gives the same bits
+    hidden, table, grad = fused_case(TRAIN_BATCH * SEQ_LEN, NUM_ITEMS, torch.float32, device, 100)
+    lse = fc.fused_lse_forward(hidden, table)
+    for fn in (fc.fused_lse_dh, fc.fused_lse_dw):
+        if not torch.equal(fn(hidden, table, grad, lse), fn(hidden, table, grad, lse)):
+            raise AssertionError(f"{fn.__name__} differs between two runs on the same inputs")
+    return records
+
+
+def flash_backward_check(device) -> dict:
+    """K4's gradient (the Function's backward, torch ops mirroring the JAX
+    _flash_bwd) at the training shape against autograd through the plain
+    version, under the training (-inf) mask."""
+    from replay_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_backward,
+        flash_attention_reference,
+    )
+
+    q, k, v, bias = attention_case(TRAIN_BATCH, 1, SEQ_LEN, EMBEDDING_DIM, 1, "train", torch.float32, device, 7)
+    g = torch.randn(q.shape, device=device, generator=torch.Generator(device).manual_seed(8))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    torch.sum(flash_attention(*leaves, bias) * g).backward()
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    torch.sum(flash_attention_reference(*plain, bias) * g).backward()
+    torch.cuda.synchronize()
+    err = max((a.grad - b.grad).abs().max().item() for a, b in zip(leaves, plain))
+    finite = all(torch.isfinite(t.grad).all() for t in leaves)
+    record = {
+        "kernel": "K4_backward", "B": TRAIN_BATCH, "H": 1, "L": SEQ_LEN, "D": EMBEDDING_DIM, "mask": "train",
+        "max_abs_err": err, "tol": FLASH_GRAD_TOL,
+        "backward_ms": graph_ms(lambda: flash_attention_backward(q, k, v, bias, g), launches=10, reps=5),
+    }
+    emit("kernel", **record)
+    if not finite or err > FLASH_GRAD_TOL:
+        raise AssertionError(f"K4 gradient: finite={finite}, max abs err {err} > {FLASH_GRAD_TOL}")
+    return record
+
+
+def train_batch():
+    """bench.py's batch (bench.py:222-230): next-item windows from default_rng(0)."""
+    rng = np.random.default_rng(0)
+    items = rng.integers(0, NUM_ITEMS, size=(TRAIN_BATCH, SEQ_LEN + 1)).astype(np.int32)
+    mask = np.ones((TRAIN_BATCH, SEQ_LEN), dtype=bool)
+    return {
+        "feature_tensors": {"item_id": items[:, :-1]},
+        "padding_mask": mask,
+        "positive_labels": items[:, 1:, None],
+        "target_padding_mask": mask[:, :, None],
+    }
+
+
+def held_out_windows(count: int = 256):
+    """Left-padded windows of held-out users, the next item as ground truth."""
+    rng = np.random.default_rng(1)
+    lengths = rng.integers(1, SEQ_LEN + 1, count)
+    ids = rng.integers(0, NUM_ITEMS, (count, SEQ_LEN)).astype(np.int32)
+    mask = np.arange(SEQ_LEN)[None, :] >= SEQ_LEN - lengths[:, None]
+    ids = np.where(mask, ids, NUM_ITEMS).astype(np.int32)
+    truth = rng.integers(0, NUM_ITEMS, (count, 1)).astype(np.int32)
+    half = count // 2
+    return [
+        {
+            "feature_tensors": {"item_id": ids[s]}, "padding_mask": mask[s], "ground_truth": truth[s],
+            "train": np.where(mask[s], ids[s], -1), "query_id": np.arange(count)[s],
+        }
+        for s in (slice(0, half), slice(half, count))
+    ]
+
+
+def step_times(trainer, state, batch, steps: int):
+    """Host-clock ms of each step, synchronised after every step."""
+    times = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, loss = trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return state, times
+
+
+def device_time_per_step(trainer, state, batch, steps: int) -> dict:
+    """Kernel time per step from a profiler trace of ``steps`` steps, and the
+    kernels that take most of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            state, _ = trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    host = sorted((e for e in events if e.device_type == DeviceType.CPU), key=lambda e: -e.self_cpu_time_total)
+    return state, {
+        "device_ms": sum(e.self_device_time_total for e in kernels) / steps / 1e3,
+        "kernels_per_step": sum(e.count for e in kernels) / steps,
+        "top_kernels_ms": {e.key[:60]: e.self_device_time_total / steps / 1e3 for e in kernels[:6]},
+        # where the host's time goes, profiled (the profiler's own cost included)
+        "top_host_ops_ms": {e.key[:60]: e.self_cpu_time_total / steps / 1e3 for e in host[:6]},
+    }
+
+
+def loss_gradient(model, loss, batch, device) -> torch.Tensor:
+    """The loss's gradient w.r.t. every parameter, flattened, from the model
+    and loss as the trainer binds them."""
+    loss.logits_callback = model.get_logits
+    loss.item_embeddings_callback = model.get_item_weights
+    tensors = {
+        key: torch.as_tensor(batch[key], device=device)
+        for key in ("padding_mask", "positive_labels", "target_padding_mask")
+    }
+    ids = torch.as_tensor(batch["feature_tensors"]["item_id"], device=device)
+    hidden = model({"item_id": ids}, tensors["padding_mask"], deterministic=False)
+    value = loss(
+        hidden, {}, tensors["positive_labels"], None, tensors["padding_mask"], tensors["target_padding_mask"]
+    )
+    return torch.cat([g.reshape(-1) for g in torch.autograd.grad(value, list(model.parameters()))])
+
+
+def train_phase(device) -> dict:
+    """Trainer(CEFused(), SasRec(use_flash=True)) against Trainer(CE(),
+    SasRec(use_flash=False)) at the bench.py width, from the same weights."""
+    from replay_tpu_torch.data import FeatureHint, FeatureType
+    from replay_tpu_torch.data.nn import TensorFeatureInfo, TensorSchema
+    from replay_tpu_torch.nn.loss import CE, CEFused
+    from replay_tpu_torch.nn.postprocess import SeenItemsFilter
+    from replay_tpu_torch.nn.sequential.sasrec import SasRec
+    from replay_tpu_torch.nn.train import OptimizerFactory, Trainer
+    from replay_tpu_torch.ops import fused_ce as fc
+    from replay_tpu_torch.ops.flash_attention import flash_attention
+
+    schema = TensorSchema(
+        TensorFeatureInfo(
+            "item_id", FeatureType.CATEGORICAL, is_seq=True, feature_hint=FeatureHint.ITEM_ID,
+            cardinality=NUM_ITEMS, embedding_dim=EMBEDDING_DIM,
+        )
+    )
+    width = dict(
+        embedding_dim=EMBEDDING_DIM, num_blocks=NUM_BLOCKS, num_heads=NUM_HEADS,
+        max_sequence_length=SEQ_LEN, dropout_rate=0.0, device=device,
+    )
+    optimizer = OptimizerFactory(name="adam", learning_rate=1e-3)
+    fused_model = SasRec(schema, use_flash=True, generator=torch.Generator().manual_seed(SEED), **width)
+    fused = Trainer(fused_model, CEFused(), optimizer=optimizer, device=device)
+    plain = Trainer(SasRec(schema, use_flash=False, **width), CE(), optimizer=optimizer, device=device)
+    batch = train_batch()
+    fused_state = fused.init_state(batch)
+    plain_state = plain.init_state(batch, params=fused_model.state_dict())
+    counters = (fc.fused_lse_forward, fc.fused_lse_dh, fc.fused_lse_dw, flash_attention)
+
+    # gradients at the shared starting weights (launches here are comparisons,
+    # not the main path, and are not counted)
+    unfused_ce = loss_gradient(plain.model, CE(), batch, device)
+    grads = {
+        "cefused_vs_ce": loss_gradient(plain.model, CEFused(), batch, device),
+        "k4_route_vs_unfused": loss_gradient(fused.model, CE(), batch, device),
+    }
+    grad_err = {name: ((got - unfused_ce).norm() / unfused_ce.norm()).item() for name, got in grads.items()}
+    finite = all(torch.isfinite(got).all() for got in grads.values())
+    if not finite or any(grad_err[name] > TRAIN_GRAD_RTOL[name] for name in grad_err):
+        raise AssertionError(f"gradients: finite={finite}, relative errors {grad_err} vs {TRAIN_GRAD_RTOL}")
+
+    # the main path: counts start at 0 here and are read right after its steps
+    for counter in counters:
+        counter.launches = 0
+    fused_losses = []
+    for _ in range(TRAIN_STEPS):
+        fused_state, loss = fused.train_step(fused_state, batch)
+        fused_losses.append(loss)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counters}
+    plain_losses = []
+    for _ in range(TRAIN_STEPS):
+        plain_state, loss = plain.train_step(plain_state, batch)
+        plain_losses.append(loss)
+    torch.cuda.synchronize()
+    after_plain = {fn.__name__: fn.launches for fn in counters}
+    fused_losses = [float(x) for x in fused_losses]
+    plain_losses = [float(x) for x in plain_losses]
+
+    expected = {
+        "fused_lse_forward": TRAIN_STEPS, "fused_lse_dh": TRAIN_STEPS, "fused_lse_dw": TRAIN_STEPS,
+        "flash_attention": NUM_BLOCKS * TRAIN_STEPS,
+    }
+    if launches != expected or after_plain != launches:
+        raise AssertionError(f"launches {launches}, after the plain trainer {after_plain}, expected {expected}")
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(fused_losses, plain_losses))
+    if not all(math.isfinite(x) for x in fused_losses + plain_losses) or loss_err > TRAIN_LOSS_RTOL:
+        raise AssertionError(f"fused vs plain losses differ by rtol {loss_err}: {fused_losses} vs {plain_losses}")
+    if not fused_losses[-1] < fused_losses[0] or int(fused_state.bad_steps) or int(plain_state.bad_steps):
+        raise AssertionError(f"loss did not fall or steps were skipped: {fused_losses}")
+
+    # the two trainers' weights after the same steps; a key bias has a zero
+    # gradient up to rounding (it adds one constant to a query's every score),
+    # which Adam scales to ±lr a step, so it is left out
+    param_err = {
+        name: (fused_state.params[name] - plain_state.params[name]).abs().max().item()
+        for name in fused_state.params
+        if not name.endswith("key.bias")
+    }
+    worst_params = dict(sorted(param_err.items(), key=lambda kv: -kv[1])[:3])
+
+    # validation and top-k on held-out windows, both trainers after the same steps;
+    # half the users' ground truth is an item of the fused trainer's own top 5,
+    # so the metrics are not all 0 on this random data
+    windows = held_out_windows()
+    post = [SeenItemsFilter()]
+    for window in windows:
+        ranked = fused.predict_top_k(fused_state, window, 5, postprocessors=post)[1]
+        picked = ranked[np.arange(len(ranked)), np.arange(len(ranked)) % 5]
+        window["ground_truth"][::2, 0] = picked[::2]
+    fused_metrics = fused.validate(fused_state, windows, top_k=(1, 5, 10), postprocessors=post)
+    plain_metrics = plain.validate(plain_state, windows, top_k=(1, 5, 10), postprocessors=post)
+    metric_err = max(abs(fused_metrics[k] - plain_metrics[k]) for k in plain_metrics)
+    logits_err = max(
+        (fused.predict_logits(fused_state, w) - plain.predict_logits(plain_state, w)).abs().max().item()
+        for w in windows
+    )
+    # top 11, so that the 10th rank's gap to the next is known
+    _, fused_items, fused_scores = fused.predict_top_k(fused_state, windows, 11, postprocessors=post)
+    _, plain_items, plain_scores = plain.predict_top_k(plain_state, windows, 11, postprocessors=post)
+    # a rank of the top 10 is pinned where its score is clear of both
+    # neighbours by more than twice the two trainers' largest score difference
+    gaps = -np.diff(plain_scores, axis=1)
+    previous = np.concatenate([np.full((len(gaps), 1), np.inf), gaps[:, :9]], axis=1)
+    pinned = np.minimum(previous, gaps) > 2 * logits_err
+    # Adam steers each weight by the sign of its gradient where the gradient is
+    # all cancellation (as on this random data), so f32 noise moves the two
+    # trainers' weights apart by up to ~lr a step: a user's metrics can differ
+    # only where one of its top-10 ranks is not pinned
+    metric_tol = float((~pinned).any(axis=1).mean())
+    if metric_err > metric_tol or not np.array_equal(fused_items[:, :10][pinned], plain_items[:, :10][pinned]):
+        raise AssertionError(f"fused vs plain: metrics differ by {metric_err}, top-10 by rank {fused_items} vs {plain_items}")
+    if fused_metrics["recall@5"] < 0.25 or fused_items.shape != (len(plain_items), 11) or not np.isfinite(fused_scores).all():
+        raise AssertionError(f"predict_top_k: {fused_items.shape}, finite={np.isfinite(fused_scores).all()}")
+
+    # speed: both trainers, same steps, a sync after each step
+    perf = {}
+    for name, trainer, state in (("fused", fused, fused_state), ("plain", plain, plain_state)):
+        torch.cuda.reset_peak_memory_stats(device)
+        state, _ = step_times(trainer, state, batch, WARMUP_STEPS)
+        state, times = step_times(trainer, state, batch, TIMED_STEPS)
+        times.sort()
+        p50 = times[len(times) // 2]
+        record = {
+            "p50_ms": p50, "p99_ms": times[min(len(times) - 1, math.ceil(0.99 * len(times)) - 1)],
+            "tokens_per_s": TRAIN_BATCH * SEQ_LEN / (p50 / 1e3),
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(device),
+        }
+        state, device_record = device_time_per_step(trainer, state, batch, PROFILED_STEPS)
+        record.update(device_record, device_busy_share=device_record["device_ms"] / p50)
+        perf[name] = record
+    emit(
+        "train", batch=TRAIN_BATCH, seq_len=SEQ_LEN, items=NUM_ITEMS, embedding_dim=EMBEDDING_DIM,
+        blocks=NUM_BLOCKS, steps=TRAIN_STEPS, launches=launches, fused_losses=fused_losses,
+        plain_losses=plain_losses, loss_max_rtol=loss_err, loss_tol=TRAIN_LOSS_RTOL,
+        fused_metrics=fused_metrics, plain_metrics=plain_metrics, metric_max_abs_err=metric_err,
+        metric_tol=metric_tol, logits_max_abs_err=logits_err, top10_ranks_checked=int(pinned.sum()),
+        param_max_abs_err=worst_params, grad_rel_err=grad_err, grad_tol=TRAIN_GRAD_RTOL,
+        perf=perf,
+    )
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this script runs only on the GPU", file=sys.stderr)
@@ -361,12 +761,14 @@ def main() -> int:
         device=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
     )
 
-    start = time.perf_counter()
-    report = build.build("flash_attention")
-    emit("build", kernel="flash_attention", seconds=time.perf_counter() - start, ptxas=report.strip().splitlines())
+    for name, (seconds, report) in build.build_all(["flash_attention", "fused_ce"]).items():
+        emit("build", kernel=name, seconds=seconds, ptxas=report.strip().splitlines())
 
     k4 = kernel_phase(device)
+    fused = fused_ce_phase(device)
+    flash_backward_check(device)
     served = serve_phase(device)
+    trained = train_phase(device)
 
     kernels = [
         {
@@ -374,7 +776,8 @@ def main() -> int:
             "route": "cuda",
             "source": "replay_tpu_torch/csrc/flash_attention.cu",
             "replaces": "replay_tpu/ops/flash_attention.py:32",
-            "launches": served["launches"],
+            "launches": served["launches"] + trained["flash_attention"],
+            "launches_by_path": {"serve": served["launches"], "train": trained["flash_attention"]},
             "max_abs_err": k4["max_abs_err"],
             "ms": k4["ms"],
             "plain_ms": k4["plain_ms"],
@@ -385,6 +788,29 @@ def main() -> int:
             "shape": f"B={k4['B']} H={k4['H']} L={k4['L']} D={k4['D']} {k4['dtype']}",
         }
     ]
+    fused_kernels = (
+        ("fused_lse_forward", "K1", 132), ("fused_lse_dh", "K2", 156), ("fused_lse_dw", "K3", 177),
+    )
+    for name, kernel, line in fused_kernels:
+        record = fused[kernel]
+        kernels.append(
+            {
+                "name": name,
+                "route": "cuda",
+                "source": "replay_tpu_torch/csrc/fused_ce.cu",
+                "replaces": f"replay_tpu/ops/fused_ce.py:{line}",
+                "launches": trained[name],
+                "launches_by_path": {"train": trained[name]},
+                "max_abs_err": record["max_abs_err"],
+                "ms": record["ms"],
+                "plain_ms": record["plain_ms"],
+                "bound_ms": record["bound_ms"],
+                "bound_by": record["bound_by"],
+                "library_ms": record["library_ms"],
+                "passed": True,
+                "shape": f"N={record['N']} E={record['E']} I={record['I']} {record['hidden_dtype']}",
+            }
+        )
     emit("kernels", kernels=[{k: r[k] for k in ("name", "launches", "passed")} for r in kernels])
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -12,6 +12,8 @@ same function beside it (:mod:`replay_tpu_torch.ops`). Entry points default to
 versions.
 
 Ported so far: SASRec serving through ``ScoringEngine`` on kernel K4 (fused
-attention). Still to come, in ``ROADMAP.md``'s order: training, the other
-kernels, the service, retrieval and the other models.
+attention), and SASRec training through ``nn.Trainer`` with ``CE`` or
+``CEFused`` on kernels K1–K3 (the fused catalog log-sum-exp and its
+gradients) and K4 with its gradient. Still to come, in ``ROADMAP.md``'s order:
+the long-sequence route on K5, the service, retrieval and the other models.
 """

@@ -1,0 +1,461 @@
+// Kernels K1, K2, K3: the catalog log-sum-exp of CEFused and its two gradients,
+// without the [N, I] logits ever reaching device memory.
+//
+//   K1  lse[n]   = log sum_i exp(h[n] . w[i])              replaces _lse_kernel
+//   K2  dh[n]    = sum_i g[n] exp(h[n] . w[i] - lse[n]) w[i] replaces _dh_kernel
+//   K3  dW[i]    = sum_n g[n] exp(h[n] . w[i] - lse[n]) h[n] replaces _dw_kernel
+//
+// (replay_tpu/ops/fused_ce.py: _lse_kernel :132, _dh_kernel :156, _dw_kernel :177,
+// with _masked_logits :115.) Columns at or past num_valid get the finite mask
+// -1e30 added, as the Pallas kernels do, so a table whose columns are all
+// masked gives a finite lse near -1e30 instead of NaN; columns past the table
+// (i >= items) and rows past the input (n >= rows) do not exist here: every
+// load and store is bounds-checked, nothing is padded with zeros.
+//
+// Layout: h is contiguous [rows, dim], w contiguous [items, dim], each f32 or
+// bf16 (loaded and converted to f32 before any product, as the Pallas kernels'
+// astype(f32)); g and lse are f32 [rows]; dh is [rows, dim] in h's type, dW
+// [items, dim] in w's type. Products are f32 FMAs on the CUDA cores: no TF32,
+// no tensor cores, so f32 inputs keep f32 parity with the plain version.
+//
+// Work split. A block of 256 threads owns a 64 x 64 tile of (rows x items)
+// logits at a time, each thread 4 x 4 of them (rows ty + 16a, items tx + 16b),
+// computed by sweeping dim in chunks of 32 staged in shared memory. So a block
+// needs 33 KB of shared memory whatever dim is: the Pallas kernels' VMEM guard,
+// which shrinks the item tile for large embeddings, has nothing to do here.
+//  - K1: one block per 64-row tile walks every item tile, keeping a running
+//    max and sum per (thread, row) (online softmax); the 16 threads of a row
+//    merge theirs by shuffle at the end.
+//  - K2: one block per (64-row tile, 64-column slice of dim) walks every item
+//    tile: weights P = g exp(logit - lse) go to shared memory, then dh += P W.
+//  - K3: one block per (64-item tile, 64-column slice, split of the rows)
+//    walks the row tiles of its split: dW += P^T h.
+// The TPU kernels accumulate dh and dW across the inner grid axis, which is
+// right only because a TPU grid runs in order. CUDA blocks run in no order, so
+// here each output element has one owner thread that sums in a fixed order,
+// and no float atomics are used: the result is the same from run to run. K3 at
+// a small catalog has too few item tiles to fill the card, so the rows are cut
+// into `splits` parts, each summed into its own f32 partial, and a second pass
+// adds the partials in split order. `splits` is a function of the shapes only.
+// A dim above 64 takes several column slices, each recomputing the logits.
+//
+// What bounds them on an H100: at N = 25,600 rows, E = 64, I = 3,706 items K1
+// does 2NEI = 12.1 GFLOP against 7.6 MB of inputs, K2 and K3 4NEI = 24.3 GFLOP
+// each: all three are bound by f32 operations (67 TFLOP/s outside the tensor
+// cores), not by memory. This first version reads its operands from shared
+// memory for every FMA pair and uses no tensor cores; bf16 `mma`/`wgmma` with
+// TMA is later work.
+//
+// C interface, bound from Python with ctypes: each function launches on the
+// given stream, does not synchronise, allocates nothing, and returns
+// cudaGetLastError() (0 when the launches were accepted).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math_constants.h>
+
+#include <cstddef>
+
+namespace {
+
+constexpr int kTile = 64;      // rows and items of a logits tile
+constexpr int kChunk = 32;     // embedding columns staged per step of the logits product
+constexpr int kThreads = 256;  // 16 x 16 threads
+constexpr int kSlice = 64;     // output columns of dh / dW a block owns
+constexpr int kPad = kTile + 1;  // odd row stride: staging writes and reads hit distinct banks
+constexpr float kMask = -1e30f;  // the Pallas kernels' _MASK
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+
+struct Shared {
+  float a[kChunk][kPad];  // a chunk of the tile's rows, transposed: [column][row]
+  float b[kChunk][kPad];  // a chunk of the tile's items, transposed: [column][item]
+  float p[kTile][kPad];   // the tile's softmax weights: [row][item]
+};
+static_assert(sizeof(float) * 2 * kChunk * kPad >= sizeof(float) * kTile * kPad,
+              "a and b together hold one [kTile][kPad] operand slice");
+
+// The [kTile][kPad] operand slice of K2 / K3 reuses a and b once the logits are done.
+__device__ __forceinline__ float (*slice_of(Shared& sh))[kPad] {
+  return reinterpret_cast<float (*)[kPad]>(&sh.a[0][0]);
+}
+
+// acc[a][b] = h[n0 + ty + 16a] . w[i0 + tx + 16b] over all of dim, f32 FMA.
+// Entries past rows or items come out 0 (their operands are staged as 0).
+// Starts with a barrier, so the caller may reuse shared memory up to the call.
+template <typename TH, typename TW>
+__device__ __forceinline__ void logits_tile(const TH* __restrict__ h, const TW* __restrict__ w,
+                                            int n0, int i0, int rows, int items, int dim,
+                                            Shared& sh, float acc[4][4]) {
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
+  for (int e0 = 0; e0 < dim; e0 += kChunk) {
+    __syncthreads();  // every thread is done with the shared memory this overwrites
+    for (int idx = threadIdx.x; idx < kTile * kChunk; idx += kThreads) {
+      const int r = idx / kChunk;
+      const int c = idx - r * kChunk;  // fastest: a warp reads 32 neighbouring columns
+      const int e = e0 + c;
+      const int n = n0 + r;
+      const int i = i0 + r;
+      sh.a[c][r] = (n < rows && e < dim) ? to_f32(h[static_cast<size_t>(n) * dim + e]) : 0.f;
+      sh.b[c][r] = (i < items && e < dim) ? to_f32(w[static_cast<size_t>(i) * dim + e]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int c = 0; c < kChunk; ++c) {
+      float av[4], bv[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) av[a] = sh.a[c][ty + 16 * a];
+#pragma unroll
+      for (int b = 0; b < 4; ++b) bv[b] = sh.b[c][tx + 16 * b];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int b = 0; b < 4; ++b) acc[a][b] = fmaf(av[a], bv[b], acc[a][b]);
+    }
+  }
+}
+
+// The logit of item i with the catalog mask: columns at or past num_valid get
+// -1e30 added (finite), as _masked_logits does.
+__device__ __forceinline__ float masked(float logit, int i, int num_valid) {
+  return i < num_valid ? logit : logit + kMask;
+}
+
+// Writes the tile's softmax weights g[n] exp(logit - lse[n]) to sh.p; zero for
+// rows past `rows` and items past `items`, which then add nothing.
+__device__ __forceinline__ void weights_tile(const float acc[4][4], const float* __restrict__ g,
+                                             const float* __restrict__ lse, int n0, int i0,
+                                             int rows, int items, int num_valid, Shared& sh) {
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int r = ty + 16 * a;
+    const int n = n0 + r;
+    const float g_n = n < rows ? g[n] : 0.f;
+    const float lse_n = n < rows ? lse[n] : 0.f;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int i = i0 + tx + 16 * b;
+      sh.p[r][tx + 16 * b] =
+          (n < rows && i < items) ? expf(masked(acc[a][b], i, num_valid) - lse_n) * g_n : 0.f;
+    }
+  }
+}
+
+// K1. Grid: (row tiles). The running max starts at -inf and is only updated
+// from a tile in which the thread has at least one column, whose max is
+// finite for finite inputs, so no -inf - (-inf) is formed.
+template <typename TH, typename TW>
+__global__ void __launch_bounds__(kThreads)
+lse_forward(const TH* __restrict__ h, const TW* __restrict__ w, float* __restrict__ lse,
+            int rows, int items, int dim, int num_valid) {
+  __shared__ Shared sh;
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+  const int n0 = blockIdx.x * kTile;
+  float run_max[4], run_sum[4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    run_max[a] = -CUDART_INF_F;
+    run_sum[a] = 0.f;
+  }
+  float acc[4][4];
+  for (int i0 = 0; i0 < items; i0 += kTile) {
+    logits_tile(h, w, n0, i0, rows, items, dim, sh, acc);
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      float v[4];
+      float tile_max = -CUDART_INF_F;
+      bool any = false;
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const int i = i0 + tx + 16 * b;
+        v[b] = masked(acc[a][b], i, num_valid);
+        if (i < items) {
+          any = true;
+          tile_max = fmaxf(tile_max, v[b]);
+        }
+      }
+      // no column of this tile is the thread's (a NaN logit is not skipped:
+      // fmaxf drops it from the max, but the sum below carries it to lse)
+      if (!any) continue;
+      const float new_max = fmaxf(run_max[a], tile_max);
+      float tile_sum = 0.f;
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        if (i0 + tx + 16 * b < items) tile_sum += expf(v[b] - new_max);
+      }
+      run_sum[a] = run_sum[a] * expf(run_max[a] - new_max) + tile_sum;
+      run_max[a] = new_max;
+    }
+  }
+  // merge the 16 threads of each row (lanes tx = 0..15 of one half-warp)
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    float m = run_max[a];
+    float s = run_sum[a];
+#pragma unroll
+    for (int offset = 8; offset > 0; offset >>= 1) {
+      const float m_other = __shfl_xor_sync(kFull, m, offset);
+      const float s_other = __shfl_xor_sync(kFull, s, offset);
+      const float merged = fmaxf(m, m_other);
+      if (merged != -CUDART_INF_F) {  // a thread with no column at all has max -inf, sum 0
+        s = (m == -CUDART_INF_F ? 0.f : s * expf(m - merged)) +
+            (m_other == -CUDART_INF_F ? 0.f : s_other * expf(m_other - merged));
+        m = merged;
+      }
+    }
+    const int n = n0 + ty + 16 * a;
+    if (tx == 0 && n < rows) lse[n] = m + logf(s);
+  }
+}
+
+// K2. Grid: (row tiles, column slices). Thread (ty, tx) owns dh rows ty + 16a
+// and columns c0 + tx + 16j, summed over items in order.
+template <typename TH, typename TW>
+__global__ void __launch_bounds__(kThreads)
+lse_grad_hidden(const TH* __restrict__ h, const TW* __restrict__ w, const float* __restrict__ g,
+                const float* __restrict__ lse, TH* __restrict__ dh, int rows, int items, int dim,
+                int num_valid) {
+  __shared__ Shared sh;
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+  const int n0 = blockIdx.x * kTile;
+  const int c0 = blockIdx.y * kSlice;
+  float (*w_slice)[kPad] = slice_of(sh);  // [item][column]
+  float out[4][4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) out[a][j] = 0.f;
+  float acc[4][4];
+  for (int i0 = 0; i0 < items; i0 += kTile) {
+    logits_tile(h, w, n0, i0, rows, items, dim, sh, acc);
+    weights_tile(acc, g, lse, n0, i0, rows, items, num_valid, sh);
+    __syncthreads();  // the logits chunks are consumed; P is complete
+    for (int idx = threadIdx.x; idx < kTile * kSlice; idx += kThreads) {
+      const int r = idx / kSlice;
+      const int c = idx - r * kSlice;
+      const int i = i0 + r;
+      const int e = c0 + c;
+      w_slice[r][c] = (i < items && e < dim) ? to_f32(w[static_cast<size_t>(i) * dim + e]) : 0.f;
+    }
+    __syncthreads();
+    for (int r = 0; r < kTile; ++r) {
+      float wv[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) wv[j] = w_slice[r][tx + 16 * j];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const float p = sh.p[ty + 16 * a][r];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) out[a][j] = fmaf(p, wv[j], out[a][j]);
+      }
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int n = n0 + ty + 16 * a;
+    if (n >= rows) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int e = c0 + tx + 16 * j;
+      if (e < dim) store(dh + static_cast<size_t>(n) * dim + e, out[a][j]);
+    }
+  }
+}
+
+// K3. Grid: (item tiles, column slices, row splits). Thread (ty, tx) owns dW
+// items ty + 16a and columns c0 + tx + 16j, summed over the split's rows in
+// order. With one split the result goes to dw in w's type; otherwise to the
+// split's f32 partial [items, dim], which add_partials sums.
+template <typename TH, typename TW>
+__global__ void __launch_bounds__(kThreads)
+lse_grad_table(const TH* __restrict__ h, const TW* __restrict__ w, const float* __restrict__ g,
+               const float* __restrict__ lse, TW* __restrict__ dw, float* __restrict__ partial,
+               int rows, int items, int dim, int num_valid, int rows_per_split) {
+  __shared__ Shared sh;
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+  const int i0 = blockIdx.x * kTile;
+  const int c0 = blockIdx.y * kSlice;
+  const int row_begin = blockIdx.z * rows_per_split;
+  const int row_end = min(rows, row_begin + rows_per_split);
+  float (*h_slice)[kPad] = slice_of(sh);  // [row][column]
+  float out[4][4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) out[a][j] = 0.f;
+  float acc[4][4];
+  for (int n0 = row_begin; n0 < row_end; n0 += kTile) {
+    logits_tile(h, w, n0, i0, row_end, items, dim, sh, acc);
+    weights_tile(acc, g, lse, n0, i0, row_end, items, num_valid, sh);
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < kTile * kSlice; idx += kThreads) {
+      const int r = idx / kSlice;
+      const int c = idx - r * kSlice;
+      const int n = n0 + r;
+      const int e = c0 + c;
+      h_slice[r][c] = (n < row_end && e < dim) ? to_f32(h[static_cast<size_t>(n) * dim + e]) : 0.f;
+    }
+    __syncthreads();
+    for (int r = 0; r < kTile; ++r) {
+      float hv[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) hv[j] = h_slice[r][tx + 16 * j];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const float p = sh.p[r][ty + 16 * a];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) out[a][j] = fmaf(p, hv[j], out[a][j]);
+      }
+    }
+  }
+  float* split_out = partial == nullptr
+                         ? nullptr
+                         : partial + static_cast<size_t>(blockIdx.z) * items * dim;
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int i = i0 + ty + 16 * a;
+    if (i >= items) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int e = c0 + tx + 16 * j;
+      if (e >= dim) continue;
+      const size_t at = static_cast<size_t>(i) * dim + e;
+      if (split_out == nullptr) {
+        store(dw + at, out[a][j]);
+      } else {
+        split_out[at] = out[a][j];
+      }
+    }
+  }
+}
+
+// K3's second pass: dw = sum of the splits' partials, in split order.
+template <typename TW>
+__global__ void __launch_bounds__(kThreads)
+add_partials(const float* __restrict__ partial, TW* __restrict__ dw, size_t count, int splits) {
+  const size_t at = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (at >= count) return;
+  float total = 0.f;
+  for (int s = 0; s < splits; ++s) total += partial[static_cast<size_t>(s) * count + at];
+  store(dw + at, total);
+}
+
+unsigned tiles(int extent) { return static_cast<unsigned>((extent + kTile - 1) / kTile); }
+unsigned slices(int dim) { return static_cast<unsigned>((dim + kSlice - 1) / kSlice); }
+
+template <typename TH, typename TW>
+cudaError_t run_forward(const void* h, const void* w, float* lse, int rows, int items, int dim,
+                        int num_valid, cudaStream_t stream) {
+  lse_forward<TH, TW><<<tiles(rows), kThreads, 0, stream>>>(
+      static_cast<const TH*>(h), static_cast<const TW*>(w), lse, rows, items, dim, num_valid);
+  return cudaGetLastError();
+}
+
+template <typename TH, typename TW>
+cudaError_t run_grad_hidden(const void* h, const void* w, const float* g, const float* lse,
+                            void* dh, int rows, int items, int dim, int num_valid,
+                            cudaStream_t stream) {
+  const dim3 grid(tiles(rows), slices(dim));
+  lse_grad_hidden<TH, TW><<<grid, kThreads, 0, stream>>>(
+      static_cast<const TH*>(h), static_cast<const TW*>(w), g, lse, static_cast<TH*>(dh), rows,
+      items, dim, num_valid);
+  return cudaGetLastError();
+}
+
+template <typename TH, typename TW>
+cudaError_t run_grad_table(const void* h, const void* w, const float* g, const float* lse,
+                           void* dw, float* partial, int rows, int items, int dim, int num_valid,
+                           int splits, int rows_per_split, cudaStream_t stream) {
+  const dim3 grid(tiles(items), slices(dim), static_cast<unsigned>(splits));
+  lse_grad_table<TH, TW><<<grid, kThreads, 0, stream>>>(
+      static_cast<const TH*>(h), static_cast<const TW*>(w), g, lse, static_cast<TW*>(dw),
+      splits > 1 ? partial : nullptr, rows, items, dim, num_valid, rows_per_split);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  const size_t count = static_cast<size_t>(items) * dim;
+  const unsigned blocks = static_cast<unsigned>((count + kThreads - 1) / kThreads);
+  add_partials<TW><<<blocks, kThreads, 0, stream>>>(partial, static_cast<TW*>(dw), count, splits);
+  return cudaGetLastError();
+}
+
+bool bad_shape(int rows, int items, int dim) {
+  return rows < 1 || items < 1 || dim < 1 || slices(dim) > 65535u;
+}
+
+}  // namespace
+
+extern "C" int replay_fused_lse_forward(const void* h, const void* w, void* lse, int rows,
+                                        int items, int dim, int num_valid, int h_bf16,
+                                        int w_bf16, void* stream) {
+  if (bad_shape(rows, items, dim)) return static_cast<int>(cudaErrorInvalidValue);
+  float* out = static_cast<float*>(lse);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (h_bf16) {
+    err = w_bf16 ? run_forward<__nv_bfloat16, __nv_bfloat16>(h, w, out, rows, items, dim, num_valid, s)
+                 : run_forward<__nv_bfloat16, float>(h, w, out, rows, items, dim, num_valid, s);
+  } else {
+    err = w_bf16 ? run_forward<float, __nv_bfloat16>(h, w, out, rows, items, dim, num_valid, s)
+                 : run_forward<float, float>(h, w, out, rows, items, dim, num_valid, s);
+  }
+  return static_cast<int>(err);
+}
+
+extern "C" int replay_fused_lse_grad_hidden(const void* h, const void* w, const void* g,
+                                            const void* lse, void* dh, int rows, int items,
+                                            int dim, int num_valid, int h_bf16, int w_bf16,
+                                            void* stream) {
+  if (bad_shape(rows, items, dim)) return static_cast<int>(cudaErrorInvalidValue);
+  const float* g32 = static_cast<const float*>(g);
+  const float* lse32 = static_cast<const float*>(lse);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (h_bf16) {
+    err = w_bf16 ? run_grad_hidden<__nv_bfloat16, __nv_bfloat16>(h, w, g32, lse32, dh, rows, items, dim, num_valid, s)
+                 : run_grad_hidden<__nv_bfloat16, float>(h, w, g32, lse32, dh, rows, items, dim, num_valid, s);
+  } else {
+    err = w_bf16 ? run_grad_hidden<float, __nv_bfloat16>(h, w, g32, lse32, dh, rows, items, dim, num_valid, s)
+                 : run_grad_hidden<float, float>(h, w, g32, lse32, dh, rows, items, dim, num_valid, s);
+  }
+  return static_cast<int>(err);
+}
+
+extern "C" int replay_fused_lse_grad_table(const void* h, const void* w, const void* g,
+                                           const void* lse, void* dw, void* partial, int rows,
+                                           int items, int dim, int num_valid, int splits,
+                                           int rows_per_split, int h_bf16, int w_bf16,
+                                           void* stream) {
+  if (bad_shape(rows, items, dim) || splits < 1 || splits > 65535 || rows_per_split < 1 ||
+      rows_per_split % kTile != 0 ||
+      static_cast<long long>(splits) * rows_per_split < rows ||
+      (splits > 1 && partial == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const float* g32 = static_cast<const float*>(g);
+  const float* lse32 = static_cast<const float*>(lse);
+  float* part = static_cast<float*>(partial);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (h_bf16) {
+    err = w_bf16 ? run_grad_table<__nv_bfloat16, __nv_bfloat16>(h, w, g32, lse32, dw, part, rows, items, dim, num_valid, splits, rows_per_split, s)
+                 : run_grad_table<__nv_bfloat16, float>(h, w, g32, lse32, dw, part, rows, items, dim, num_valid, splits, rows_per_split, s);
+  } else {
+    err = w_bf16 ? run_grad_table<float, __nv_bfloat16>(h, w, g32, lse32, dw, part, rows, items, dim, num_valid, splits, rows_per_split, s)
+                 : run_grad_table<float, float>(h, w, g32, lse32, dw, part, rows, items, dim, num_valid, splits, rows_per_split, s);
+  }
+  return static_cast<int>(err);
+}

@@ -8,8 +8,9 @@ do). There is no silent fallback.
 
 from __future__ import annotations
 
-from typing import Union
+from typing import Any, Mapping, Optional, Union
 
+import numpy as np
 import torch
 
 DeviceLike = Union[str, torch.device]
@@ -25,3 +26,12 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
         )
         raise RuntimeError(msg)
     return device
+
+
+def to_device(value: Any, device: Optional[torch.device] = None) -> Any:
+    """``value`` — a tensor, anything numpy takes, or a dict of them, nested —
+    as tensors on ``device`` (where they already are, when it is None)."""
+    if isinstance(value, Mapping):
+        return {key: to_device(item, device) for key, item in value.items()}
+    tensor = value if isinstance(value, torch.Tensor) else torch.as_tensor(np.asarray(value))
+    return tensor if device is None else tensor.to(device)

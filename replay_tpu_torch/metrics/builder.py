@@ -1,0 +1,180 @@
+"""Batched validation metrics on the batch's device.
+
+Counterpart of ``replay_tpu/metrics/builder.py``: accumulate per-batch top-k
+predictions against padded ground-truth/train id sets and report recall /
+precision / ndcg / map / mrr / hitrate / novelty / coverage. Hits come from a
+broadcast compare (no per-user Python loop), and the accumulated state is a
+dict of sums, so a distributed trainer can all-reduce it before
+``get_metrics`` divides.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping, Optional, Sequence
+
+import torch
+
+from replay_tpu_torch.device import to_device
+
+DEFAULT_METRICS = ["map", "ndcg", "recall"]
+DEFAULT_KS = [1, 5, 10, 20]
+PER_USER_METRICS = ("recall", "precision", "ndcg", "map", "mrr", "hitrate", "novelty")
+
+
+def _batch_metric_sums(
+    predictions: torch.Tensor,  # [B, max_k] int item ids, ranked
+    ground_truth: torch.Tensor,  # [B, G] int item ids, padded with negative values
+    train: Optional[torch.Tensor],  # [B, T] or None
+    valid: Optional[torch.Tensor],  # [B] bool — False rows (batch padding) contribute 0
+    ks: tuple,
+    metrics: tuple,
+) -> Dict[str, torch.Tensor]:
+    """Sum of each per-user metric over the batch, for every k."""
+    device = predictions.device
+    f32 = torch.float32
+    row_weight = (
+        torch.ones(predictions.shape[0], dtype=f32, device=device) if valid is None else valid.to(f32)
+    )
+    valid_gt = ground_truth >= 0
+    gt_count = valid_gt.sum(dim=1)  # [B]
+    # hits[b, i] — is predictions[b, i] a ground-truth item of user b
+    hits = ((predictions[:, :, None] == ground_truth[:, None, :]) & valid_gt[:, None, :]).any(dim=2)
+    hits = hits.to(f32)  # [B, max_k]
+    if train is not None:
+        valid_train = train >= 0
+        train_hits = (
+            ((predictions[:, :, None] == train[:, None, :]) & valid_train[:, None, :]).any(dim=2)
+        ).to(f32)
+    else:
+        train_hits = None
+
+    max_k = predictions.shape[1]
+    positions = torch.arange(max_k, dtype=f32, device=device)
+    inv_log = 1.0 / torch.log2(positions + 2.0)  # ndcg discounts
+    inv_rank = 1.0 / (positions + 1.0)  # map / mrr weights
+    cum_hits = torch.cumsum(hits, dim=1)
+
+    def gated_sum(per_user: torch.Tensor) -> torch.Tensor:
+        return torch.sum(per_user * row_weight)
+
+    out: Dict[str, torch.Tensor] = {}
+    for k in ks:
+        h = hits[:, :k]
+        hit_count = cum_hits[:, k - 1]
+        gt_at_k = torch.clamp(gt_count, max=k).to(f32)
+        safe_gt = torch.clamp(gt_at_k, min=1.0)
+        users_with_gt = (gt_count > 0).to(f32)
+        if "recall" in metrics:
+            out[f"recall@{k}"] = gated_sum(hit_count / torch.clamp(gt_count, min=1) * users_with_gt)
+        if "precision" in metrics:
+            out[f"precision@{k}"] = gated_sum(hit_count / k * users_with_gt)
+        if "hitrate" in metrics:
+            out[f"hitrate@{k}"] = gated_sum((hit_count > 0).to(f32))
+        if "ndcg" in metrics:
+            dcg = torch.sum(h * inv_log[:k], dim=1)
+            # idcg = sum of the first min(gt, k) discounts
+            idcg_table = torch.cat([torch.zeros(1, dtype=f32, device=device), torch.cumsum(inv_log[:k], 0)])
+            idcg = idcg_table[torch.clamp(gt_count, max=k)]
+            out[f"ndcg@{k}"] = gated_sum(dcg / torch.clamp(idcg, min=1e-9) * users_with_gt)
+        if "map" in metrics:
+            ap = torch.sum(h * cum_hits[:, :k] * inv_rank[:k], dim=1) / safe_gt
+            out[f"map@{k}"] = gated_sum(ap * users_with_gt)
+        if "mrr" in metrics:
+            first_hit = torch.argmax(h, dim=1)
+            any_hit = hit_count > 0
+            out[f"mrr@{k}"] = gated_sum(torch.where(any_hit, 1.0 / (first_hit + 1.0), 0.0))
+        if "novelty" in metrics and train_hits is not None:
+            out[f"novelty@{k}"] = gated_sum(1.0 - torch.sum(train_hits[:, :k], dim=1) / k)
+    return out
+
+
+def _coverage_bitmap(
+    predictions: torch.Tensor, k: int, item_count: int, valid: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """Boolean item-presence map of the batch's top-k recommendations."""
+    top = predictions[:, :k]
+    if valid is not None:
+        # batch-padding rows must not mark items; redirect them out of range
+        top = torch.where(valid[:, None], top, -1)
+    flat = top.reshape(-1).long()
+    bitmap = torch.zeros(item_count + 1, dtype=torch.bool, device=predictions.device)
+    # -1 (and anything below) lands on the scratch slot item_count, as JAX's
+    # negative index does
+    bitmap[torch.clamp(flat, -1, item_count - 1)] = True
+    return bitmap[:item_count]
+
+
+class MetricsBuilder:
+    """Accumulates validation metrics over batches, on the batches' device."""
+
+    def __init__(
+        self,
+        metrics: Sequence[str] = tuple(DEFAULT_METRICS),
+        top_k: Optional[Sequence[int]] = None,
+        item_count: Optional[int] = None,
+    ) -> None:
+        self._metrics = tuple(sorted(set(metrics)))
+        unknown = set(self._metrics) - set(PER_USER_METRICS) - {"coverage"}
+        if unknown:
+            msg = f"Unknown metrics: {sorted(unknown)}"
+            raise ValueError(msg)
+        self._ks = tuple(sorted(set(top_k or DEFAULT_KS)))
+        self._item_count = item_count
+        self._need_coverage = "coverage" in self._metrics
+        if self._need_coverage and item_count is None:
+            msg = "item_count is required to compute coverage."
+            raise ValueError(msg)
+        self.reset()
+
+    @property
+    def max_k(self) -> int:
+        return max(self._ks)
+
+    def reset(self) -> None:
+        self._sums: Dict[str, torch.Tensor] = {}
+        self._count = torch.zeros((), dtype=torch.int32)
+        self._coverage: Dict[str, torch.Tensor] = {}
+
+    def add_prediction(self, predictions, ground_truth, train=None, valid=None) -> None:
+        """Accumulate one batch.
+
+        :param predictions: [B, >=max_k] ranked item ids (tensor or array).
+        :param ground_truth: [B, G] item ids padded with a negative value.
+        :param train: [B, T] seen item ids padded with a negative value
+            (required for novelty).
+        :param valid: [B] bool — False marks batch-padding rows (fixed-shape final
+            batches); they contribute nothing to sums, count, or coverage.
+        """
+        predictions = to_device(predictions)[:, : self.max_k]
+        device = predictions.device
+        ground_truth = to_device(ground_truth, device)
+        train = None if train is None else to_device(train, device)
+        valid = None if valid is None else to_device(valid, device)
+        per_user = tuple(m for m in self._metrics if m in PER_USER_METRICS)
+        if per_user:
+            sums = _batch_metric_sums(predictions, ground_truth, train, valid, self._ks, per_user)
+            for name, value in sums.items():
+                previous = self._sums.get(name)
+                self._sums[name] = value if previous is None else previous.to(device) + value
+        if self._need_coverage:
+            for k in self._ks:
+                bitmap = _coverage_bitmap(predictions, k, self._item_count, valid)
+                key = f"coverage@{k}"
+                previous = self._coverage.get(key)
+                self._coverage[key] = bitmap if previous is None else (previous.to(device) | bitmap)
+        rows = predictions.shape[0] if valid is None else valid.sum(dtype=torch.int32)
+        self._count = self._count.to(device) + rows
+
+    def state(self) -> dict:
+        """Accumulated state as a dict of tensors: the additive ``sums`` and
+        ``count``, and ``coverage``'s boolean item-presence bitmaps."""
+        return {"sums": dict(self._sums), "count": self._count, "coverage": dict(self._coverage)}
+
+    def get_metrics(self) -> Mapping[str, float]:
+        """Mean per-user metrics (+ coverage fraction) accumulated so far."""
+        out: Dict[str, float] = {}
+        for name, value in self._sums.items():
+            out[name] = float(value) / max(float(self._count), 1.0)
+        for name, bitmap in self._coverage.items():
+            out[name] = float(torch.sum(bitmap != 0)) / float(self._item_count)
+        return dict(sorted(out.items()))

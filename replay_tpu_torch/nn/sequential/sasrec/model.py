@@ -86,6 +86,10 @@ class SasRecBody(nn.Module):
 class SasRec(nn.Module):
     """SASRec with an embedding-tying head."""
 
+    # get_logits is a bias-free tying head over get_item_weights(): the
+    # contract CEFused's fused log-sum-exp rebuilds the logits from
+    logits_via_item_weights = True
+
     def __init__(
         self,
         schema: TensorSchema,

@@ -17,8 +17,10 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence, Tuple
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -70,6 +72,20 @@ def build(name: str) -> str:
         raise RuntimeError(msg)
     os.replace(partial, target)  # atomic: a process building at the same time never loads half a file
     return proc.stdout + proc.stderr
+
+
+def build_all(names: Sequence[str]) -> Dict[str, Tuple[float, str]]:
+    """Compile several sources at once, one nvcc process each, all started
+    together; returns ``{name: (seconds, report)}``. Raises the first failure."""
+
+    def timed(name: str) -> Tuple[float, str]:
+        start = time.perf_counter()
+        report = build(name)
+        return time.perf_counter() - start, report
+
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        futures = {name: pool.submit(timed, name) for name in names}
+        return {name: future.result() for name, future in futures.items()}
 
 
 def load(name: str) -> ctypes.CDLL:

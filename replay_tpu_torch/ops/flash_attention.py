@@ -21,8 +21,12 @@ and keeps scores and probabilities in registers; it uses no tensor cores
 (``wgmma``/TMA are later work). Its time on the card is in ``PERF.md``,
 measured by ``chip_smoke.py``.
 
-Serving needs the forward only. The ``torch.autograd.Function`` whose backward
-mirrors the JAX ``_flash_bwd`` comes with the training slice.
+Training goes through ``_FlashAttention``, a ``torch.autograd.Function`` that
+mirrors the JAX ``jax.custom_vjp`` (``flash_attention`` with ``_flash_fwd`` /
+``_flash_bwd``): the forward is the kernel (the plain version on the CPU) and
+saves only ``q, k, v, bias``; the backward recomputes the probabilities in f32
+and applies the softmax-attention gradients as torch ops, as the JAX backward
+is plain jnp. A backward kernel is later speed work (``ROADMAP.md`` queue 2).
 """
 
 from __future__ import annotations
@@ -102,19 +106,64 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tenso
     return out
 
 
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """The plain version for tensors all on the CPU; otherwise the kernel, or raise."""
+    if all(t.device.type == "cpu" for t in (q, k, v, bias)):
+        return flash_attention_reference(q, k, v, bias)
+    return _launch(q, k, v, bias)
+
+
+def flash_attention_backward(q, k, v, bias, grad_out):
+    """Gradients of ``flash_attention`` w.r.t. ``q, k, v, bias``, line for line
+    the JAX ``_flash_bwd``: the probabilities recomputed in f32, the softmax
+    backward ``dS = P·(dP − Σ dP·P)``, the scale on ``dq`` and ``dk``, and a
+    head-invariant ``[B, 1, L, L]`` bias gets ``dS`` summed over heads. Each
+    gradient is cast back to its input's dtype."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qf, kf, vf, g = (t.to(torch.float32) for t in (q, k, v, grad_out))
+    # rematerialize the attention weights
+    scores = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale + bias.to(torch.float32)
+    probs = torch.softmax(scores, dim=-1)
+    grad_v = torch.einsum("bhqk,bhqd->bhkd", probs, g)
+    grad_probs = torch.einsum("bhqd,bhkd->bhqk", g, vf)
+    # softmax backward: dS = P * (dP - sum_k dP * P)
+    grad_scores = probs * (grad_probs - torch.sum(grad_probs * probs, dim=-1, keepdim=True))
+    grad_q = torch.einsum("bhqk,bhkd->bhqd", grad_scores, kf) * scale
+    grad_k = torch.einsum("bhqk,bhqd->bhkd", grad_scores, qf) * scale
+    grad_bias = grad_scores
+    if bias.shape[1] == 1:  # head-invariant mask: sum the broadcast axis
+        grad_bias = torch.sum(grad_bias, dim=1, keepdim=True)
+    return grad_q.to(q.dtype), grad_k.to(k.dtype), grad_v.to(v.dtype), grad_bias.to(bias.dtype)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The kernel's forward with :func:`flash_attention_backward` as its gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias):
+        ctx.save_for_backward(q, k, v, bias)
+        return _forward(q, k, v, bias)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v, bias = ctx.saved_tensors
+        grad_q, grad_k, grad_v, grad_bias = flash_attention_backward(q, k, v, bias, grad_out)
+        return grad_q, grad_k, grad_v, grad_bias if ctx.needs_input_grad[3] else None
+
+
 def flash_attention(
     q: torch.Tensor,  # [B, H, L, D]
     k: torch.Tensor,
     v: torch.Tensor,
     bias: torch.Tensor,  # [B, 1 or H, L, L] additive mask
 ) -> torch.Tensor:
-    """Fused softmax attention, forward.
+    """Fused softmax attention, differentiable.
 
-    On CPU tensors this is the plain version; on CUDA tensors it launches the
-    kernel or raises. ``flash_attention.launches`` counts kernel launches."""
-    if all(t.device.type == "cpu" for t in (q, k, v, bias)):
-        return flash_attention_reference(q, k, v, bias)
-    return _launch(q, k, v, bias)
+    On CPU tensors the forward is the plain version; on CUDA tensors it
+    launches the kernel or raises. The gradient is
+    :func:`flash_attention_backward` on either device.
+    ``flash_attention.launches`` counts kernel launches."""
+    return _FlashAttention.apply(q, k, v, bias)
 
 
 flash_attention.launches = 0

@@ -7,9 +7,12 @@ data module, so skip it there:
 
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
 
-Tolerances (max abs error against the plain version, f32 result): f32 1e-5,
-the kernel differing only in summation order; bf16 2e-2, its output's own
-rounding (half an ulp is 1.6e-2 below 8).
+Tolerances (max abs error against the plain version, f32 result): K4 f32
+1e-5, the kernel differing only in summation order; bf16 2e-2, its output's
+own rounding (half an ulp is 1.6e-2 below 8). K1 1e-4 absolute on an lse of
+about 5 to 10, K2 and K3 1e-4 of the output's largest magnitude: f32 products
+summed in another order (a bf16 dh adds its rounding, 2**-8 of the largest).
+K4's gradient 1e-4: the same f32 recompute by other formulas.
 """
 
 import numpy as np
@@ -18,8 +21,11 @@ import torch
 
 from replay_tpu_torch.data import FeatureHint, FeatureType
 from replay_tpu_torch.data.nn import TensorFeatureInfo, TensorSchema
+from replay_tpu_torch.nn.loss import CEFused
 from replay_tpu_torch.nn.mask import causal_attention_mask
 from replay_tpu_torch.nn.sequential.sasrec import SasRec
+from replay_tpu_torch.nn.train import Trainer
+from replay_tpu_torch.ops import fused_ce
 from replay_tpu_torch.ops.flash_attention import flash_attention, flash_attention_reference
 from replay_tpu_torch.serve import ScoringEngine, make_window
 
@@ -120,3 +126,152 @@ def test_serving_on_the_kernel_matches_the_unfused_route(cuda_device):
     assert flash_attention.launches == before + 2  # one launch per block
     assert (got - want).abs().max().item() <= 1e-4
     assert (got_hidden - want_hidden).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize(
+    "rows,items,dim,num_valid",
+    [(25600, 3706, 64, None), (1000, 1000, 64, 900), (300, 1000, 64, 0), (77, 129, 100, 50), (5, 3, 16, None), (130, 70, 256, None)],
+    ids=["train_width", "ragged", "fully_masked", "dim_100", "tiny", "dim_256"],
+)
+@pytest.mark.parametrize(
+    "hidden_dtype,table_dtype",
+    [(torch.float32, torch.float32), (torch.bfloat16, torch.float32), (torch.bfloat16, torch.bfloat16)],
+    ids=["f32", "bf16_hidden", "bf16_both"],
+)
+def test_fused_ce_kernels_match_plain_versions(cuda_device, rows, items, dim, num_valid, hidden_dtype, table_dtype):
+    gen = torch.Generator(cuda_device).manual_seed(rows + items)
+    hidden = torch.randn(rows, dim, device=cuda_device, generator=gen).to(hidden_dtype)
+    table = (torch.randn(items, dim, device=cuda_device, generator=gen) / dim**0.5).to(table_dtype)
+    grad = torch.randn(rows, device=cuda_device, generator=gen)
+    counters = (fused_ce.fused_lse_forward, fused_ce.fused_lse_dh, fused_ce.fused_lse_dw)
+    before = [c.launches for c in counters]
+    lse = fused_ce.fused_lse_forward(hidden, table, num_valid)
+    dh = fused_ce.fused_lse_dh(hidden, table, grad, lse, num_valid)
+    dw = fused_ce.fused_lse_dw(hidden, table, grad, lse, num_valid)
+    torch.cuda.synchronize()
+    assert [c.launches for c in counters] == [b + 1 for b in before]
+    assert lse.dtype == torch.float32 and dh.dtype == hidden_dtype and dw.dtype == table_dtype
+    h32, w32 = hidden.float(), table.float()
+    want_lse = fused_ce.fused_lse_reference(h32, w32, num_valid)
+    want_dh = fused_ce.fused_lse_dh_reference(h32, w32, grad, lse, num_valid)
+    want_dw = fused_ce.fused_lse_dw_reference(h32, w32, grad, lse, num_valid)
+    assert torch.isfinite(lse).all()
+    if num_valid == 0:  # every column masked: finite, at the mask
+        assert torch.allclose(lse, torch.full_like(lse, -1e30), rtol=1e-6)
+    assert torch.allclose(lse, want_lse, rtol=1e-6, atol=1e-4)
+    dh_tol = (2**-8 if hidden_dtype == torch.bfloat16 else 1e-4) * want_dh.abs().max().item()
+    dw_tol = (2**-8 if table_dtype == torch.bfloat16 else 1e-4) * want_dw.abs().max().item()
+    assert (dh.float() - want_dh).abs().max().item() <= dh_tol
+    assert (dw.float() - want_dw).abs().max().item() <= dw_tol
+
+
+def test_fused_ce_is_the_same_from_run_to_run(cuda_device):
+    gen = torch.Generator(cuda_device).manual_seed(3)
+    hidden = torch.randn(25600, 64, device=cuda_device, generator=gen)
+    table = torch.randn(3706, 64, device=cuda_device, generator=gen) / 8
+    grad = torch.randn(25600, device=cuda_device, generator=gen)
+    lse = fused_ce.fused_lse_forward(hidden, table)
+    assert torch.equal(lse, fused_ce.fused_lse_forward(hidden, table))
+    assert torch.equal(fused_ce.fused_lse_dh(hidden, table, grad, lse), fused_ce.fused_lse_dh(hidden, table, grad, lse))
+    assert torch.equal(fused_ce.fused_lse_dw(hidden, table, grad, lse), fused_ce.fused_lse_dw(hidden, table, grad, lse))
+
+
+def test_fused_lse_gradients_through_autograd(cuda_device):
+    """fused_lse's Function: K1 forward, K2 and K3 backward, against autograd
+    through torch.logsumexp; the table also gets a second gradient, as the
+    tied table does, and the two add."""
+    gen = torch.Generator(cuda_device).manual_seed(4)
+    hidden = torch.randn(300, 64, device=cuda_device, generator=gen).requires_grad_()
+    table = (torch.randn(500, 64, device=cuda_device, generator=gen) / 8).requires_grad_()
+    weights = torch.randn(300, device=cuda_device, generator=gen)
+    (fused_ce.fused_lse(hidden, table) * weights).sum().backward()
+    (table.sum() * 2).backward()
+    got = hidden.grad.clone(), table.grad.clone()
+    hidden.grad, table.grad = None, None
+    (torch.logsumexp(hidden @ table.T, -1) * weights).sum().backward()
+    (table.sum() * 2).backward()
+    for a, b in zip(got, (hidden.grad, table.grad)):
+        assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
+
+
+def test_fused_ce_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    hidden = torch.randn(8, 16, device=cuda_device)
+    table = torch.randn(5, 16, device=cuda_device)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        fused_ce.fused_lse_forward(hidden, table.cpu())
+    with pytest.raises(TypeError, match="must each be one of"):
+        fused_ce.fused_lse_forward(hidden.half(), table)
+    with pytest.raises(ValueError, match="hidden must be"):
+        fused_ce.fused_lse_forward(hidden, table[:, :8])
+    with pytest.raises(ValueError, match="at least one item"):
+        fused_ce.fused_lse_forward(hidden, table[:0])
+    with pytest.raises(ValueError, match="grad and lse"):
+        fused_ce.fused_lse_dh(hidden, table, torch.zeros(8, device=cuda_device, dtype=torch.float64), torch.zeros(8, device=cuda_device))
+
+
+@pytest.mark.parametrize("mask", ["train", "eval"])
+def test_flash_attention_gradient_matches_autograd_through_the_plain_version(cuda_device, mask):
+    """At the training shape (bench.py: B=512, H=1, L=50, D=64)."""
+    gen = torch.Generator(cuda_device).manual_seed(5)
+    q, k, v = (torch.randn(512, 1, 50, 64, device=cuda_device, generator=gen) for _ in range(3))
+    padding = torch.tensor(_left_padded(512, 50, 6), device=cuda_device)
+    bias = causal_attention_mask(padding, deterministic=mask == "eval")
+    g = torch.randn(q.shape, device=cuda_device, generator=gen)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = flash_attention.launches
+    out = flash_attention(*leaves, bias)
+    assert flash_attention.launches == before + 1 and out.grad_fn is not None
+    torch.sum(out * g).backward()
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    torch.sum(flash_attention_reference(*plain, bias) * g).backward()
+    for a, b in zip(leaves, plain):
+        assert torch.isfinite(a.grad).all()
+        assert (a.grad - b.grad).abs().max().item() <= 1e-4
+
+
+def test_training_on_the_card_reaches_every_attention_projection(cuda_device):
+    """The fault the K4 Function repairs: through the kernel, every block's
+    query, key and value weights get a non-zero gradient, and a Trainer step
+    moves them."""
+    schema = TensorSchema(
+        TensorFeatureInfo(
+            "item_id", FeatureType.CATEGORICAL, is_seq=True,
+            feature_hint=FeatureHint.ITEM_ID, cardinality=300, embedding_dim=32,
+        )
+    )
+    model = SasRec(
+        schema, embedding_dim=32, num_blocks=2, num_heads=2, max_sequence_length=12, use_flash=True,
+        device=cuda_device, generator=torch.Generator().manual_seed(7),
+    )
+    rng = np.random.default_rng(8)
+    items = rng.integers(0, 300, (16, 13)).astype(np.int32)
+    mask = np.ones((16, 12), bool)
+    batch = {
+        "feature_tensors": {"item_id": items[:, :-1]}, "padding_mask": mask,
+        "positive_labels": items[:, 1:, None], "target_padding_mask": mask[:, :, None],
+    }
+    projections = [
+        f"body.encoder.block_{i}.attention.{name}.weight" for i in range(2) for name in ("query", "key", "value")
+    ]
+    loss = CEFused()
+    loss.logits_callback = model.get_logits
+    loss.item_embeddings_callback = model.get_item_weights
+    ids = torch.tensor(items[:, :-1], device=cuda_device)
+    hidden = model({"item_id": ids}, torch.tensor(mask, device=cuda_device), deterministic=False)
+    loss(
+        hidden, {}, torch.tensor(items[:, 1:, None], device=cuda_device), None, None,
+        torch.tensor(mask[:, :, None], device=cuda_device),
+    ).backward()
+    grads = dict(model.named_parameters())
+    for name in projections:
+        assert grads[name].grad is not None and grads[name].grad.abs().sum().item() > 0, name
+
+    trainer = Trainer(model, CEFused(), device=cuda_device)
+    state = trainer.init_state(batch)
+    before = {name: state.params[name].detach().clone() for name in projections}
+    launches = flash_attention.launches
+    state, value = trainer.train_step(state, batch)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == launches + 2 and torch.isfinite(value)
+    for name in projections:
+        assert not torch.equal(state.params[name], before[name]), name

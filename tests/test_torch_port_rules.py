@@ -1,7 +1,8 @@
 """The rules the PyTorch port keeps.
 
 * ``replay_tpu_torch`` and ``chip_smoke.py`` import nothing of JAX, flax, optax
-  or the JAX package, at run time or in their sources.
+  or the JAX package, at run time or in their sources, and no pandas (the GPU
+  machine has none).
 * Entry points run on the GPU unless the caller asks for the CPU by name.
 * Kernel wrappers never fall back: the plain version runs only for tensors that
   all lie on the CPU; anything else launches the kernel or raises, and a kernel
@@ -26,13 +27,16 @@ from replay_tpu_torch.data.nn import TensorFeatureInfo, TensorSchema
 from replay_tpu_torch.nn.compiled import CompiledInference
 from replay_tpu_torch.nn.sequential.sasrec import SasRec
 from replay_tpu_torch.ops import build
+from replay_tpu_torch.nn.loss import CE
+from replay_tpu_torch.nn.train import Trainer
 from replay_tpu_torch.ops import flash_attention as flash_module
+from replay_tpu_torch.ops import fused_ce as fused_module
 from replay_tpu_torch.ops.flash_attention import flash_attention
 from replay_tpu_torch.serve import ScoringEngine
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "replay_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "replay_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "replay_tpu", "pandas")
 
 
 def _forbidden(module: str) -> bool:
@@ -45,7 +49,7 @@ def _sources():
 
 def test_importing_the_port_loads_no_jax():
     names = [m.name for m in pkgutil.walk_packages(replay_tpu_torch.__path__, "replay_tpu_torch.")]
-    assert "replay_tpu_torch.serve.engine" in names
+    assert {"replay_tpu_torch.serve.engine", "replay_tpu_torch.nn.train", "replay_tpu_torch.ops.fused_ce"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {['replay_tpu_torch', *names]!r}:\n"
@@ -89,6 +93,7 @@ def test_entry_points_need_cuda_unless_asked_for_the_cpu(monkeypatch):
         "SasRec": lambda **kw: SasRec(_schema(), embedding_dim=8, num_blocks=1, max_sequence_length=4, **kw),
         "CompiledInference.compile": lambda **kw: CompiledInference.compile(model, params, 4, **kw),
         "ScoringEngine": lambda **kw: ScoringEngine(model, params, **kw),
+        "Trainer": lambda **kw: Trainer(model, CE(), **kw),
     }
     for name, call in calls.items():
         for kwargs in ({}, {"device": "cuda"}):
@@ -120,10 +125,58 @@ def test_kernel_wrapper_never_falls_back_to_the_plain_version(misplaced):
     assert flash_attention.launches == before
 
 
-def test_kernel_wrapper_has_no_fallback_branch():
-    for fn in (flash_module.flash_attention, flash_module._launch):
-        tree = ast.parse(inspect.getsource(fn))
-        assert not any(isinstance(node, ast.Try) for node in ast.walk(tree)), fn.__name__
+def _rows_table():
+    rng = np.random.default_rng(1)
+    hidden = torch.tensor(rng.normal(size=(6, 8)).astype(np.float32))
+    return hidden, torch.tensor(rng.normal(size=(5, 8)).astype(np.float32)), torch.zeros(6), torch.zeros(6)
+
+
+@pytest.mark.parametrize("kernel", ["fused_lse_forward", "fused_lse_dh", "fused_lse_dw"])
+@pytest.mark.parametrize("misplaced", ["table", "hidden", "all"])
+def test_fused_ce_wrappers_never_fall_back_to_the_plain_version(kernel, misplaced):
+    hidden, table, grad, lse = _rows_table()
+    if misplaced == "table":
+        table = table.to("meta")
+    elif misplaced == "hidden":
+        hidden = hidden.to("meta")
+    else:
+        hidden, table, grad, lse = (t.to("meta") for t in (hidden, table, grad, lse))
+    wrapper = getattr(fused_module, kernel)
+    args = (hidden, table) if kernel == "fused_lse_forward" else (hidden, table, grad, lse)
+    before = wrapper.launches
+    with pytest.raises(ValueError, match="one CUDA device"):
+        wrapper(*args)
+    assert wrapper.launches == before
+
+
+FUSED_CE_LAUNCHERS = (
+    fused_module.fused_lse, fused_module.fused_lse_forward, fused_module.fused_lse_dh, fused_module.fused_lse_dw,
+)
+
+
+@pytest.mark.parametrize(
+    "fn", (flash_module.flash_attention, flash_module._launch, flash_module._forward, *FUSED_CE_LAUNCHERS),
+    ids=lambda fn: f"{fn.__module__.rsplit('.', 1)[-1]}.{fn.__name__}",
+)
+def test_kernel_wrapper_has_no_fallback_branch(fn):
+    tree = ast.parse(inspect.getsource(fn))
+    assert not any(isinstance(node, ast.Try) for node in ast.walk(tree)), fn.__name__
+
+
+def test_fused_ce_raises_when_its_build_fails(tmp_path, monkeypatch):
+    """A CUDA tensor reaches build.load, and a failed nvcc raises there."""
+    (tmp_path / "fused_ce.cu").write_text("this is not CUDA\n")
+    monkeypatch.setattr(build, "CSRC_DIR", tmp_path)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(build, "_LIBRARIES", {})
+    monkeypatch.setattr(build, "find_nvcc", lambda: shutil.which("false") or "/bin/false")
+    monkeypatch.setattr(fused_module, "_check", lambda *tensors: None)  # as if on the card
+    hidden, table, _, _ = _rows_table()
+    before = fused_module.fused_lse_forward.launches
+    with pytest.raises(RuntimeError, match="nvcc failed on fused_ce.cu"):
+        fused_module.fused_lse_forward(hidden.to("meta"), table.to("meta"))
+    assert fused_module.fused_lse_forward.launches == before
+    assert not list((tmp_path / "_build").glob("*.so"))
 
 
 def test_a_failed_kernel_build_raises(tmp_path, monkeypatch):

@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 Drives the port (``replay_tpu_torch``, never the JAX package) through its
-serving path at the ``bench_serve.py`` width and its training path at the
-``bench.py`` width, and holds every kernel of those paths against its plain
-PyTorch version. Phases, one JSON line each:
+serving path at the ``bench_serve.py`` width, its training path at the
+``bench.py`` width and its long-sequence path (training and serving) at the
+``bench_suite.py`` ``sasrec_l1024_tiled`` width, and holds every kernel of those
+paths against its plain PyTorch version. Phases, one JSON line each:
 
 1. ``env``     — the card's name and power limit (``nvidia-smi``), torch and CUDA versions;
 2. ``build``   — compile the kernels from ``replay_tpu_torch/csrc/`` with nvcc for sm_90a,
@@ -16,14 +17,27 @@ PyTorch version. Phases, one JSON line each:
                  times and the card's bound for the same work; K1, K2, K3 against their
                  plain versions at the training width (f32, and bf16 hidden states) and a
                  ragged case; K4's gradient at the training shape against autograd
-                 through the plain version;
+                 through the plain version; K5 through its wrapper against
+                 ``flash_attention_tiled_reference`` at the long-sequence shape
+                 (causal, f32 and bf16, full windows; bf16 with the serving windows'
+                 padding; non-causal), the ``attention_long`` shape and a ragged case
+                 with a fully padded row, and its gradient at the long-sequence shape;
 4. ``serve``   — ``SasRec(use_flash=True)`` behind ``ScoringEngine`` answering requests,
                  checked against an engine on the same weights with ``use_flash=False``;
 5. ``train``   — ``Trainer(CEFused(), SasRec(use_flash=True))`` against
                  ``Trainer(CE(), SasRec(use_flash=False))`` from the same weights: 20
                  steps with matching losses and kernel launch counts, validation and
                  top-k on held-out windows, then step times, device time and memory;
-6. ``kernels`` — every ported kernel with its launches on the paths driven.
+6. ``longseq`` — ``Trainer(CEFused(), SasRec(use_flash="tiled"), precision="bf16")`` on
+                 bench_suite.py's full windows: 20 steps with K5 launched twice a step;
+                 the same from the same weights on ``use_flash=False``, and on the tiled
+                 route with K5's forward swapped for its plain version, with matching
+                 losses, and two faulty K5s as controls the limits must catch; the
+                 tiled model's f32-compute hidden states under the same comparisons;
+                 step times, device time and memory of the tiled and unfused trainers.
+                 ``ScoringEngine`` on the tiled bf16 model, held to the same comparisons
+                 and controls, then encode latency per bucket;
+7. ``kernels`` — every ported kernel with its launches on the paths driven.
 
 Then the card's name and power limit on a line of their own, one JSON object
 listing the kernels, and, as the last line, ``{"ok": true, "device": ...}``.
@@ -33,6 +47,8 @@ the CPU. It needs one CUDA device and ``nvcc``.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
 import math
 import statistics
@@ -94,6 +110,59 @@ FUSED_CASES = (
     ("ragged", 1000, 1000, 900, torch.float32),
 )
 
+# bench_suite.py's sasrec_l1024_tiled: the same catalog, E=128, 2 blocks, 2
+# heads, L=1024, batch 32, CEFused, bf16 compute; served with length buckets
+# (256, 1024) and batch buckets (1, 8, 32)
+LONG_DIM, LONG_BLOCKS, LONG_HEADS, LONG_LEN, LONG_BATCH = 128, 2, 2, 1024, 32
+LONG_LENGTH_BUCKETS, LONG_BATCH_BUCKETS = (256, 1024), (1, 8, 32)
+LONG_STEPS, LONG_WARMUP_STEPS, LONG_TIMED_STEPS, LONG_PROFILED_STEPS = 20, 5, 30, 10
+# The long-sequence path is checked end to end against the unfused attention
+# route (other formulas: bf16 scores and softmax) and against the same model
+# with K5's forward swapped for its plain version (the same formulas; only
+# summation order differs inside K5). Two faulty K5s run as controls, to show
+# what each check can catch: the softmax scale off by 2**-7 (about what
+# 1/sqrt(65) for 1/sqrt(64) gives), and scores rounded to bf16 before the
+# softmax. Every limit lies between the sound comparisons' readings and those
+# of the controls it catches, read by this script on an NVIDIA H100 80GB HBM3
+# at 700 W:
+# - training losses, bf16 compute, largest relative difference over the 20
+#   steps: sound 8.8e-6 (unfused) and 9.9e-6 (plain); controls 9.3e-5 (scale)
+#   and 1.2e-5 (bf16 scores, inside bf16 compute's own noise): catches the scale;
+LONGSEQ_LOSS_RTOL = 3e-5
+# - hidden states of the tiled model in f32 compute on the training batch,
+#   largest absolute difference: sound 2.1e-6 and 2.0e-6; controls 2.2e-2 and
+#   7.5e-3: catches both;
+LONGSEQ_F32_TOL = 1e-4
+# - serving logits, bf16 compute, mean absolute difference over every logit
+#   of every encode, from K5's plain version: sound 9.1e-4; controls 4.3e-3 and
+#   3.8e-3: catches both (the unfused route's own formulas read 3.8e-3 here,
+#   so it is held to the next limit only);
+LONGSEQ_SERVE_MEAN_TOL = 2e-3
+# - their largest absolute difference from the unfused route: sound 0.029,
+#   controls 0.031 and 0.027, so this one catches neither; also the gap that
+#   pins a top-10 rank.
+LONGSEQ_SERVE_MAX_TOL = 2**-4
+SCALE_FAULT = 1 + 2**-7
+# K5's lse against the plain version's, f32 both: max abs error over
+# max(1, |lse|) (lse is about log L plus the row max)
+TILED_LSE_TOL = 1e-5
+# K5's gradient (torch ops) against autograd through the plain version, max
+# abs error over max(1, largest magnitude): dbias sums over 1024 queries and 2 heads
+TILED_GRAD_TOL = 1e-4
+# (name, B, H, L, D, causal, dtype, padding): the long-sequence shape at
+# bench_suite.py's full windows in bf16 (the path's type) and f32, the same
+# with the serving windows' padding, bench_suite.py's attention_long shape, the
+# non-causal case, and a ragged length with one fully padded row (padding
+# kinds: see padding_mask)
+TILED_SHAPES = (
+    ("longseq", LONG_BATCH, LONG_HEADS, LONG_LEN, LONG_DIM // LONG_HEADS, True, torch.bfloat16, "none"),
+    ("longseq", LONG_BATCH, LONG_HEADS, LONG_LEN, LONG_DIM // LONG_HEADS, True, torch.float32, "none"),
+    ("longseq_served", LONG_BATCH, LONG_HEADS, LONG_LEN, LONG_DIM // LONG_HEADS, True, torch.bfloat16, "served"),
+    ("attention_long", 4, 4, 4096, 64, True, torch.float32, "none"),
+    ("longseq_noncausal", LONG_BATCH, LONG_HEADS, LONG_LEN, LONG_DIM // LONG_HEADS, False, torch.bfloat16, "none"),
+    ("ragged", 8, 2, 1000, 64, True, torch.float32, "dead"),
+)
+
 # (name, B, H, L, D, bias heads, mask): the serving width (bench_serve.py), the
 # SasRec.from_params width (E=192, 4 heads), and a long row over 32 key tiles
 KERNEL_SHAPES = (
@@ -115,12 +184,20 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+@functools.lru_cache(maxsize=None)
+def warmup_stream() -> torch.cuda.Stream:
+    """The one side stream every warm-up runs on: cuBLAS keeps a workspace for
+    each stream it has run on, so a new stream per timing would leave tens of
+    MB allocated each time and inflate the memory the phases after it read."""
+    return torch.cuda.Stream()
+
+
 def graph_ms(fn, launches: int = 20, reps: int = 7) -> float:
     """Median device time of one ``fn()`` call: ``launches`` calls captured in a
     CUDA graph, replayed ``reps`` times between CUDA events (so host overhead
     is not in the number). Inputs stay in L2 between calls, as the encoder's
     projections leave them."""
-    side = torch.cuda.Stream()
+    side = warmup_stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):  # warm up off the capture stream, as torch.cuda.graphs asks
         for _ in range(3):
@@ -233,6 +310,154 @@ def kernel_phase(device) -> dict:
             if name == "serve" and dtype == torch.float32:
                 serve_record = record
     return serve_record
+
+
+def history_lengths(rng, count: int, length: int) -> np.ndarray:
+    """History lengths as bench_serve.py:1057 draws its users' (1 .. 2L-1 for
+    a window of L), cut to the window."""
+    return np.minimum(rng.integers(1, 2 * length, count), length)
+
+
+def padding_mask(rng, batch: int, length: int, padding: str) -> np.ndarray:
+    """[B, L] bool, True at real tokens, left-padded: "none" — every row full
+    (bench_suite.py's windows); "served" — history lengths as served
+    (``history_lengths``); "dead" — "served" with the last row all padding."""
+    lengths = np.full(batch, length) if padding == "none" else history_lengths(rng, batch, length)
+    if padding == "dead":
+        lengths[-1] = 0
+    return np.arange(length)[None, :] >= length - lengths[:, None]
+
+
+def tiled_bound(q: torch.Tensor, padding: torch.Tensor, causal: bool):
+    """Least time the card could take for one K5 call on these inputs, the
+    larger of two: the bytes it must move over HBM rate — k and v of the real
+    keys, q of the rows that see a real key, all of out and lse written once,
+    the f32 bias row read once — and 4·H·D FLOP per (query, real key) pair
+    (causal: key ≤ row) over the peak for the inputs' type.
+    Returns (ms, bound_by, bytes, flop)."""
+    batch, heads, length, dim = q.shape
+    valid = padding.to(torch.float64)
+    if causal:  # key k is seen by rows k .. L-1; row r sees a real key once one lies at or before it
+        pairs = (valid * (length - torch.arange(length, device=padding.device))).sum().item()
+        seeing = (valid.cumsum(dim=1) > 0).sum().item()
+    else:
+        pairs = valid.sum().item() * length
+        seeing = (valid.sum(dim=1, keepdim=True) > 0).expand(-1, length).sum().item()
+    row_bytes = heads * dim * q.element_size()
+    moved = (2 * valid.sum().item() + seeing) * row_bytes + q.numel() * q.element_size()  # k, v; q; out
+    moved += batch * length * 4 + batch * heads * length * 4  # bias; lse
+    flop = 4 * heads * dim * pairs
+    byte_ms = moved / HBM_BYTES_PER_S * 1e3
+    flop_ms = flop / PEAK_FLOPS[q.dtype] * 1e3
+    return max(byte_ms, flop_ms), ("bytes" if byte_ms >= flop_ms else "operations"), int(moved), flop
+
+
+def tiled_kernel_phase(device) -> dict:
+    """K5 vs its plain version at every shape; returns the records by (shape, dtype)."""
+    import torch.nn.functional as F
+
+    from replay_tpu_torch.ops.flash_tiled import (
+        NEG_INF,
+        flash_attention_tiled,
+        flash_attention_tiled_reference,
+        padding_mask_bias,
+    )
+    from replay_tpu_torch.ops import flash_tiled
+
+    records = {}
+    for index, (name, batch, heads, length, dim, causal, dtype, padding) in enumerate(TILED_SHAPES):
+        rng = np.random.default_rng(200 + index)
+        q, k, v = (
+            torch.tensor(rng.standard_normal((batch, heads, length, dim), dtype=np.float32)).to(device, dtype)
+            for _ in range(3)
+        )
+        mask = torch.tensor(padding_mask(rng, batch, length, padding), device=device)
+        bias = padding_mask_bias(mask)
+        got = flash_attention_tiled(q, k, v, bias, causal)  # the wrapper the model calls
+        _, lse = flash_tiled._launch(q, k, v, bias, causal)  # the wrapper returns no lse
+        # the plain version on the same input values, its f32 result not
+        # rounded: for bf16 the error is then the output's own rounding
+        want, want_lse = flash_attention_tiled_reference(q.float(), k.float(), v.float(), bias, causal)
+        torch.cuda.synchronize()
+        label = f"K5 {name} {dtype} causal={causal}"
+        if got.dtype != dtype or got.shape != q.shape or lse.shape != q.shape[:3]:
+            raise AssertionError(f"{label}: got {got.dtype} {tuple(got.shape)} lse {tuple(lse.shape)}")
+        if not (torch.isfinite(got.float()).all() and torch.isfinite(lse).all()):
+            raise AssertionError(f"{label}: non-finite output")
+        err = (got.float() - want).abs().max().item()
+        lse_err = ((lse - want_lse).abs() / want_lse.abs().clamp_min(1.0)).max().item()
+        dead_exact = None
+        if padding == "dead":  # the fully padded row: exactly 0, lse at the mask
+            dead_exact = bool(torch.equal(got[-1].float(), torch.zeros_like(got[-1].float()))) and bool(
+                torch.equal(lse[-1], torch.full_like(lse[-1], NEG_INF))
+            )
+        if causal:
+            library = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)  # noqa: E731
+        else:
+            key_mask = mask[:, None, None, :]
+            library = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=key_mask)  # noqa: E731
+        big = length >= 4096
+        bound_ms, bound_by, moved, flop = tiled_bound(q, mask, causal)
+        record = {
+            "kernel": "K5", "shape": name, "B": batch, "H": heads, "L": length, "D": dim, "causal": causal,
+            "padding": padding, "real_tokens": int(mask.sum().item()), "dtype": str(dtype).removeprefix("torch."),
+            "max_abs_err": err, "tol": KERNEL_TOL[dtype], "lse_rel_err": lse_err, "lse_tol": TILED_LSE_TOL,
+            "dead_row_exact": dead_exact,
+            "ms": graph_ms(lambda: flash_attention_tiled(q, k, v, bias, causal), launches=10),
+            "eager_ms": eager_ms(lambda: flash_attention_tiled(q, k, v, bias, causal), launches=10),
+            "plain_ms": graph_ms(
+                lambda: flash_attention_tiled_reference(q, k, v, bias, causal), launches=3 if big else 5, reps=5
+            ),
+            "library_ms": graph_ms(library, launches=10),
+            "library_call": "scaled_dot_product_attention(is_causal=True)" if causal
+            else "scaled_dot_product_attention(attn_mask=key padding)",
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": moved, "flop": flop,
+        }
+        emit("kernel", **record)
+        if err > KERNEL_TOL[dtype] or lse_err > TILED_LSE_TOL or dead_exact is False:
+            raise AssertionError(f"{label}: max abs err {err}, lse {lse_err}, dead row exact {dead_exact}")
+        records[(name, dtype)] = record
+    return records
+
+
+def tiled_backward_check(device) -> dict:
+    """K5's gradient (the Function's backward, torch ops mirroring the JAX _bwd)
+    at the long-sequence shape, f32, the serving windows' padding (so that
+    dbias is not trivially 0), against autograd through
+    the plain version; dq, dk, dv and dbias."""
+    from replay_tpu_torch.ops.flash_tiled import (
+        flash_attention_tiled,
+        flash_attention_tiled_backward,
+        flash_attention_tiled_reference,
+        padding_mask_bias,
+    )
+
+    rng = np.random.default_rng(300)
+    shape = (LONG_BATCH, LONG_HEADS, LONG_LEN, LONG_DIM // LONG_HEADS)
+    q, k, v, g = (torch.tensor(rng.standard_normal(shape, dtype=np.float32), device=device) for _ in range(4))
+    bias = padding_mask_bias(torch.tensor(padding_mask(rng, LONG_BATCH, LONG_LEN, "served"), device=device))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v, bias)]
+    torch.sum(flash_attention_tiled(*leaves) * g).backward()
+    plain = [t.clone().requires_grad_() for t in (q, k, v, bias)]
+    torch.sum(flash_attention_tiled_reference(*plain)[0] * g).backward()
+    torch.cuda.synchronize()
+    errors = {
+        name: ((a.grad - b.grad).abs().max() / b.grad.abs().max().clamp_min(1.0)).item()
+        for name, a, b in zip(("q", "k", "v", "kv_bias"), leaves, plain)
+    }
+    finite = all(torch.isfinite(t.grad).all() for t in leaves)
+    out, lse = flash_attention_tiled_reference(q, k, v, bias)
+    record = {
+        "kernel": "K5_backward", "B": shape[0], "H": shape[1], "L": shape[2], "D": shape[3], "causal": True,
+        "rel_err": errors, "tol": TILED_GRAD_TOL,
+        "backward_ms": graph_ms(
+            lambda: flash_attention_tiled_backward(q, k, v, bias, out, lse, g), launches=3, reps=5
+        ),
+    }
+    emit("kernel", **record)
+    if not finite or max(errors.values()) > TILED_GRAD_TOL:
+        raise AssertionError(f"K5 gradient: finite={finite}, errors {errors} > {TILED_GRAD_TOL}")
+    return record
 
 
 def device_time_per_encode(engine, length_bucket, ids, mask, calls: int = 20) -> dict:
@@ -519,11 +744,12 @@ def flash_backward_check(device) -> dict:
     return record
 
 
-def train_batch():
-    """bench.py's batch (bench.py:222-230): next-item windows from default_rng(0)."""
+def next_item_batch(batch: int, length: int):
+    """Full next-item windows from default_rng(0), as bench.py:222-230 and
+    bench_suite.py:211-223 (``sasrec_batch``) build them: no padding."""
     rng = np.random.default_rng(0)
-    items = rng.integers(0, NUM_ITEMS, size=(TRAIN_BATCH, SEQ_LEN + 1)).astype(np.int32)
-    mask = np.ones((TRAIN_BATCH, SEQ_LEN), dtype=bool)
+    items = rng.integers(0, NUM_ITEMS, size=(batch, length + 1)).astype(np.int32)
+    mask = np.ones((batch, length), dtype=bool)
     return {
         "feature_tensors": {"item_id": items[:, :-1]},
         "padding_mask": mask,
@@ -584,6 +810,27 @@ def device_time_per_step(trainer, state, batch, steps: int) -> dict:
     }
 
 
+def trainer_perf(trainer, state, batch, steps: int, warmup: int, profiled: int, tokens: int):
+    """Step p50/p99, tokens/s, peak memory, then device time from a profiler trace."""
+    device = trainer.device
+    torch.cuda.reset_peak_memory_stats(device)
+    at_start = torch.cuda.memory_allocated(device)
+    state, _ = step_times(trainer, state, batch, warmup)
+    state, times = step_times(trainer, state, batch, steps)
+    times.sort()
+    p50 = times[len(times) // 2]
+    record = {
+        "p50_ms": p50, "p99_ms": times[min(len(times) - 1, math.ceil(0.99 * len(times)) - 1)],
+        "tokens_per_s": tokens / (p50 / 1e3),
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(device),
+        # what the card held when the window began (both trainers' state, earlier phases' leftovers)
+        "memory_allocated_at_start_bytes": at_start,
+    }
+    state, device_record = device_time_per_step(trainer, state, batch, profiled)
+    record.update(device_record, device_busy_share=device_record["device_ms"] / p50)
+    return state, record
+
+
 def loss_gradient(model, loss, batch, device) -> torch.Tensor:
     """The loss's gradient w.r.t. every parameter, flattened, from the model
     and loss as the trainer binds them."""
@@ -627,7 +874,7 @@ def train_phase(device) -> dict:
     fused_model = SasRec(schema, use_flash=True, generator=torch.Generator().manual_seed(SEED), **width)
     fused = Trainer(fused_model, CEFused(), optimizer=optimizer, device=device)
     plain = Trainer(SasRec(schema, use_flash=False, **width), CE(), optimizer=optimizer, device=device)
-    batch = train_batch()
+    batch = next_item_batch(TRAIN_BATCH, SEQ_LEN)
     fused_state = fused.init_state(batch)
     plain_state = plain.init_state(batch, params=fused_model.state_dict())
     counters = (fc.fused_lse_forward, fc.fused_lse_dh, fc.fused_lse_dw, flash_attention)
@@ -721,19 +968,10 @@ def train_phase(device) -> dict:
     # speed: both trainers, same steps, a sync after each step
     perf = {}
     for name, trainer, state in (("fused", fused, fused_state), ("plain", plain, plain_state)):
-        torch.cuda.reset_peak_memory_stats(device)
-        state, _ = step_times(trainer, state, batch, WARMUP_STEPS)
-        state, times = step_times(trainer, state, batch, TIMED_STEPS)
-        times.sort()
-        p50 = times[len(times) // 2]
-        record = {
-            "p50_ms": p50, "p99_ms": times[min(len(times) - 1, math.ceil(0.99 * len(times)) - 1)],
-            "tokens_per_s": TRAIN_BATCH * SEQ_LEN / (p50 / 1e3),
-            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(device),
-        }
-        state, device_record = device_time_per_step(trainer, state, batch, PROFILED_STEPS)
-        record.update(device_record, device_busy_share=device_record["device_ms"] / p50)
-        perf[name] = record
+        _, perf[name] = trainer_perf(
+            trainer, state, batch, TIMED_STEPS, WARMUP_STEPS, PROFILED_STEPS,
+            TRAIN_BATCH * SEQ_LEN,
+        )
     emit(
         "train", batch=TRAIN_BATCH, seq_len=SEQ_LEN, items=NUM_ITEMS, embedding_dim=EMBEDDING_DIM,
         blocks=NUM_BLOCKS, steps=TRAIN_STEPS, launches=launches, fused_losses=fused_losses,
@@ -744,6 +982,284 @@ def train_phase(device) -> dict:
         perf=perf,
     )
     return launches
+
+
+def pinned_top10(got: torch.Tensor, want: torch.Tensor, tol: float) -> int:
+    """Ranks of the top 10 whose score is clear of both neighbours by more than
+    ``tol`` must hold the same id in ``got`` and ``want``; returns how many were
+    checked and raises on a difference."""
+    want_scores, want_ids = torch.topk(want, 11, dim=-1)
+    got_ids = torch.topk(got, 10, dim=-1).indices
+    gaps = want_scores[:, :-1] - want_scores[:, 1:]
+    previous = torch.cat([torch.full_like(gaps[:, :1], math.inf), gaps[:, :9]], dim=1)
+    pinned = torch.minimum(previous, gaps[:, :10]) > tol
+    if not torch.equal(got_ids[pinned], want_ids[:, :10][pinned]):
+        raise AssertionError(f"top-10 differs at pinned ranks: {got_ids.tolist()} vs {want_ids[:, :10].tolist()}")
+    return int(pinned.sum().item())
+
+
+@contextlib.contextmanager
+def k5_forward(forward):
+    """Run K5's autograd Function with ``forward`` in place of its forward
+    (the Function looks ``_forward`` up at call time); its backward stays. For
+    the comparisons only: nothing on the main path runs under it."""
+    from replay_tpu_torch.ops import flash_tiled
+
+    saved = flash_tiled._forward
+    flash_tiled._forward = forward
+    try:
+        yield
+    finally:
+        flash_tiled._forward = saved
+
+
+def k5_plain(q, k, v, bias, causal):
+    """K5's plain version, in the inputs' dtype."""
+    from replay_tpu_torch.ops.flash_tiled import flash_attention_tiled_reference
+
+    return flash_attention_tiled_reference(q, k, v, bias, causal)
+
+
+def k5_scale_fault(q, k, v, bias, causal):
+    """A faulty K5, for the controls: the plain version with its softmax scale
+    off by ``SCALE_FAULT``."""
+    from replay_tpu_torch.ops.flash_tiled import flash_attention_tiled_reference
+
+    out, lse = flash_attention_tiled_reference(q.float() * SCALE_FAULT, k.float(), v.float(), bias, causal)
+    return out.to(q.dtype), lse
+
+
+def k5_bf16_scores_fault(q, k, v, bias, causal):
+    """A faulty K5, for the controls: the plain version with its scores
+    rounded to bf16 before the softmax, as the unfused route computes them."""
+    from replay_tpu_torch.ops.flash_tiled import NEG_INF
+
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = (torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale).to(torch.bfloat16).float()
+    s = s + bias.float()[:, None, None, :]
+    if causal:
+        positions = torch.arange(q.shape[2], device=q.device)
+        s = s.masked_fill(positions[None, :] > positions[:, None], NEG_INF)
+    row_max = s.amax(dim=-1, keepdim=True)
+    probs = torch.where(s <= NEG_INF / 2, 0.0, torch.exp(s - row_max))
+    denom = probs.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    out = torch.einsum("bhqk,bhkd->bhqd", probs, v.float()) / denom
+    lse = torch.where(row_max <= NEG_INF / 2, NEG_INF, row_max + torch.log(denom))[..., 0]
+    return out.to(q.dtype), lse
+
+
+# the comparisons of the long-sequence phase: (name, K5's forward or None for
+# the unfused route, is it a control)
+LONGSEQ_COMPARISONS = (
+    ("unfused", None, False),
+    ("k5_plain", k5_plain, False),
+    ("scale_fault", k5_scale_fault, True),
+    ("bf16_scores_fault", k5_bf16_scores_fault, True),
+)
+FAULTS = tuple(name for name, _, control in LONGSEQ_COMPARISONS if control)
+
+
+def check_readings(kind: str, readings: dict, limit: float, sound, caught) -> None:
+    """The comparisons in ``sound`` within ``limit``, the controls in ``caught`` outside it."""
+    for name in sound:
+        if readings[name] > limit:
+            raise AssertionError(f"longseq {kind}: the tiled route differs from {name} by {readings[name]} > {limit}")
+    for name in caught:
+        if readings[name] <= limit:
+            raise AssertionError(f"longseq {kind}: control {name} ({readings[name]}) passes the limit {limit}")
+
+
+def longseq_phase(device) -> dict:
+    """The long-sequence path at the sasrec_l1024_tiled width, bf16 compute:
+    training on K5 (and K1–K3), then serving on K5; each against the unfused
+    attention route and against K5's plain version in the same model, with two
+    faulty K5s as controls."""
+    from replay_tpu_torch.data import FeatureHint, FeatureType
+    from replay_tpu_torch.data.nn import TensorFeatureInfo, TensorSchema
+    from replay_tpu_torch.nn.loss import CEFused
+    from replay_tpu_torch.nn.sequential.sasrec import SasRec
+    from replay_tpu_torch.nn.train import OptimizerFactory, Trainer
+    from replay_tpu_torch.ops import fused_ce as fc
+    from replay_tpu_torch.ops.flash_attention import flash_attention
+    from replay_tpu_torch.ops.flash_tiled import flash_attention_tiled
+    from replay_tpu_torch.serve import ScoringEngine, make_window
+
+    schema = TensorSchema(
+        TensorFeatureInfo(
+            "item_id", FeatureType.CATEGORICAL, is_seq=True, feature_hint=FeatureHint.ITEM_ID,
+            cardinality=NUM_ITEMS, embedding_dim=LONG_DIM,
+        )
+    )
+    width = dict(
+        embedding_dim=LONG_DIM, num_blocks=LONG_BLOCKS, num_heads=LONG_HEADS,
+        max_sequence_length=LONG_LEN, dropout_rate=0.0, device=device,
+    )
+    optimizer = OptimizerFactory(name="adam", learning_rate=1e-3)
+    tiled_model = SasRec(schema, use_flash="tiled", generator=torch.Generator().manual_seed(SEED), **width)
+    initial = {name: value.detach().clone() for name, value in tiled_model.state_dict().items()}
+    tiled = Trainer(tiled_model, CEFused(), optimizer=optimizer, precision="bf16", device=device)
+    plain = Trainer(SasRec(schema, use_flash=False, **width), CEFused(), optimizer=optimizer, precision="bf16", device=device)
+    if tiled.model.dtype != torch.bfloat16 or plain.model.dtype != torch.bfloat16:
+        raise AssertionError("precision='bf16' did not reach the models")
+    batch = next_item_batch(LONG_BATCH, LONG_LEN)
+    counters = (flash_attention_tiled, fc.fused_lse_forward, fc.fused_lse_dh, fc.fused_lse_dw, flash_attention)
+
+    def losses(trainer, forward=None):
+        state = trainer.init_state(batch, params=initial)
+        values = []
+        with k5_forward(forward) if forward is not None else contextlib.nullcontext():
+            for _ in range(LONG_STEPS):
+                state, loss = trainer.train_step(state, batch)
+                values.append(loss)
+        torch.cuda.synchronize()
+        return state, [float(x) for x in values]
+
+    # the main path: counts start at 0 here and are read right after its steps
+    for counter in counters:
+        counter.launches = 0
+    tiled_state, tiled_losses = losses(tiled)
+    train_launches = {fn.__name__: fn.launches for fn in counters}
+    expected = {
+        "flash_attention_tiled": LONG_BLOCKS * LONG_STEPS, "fused_lse_forward": LONG_STEPS,
+        "fused_lse_dh": LONG_STEPS, "fused_lse_dw": LONG_STEPS, "flash_attention": 0,
+    }
+    if train_launches != expected:
+        raise AssertionError(f"longseq launches {train_launches}, expected {expected}")
+    if not tiled_losses[-1] < tiled_losses[0] or int(tiled_state.bad_steps):
+        raise AssertionError(f"longseq loss did not fall or steps were skipped: {tiled_losses}")
+    if tiled_state.flat_params.dtype != torch.float32:
+        raise AssertionError(f"master parameters are {tiled_state.flat_params.dtype}, not float32")
+
+    # the comparisons, from the same weights; none of them launches K4 or K5
+    other_losses, loss_err, plain_state = {}, {}, None
+    for name, forward, _ in LONGSEQ_COMPARISONS:
+        state, other_losses[name] = losses(plain if forward is None else tiled, forward)
+        if not all(math.isfinite(x) for x in other_losses[name]) or int(state.bad_steps):
+            raise AssertionError(f"longseq {name}: non-finite losses or skipped steps {other_losses[name]}")
+        loss_err[name] = max(abs(a - b) / abs(b) for a, b in zip(tiled_losses, other_losses[name]))
+        if forward is None:
+            plain_state = state
+    if flash_attention_tiled.launches != expected["flash_attention_tiled"] or flash_attention.launches:
+        raise AssertionError("a comparison run launched K4 or K5")
+    emit("longseq_check", part="train", loss_rel_err=loss_err, limit=LONGSEQ_LOSS_RTOL)
+    check_readings("train losses", loss_err, LONGSEQ_LOSS_RTOL, ("unfused", "k5_plain"), ("scale_fault",))
+
+    # the tiled model in f32 compute, from the same weights, on the training batch
+    ids = {"item_id": torch.as_tensor(batch["feature_tensors"]["item_id"], device=device)}
+    real = torch.as_tensor(batch["padding_mask"], device=device)
+    unfused_f32 = tiled_model.clone(use_flash=False).to(device)
+    f32_err = {}
+    with torch.no_grad():
+        hidden = tiled_model(ids, real)
+        for name, forward, _ in LONGSEQ_COMPARISONS:
+            if forward is None:
+                other = unfused_f32(ids, real)
+            else:
+                with k5_forward(forward):
+                    other = tiled_model(ids, real)
+            f32_err[name] = (hidden - other).abs().max().item()
+    emit("longseq_check", part="f32_hidden", max_abs_err=f32_err, limit=LONGSEQ_F32_TOL)
+    check_readings("f32 hidden states", f32_err, LONGSEQ_F32_TOL, ("unfused", "k5_plain"), FAULTS)
+
+    train_perf = {}
+    for name, trainer, state in (("tiled", tiled, tiled_state), ("unfused", plain, plain_state)):
+        _, train_perf[name] = trainer_perf(
+            trainer, state, batch, LONG_TIMED_STEPS, LONG_WARMUP_STEPS, LONG_PROFILED_STEPS, LONG_BATCH * LONG_LEN
+        )
+
+    # serving: the tiled bf16 model behind ScoringEngine; the comparisons run
+    # on engines of their own, so that the main engine's encodes are its own
+    served = SasRec(schema, use_flash="tiled", dtype=torch.bfloat16, generator=torch.Generator().manual_seed(SEED), **width)
+    unfused_served = SasRec(schema, use_flash=False, dtype=torch.bfloat16, **width)
+    params = served.state_dict()
+    buckets = dict(length_buckets=LONG_LENGTH_BUCKETS, batch_buckets=LONG_BATCH_BUCKETS, device=device)
+    engine = ScoringEngine(served, params, **buckets)
+    check_engine = ScoringEngine(served, params, **buckets)
+    unfused = ScoringEngine(unfused_served, params, **buckets)
+    rng = np.random.default_rng(SEED + 1)
+    # users' histories, their lengths drawn as bench_serve.py:1057 draws them
+    requests = [list(rng.integers(0, NUM_ITEMS, int(n))) for n in rng.integers(1, 2 * LONG_LEN, 80)]
+    by_length = {}
+    for history in requests:
+        window, mask, length = make_window(history, LONG_LEN)
+        lb = engine.route_length(length)
+        by_length.setdefault(lb, []).append((window[LONG_LEN - lb :], mask[LONG_LEN - lb :]))
+
+    # the main path: counts start at 0 here and are read at the end of the serving part
+    flash_attention_tiled.launches = 0
+    serve_max = {name: 0.0 for name, _, _ in LONGSEQ_COMPARISONS}
+    serve_sum, logit_count, top_checked = {name: 0.0 for name in serve_max}, 0, 0
+    for lb, rows in sorted(by_length.items()):
+        start = 0
+        for fill in (1, 5, 8, 32, 20):
+            chunk = rows[start : start + fill]
+            start += len(chunk)
+            if not chunk:
+                break
+            ids = np.stack([r[0] for r in chunk])
+            mask = np.stack([r[1] for r in chunk])
+            logits, hidden = engine.encode(lb, ids, mask)
+            if logits.shape != (len(chunk), NUM_ITEMS) or hidden.shape != (len(chunk), LONG_DIM):
+                raise AssertionError(f"longseq encode L={lb}: shapes {tuple(logits.shape)} {tuple(hidden.shape)}")
+            if logits.dtype != torch.float32 or hidden.dtype != torch.bfloat16:
+                raise AssertionError(f"longseq encode L={lb}: dtypes {logits.dtype} {hidden.dtype}")
+            if not (torch.isfinite(logits).all() and torch.isfinite(hidden.float()).all()):
+                raise AssertionError(f"longseq encode L={lb}: non-finite output")
+            logit_count += logits.numel()
+            for name, forward, _ in LONGSEQ_COMPARISONS:
+                if forward is None:
+                    want, _ = unfused.encode(lb, ids, mask)
+                else:
+                    with k5_forward(forward):
+                        want, _ = check_engine.encode(lb, ids, mask)
+                diff = (logits - want).abs()
+                serve_max[name] = max(serve_max[name], diff.max().item())
+                serve_sum[name] += diff.sum().item()
+                if name == "unfused":
+                    top_checked += pinned_top10(logits, want, LONGSEQ_SERVE_MAX_TOL)
+    serve_mean = {name: total / logit_count for name, total in serve_sum.items()}
+    emit(
+        "longseq_check", part="serve", logits_mean_abs_err=serve_mean, mean_limit=LONGSEQ_SERVE_MEAN_TOL,
+        logits_max_abs_err=serve_max, max_limit=LONGSEQ_SERVE_MAX_TOL,
+    )
+    check_readings("serving logits, mean", serve_mean, LONGSEQ_SERVE_MEAN_TOL, ("k5_plain",), FAULTS)
+    check_readings("serving logits, largest", serve_max, LONGSEQ_SERVE_MAX_TOL, ("unfused",), ())
+
+    latency = {}
+    for lb in LONG_LENGTH_BUCKETS:
+        for bucket in LONG_BATCH_BUCKETS:
+            windows = [make_window(requests[i % len(requests)], lb) for i in range(bucket)]
+            ids = np.stack([w[0] for w in windows])
+            mask = np.stack([w[1] for w in windows])
+            times = []
+            for _ in range(35):
+                t0 = time.perf_counter()
+                engine.encode(lb, ids, mask)
+                times.append((time.perf_counter() - t0) * 1e3)
+            times = sorted(times[5:])
+            record = {
+                "p50_ms": times[len(times) // 2],
+                "p99_ms": times[min(len(times) - 1, math.ceil(0.99 * len(times)) - 1)],
+                **device_time_per_encode(engine, lb, ids, mask, calls=10),
+            }
+            record["device_busy_share"] = record["device_ms"] / record["p50_ms"]
+            latency[f"L={lb},B={bucket}"] = record
+    serve_launches = flash_attention_tiled.launches
+    encode_calls = engine.stats()["encode_calls"]
+    if serve_launches != LONG_BLOCKS * encode_calls:
+        raise AssertionError(f"K5 serving launches {serve_launches} != {LONG_BLOCKS} x {encode_calls} encode calls")
+    emit(
+        "longseq", batch=LONG_BATCH, seq_len=LONG_LEN, items=NUM_ITEMS, embedding_dim=LONG_DIM,
+        blocks=LONG_BLOCKS, heads=LONG_HEADS, precision=tiled.precision.describe(), steps=LONG_STEPS,
+        train_launches=train_launches, tiled_losses=tiled_losses, other_losses=other_losses,
+        loss_rel_err=loss_err, loss_limit=LONGSEQ_LOSS_RTOL, f32_hidden_max_abs_err=f32_err,
+        f32_limit=LONGSEQ_F32_TOL, train_perf=train_perf,
+        serve_requests=len(requests), serve_encode_calls=encode_calls, serve_k5_launches=serve_launches,
+        serve_logits_mean_abs_err=serve_mean, serve_mean_limit=LONGSEQ_SERVE_MEAN_TOL,
+        serve_logits_max_abs_err=serve_max, serve_max_limit=LONGSEQ_SERVE_MAX_TOL, top10_ranks_checked=top_checked,
+        serve_stats=engine.stats(), serve_latency_ms=latency,
+    )
+    return {"train": train_launches, "serve": serve_launches}
 
 
 def main() -> int:
@@ -761,14 +1277,17 @@ def main() -> int:
         device=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
     )
 
-    for name, (seconds, report) in build.build_all(["flash_attention", "fused_ce"]).items():
+    for name, (seconds, report) in build.build_all(["flash_attention", "fused_ce", "flash_tiled"]).items():
         emit("build", kernel=name, seconds=seconds, ptxas=report.strip().splitlines())
 
     k4 = kernel_phase(device)
     fused = fused_ce_phase(device)
     flash_backward_check(device)
+    k5 = tiled_kernel_phase(device)[("longseq", torch.bfloat16)]
+    tiled_backward_check(device)
     served = serve_phase(device)
     trained = train_phase(device)
+    longseq = longseq_phase(device)
 
     kernels = [
         {
@@ -799,8 +1318,8 @@ def main() -> int:
                 "route": "cuda",
                 "source": "replay_tpu_torch/csrc/fused_ce.cu",
                 "replaces": f"replay_tpu/ops/fused_ce.py:{line}",
-                "launches": trained[name],
-                "launches_by_path": {"train": trained[name]},
+                "launches": trained[name] + longseq["train"][name],
+                "launches_by_path": {"train": trained[name], "longseq_train": longseq["train"][name]},
                 "max_abs_err": record["max_abs_err"],
                 "ms": record["ms"],
                 "plain_ms": record["plain_ms"],
@@ -811,6 +1330,26 @@ def main() -> int:
                 "shape": f"N={record['N']} E={record['E']} I={record['I']} {record['hidden_dtype']}",
             }
         )
+    kernels.append(
+        {
+            "name": "flash_attention_tiled",
+            "route": "cuda",
+            "source": "replay_tpu_torch/csrc/flash_tiled.cu",
+            "replaces": "replay_tpu/ops/flash_tiled.py:34",
+            "launches": longseq["train"]["flash_attention_tiled"] + longseq["serve"],
+            "launches_by_path": {
+                "longseq_train": longseq["train"]["flash_attention_tiled"], "longseq_serve": longseq["serve"],
+            },
+            "max_abs_err": k5["max_abs_err"],
+            "ms": k5["ms"],
+            "plain_ms": k5["plain_ms"],
+            "bound_ms": k5["bound_ms"],
+            "bound_by": k5["bound_by"],
+            "library_ms": k5["library_ms"],
+            "passed": True,
+            "shape": f"B={k5['B']} H={k5['H']} L={k5['L']} D={k5['D']} causal {k5['dtype']}",
+        }
+    )
     emit("kernels", kernels=[{k: r[k] for k in ("name", "launches", "passed")} for r in kernels])
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -12,8 +12,11 @@ same function beside it (:mod:`replay_tpu_torch.ops`). Entry points default to
 versions.
 
 Ported so far: SASRec serving through ``ScoringEngine`` on kernel K4 (fused
-attention), and SASRec training through ``nn.Trainer`` with ``CE`` or
-``CEFused`` on kernels K1–K3 (the fused catalog log-sum-exp and its
-gradients) and K4 with its gradient. Still to come, in ``ROADMAP.md``'s order:
-the long-sequence route on K5, the service, retrieval and the other models.
+attention); SASRec training through ``nn.Trainer`` with ``CE`` or ``CEFused``
+on kernels K1–K3 (the fused catalog log-sum-exp and its gradients) and K4 with
+its gradient; and the long-sequence route, ``SasRec(use_flash="tiled")`` on
+kernel K5 (length-tiled attention, no ``[B, 1, L, L]`` mask), for training and
+serving, with bf16 compute (``Trainer(precision="bf16")``, ``SasRec(dtype=...)``).
+Still to come, in ``ROADMAP.md``'s order: the service, retrieval and the other
+models.
 """

@@ -2,8 +2,9 @@
 
 Counterpart of ``replay_tpu/nn/agg.py``: ``SumAggregator`` and
 ``PositionAwareAggregator`` (scale by √d, add a learned positional table,
-dropout — the SASRec input block). ``ConcatAggregator`` comes with the models
-that use it.
+dropout — the SASRec input block), in the embeddings' dtype: the √d factor and
+the positional rows are cast to it first, as the JAX module casts them.
+``ConcatAggregator`` comes with the models that use it.
 """
 
 from __future__ import annotations
@@ -59,6 +60,8 @@ class PositionAwareAggregator(nn.Module):
                 f"{self.max_sequence_length}"
             )
             raise ValueError(msg)
-        scaled = total * math.sqrt(float(self.embedding_dim))
+        # a 0-dim CPU tensor, which a CUDA op reads as a scalar
+        factor = torch.tensor(math.sqrt(float(self.embedding_dim)), dtype=torch.float32).to(total.dtype)
+        scaled = total * factor
         out = scaled + self.positional_embedding[self.max_sequence_length - seq_len :].to(total.dtype)
         return F.dropout(out, self.dropout_rate, training=not deterministic)

@@ -1,33 +1,52 @@
 """Attention modules.
 
 Counterpart of ``replay_tpu/nn/attention.py``: ``dot_product_attention`` on the
-unfused route (scale and scores in ``q.dtype``) and on the ``use_flash=True``
-route (kernel K4, f32 inside, cast back to ``q.dtype``), and the standard
-``MultiHeadAttention`` with an additive [B, 1, L, L] mask. The projections are
-four ``Linear`` layers with bias named ``query``/``key``/``value``/``out``, as
-the flax module's four ``Dense`` — not ``nn.MultiheadAttention``'s fused
-``in_proj`` — so weights map one to one.
+unfused route (scale and scores in ``q.dtype``), on the ``use_flash=True``
+route (kernel K4, f32 inside, cast back to ``q.dtype``) and on the
+``use_flash="tiled"`` route (kernel K5, the long-sequence route: causal and
+key-padding structure rebuilt from the ``[B, L]`` padding mask, no
+``[B, 1, L, L]`` mask), and the standard ``MultiHeadAttention``. The
+projections are four ``Dense`` layers with bias named ``query``/``key``/
+``value``/``out``, as the flax module's four ``Dense`` — not
+``nn.MultiheadAttention``'s fused ``in_proj`` — so weights map one to one; they
+compute in the module's ``dtype``.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from replay_tpu_torch.nn.layers import Dense
 from replay_tpu_torch.nn.mask import require_ported_route
 from replay_tpu_torch.nn.utils import init_dense
 from replay_tpu_torch.ops.flash_attention import flash_attention
+from replay_tpu_torch.ops.flash_tiled import flash_attention_tiled, padding_mask_bias
 
 
 def dot_product_attention(
     q: torch.Tensor,  # [B, H, L, D]
     k: torch.Tensor,
     v: torch.Tensor,
-    mask: torch.Tensor,  # additive [B, 1 or H, L, L]
-    use_flash=False,  # False | True (kernel K4)
+    mask: Optional[torch.Tensor],  # additive [B, 1 or H, L, L]; None on the "tiled" route
+    use_flash=False,  # False | True (kernel K4) | "tiled" (kernel K5)
+    padding_mask: Optional[torch.Tensor] = None,  # [B, L] bool, required for "tiled"
+    causal: bool = True,
 ) -> torch.Tensor:
     require_ported_route(use_flash)
+    if use_flash == "tiled":
+        if padding_mask is None:
+            msg = "use_flash='tiled' needs the [B, L] padding_mask"
+            raise ValueError(msg)
+        if mask is not None:
+            # the tiled kernel rebuilds attention structure from (causal,
+            # padding) alone; a custom additive mask would be silently dropped
+            msg = "use_flash='tiled' cannot honor an additive mask; pass mask=None"
+            raise ValueError(msg)
+        return flash_attention_tiled(q, k, v, padding_mask_bias(padding_mask), causal).to(q.dtype)
     if use_flash:
         return flash_attention(q, k, v, mask).to(q.dtype)
     scale = 1.0 / torch.sqrt(torch.tensor(q.shape[-1], dtype=q.dtype, device=q.device))
@@ -36,10 +55,12 @@ def dot_product_attention(
 
 
 class MultiHeadAttention(nn.Module):
-    """Standard multi-head self-attention with an additive mask.
+    """Standard multi-head self-attention.
 
     ``use_flash=True`` routes through kernel K4
-    (:mod:`replay_tpu_torch.ops.flash_attention`)."""
+    (:mod:`replay_tpu_torch.ops.flash_attention`) with the additive mask;
+    ``use_flash="tiled"`` through kernel K5 (:mod:`replay_tpu_torch.ops.flash_tiled`),
+    which takes the raw ``padding_mask`` and ``causal`` flag instead."""
 
     def __init__(
         self,
@@ -47,6 +68,7 @@ class MultiHeadAttention(nn.Module):
         num_heads: int,
         dropout_rate: float = 0.0,
         use_flash=False,
+        dtype: torch.dtype = torch.float32,
     ) -> None:
         super().__init__()
         if embedding_dim % num_heads:
@@ -55,24 +77,32 @@ class MultiHeadAttention(nn.Module):
         self.num_heads = num_heads
         self.dropout_rate = dropout_rate
         self.use_flash = use_flash
-        self.query = nn.Linear(embedding_dim, embedding_dim)
-        self.key = nn.Linear(embedding_dim, embedding_dim)
-        self.value = nn.Linear(embedding_dim, embedding_dim)
-        self.out = nn.Linear(embedding_dim, embedding_dim)
+        self.query = Dense(embedding_dim, embedding_dim, dtype)
+        self.key = Dense(embedding_dim, embedding_dim, dtype)
+        self.value = Dense(embedding_dim, embedding_dim, dtype)
+        self.out = Dense(embedding_dim, embedding_dim, dtype)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         for dense in (self.query, self.key, self.value, self.out):
             init_dense(dense, generator)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor, deterministic: bool = True) -> torch.Tensor:
+    def forward(
+        self,
+        x: torch.Tensor,
+        mask: Optional[torch.Tensor],
+        deterministic: bool = True,
+        padding_mask: Optional[torch.Tensor] = None,
+        causal: bool = True,
+    ) -> torch.Tensor:
         *lead, dim = x.shape
         head_dim = dim // self.num_heads
 
-        def split(proj: nn.Linear) -> torch.Tensor:
+        def split(proj: Dense) -> torch.Tensor:
             return proj(x).reshape(*lead, self.num_heads, head_dim).transpose(-3, -2)
 
         out = dot_product_attention(
-            split(self.query), split(self.key), split(self.value), mask, use_flash=self.use_flash
+            split(self.query), split(self.key), split(self.value), mask, use_flash=self.use_flash,
+            padding_mask=padding_mask, causal=causal,
         )
         out = self.out(out.transpose(-3, -2).reshape(*lead, dim))
         return F.dropout(out, self.dropout_rate, training=not deterministic)

@@ -6,6 +6,9 @@ table of cardinality + 1 rows, the last one reserved for padding) and
 the item table without its padding row for weight-tying heads. Each embedder is
 registered as ``embedding_<feature>`` with its table as ``table``, the flax
 module's names, so ``state_dict`` keys map one to one onto the flax param tree.
+Lookups compute in ``dtype`` (the table is cast before the gather, as flax's
+``Embed`` does); ``get_item_weights()`` returns the f32 table itself, so
+full-catalog logits promote to f32.
 
 List, numerical and identity embedders are later slices and raise here.
 """
@@ -18,16 +21,19 @@ import torch
 from torch import nn
 
 from replay_tpu_torch.data.nn.schema import TensorFeatureInfo, TensorMap, TensorSchema
+from replay_tpu_torch.nn.layers import Embed
 
 
 class CategoricalEmbedding(nn.Module):
     """Embedding table with one extra row reserved for the padding id."""
 
-    def __init__(self, cardinality: int, embedding_dim: int, padding_value: int = 0) -> None:
+    def __init__(
+        self, cardinality: int, embedding_dim: int, padding_value: int = 0, dtype: torch.dtype = torch.float32
+    ) -> None:
         super().__init__()
         self.cardinality = cardinality
         self.padding_value = padding_value
-        self.table = nn.Embedding(cardinality + 1, embedding_dim)
+        self.table = Embed(cardinality + 1, embedding_dim, dtype)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -38,7 +44,8 @@ class CategoricalEmbedding(nn.Module):
         return self.table(ids)
 
     def item_weights(self) -> torch.Tensor:
-        """All non-padding rows of the table, aligned with item ids [0, cardinality).
+        """All non-padding rows of the table, aligned with item ids [0, cardinality),
+        in the parameters' dtype (f32) whatever the compute dtype.
 
         Requires ``padding_value == cardinality`` (the LAST table row is the
         padding row): any other padding value would make full-catalog logit
@@ -63,18 +70,20 @@ class SequenceEmbedding(nn.Module):
     :meth:`get_item_weights`.
     """
 
-    def __init__(self, schema: TensorSchema, excluded_features: tuple = ()) -> None:
+    def __init__(
+        self, schema: TensorSchema, excluded_features: tuple = (), dtype: torch.dtype = torch.float32
+    ) -> None:
         super().__init__()
         self.schema = schema
         self.feature_names = []
         for feature in schema.all_features:
             if feature.name in excluded_features:
                 continue
-            self.add_module(f"embedding_{feature.name}", self._make_embedder(feature))
+            self.add_module(f"embedding_{feature.name}", self._make_embedder(feature, dtype))
             self.feature_names.append(feature.name)
 
     @staticmethod
-    def _make_embedder(feature: TensorFeatureInfo) -> nn.Module:
+    def _make_embedder(feature: TensorFeatureInfo, dtype: torch.dtype) -> nn.Module:
         if not feature.is_cat or feature.is_list:
             msg = (
                 f"Feature '{feature.name}': only categorical (non-list) features are "
@@ -88,6 +97,7 @@ class SequenceEmbedding(nn.Module):
             cardinality=feature.cardinality,
             embedding_dim=feature.embedding_dim,
             padding_value=feature.padding_value,
+            dtype=dtype,
         )
 
     def embedder(self, name: str) -> CategoricalEmbedding:

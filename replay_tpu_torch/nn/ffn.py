@@ -3,7 +3,8 @@
 Counterpart of ``replay_tpu/nn/ffn.py::PointWiseFeedForward``, the SASRec
 position-wise block: dense → activation → dropout → dense → dropout → residual.
 The order is part of the parity contract: relu commutes with dropout's scaling,
-gelu does not. ``SwiGLU`` comes with the encoders that use it.
+gelu does not. Both dense layers compute in ``dtype`` (flax's compute dtype;
+parameters stay f32). ``SwiGLU`` comes with the encoders that use it.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from replay_tpu_torch.nn.layers import Dense
 from replay_tpu_torch.nn.utils import create_activation, init_dense
 
 
@@ -24,12 +26,13 @@ class PointWiseFeedForward(nn.Module):
         hidden_dim: int,
         dropout_rate: float = 0.0,
         activation: str = "gelu",
+        dtype: torch.dtype = torch.float32,
     ) -> None:
         super().__init__()
         self.dropout_rate = dropout_rate
         self.activation = create_activation(activation)
-        self.inner = nn.Linear(embedding_dim, hidden_dim)
-        self.outer = nn.Linear(hidden_dim, embedding_dim)
+        self.inner = Dense(embedding_dim, hidden_dim, dtype)
+        self.outer = Dense(hidden_dim, embedding_dim, dtype)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         init_dense(self.inner, generator)

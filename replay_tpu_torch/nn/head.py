@@ -2,7 +2,9 @@
 
 Counterpart of ``replay_tpu/nn/head.py::EmbeddingTyingHead``: dot-product scoring
 between hidden states and item embeddings with three shape dispatches,
-[B, *, E] x [I, E], [B, E] x [B, I, E] and [B, *, E] x [B, *, E].
+[B, *, E] x [I, E], [B, E] x [B, I, E] and [B, *, E] x [B, *, E]. Operands of
+two float types are promoted first, as ``jnp.einsum`` promotes them: bf16
+hidden states against the f32 item table give f32 scores.
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ class EmbeddingTyingHead:
     """Score hidden states against item embeddings by dot product."""
 
     def __call__(self, hidden: torch.Tensor, item_embeddings: torch.Tensor) -> torch.Tensor:
+        dtype = torch.promote_types(hidden.dtype, item_embeddings.dtype)
+        hidden, item_embeddings = hidden.to(dtype), item_embeddings.to(dtype)
         if item_embeddings.dim() == 2:
             # [B, *, E] x [I, E] -> [B, *, I] — full-catalog scoring
             return torch.einsum("...e,ie->...i", hidden, item_embeddings)

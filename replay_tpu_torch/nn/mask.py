@@ -6,7 +6,8 @@ attends to itself instead of producing NaNs). The additive mask uses ``-inf``
 during training and ``finfo(dtype).min`` at evaluation, so fully-masked softmax
 rows stay finite in eval.
 
-Masks are additive float tensors of shape [B, 1, L, L], broadcast over heads.
+Masks are additive float tensors of shape [B, 1, L, L], broadcast over heads;
+the long-sequence route (``use_flash="tiled"``) builds none.
 """
 
 from __future__ import annotations
@@ -56,10 +57,9 @@ def bidirectional_attention_mask(
 
 
 def require_ported_route(use_flash) -> None:
-    """Raise for the attention routes the port does not have yet."""
-    if use_flash in ("tiled", "ring"):
-        item = "the long-sequence route (K5)" if use_flash == "tiled" else "distributed training"
-        msg = f"use_flash={use_flash!r} is not ported yet: ROADMAP.md queue 1, {item}"
+    """Raise for the attention route the port does not have yet."""
+    if use_flash == "ring":
+        msg = "use_flash='ring' is not ported yet: ROADMAP.md queue 1, distributed training"
         raise NotImplementedError(msg)
 
 
@@ -70,13 +70,15 @@ def attention_mask_for_route(
     deterministic: bool = False,
     dtype: torch.dtype = torch.float32,
     segment_ids: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """The additive mask a model body hands its encoder.
+) -> Optional[torch.Tensor]:
+    """The additive mask a model body hands its encoder, route-aware.
 
-    The port has the unfused route (``use_flash=False``) and the single-block
-    kernel route (``use_flash=True``); both take the [B, 1, L, L] mask. The
-    ``"tiled"`` and ``"ring"`` routes, and packed rows (``segment_ids``), are
-    later slices of the port and raise here.
+    The unfused route (``use_flash=False``) and the single-block kernel route
+    (``use_flash=True``) take the [B, 1, L, L] mask. On the ``"tiled"`` route
+    kernel K5 rebuilds causal and key-padding structure from indices and the
+    [B, L] padding mask, so the [B, 1, L, L] tensor is not built: None. The
+    ``"ring"`` route and packed rows (``segment_ids``) are later slices of the
+    port and raise here.
     """
     if segment_ids is not None:
         msg = (
@@ -85,5 +87,7 @@ def attention_mask_for_route(
         )
         raise NotImplementedError(msg)
     require_ported_route(use_flash)
+    if use_flash == "tiled":
+        return None
     make_mask = causal_attention_mask if causal else bidirectional_attention_mask
     return make_mask(padding_mask, deterministic=deterministic, dtype=dtype)

@@ -11,6 +11,14 @@ table``, ``body.aggregator.positional_embedding``, ``body.encoder.block_<i>``,
 ``body.final_norm``), so :mod:`replay_tpu_torch.convert` maps weights one to
 one. Weights are drawn from an explicit ``torch.Generator`` on the CPU and then
 moved to ``device``, so one seed gives the same model on every device.
+
+``dtype`` is the compute dtype, as the flax modules' ``dtype`` field: with
+``torch.bfloat16`` the embeddings, projections, attention and LayerNorm outputs
+are bf16 while every parameter stays f32 (the precision ladder's bf16 rung,
+:mod:`replay_tpu_torch.nn.precision`). ``use_flash`` picks the attention route:
+``False`` (unfused, a ``[B, 1, L, L]`` mask), ``True`` (kernel K4, the same
+mask) or ``"tiled"`` (kernel K5, the long-sequence route: no ``[B, 1, L, L]``
+tensor at all).
 """
 
 from __future__ import annotations
@@ -25,9 +33,12 @@ from replay_tpu_torch.device import DeviceLike, resolve_device
 from replay_tpu_torch.nn.agg import PositionAwareAggregator
 from replay_tpu_torch.nn.embedding import SequenceEmbedding
 from replay_tpu_torch.nn.head import EmbeddingTyingHead
+from replay_tpu_torch.nn.layers import LayerNorm
 from replay_tpu_torch.nn.mask import attention_mask_for_route
 
-from .transformer import LAYER_NORM_EPS, SasRecTransformerLayer
+from .transformer import SasRecTransformerLayer
+
+ENCODER_TYPES = ("sasrec", "diff")
 
 
 class SasRecBody(nn.Module):
@@ -43,12 +54,28 @@ class SasRecBody(nn.Module):
         hidden_dim: Optional[int] = None,
         dropout_rate: float = 0.0,
         activation: str = "relu",  # the reference SASRec construction pins relu
-        use_flash=False,  # False | True (kernel K4)
+        encoder_type: str = "sasrec",
+        use_flash=False,  # False | True (kernel K4) | "tiled" (kernel K5, long L)
         excluded_features: tuple = (),
+        dtype: torch.dtype = torch.float32,
     ) -> None:
         super().__init__()
+        if encoder_type not in ENCODER_TYPES:
+            msg = f"Unknown encoder_type: {encoder_type}"
+            raise ValueError(msg)
+        if use_flash in ("tiled", "ring") and encoder_type != "sasrec":
+            # silently running full attention here would defeat the exact
+            # long-L regime those routes exist for
+            msg = (
+                f"use_flash={use_flash!r} supports encoder_type='sasrec' "
+                f"only; '{encoder_type}' would fall back to O(L^2) attention"
+            )
+            raise ValueError(msg)
+        if encoder_type == "diff":
+            msg = "encoder_type='diff' is not ported yet: ROADMAP.md queue 1, 'The rest of the SASRec family'"
+            raise NotImplementedError(msg)
         self.use_flash = use_flash
-        self.embedder = SequenceEmbedding(schema, excluded_features=excluded_features)
+        self.embedder = SequenceEmbedding(schema, excluded_features=excluded_features, dtype=dtype)
         self.aggregator = PositionAwareAggregator(embedding_dim, max_sequence_length, dropout_rate)
         self.encoder = SasRecTransformerLayer(
             embedding_dim,
@@ -58,8 +85,9 @@ class SasRecBody(nn.Module):
             dropout_rate=dropout_rate,
             activation=activation,
             use_flash=use_flash,
+            dtype=dtype,
         )
-        self.final_norm = nn.LayerNorm(embedding_dim, eps=LAYER_NORM_EPS)
+        self.final_norm = LayerNorm(embedding_dim, dtype)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.embedder.reset_parameters(generator)
@@ -100,8 +128,10 @@ class SasRec(nn.Module):
         hidden_dim: Optional[int] = None,
         dropout_rate: float = 0.0,
         activation: str = "relu",
-        use_flash=False,  # False | True (kernel K4)
+        encoder_type: str = "sasrec",
+        use_flash=False,  # False | True (kernel K4) | "tiled" (kernel K5, long L)
         excluded_features: tuple = (),
+        dtype: torch.dtype = torch.float32,  # compute dtype; parameters stay f32
         device: DeviceLike = "cuda",
         generator: Optional[torch.Generator] = None,
     ) -> None:
@@ -110,8 +140,9 @@ class SasRec(nn.Module):
         self.embedding_dim = embedding_dim
         self.num_blocks = num_blocks
         self.max_sequence_length = max_sequence_length
-        self.body = SasRecBody(
-            schema,
+        self.use_flash = use_flash
+        self.dtype = dtype
+        config = dict(
             embedding_dim=embedding_dim,
             num_blocks=num_blocks,
             num_heads=num_heads,
@@ -119,12 +150,24 @@ class SasRec(nn.Module):
             hidden_dim=hidden_dim,
             dropout_rate=dropout_rate,
             activation=activation,
+            encoder_type=encoder_type,
             use_flash=use_flash,
             excluded_features=excluded_features,
+            dtype=dtype,
         )
+        # what clone() rebuilds the model from
+        self._config = dict(schema=schema, device=device, **config)
+        self.body = SasRecBody(schema, **config)
         self.head = EmbeddingTyingHead()
         self.body.reset_parameters(generator if generator is not None else torch.Generator().manual_seed(0))
         self.to(device)
+
+    def clone(self, **changes) -> "SasRec":
+        """A copy with some constructor arguments changed (flax's ``Module.clone``)
+        and this model's current weights, e.g. ``clone(dtype=torch.bfloat16)``."""
+        twin = SasRec(**{**self._config, **changes})
+        twin.load_state_dict(self.state_dict())
+        return twin
 
     def forward(
         self,
@@ -133,7 +176,7 @@ class SasRec(nn.Module):
         deterministic: bool = True,
         segment_ids: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
-        """Hidden states [B, L, E]."""
+        """Hidden states [B, L, E], in the compute ``dtype``."""
         return self.body(
             feature_tensors, padding_mask, deterministic=deterministic, segment_ids=segment_ids
         )
@@ -169,5 +212,5 @@ class SasRec(nn.Module):
         return self.body(feature_tensors, padding_mask, deterministic=True)[:, -1, :]
 
     def get_item_weights(self) -> torch.Tensor:
-        """Item-embedding table [num_items, E]."""
+        """Item-embedding table [num_items, E], f32 whatever the compute dtype."""
         return self.body.embedder.get_item_weights()

@@ -3,19 +3,22 @@
 Counterpart of ``replay_tpu/nn/sequential/sasrec/transformer.py``: ``_SasRecBlock``
 (pre-LN multi-head attention + point-wise FFN) and ``SasRecTransformerLayer`` (N
 such blocks, each output multiplied by the padding ``keep`` mask). LayerNorm
-epsilon is flax's 1e-6, not torch's default 1e-5. ``remat`` and ``scan_blocks``
-come with the training slice; the differential-transformer encoder later still.
+epsilon is flax's 1e-6, not torch's default 1e-5. Every block computes in the
+stack's ``dtype`` and receives the ``[B, L]`` padding mask and the causal flag
+on every route: the ``"tiled"`` route builds its mask from them. ``remat``,
+``scan_blocks`` and the differential-transformer encoder are later slices.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
 
 from replay_tpu_torch.nn.attention import MultiHeadAttention
 from replay_tpu_torch.nn.ffn import PointWiseFeedForward
-
-LAYER_NORM_EPS = 1e-6  # flax nn.LayerNorm's default
+from replay_tpu_torch.nn.layers import LayerNorm
 
 
 class _SasRecBlock(nn.Module):
@@ -29,15 +32,16 @@ class _SasRecBlock(nn.Module):
         dropout_rate: float = 0.0,
         activation: str = "gelu",
         use_flash=False,
+        dtype: torch.dtype = torch.float32,
     ) -> None:
         super().__init__()
-        self.attn_norm = nn.LayerNorm(embedding_dim, eps=LAYER_NORM_EPS)
+        self.attn_norm = LayerNorm(embedding_dim, dtype)
         self.attention = MultiHeadAttention(
-            embedding_dim, num_heads, dropout_rate=dropout_rate, use_flash=use_flash
+            embedding_dim, num_heads, dropout_rate=dropout_rate, use_flash=use_flash, dtype=dtype
         )
-        self.ffn_norm = nn.LayerNorm(embedding_dim, eps=LAYER_NORM_EPS)
+        self.ffn_norm = LayerNorm(embedding_dim, dtype)
         self.ffn = PointWiseFeedForward(
-            embedding_dim, hidden_dim, dropout_rate=dropout_rate, activation=activation
+            embedding_dim, hidden_dim, dropout_rate=dropout_rate, activation=activation, dtype=dtype
         )
 
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -46,8 +50,11 @@ class _SasRecBlock(nn.Module):
         self.ffn_norm.reset_parameters()
         self.ffn.reset_parameters(generator)
 
-    def forward(self, x, attention_mask, keep, deterministic: bool = True):
-        x = x + self.attention(self.attn_norm(x), attention_mask, deterministic=deterministic)
+    def forward(self, x, attention_mask, keep, deterministic: bool = True, padding_mask=None, causal: bool = True):
+        x = x + self.attention(
+            self.attn_norm(x), attention_mask, deterministic=deterministic,
+            padding_mask=padding_mask, causal=causal,
+        )
         x = self.ffn(self.ffn_norm(x), deterministic=deterministic)
         return x * keep
 
@@ -64,6 +71,7 @@ class SasRecTransformerLayer(nn.Module):
         dropout_rate: float = 0.0,
         activation: str = "gelu",
         use_flash=False,
+        dtype: torch.dtype = torch.float32,
     ) -> None:
         super().__init__()
         self.num_blocks = num_blocks
@@ -72,7 +80,7 @@ class SasRecTransformerLayer(nn.Module):
                 f"block_{i}",
                 _SasRecBlock(
                     embedding_dim, num_heads, hidden_dim, dropout_rate=dropout_rate,
-                    activation=activation, use_flash=use_flash,
+                    activation=activation, use_flash=use_flash, dtype=dtype,
                 ),
             )
 
@@ -86,11 +94,12 @@ class SasRecTransformerLayer(nn.Module):
     def forward(
         self,
         x: torch.Tensor,
-        attention_mask: torch.Tensor,
+        attention_mask: Optional[torch.Tensor],  # None on the "tiled" route
         padding_mask: torch.Tensor,
         deterministic: bool = True,
+        causal: bool = True,
     ) -> torch.Tensor:
         keep = padding_mask[..., None].to(x.dtype)
         for block in self.blocks():
-            x = block(x, attention_mask, keep, deterministic)
+            x = block(x, attention_mask, keep, deterministic, padding_mask, causal)
         return x

@@ -2,9 +2,11 @@
 
 Counterpart of ``replay_tpu/nn/train.py`` on one device. The JAX trainer jits
 one SPMD program over a mesh; here PyTorch runs eagerly on one card, and the
-mesh, sharding, remat, precision, scan and the production features of ``fit``
+mesh, sharding, remat, scan and the production features of ``fit``
 (checkpoints, recovery, loggers, tracing, health) are later slices
-(``ROADMAP.md`` queue 1).
+(``ROADMAP.md`` queue 1). ``precision="bf16"`` is the JAX trainer's: the model
+computes in bf16 while the flat parameter buffer, the optimizer state and the
+sentinel stay f32 (:mod:`replay_tpu_torch.nn.precision`).
 
 What carries over exactly:
 
@@ -42,6 +44,7 @@ from torch import nn
 
 from replay_tpu_torch.device import DeviceLike, resolve_device, to_device
 from replay_tpu_torch.metrics.builder import MetricsBuilder
+from replay_tpu_torch.nn.precision import Precision
 
 logger = logging.getLogger("replay_tpu_torch")
 
@@ -349,6 +352,12 @@ class Trainer:
         ``logits_callback`` is bound per step to the model's ``get_logits``.
     :param optimizer: optimizer factory (default Adam 1e-3).
     :param seed: seeds the CPU generator that seeds each step's dropout.
+    :param precision: mixed-precision rung, ``"bf16"`` / ``"f32"`` / a
+        :class:`~replay_tpu_torch.nn.precision.Precision`. Applied at
+        construction: the model is cloned with its compute ``dtype`` set to the
+        rung's (its parameters, and so the optimizer state, stay f32), and
+        loss-consumed logits are up-cast to the rung's f32 accumulation dtype.
+        ``None`` (default) changes nothing.
     :param device: ``"cuda"`` by default; raises without a card unless given
         ``"cpu"``. The model is moved there.
     :param label_field / mask fields: batch keys, as in the JAX trainer.
@@ -362,6 +371,7 @@ class Trainer:
     label_field: str = "positive_labels"
     target_mask_field: str = "target_padding_mask"
     negative_field: str = "negative_labels"
+    precision: Optional[Any] = None
     device: DeviceLike = "cuda"
 
     def __post_init__(self) -> None:
@@ -378,6 +388,9 @@ class Trainer:
                 )
                 raise ValueError(msg)
             self.loss = loss_zoo.CE()
+        self.precision = Precision.resolve(self.precision)
+        if self.precision is not None:
+            self.model = self.precision.apply_to_model(self.model)
         self.device = resolve_device(self.device)
         self.model.to(self.device)
         self._tx = self.optimizer.create()
@@ -474,6 +487,11 @@ class Trainer:
             kwargs["deterministic"] = False
         hidden = model(**kwargs)
         loss.logits_callback = model.get_logits
+        if self.precision is not None and self.precision.casts_logits:
+            # f32 loss accumulation under a narrow compute dtype: candidate-
+            # shaped logits are a bf16 x bf16 product (full-catalog logits
+            # already promote through the f32 item table)
+            loss.logits_callback = self.precision.wrap_logits_callback(model.get_logits)
         if getattr(loss, "needs_item_embeddings", False):
             loss.item_embeddings_callback = model.get_item_weights
         return loss(

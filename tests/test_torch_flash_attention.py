@@ -110,7 +110,19 @@ def test_cpu_path_launches_nothing():
 
 @pytest.mark.parametrize("route", ["tiled", "ring", "segment_ids"])
 def test_routes_not_ported_yet_raise(route):
+    """"ring" and packed rows are not ported and raise. "tiled" is ported (K5)
+    and behaves as the JAX route: no additive mask is built, and the route
+    refuses a missing padding mask or an additive mask it would drop."""
     padding = torch.tensor(_padding(9))
+    if route == "tiled":
+        assert torch_mask.attention_mask_for_route("tiled", padding) is None
+        assert jax_mask.attention_mask_for_route("tiled", jnp.asarray(padding.numpy())) is None
+        q, k, v = (torch.tensor(t) for t in _qkv(10))
+        with pytest.raises(ValueError, match="padding_mask"):
+            dot_product_attention(q, k, v, None, use_flash="tiled")
+        with pytest.raises(ValueError, match="additive mask"):
+            dot_product_attention(q, k, v, torch.zeros(B, 1, L, L), use_flash="tiled", padding_mask=padding)
+        return
     use_flash = False if route == "segment_ids" else route
     segment_ids = padding.long() if route == "segment_ids" else None
     with pytest.raises(NotImplementedError, match="not ported yet: ROADMAP.md queue 1"):

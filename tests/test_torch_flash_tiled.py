@@ -1,0 +1,184 @@
+"""Kernel K5 of the PyTorch port against the JAX package's tiled Pallas kernel.
+
+On the CPU the port's ``flash_attention_tiled`` is its plain version (the whole
+``[B, H, L, L]`` scores in f32) and its backward the torch-ops loop over key
+blocks; the JAX side runs the Pallas kernel in interpret mode and its
+``custom_vjp`` backward, as ``tests/ops/test_flash_tiled.py`` does. Inputs come
+from numpy with a seed and go through both.
+
+Tolerances: outputs and lse rtol/atol 2e-5 and gradients rtol 2e-4 / atol 2e-5,
+the JAX test's own (f32 in another summation order: one pass against an online
+softmax over blocks); bf16 inputs one bf16 ulp (2**-7), since both sides compute
+in f32 and round the output once; the backward under another ``block_k`` within
+rtol 1e-5 / atol 1e-6, the same f32 terms summed in another grouping.
+
+The CUDA kernel itself is tested on the card in ``test_torch_kernels_cuda.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from replay_tpu.ops import flash_tiled as jax_tiled
+from replay_tpu_torch.ops import flash_tiled
+from replay_tpu_torch.ops.flash_tiled import (
+    NEG_INF,
+    flash_attention_tiled,
+    flash_attention_tiled_backward,
+    flash_attention_tiled_reference,
+    padding_mask_bias,
+)
+
+SHAPES = [
+    (2, 2, 16, 8, 8),  # multiple blocks, exact division
+    (1, 1, 23, 8, 8),  # ragged: L % block != 0
+    (2, 1, 7, 4, 16),  # single block bigger than L
+    (1, 2, 65, 16, 32),  # ragged again, larger dim
+]
+
+
+def _inputs(batch, heads, length, dim, seed, min_length=1):
+    """q, k, v from a seeded normal and a [B, L] padding mask (right-padded, as
+    the JAX test's)."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.normal(size=(batch, heads, length, dim)).astype(np.float32) for _ in range(3))
+    lengths = rng.integers(min_length, length + 1, batch)
+    return q, k, v, np.arange(length)[None, :] < lengths[:, None]
+
+
+def test_padding_mask_bias_matches_jax():
+    mask = np.array([[True, False, True], [False, False, False]])
+    np.testing.assert_array_equal(
+        padding_mask_bias(torch.tensor(mask)).numpy(), np.asarray(jax_tiled.padding_mask_bias(jnp.asarray(mask)))
+    )
+    assert NEG_INF == jax_tiled.NEG_INF
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("batch,heads,length,dim,block", SHAPES)
+def test_matches_the_pallas_kernel(batch, heads, length, dim, block, causal):
+    q, k, v, mask = _inputs(batch, heads, length, dim, 0)
+    bias = np.asarray(jax_tiled.padding_mask_bias(jnp.asarray(mask)))
+    want_out, want_lse = jax_tiled._forward(
+        *(jnp.asarray(t) for t in (q, k, v, bias)), causal, block, block, True
+    )
+    got = flash_attention_tiled(*(torch.tensor(t) for t in (q, k, v, bias)), causal, block, block)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want_out), rtol=2e-5, atol=2e-5)
+    _, lse = flash_attention_tiled_reference(*(torch.tensor(t) for t in (q, k, v, bias)), causal)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), rtol=2e-5, atol=2e-5)
+
+
+def test_all_padded_batch_row_is_zero_and_finite():
+    q = torch.ones((2, 1, 8, 4))
+    mask = torch.tensor([[False] * 8, [True] * 8])  # row 0: nothing valid
+    for causal in (True, False):
+        out, lse = flash_attention_tiled_reference(q, q, q, padding_mask_bias(mask), causal)
+        assert torch.isfinite(out).all()
+        assert torch.equal(out[0], torch.zeros_like(out[0]))
+        assert torch.equal(lse[0], torch.full_like(lse[0], NEG_INF))
+    want = jax_tiled.flash_attention_tiled(
+        jnp.ones((2, 1, 8, 4)), jnp.ones((2, 1, 8, 4)), jnp.ones((2, 1, 8, 4)),
+        jax_tiled.padding_mask_bias(jnp.asarray(mask.numpy())), True, 4, 4, True,
+    )
+    np.testing.assert_array_equal(np.asarray(want)[0], 0.0)
+
+
+def _grads_both(q, k, v, bias, g, causal, block):
+    """q, k, v and kv_bias gradients of sum(out * g) through the port and
+    through the JAX custom VJP."""
+
+    def jax_objective(qq, kk, vv, bb):
+        return jnp.sum(jax_tiled.flash_attention_tiled(qq, kk, vv, bb, causal, block, block, True) * g)
+
+    want = jax.grad(jax_objective, argnums=(0, 1, 2, 3))(*(jnp.asarray(t) for t in (q, k, v, bias)))
+    leaves = [torch.tensor(t).requires_grad_() for t in (q, k, v, bias)]
+    out = flash_attention_tiled(*leaves, causal, block, block)
+    torch.sum(out * torch.tensor(g)).backward()
+    return [t.grad.numpy() for t in leaves], [np.asarray(w) for w in want]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_gradients_match_the_jax_custom_vjp(causal):
+    """dq, dk, dv and dbias: the JAX test's shape, left-padded rows included."""
+    q, k, v, mask = _inputs(2, 2, 19, 8, 1, min_length=2)
+    bias = np.asarray(jax_tiled.padding_mask_bias(jnp.asarray(mask)))
+    g = np.random.default_rng(2).normal(size=q.shape).astype(np.float32)
+    got, want = _grads_both(q, k, v, bias, g, causal, 8)
+    for a, b, name in zip(got, want, ("q", "k", "v", "bias")):
+        assert np.isfinite(a).all(), name
+        np.testing.assert_allclose(a, b, rtol=2e-4, atol=2e-5, err_msg=name)
+
+
+def test_gradients_match_autograd_through_the_plain_version():
+    """The torch-ops backward against autograd through the dense plain version."""
+    q, k, v, mask = _inputs(2, 2, 21, 8, 3, min_length=2)
+    leaves = [torch.tensor(t).requires_grad_() for t in (q, k, v)]
+    bias = padding_mask_bias(torch.tensor(mask)).requires_grad_()
+    g = torch.tensor(np.random.default_rng(4).normal(size=q.shape).astype(np.float32))
+    torch.sum(flash_attention_tiled(*leaves, bias, True, 8, 8) * g).backward()
+    plain = [t.detach().clone().requires_grad_() for t in (*leaves, bias)]
+    torch.sum(flash_attention_tiled_reference(*plain, True)[0] * g).backward()
+    for a, b in zip((*leaves, bias), plain):
+        np.testing.assert_allclose(a.grad.numpy(), b.grad.numpy(), rtol=2e-4, atol=2e-5)
+
+
+def test_bf16_inputs_keep_their_dtype():
+    q, k, v, mask = _inputs(2, 2, 37, 16, 5)
+    bias = np.asarray(jax_tiled.padding_mask_bias(jnp.asarray(mask)))
+    want = jax_tiled.flash_attention_tiled(
+        *(jnp.asarray(t).astype(jnp.bfloat16) for t in (q, k, v)), jnp.asarray(bias), True, 16, 16, True
+    )
+    got = flash_attention_tiled(*(torch.tensor(t).to(torch.bfloat16) for t in (q, k, v)), torch.tensor(bias))
+    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    # one ulp of bf16 (8 significant bits) at the outputs' magnitude
+    np.testing.assert_allclose(
+        got.float().numpy(), np.asarray(want.astype(jnp.float32)), rtol=2**-7, atol=2**-7
+    )
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_backward_does_not_depend_on_block_k(causal):
+    q, k, v, mask = _inputs(2, 2, 29, 8, 6, min_length=3)
+    tq, tk, tv = (torch.tensor(t) for t in (q, k, v))
+    bias = padding_mask_bias(torch.tensor(mask))
+    g = torch.tensor(np.random.default_rng(7).normal(size=q.shape).astype(np.float32))
+    out, lse = flash_attention_tiled_reference(tq, tk, tv, bias, causal)
+    whole = flash_attention_tiled_backward(tq, tk, tv, bias, out, lse, g, causal, block_k=29)
+    for block_k in (1, 4, 8, 13, 256):
+        blocked = flash_attention_tiled_backward(tq, tk, tv, bias, out, lse, g, causal, block_k=block_k)
+        for a, b in zip(blocked, whole):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_backward_without_bias_gradient_gives_the_same_dq_dk_dv(causal):
+    """The training path's padding bias needs no gradient: the backward then
+    skips the dbias reduction and returns the same dq, dk, dv."""
+    q, k, v, mask = _inputs(2, 2, 21, 8, 9, min_length=2)
+    tq, tk, tv = (torch.tensor(t) for t in (q, k, v))
+    bias = padding_mask_bias(torch.tensor(mask))
+    g = torch.tensor(np.random.default_rng(3).normal(size=q.shape).astype(np.float32))
+    out, lse = flash_attention_tiled_reference(tq, tk, tv, bias, causal)
+    full = flash_attention_tiled_backward(tq, tk, tv, bias, out, lse, g, causal, block_k=8)
+    no_bias = flash_attention_tiled_backward(tq, tk, tv, bias, out, lse, g, causal, block_k=8, bias_grad=False)
+    assert full[3] is not None and no_bias[3] is None
+    for a, b in zip(no_bias[:3], full[:3]):
+        assert torch.equal(a, b)
+
+
+def test_wrapper_output_carries_a_gradient_and_launches_nothing_on_the_cpu():
+    q, k, v, mask = _inputs(1, 2, 9, 4, 8)
+    leaves = [torch.tensor(t).requires_grad_() for t in (q, k, v)]
+    bias = padding_mask_bias(torch.tensor(mask))
+    before = flash_attention_tiled.launches
+    out = flash_attention_tiled(*leaves, bias)
+    assert flash_attention_tiled.launches == before
+    assert out.grad_fn is not None and "FlashAttentionTiled" in type(out.grad_fn).__name__
+    out.sum().backward()
+    assert all(t.grad is not None for t in leaves) and bias.grad is None
+    with pytest.raises(ValueError, match="positive"):
+        flash_attention_tiled(*leaves, bias, block_k=0)
+    assert flash_tiled.KERNEL == "flash_tiled"

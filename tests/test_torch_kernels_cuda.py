@@ -12,7 +12,9 @@ Tolerances (max abs error against the plain version, f32 result): K4 f32
 own rounding (half an ulp is 1.6e-2 below 8). K1 1e-4 absolute on an lse of
 about 5 to 10, K2 and K3 1e-4 of the output's largest magnitude: f32 products
 summed in another order (a bf16 dh adds its rounding, 2**-8 of the largest).
-K4's gradient 1e-4: the same f32 recompute by other formulas.
+K4's gradient 1e-4: the same f32 recompute by other formulas. K5 (max abs
+error against its plain version): out f32 1e-5 and bf16 2e-2 as K4's; lse rtol
+1e-5 / atol 1e-5 (f32, about log L plus the row max); its gradient 1e-4 of the largest magnitude (dbias sums over queries).
 """
 
 import numpy as np
@@ -27,6 +29,13 @@ from replay_tpu_torch.nn.sequential.sasrec import SasRec
 from replay_tpu_torch.nn.train import Trainer
 from replay_tpu_torch.ops import fused_ce
 from replay_tpu_torch.ops.flash_attention import flash_attention, flash_attention_reference
+from replay_tpu_torch.ops.flash_tiled import (
+    NEG_INF,
+    flash_attention_tiled,
+    flash_attention_tiled_reference,
+    padding_mask_bias,
+)
+from replay_tpu_torch.ops import flash_tiled
 from replay_tpu_torch.serve import ScoringEngine, make_window
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
@@ -275,3 +284,173 @@ def test_training_on_the_card_reaches_every_attention_projection(cuda_device):
     assert flash_attention.launches == launches + 2 and torch.isfinite(value)
     for name in projections:
         assert not torch.equal(state.params[name], before[name]), name
+
+
+# --------------------------------------------------------------------------- #
+# K5: the length-tiled kernel
+# --------------------------------------------------------------------------- #
+def _tiled_case(batch, heads, length, dim, dtype, device, seed, dead_row=True):
+    """q, k, v from a seeded normal; kv_bias from a left-padded mask with, if
+    asked, one fully padded row."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (
+        torch.tensor(rng.normal(size=(batch, heads, length, dim)).astype(np.float32)).to(device, dtype)
+        for _ in range(3)
+    )
+    lengths = rng.integers(1, length + 1, batch)
+    if dead_row:
+        lengths[-1] = 0
+    padding = torch.tensor(np.arange(length)[None, :] >= length - lengths[:, None], device=device)
+    return q, k, v, padding_mask_bias(padding), padding
+
+
+@pytest.mark.parametrize(
+    "batch,heads,length,dim",
+    [(32, 2, 1024, 64), (2, 2, 1000, 64), (3, 2, 37, 256), (2, 1, 5, 16), (2, 3, 130, 100)],
+    ids=["slice", "ragged", "dim_256", "tiny", "dim_100"],
+)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_tiled_matches_plain_version(cuda_device, batch, heads, length, dim, dtype, causal):
+    q, k, v, bias, padding = _tiled_case(batch, heads, length, dim, dtype, cuda_device, length + dim)
+    before = flash_attention_tiled.launches
+    out, lse = flash_tiled._launch(q, k, v, bias, causal)
+    torch.cuda.synchronize()
+    assert flash_attention_tiled.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape and lse.shape == q.shape[:3]
+    want, want_lse = flash_attention_tiled_reference(q.float(), k.float(), v.float(), bias, causal)
+    assert torch.isfinite(out.float()).all() and torch.isfinite(lse).all()
+    assert (out.float() - want).abs().max().item() <= TOL[dtype]
+    assert torch.allclose(lse, want_lse, rtol=1e-5, atol=1e-5)
+    # the fully padded row: exactly 0, lse at the mask
+    assert torch.equal(out[-1].float(), torch.zeros_like(out[-1].float()))
+    assert torch.equal(lse[-1], torch.full_like(lse[-1], NEG_INF))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_tiled_skips_padding_tiles_exactly(cuda_device, dtype, causal):
+    """Key tiles whose every key is padding are skipped: masks with such tiles
+    at the start, in the middle and at the end of a row, and a row whose only
+    valid keys sit after a padded tile, match the plain version."""
+    q, k, v, _, _ = _tiled_case(3, 2, 300, 64, dtype, cuda_device, 16, dead_row=False)
+    padding = torch.ones(3, 300, dtype=torch.bool, device=cuda_device)
+    padding[0, :128] = False  # two whole tiles at the start
+    padding[1, 64:192] = False  # two whole tiles in the middle
+    padding[1, 256:] = False  # the ragged last tile
+    padding[2, :250] = False  # only the last 50 keys are real
+    bias = padding_mask_bias(padding)
+    got, lse = flash_tiled._launch(q, k, v, bias, causal)
+    want, want_lse = flash_attention_tiled_reference(q.float(), k.float(), v.float(), bias, causal)
+    assert (got.float() - want).abs().max().item() <= TOL[dtype]
+    assert torch.allclose(lse, want_lse, rtol=1e-5, atol=1e-5)
+
+
+def test_flash_tiled_long_rows(cuda_device):
+    """bench_suite.py's attention_long shape: B=4, H=4, L=4096, D=64, causal, no padding."""
+    q, k, v, bias, _ = _tiled_case(4, 4, 4096, 64, torch.float32, cuda_device, 9, dead_row=False)
+    bias = torch.zeros_like(bias)
+    got = flash_attention_tiled(q, k, v, bias)
+    want, _ = flash_attention_tiled_reference(q, k, v, bias)
+    assert (got - want).abs().max().item() <= TOL[torch.float32]
+    # causal row 0 attends only to itself
+    assert torch.allclose(got[:, :, 0], v[:, :, 0])
+
+
+def test_flash_tiled_takes_head_split_views(cuda_device):
+    x = torch.randn(4, 20, 3, 16, device=cuda_device)  # [B, L, H, D]
+    q = x.transpose(1, 2)
+    assert not q.is_contiguous()
+    bias = torch.zeros(4, 20, device=cuda_device)
+    got = flash_attention_tiled(q, q, q, bias)
+    want, _ = flash_attention_tiled_reference(q, q, q, bias)
+    assert (got - want).abs().max().item() <= TOL[torch.float32]
+
+
+def test_flash_tiled_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
+    q = torch.randn(2, 1, 8, 16, device=cuda_device)
+    bias = torch.zeros(2, 8, device=cuda_device)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        flash_attention_tiled(q, q, q, bias.cpu())
+    with pytest.raises(TypeError, match="dtype"):
+        flash_attention_tiled(q.half(), q.half(), q.half(), bias)
+    wide = torch.randn(2, 1, 8, 512, device=cuda_device)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_tiled(wide, wide, wide, bias)
+    with pytest.raises(ValueError, match="kv_bias"):
+        flash_attention_tiled(q, q, q, bias[:, :4])
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_tiled_gradient_matches_autograd_through_the_plain_version(cuda_device, causal):
+    """At the slice's shape, B=32, H=2, L=1024, D=64, f32, with padded rows."""
+    q, k, v, bias, _ = _tiled_case(32, 2, 1024, 64, torch.float32, cuda_device, 10)
+    g = torch.randn(q.shape, device=cuda_device, generator=torch.Generator(cuda_device).manual_seed(11))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v, bias)]
+    before = flash_attention_tiled.launches
+    out = flash_attention_tiled(*leaves, causal)
+    assert flash_attention_tiled.launches == before + 1 and out.grad_fn is not None
+    torch.sum(out * g).backward()
+    plain = [t.clone().requires_grad_() for t in (q, k, v, bias)]
+    torch.sum(flash_attention_tiled_reference(*plain, causal)[0] * g).backward()
+    for a, b in zip(leaves, plain):
+        assert torch.isfinite(a.grad).all()
+        # 1e-4 of the largest magnitude (at least 1e-4): dbias sums over 1024 queries and 2 heads
+        assert (a.grad - b.grad).abs().max().item() <= 1e-4 * max(1.0, b.grad.abs().max().item())
+
+
+def _long_schema():
+    return TensorSchema(
+        TensorFeatureInfo(
+            "item_id", FeatureType.CATEGORICAL, is_seq=True,
+            feature_hint=FeatureHint.ITEM_ID, cardinality=300, embedding_dim=32,
+        )
+    )
+
+
+def test_bf16_training_on_the_tiled_route_launches_k5_per_block(cuda_device):
+    """Trainer(precision="bf16") on SasRec(use_flash="tiled"): two K5 launches a
+    step (one per block), f32 master parameters, every projection moves."""
+    model = SasRec(
+        _long_schema(), embedding_dim=32, num_blocks=2, num_heads=2, max_sequence_length=300,
+        use_flash="tiled", device=cuda_device, generator=torch.Generator().manual_seed(12),
+    )
+    rng = np.random.default_rng(13)
+    lengths = rng.integers(10, 301, 8)
+    mask = np.arange(300)[None, :] >= 300 - lengths[:, None]
+    items = rng.integers(0, 300, (8, 301)).astype(np.int32)
+    batch = {
+        "feature_tensors": {"item_id": np.where(mask, items[:, :-1], 300).astype(np.int32)},
+        "padding_mask": mask, "positive_labels": items[:, 1:, None], "target_padding_mask": mask[:, :, None],
+    }
+    trainer = Trainer(model, CEFused(), precision="bf16", device=cuda_device)
+    state = trainer.init_state(batch)
+    start = state.flat_params.clone()
+    launches = flash_attention_tiled.launches
+    losses = []
+    for _ in range(3):
+        state, value = trainer.train_step(state, batch)
+        losses.append(float(value))
+    torch.cuda.synchronize()
+    assert flash_attention_tiled.launches == launches + 6
+    assert state.flat_params.dtype == torch.float32 and trainer.model.dtype == torch.bfloat16
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0] and int(state.bad_steps) == 0
+    assert not torch.equal(state.flat_params, start)
+
+
+def test_serving_on_the_tiled_kernel_matches_the_unfused_route(cuda_device):
+    """ScoringEngine on SasRec(use_flash="tiled") vs use_flash=False, f32, same weights."""
+    width = dict(embedding_dim=32, num_blocks=2, num_heads=2, max_sequence_length=300, device=cuda_device)
+    tiled = SasRec(_long_schema(), use_flash="tiled", generator=torch.Generator().manual_seed(14), **width)
+    plain = SasRec(_long_schema(), use_flash=False, **width)
+    params = tiled.state_dict()
+    buckets = dict(length_buckets=(64, 300), batch_buckets=(1, 4), device=cuda_device)
+    engines = ScoringEngine(tiled, params, **buckets), ScoringEngine(plain, params, **buckets)
+    rng = np.random.default_rng(15)
+    windows = [make_window(list(rng.integers(0, 300, n)), 300) for n in (0, 1, 50, 400)]
+    ids, mask = np.stack([w[0] for w in windows]), np.stack([w[1] for w in windows])
+    before = flash_attention_tiled.launches
+    (got, got_hidden), (want, want_hidden) = (e.encode(300, ids, mask) for e in engines)
+    assert flash_attention_tiled.launches == before + 2  # one launch per block
+    assert (got - want).abs().max().item() <= 1e-4
+    assert (got_hidden - want_hidden).abs().max().item() <= 1e-4

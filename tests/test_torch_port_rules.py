@@ -30,6 +30,7 @@ from replay_tpu_torch.ops import build
 from replay_tpu_torch.nn.loss import CE
 from replay_tpu_torch.nn.train import Trainer
 from replay_tpu_torch.ops import flash_attention as flash_module
+from replay_tpu_torch.ops import flash_tiled as tiled_module
 from replay_tpu_torch.ops import fused_ce as fused_module
 from replay_tpu_torch.ops.flash_attention import flash_attention
 from replay_tpu_torch.serve import ScoringEngine
@@ -49,7 +50,10 @@ def _sources():
 
 def test_importing_the_port_loads_no_jax():
     names = [m.name for m in pkgutil.walk_packages(replay_tpu_torch.__path__, "replay_tpu_torch.")]
-    assert {"replay_tpu_torch.serve.engine", "replay_tpu_torch.nn.train", "replay_tpu_torch.ops.fused_ce"} <= set(names)
+    assert {
+        "replay_tpu_torch.serve.engine", "replay_tpu_torch.nn.train", "replay_tpu_torch.ops.fused_ce",
+        "replay_tpu_torch.ops.flash_tiled", "replay_tpu_torch.nn.precision",
+    } <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {['replay_tpu_torch', *names]!r}:\n"
@@ -149,13 +153,35 @@ def test_fused_ce_wrappers_never_fall_back_to_the_plain_version(kernel, misplace
     assert wrapper.launches == before
 
 
+@pytest.mark.parametrize("misplaced", ["bias", "q", "all"])
+def test_tiled_wrapper_never_falls_back_to_the_plain_version(misplaced):
+    """K5: tensors not all on the CPU take the kernel path, whose checks refuse a
+    non-CUDA device, instead of quietly running the plain version."""
+    q, k, v, _ = _qkv_bias()
+    bias = torch.zeros(2, 4)
+    if misplaced == "bias":
+        bias = bias.to("meta")
+    elif misplaced == "q":
+        q = q.to("meta")
+    else:
+        q, k, v, bias = (t.to("meta") for t in (q, k, v, bias))
+    before = tiled_module.flash_attention_tiled.launches
+    with pytest.raises(ValueError, match="one CUDA device"):
+        tiled_module.flash_attention_tiled(q, k, v, bias)
+    assert tiled_module.flash_attention_tiled.launches == before
+
+
 FUSED_CE_LAUNCHERS = (
     fused_module.fused_lse, fused_module.fused_lse_forward, fused_module.fused_lse_dh, fused_module.fused_lse_dw,
 )
 
 
 @pytest.mark.parametrize(
-    "fn", (flash_module.flash_attention, flash_module._launch, flash_module._forward, *FUSED_CE_LAUNCHERS),
+    "fn",
+    (
+        flash_module.flash_attention, flash_module._launch, flash_module._forward, *FUSED_CE_LAUNCHERS,
+        tiled_module.flash_attention_tiled, tiled_module._launch, tiled_module._forward,
+    ),
     ids=lambda fn: f"{fn.__module__.rsplit('.', 1)[-1]}.{fn.__name__}",
 )
 def test_kernel_wrapper_has_no_fallback_branch(fn):
@@ -176,6 +202,22 @@ def test_fused_ce_raises_when_its_build_fails(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc failed on fused_ce.cu"):
         fused_module.fused_lse_forward(hidden.to("meta"), table.to("meta"))
     assert fused_module.fused_lse_forward.launches == before
+    assert not list((tmp_path / "_build").glob("*.so"))
+
+
+def test_flash_tiled_raises_when_its_build_fails(tmp_path, monkeypatch):
+    """K5: a CUDA tensor reaches build.load, and a failed nvcc raises there."""
+    (tmp_path / "flash_tiled.cu").write_text("this is not CUDA\n")
+    monkeypatch.setattr(build, "CSRC_DIR", tmp_path)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(build, "_LIBRARIES", {})
+    monkeypatch.setattr(build, "find_nvcc", lambda: shutil.which("false") or "/bin/false")
+    monkeypatch.setattr(tiled_module, "_check", lambda *tensors: None)  # as if on the card
+    q, k, v, _ = _qkv_bias()
+    before = tiled_module.flash_attention_tiled.launches
+    with pytest.raises(RuntimeError, match="nvcc failed on flash_tiled.cu"):
+        tiled_module.flash_attention_tiled(q.to("meta"), k.to("meta"), v.to("meta"), torch.zeros(2, 4, device="meta"))
+    assert tiled_module.flash_attention_tiled.launches == before
     assert not list((tmp_path / "_build").glob("*.so"))
 
 

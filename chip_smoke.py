@@ -20,8 +20,10 @@ paths against its plain PyTorch version. Phases, one JSON line each:
                  through the plain version; K5 through its wrapper against
                  ``flash_attention_tiled_reference`` at the long-sequence shape
                  (causal, f32 and bf16, full windows; bf16 with the serving windows'
-                 padding; non-causal), the ``attention_long`` shape and a ragged case
-                 with a fully padded row, and its gradient at the long-sequence shape;
+                 padding; non-causal; bf16 at D=128 and D=32), the ``attention_long``
+                 shape and a ragged case with a fully padded row, each bf16 row on
+                 K5's ``mma`` variant and each f32 row on its ``simt`` variant, and
+                 its gradient at the long-sequence shape;
 4. ``serve``   — ``SasRec(use_flash=True)`` behind ``ScoringEngine`` answering requests,
                  checked against an engine on the same weights with ``use_flash=False``;
 5. ``train``   — ``Trainer(CEFused(), SasRec(use_flash=True))`` against
@@ -33,7 +35,8 @@ paths against its plain PyTorch version. Phases, one JSON line each:
                  the same from the same weights on ``use_flash=False``, and on the tiled
                  route with K5's forward swapped for its plain version, with matching
                  losses, and two faulty K5s as controls the limits must catch; the
-                 tiled model's f32-compute hidden states under the same comparisons;
+                 tiled model's f32-compute hidden states under the same comparisons
+                 (K5's ``simt`` variant; the bf16 paths run its ``mma`` variant only);
                  step times, device time and memory of the tiled and unfused trainers.
                  ``ScoringEngine`` on the tiled bf16 model, held to the same comparisons
                  and controls, then encode latency per bucket;
@@ -152,23 +155,28 @@ TILED_GRAD_TOL = 1e-4
 # (name, B, H, L, D, causal, dtype, padding): the long-sequence shape at
 # bench_suite.py's full windows in bf16 (the path's type) and f32, the same
 # with the serving windows' padding, bench_suite.py's attention_long shape, the
-# non-causal case, and a ragged length with one fully padded row (padding
-# kinds: see padding_mask)
+# non-causal case, the long-sequence width split into one head of D=128 and
+# four of D=32 (bf16: K5's mma variant at its widest and narrowest D), and a
+# ragged length with one fully padded row (padding kinds: see padding_mask)
 TILED_SHAPES = (
     ("longseq", LONG_BATCH, LONG_HEADS, LONG_LEN, LONG_DIM // LONG_HEADS, True, torch.bfloat16, "none"),
     ("longseq", LONG_BATCH, LONG_HEADS, LONG_LEN, LONG_DIM // LONG_HEADS, True, torch.float32, "none"),
     ("longseq_served", LONG_BATCH, LONG_HEADS, LONG_LEN, LONG_DIM // LONG_HEADS, True, torch.bfloat16, "served"),
     ("attention_long", 4, 4, 4096, 64, True, torch.float32, "none"),
     ("longseq_noncausal", LONG_BATCH, LONG_HEADS, LONG_LEN, LONG_DIM // LONG_HEADS, False, torch.bfloat16, "none"),
+    ("longseq_d128", LONG_BATCH, 1, LONG_LEN, LONG_DIM, True, torch.bfloat16, "none"),
+    ("longseq_d32", LONG_BATCH, 4, LONG_LEN, LONG_DIM // 4, True, torch.bfloat16, "none"),
     ("ragged", 8, 2, 1000, 64, True, torch.float32, "dead"),
 )
 
 # (name, B, H, L, D, bias heads, mask): the serving width (bench_serve.py), the
-# SasRec.from_params width (E=192, 4 heads), and a long row over 32 key tiles
+# SasRec.from_params width (E=192, 4 heads), a long row over 16 key tiles, and
+# the serving width at the smallest batch bucket
 KERNEL_SHAPES = (
     ("serve", 64, 1, 50, 64, 1, "eval"),
     ("from_params", 8, 4, 200, 48, 4, "per_head"),
     ("long", 2, 2, 1024, 64, 1, "train"),
+    ("serve_b1", 1, 1, 50, 64, 1, "eval"),
 )
 
 
@@ -249,7 +257,8 @@ def attention_case(batch, heads, length, dim, bias_heads, mask, dtype, device, s
         for _ in range(3)
     )
     lengths = rng.integers(1, length + 1, batch)
-    lengths[-1] = 0  # one all-padding row
+    if batch > 1:
+        lengths[-1] = 0  # one all-padding row
     padding = torch.tensor(np.arange(length)[None, :] >= length - lengths[:, None], device=device)
     bias = causal_attention_mask(padding, deterministic=mask != "train")
     if mask == "per_head":
@@ -352,8 +361,23 @@ def tiled_bound(q: torch.Tensor, padding: torch.Tensor, causal: bool):
     return max(byte_ms, flop_ms), ("bytes" if byte_ms >= flop_ms else "operations"), int(moved), flop
 
 
+def reset_variant_counts() -> None:
+    """K5's launches by variant, set to 0 in place (the wrapper adds to this dict)."""
+    from replay_tpu_torch.ops.flash_tiled import flash_attention_tiled
+
+    for variant in flash_attention_tiled.launches_by_variant:
+        flash_attention_tiled.launches_by_variant[variant] = 0
+
+
+def variant_counts() -> dict:
+    from replay_tpu_torch.ops.flash_tiled import flash_attention_tiled
+
+    return dict(flash_attention_tiled.launches_by_variant)
+
+
 def tiled_kernel_phase(device) -> dict:
-    """K5 vs its plain version at every shape; returns the records by (shape, dtype)."""
+    """K5 vs its plain version at every shape, each on the variant its dtype and
+    D call for; returns the records by (shape, dtype)."""
     import torch.nn.functional as F
 
     from replay_tpu_torch.ops.flash_tiled import (
@@ -373,18 +397,30 @@ def tiled_kernel_phase(device) -> dict:
         )
         mask = torch.tensor(padding_mask(rng, batch, length, padding), device=device)
         bias = padding_mask_bias(mask)
+        variant = flash_tiled._variant(dtype, dim)
+        reset_variant_counts()
         got = flash_attention_tiled(q, k, v, bias, causal)  # the wrapper the model calls
         _, lse = flash_tiled._launch(q, k, v, bias, causal)  # the wrapper returns no lse
+        ran = variant_counts()
         # the plain version on the same input values, its f32 result not
         # rounded: for bf16 the error is then the output's own rounding
         want, want_lse = flash_attention_tiled_reference(q.float(), k.float(), v.float(), bias, causal)
         torch.cuda.synchronize()
         label = f"K5 {name} {dtype} causal={causal}"
+        expected_variant = "mma" if dtype == torch.bfloat16 else "simt"
+        if variant != expected_variant or ran != {key: 2 if key == variant else 0 for key in ran}:
+            raise AssertionError(f"{label}: variant {variant} (expected {expected_variant}), launches {ran}")
         if got.dtype != dtype or got.shape != q.shape or lse.shape != q.shape[:3]:
             raise AssertionError(f"{label}: got {got.dtype} {tuple(got.shape)} lse {tuple(lse.shape)}")
         if not (torch.isfinite(got.float()).all() and torch.isfinite(lse).all()):
             raise AssertionError(f"{label}: non-finite output")
-        err = (got.float() - want).abs().max().item()
+        diff = (got.float() - want).abs()
+        err, mean_err = diff.max().item(), diff.mean().item()
+        # the plain version's own output rounded to the inputs' type, for comparison, and
+        # the share of outputs whose rounding differs from it
+        rounded = want.to(dtype)
+        rounding_mean_err = (rounded.float() - want).abs().mean().item()
+        flip_share = (got != rounded).float().mean().item() if dtype != torch.float32 else None
         lse_err = ((lse - want_lse).abs() / want_lse.abs().clamp_min(1.0)).max().item()
         dead_exact = None
         if padding == "dead":  # the fully padded row: exactly 0, lse at the mask
@@ -399,9 +435,12 @@ def tiled_kernel_phase(device) -> dict:
         big = length >= 4096
         bound_ms, bound_by, moved, flop = tiled_bound(q, mask, causal)
         record = {
-            "kernel": "K5", "shape": name, "B": batch, "H": heads, "L": length, "D": dim, "causal": causal,
-            "padding": padding, "real_tokens": int(mask.sum().item()), "dtype": str(dtype).removeprefix("torch."),
-            "max_abs_err": err, "tol": KERNEL_TOL[dtype], "lse_rel_err": lse_err, "lse_tol": TILED_LSE_TOL,
+            "kernel": "K5", "variant": variant, "shape": name, "B": batch, "H": heads, "L": length, "D": dim,
+            "causal": causal, "padding": padding, "real_tokens": int(mask.sum().item()),
+            "dtype": str(dtype).removeprefix("torch."), "max_abs_err": err, "tol": KERNEL_TOL[dtype],
+            "mean_abs_err": mean_err, "plain_rounded_mean_abs_err": rounding_mean_err,
+            "rounded_unlike_plain_share": flip_share,
+            "lse_rel_err": lse_err, "lse_tol": TILED_LSE_TOL,
             "dead_row_exact": dead_exact,
             "ms": graph_ms(lambda: flash_attention_tiled(q, k, v, bias, causal), launches=10),
             "eager_ms": eager_ms(lambda: flash_attention_tiled(q, k, v, bias, causal), launches=10),
@@ -1117,14 +1156,18 @@ def longseq_phase(device) -> dict:
     # the main path: counts start at 0 here and are read right after its steps
     for counter in counters:
         counter.launches = 0
+    reset_variant_counts()
     tiled_state, tiled_losses = losses(tiled)
     train_launches = {fn.__name__: fn.launches for fn in counters}
+    train_variants = variant_counts()
     expected = {
         "flash_attention_tiled": LONG_BLOCKS * LONG_STEPS, "fused_lse_forward": LONG_STEPS,
         "fused_lse_dh": LONG_STEPS, "fused_lse_dw": LONG_STEPS, "flash_attention": 0,
     }
     if train_launches != expected:
         raise AssertionError(f"longseq launches {train_launches}, expected {expected}")
+    if train_variants != {"mma": expected["flash_attention_tiled"], "simt": 0}:
+        raise AssertionError(f"bf16 training ran K5's variants {train_variants}, not mma only")
     if not tiled_losses[-1] < tiled_losses[0] or int(tiled_state.bad_steps):
         raise AssertionError(f"longseq loss did not fall or steps were skipped: {tiled_losses}")
     if tiled_state.flat_params.dtype != torch.float32:
@@ -1150,7 +1193,14 @@ def longseq_phase(device) -> dict:
     unfused_f32 = tiled_model.clone(use_flash=False).to(device)
     f32_err = {}
     with torch.no_grad():
+        # a path of its own: the f32-compute forward, on K5's simt variant, counted from 0
+        flash_attention_tiled.launches = 0
+        reset_variant_counts()
         hidden = tiled_model(ids, real)
+        torch.cuda.synchronize()
+        f32_launches, f32_variants = flash_attention_tiled.launches, variant_counts()
+        if f32_variants != {"mma": 0, "simt": LONG_BLOCKS} or f32_launches != LONG_BLOCKS:
+            raise AssertionError(f"the f32 forward ran K5's variants {f32_variants}, not simt once a block")
         for name, forward, _ in LONGSEQ_COMPARISONS:
             if forward is None:
                 other = unfused_f32(ids, real)
@@ -1158,6 +1208,8 @@ def longseq_phase(device) -> dict:
                 with k5_forward(forward):
                     other = tiled_model(ids, real)
             f32_err[name] = (hidden - other).abs().max().item()
+    if flash_attention_tiled.launches != f32_launches:
+        raise AssertionError("a comparison of the f32 forward launched K5")
     emit("longseq_check", part="f32_hidden", max_abs_err=f32_err, limit=LONGSEQ_F32_TOL)
     check_readings("f32 hidden states", f32_err, LONGSEQ_F32_TOL, ("unfused", "k5_plain"), FAULTS)
 
@@ -1187,6 +1239,7 @@ def longseq_phase(device) -> dict:
 
     # the main path: counts start at 0 here and are read at the end of the serving part
     flash_attention_tiled.launches = 0
+    reset_variant_counts()
     serve_max = {name: 0.0 for name, _, _ in LONGSEQ_COMPARISONS}
     serve_sum, logit_count, top_checked = {name: 0.0 for name in serve_max}, 0, 0
     for lb, rows in sorted(by_length.items()):
@@ -1245,21 +1298,26 @@ def longseq_phase(device) -> dict:
             record["device_busy_share"] = record["device_ms"] / record["p50_ms"]
             latency[f"L={lb},B={bucket}"] = record
     serve_launches = flash_attention_tiled.launches
+    serve_variants = variant_counts()
     encode_calls = engine.stats()["encode_calls"]
     if serve_launches != LONG_BLOCKS * encode_calls:
         raise AssertionError(f"K5 serving launches {serve_launches} != {LONG_BLOCKS} x {encode_calls} encode calls")
+    if serve_variants != {"mma": serve_launches, "simt": 0}:
+        raise AssertionError(f"bf16 serving ran K5's variants {serve_variants}, not mma only")
     emit(
         "longseq", batch=LONG_BATCH, seq_len=LONG_LEN, items=NUM_ITEMS, embedding_dim=LONG_DIM,
         blocks=LONG_BLOCKS, heads=LONG_HEADS, precision=tiled.precision.describe(), steps=LONG_STEPS,
-        train_launches=train_launches, tiled_losses=tiled_losses, other_losses=other_losses,
+        train_launches=train_launches, train_k5_variants=train_variants, f32_forward_k5_variants=f32_variants,
+        tiled_losses=tiled_losses, other_losses=other_losses,
         loss_rel_err=loss_err, loss_limit=LONGSEQ_LOSS_RTOL, f32_hidden_max_abs_err=f32_err,
         f32_limit=LONGSEQ_F32_TOL, train_perf=train_perf,
         serve_requests=len(requests), serve_encode_calls=encode_calls, serve_k5_launches=serve_launches,
+        serve_k5_variants=serve_variants,
         serve_logits_mean_abs_err=serve_mean, serve_mean_limit=LONGSEQ_SERVE_MEAN_TOL,
         serve_logits_max_abs_err=serve_max, serve_max_limit=LONGSEQ_SERVE_MAX_TOL, top10_ranks_checked=top_checked,
         serve_stats=engine.stats(), serve_latency_ms=latency,
     )
-    return {"train": train_launches, "serve": serve_launches}
+    return {"train": train_launches, "serve": serve_launches, "f32": f32_launches}
 
 
 def main() -> int:
@@ -1283,7 +1341,7 @@ def main() -> int:
     k4 = kernel_phase(device)
     fused = fused_ce_phase(device)
     flash_backward_check(device)
-    k5 = tiled_kernel_phase(device)[("longseq", torch.bfloat16)]
+    tiled_records = tiled_kernel_phase(device)
     tiled_backward_check(device)
     served = serve_phase(device)
     trained = train_phase(device)
@@ -1330,26 +1388,37 @@ def main() -> int:
                 "shape": f"N={record['N']} E={record['E']} I={record['I']} {record['hidden_dtype']}",
             }
         )
-    kernels.append(
-        {
-            "name": "flash_attention_tiled",
-            "route": "cuda",
-            "source": "replay_tpu_torch/csrc/flash_tiled.cu",
-            "replaces": "replay_tpu/ops/flash_tiled.py:34",
-            "launches": longseq["train"]["flash_attention_tiled"] + longseq["serve"],
-            "launches_by_path": {
-                "longseq_train": longseq["train"]["flash_attention_tiled"], "longseq_serve": longseq["serve"],
-            },
-            "max_abs_err": k5["max_abs_err"],
-            "ms": k5["ms"],
-            "plain_ms": k5["plain_ms"],
-            "bound_ms": k5["bound_ms"],
-            "bound_by": k5["bound_by"],
-            "library_ms": k5["library_ms"],
-            "passed": True,
-            "shape": f"B={k5['B']} H={k5['H']} L={k5['L']} D={k5['D']} causal {k5['dtype']}",
-        }
+    # K5, one entry per variant: bf16 (mma) on the long-sequence training and
+    # serving paths, f32 (simt) on the f32-compute forward
+    k5_paths = (
+        ("flash_attention_tiled", "mma", torch.bfloat16,
+         {"longseq_train": longseq["train"]["flash_attention_tiled"], "longseq_serve": longseq["serve"]}),
+        ("flash_attention_tiled_f32", "simt", torch.float32, {"longseq_f32_forward": longseq["f32"]}),
     )
+    for name, variant, dtype, by_path in k5_paths:
+        k5 = tiled_records[("longseq", dtype)]
+        kernels.append(
+            {
+                "name": name,
+                "variant": variant,
+                "route": "cuda",
+                "source": "replay_tpu_torch/csrc/flash_tiled.cu",
+                "replaces": "replay_tpu/ops/flash_tiled.py:34",
+                "launches": sum(by_path.values()),
+                "launches_by_path": by_path,
+                "max_abs_err": k5["max_abs_err"],
+                "ms": k5["ms"],
+                "plain_ms": k5["plain_ms"],
+                "bound_ms": k5["bound_ms"],
+                "bound_by": k5["bound_by"],
+                "library_ms": k5["library_ms"],
+                "passed": True,
+                "shape": f"B={k5['B']} H={k5['H']} L={k5['L']} D={k5['D']} causal {k5['dtype']}",
+            }
+        )
+    idle = [r["name"] for r in kernels if r["launches"] < 1]
+    if idle:
+        raise AssertionError(f"kernels never launched on the paths driven: {idle}")
     emit("kernels", kernels=[{k: r[k] for k in ("name", "launches", "passed")} for r in kernels])
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

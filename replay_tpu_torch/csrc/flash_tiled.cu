@@ -25,28 +25,51 @@
 // bounds-checked, never padded.
 //
 // Layout: q, k, v, out contiguous [B, H, L, D], f32 or bf16, all one type; kv_bias
-// contiguous f32 [B, L]; lse f32 [B, H, L]. Any D <= 256.
+// contiguous f32 [B, L]; lse f32 [B, H, L].
 //
-// Design. A block has 4 warps and owns 64 query rows; key tiles are 64 keys. Q, K and V
-// tiles are staged in shared memory as f32 (odd row strides for Q and K, so the column
-// walk of the score product hits 16 distinct banks). Per key tile, three phases:
+// Two variants, two C entry points; ops/flash_tiled.py::_variant picks one from the dtype and D
+// alone (never from a failed build or launch):
+//   "mma"  (replay_flash_tiled_forward_mma): bf16 with D a multiple of 8 up to 128, on the
+//          tensor cores;
+//   "simt" (replay_flash_tiled_forward): f32, and bf16 at any other D <= 256, on the CUDA cores.
+// Both walk the same tiles in the same order under the same semantics.
+//
+// What bounds it at the slice's shape, B=32, H=2, L=1024, D=64, causal, no padding: the causal
+// product is 4 B H D L(L+1)/2 = 8.6 GFLOP, 0.13 ms at the 67 TFLOP/s of f32 on the CUDA cores or
+// 0.009 ms at the 989 TFLOP/s of bf16 tensor cores; q, k, v and out are 34 MB in bf16, 0.010 ms
+// at 3.35 TB/s. So in bf16 it is bound by bytes and by the tensor cores about equally, and in
+// f32 on the CUDA cores by operations. Times on the card are in PERF.md, measured by
+// chip_smoke.py.
+//
+// "simt" design. A block has 4 warps and owns 64 query rows; key tiles are 64 keys. Q, K and V
+// tiles are staged in shared memory as f32 (odd row strides for Q and K, so the column walk of
+// the score product hits 16 distinct banks). Per key tile, three phases:
 //   1. scores: each thread a register tile of 8 rows x 4 keys, summed over D;
 //   2. online softmax: each warp 16 rows, a lane two keys, the row max and sum by shuffle;
 //   3. out += P V: each thread 4 rows x D/8 columns of the accumulator, in registers.
-// Blocks are ordered longest-first (the last query tile walks the most causal key tiles).
+// It spends 12 shared loads per 32 FMAs in both products and three barriers a key tile.
 //
-// What bounds it at the slice's shape, B=32, H=2, L=1024, D=64, causal, bf16, no padding:
-// the causal product is 4 B H D L(L+1)/2 = 8.6 GFLOP, 0.13 ms at the 67 TFLOP/s of f32 on the
-// CUDA cores or 0.009 ms at the 989 TFLOP/s of bf16 tensor cores; q, k, v and out are 34 MB,
-// 0.010 ms at 3.35 TB/s. So on the CUDA cores it is bound by operations, and the design
-// spends them on FMAs from shared memory (12 shared loads per 32 FMAs in both products),
-// reads each input once per query tile that needs it, and writes out and lse once. It uses
-// no tensor cores (mma/wgmma) and no TMA: those, and a backward kernel, are later work.
-// Its time on the card is in PERF.md, measured by chip_smoke.py.
+// "mma" design (FlashAttention-2's shape on mma.sync). A block has 4 warps and owns 64 query
+// rows, a warp 16 of them. Q is loaded once into registers as m16n8k16 A fragments (ldmatrix
+// from a shared tile whose rows are padded by 16 bytes, so the eight rows of an 8x8 matrix hit
+// distinct banks). K and V tiles of 64 keys x D bf16 are double-buffered in shared memory with
+// cp.async (16-byte chunks, zero-filled past L and past D), so tile j+1 loads while tile j
+// computes; two barriers a tile. S = Q K^T runs on mma.sync bf16 -> f32; scale, bias, causal
+// mask and the online softmax run on the f32 accumulator fragments in registers, the row max
+// reduced over the 4 lanes that share a row by shuffle, the row sum kept per lane and reduced
+// once at the end. O += P V runs on the tensor cores with P kept at f32 precision: the Pallas
+// kernel multiplies f32 probabilities by V, so P = P_hi + P_lo with P_hi = bf16(P) and
+// P_lo = bf16(P - P_hi), two mma against the same bf16 V fragments (ldmatrix.trans). V is exact
+// in bf16, so the product carries P to about 2^-16 relative, for twice the P V tensor work.
+// The output is divided by the row sum once at the end, staged through the Q tile and written
+// as bf16 with 16-byte stores; lse as f32. D is rounded up to 32, 64 or 128 with zero columns;
+// the scale uses the real D. The live-tile set (tiles holding a key with bias above NEG_INF) is
+// a bit mask in shared memory, built once per block, so a padding tile is never loaded.
+// Not yet: wgmma, TMA and warp specialisation.
 //
-// C interface, bound from Python with ctypes: replay_flash_tiled_forward launches on the
-// given stream, does not synchronise, allocates nothing, and returns cudaGetLastError()
-// (0 when the launch was accepted).
+// C interface, bound from Python with ctypes: each entry point launches on the given stream,
+// does not synchronise, allocates nothing, and returns cudaGetLastError() (0 when the launch
+// was accepted).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -303,6 +326,341 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, const float* k
   return launch<T, 256>(q, k, v, kv_bias, out, lse, batch, heads, length, dim, causal, stream);
 }
 
+// ----------------------------------------------------------------------------------------------
+// The "mma" variant: bf16, D a multiple of 8 up to 128, on the tensor cores
+// ----------------------------------------------------------------------------------------------
+
+constexpr int kStages = 2;  // K/V tiles in flight
+
+__device__ __forceinline__ unsigned shared_address(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared memory, asynchronously; zero-filled (src not read) unless valid
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(shared_address(dst)), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(shared_address(dst)), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(shared_address(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(shared_address(p)));
+}
+
+// d += a b on one m16n8k16 tile: bf16 inputs, f32 accumulator
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  __nv_bfloat162 pair = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&pair);
+}
+
+// (x0, x1) as bf16 pairs: hi = bf16(x), lo = bf16(x - hi); hi + lo carries x to ~2^-16 relative
+__device__ __forceinline__ void split_bf16(float x0, float x1, unsigned& hi, unsigned& lo) {
+  __nv_bfloat162 pair = __floats2bfloat162_rn(x0, x1);
+  const float2 rounded = __bfloat1622float2(pair);
+  hi = *reinterpret_cast<unsigned*>(&pair);
+  lo = pack_bf16(x0 - rounded.x, x1 - rounded.y);
+}
+
+// the first live tile at or after `from`, or n_tiles
+__device__ __forceinline__ int next_live(const unsigned* bits, int from, int n_tiles) {
+  while (from < n_tiles) {
+    const unsigned word = bits[from >> 5] >> (from & 31);
+    if (word) return from + __ffs(word) - 1;
+    from = (from | 31) + 1;
+  }
+  return n_tiles;
+}
+
+int live_words(int length) { return ((length + kBlockK - 1) / kBlockK + 31) / 32; }
+
+size_t mma_shared_bytes(int dim_cap, int length) {
+  const size_t row_bytes = static_cast<size_t>(dim_cap + 8) * sizeof(__nv_bfloat16);
+  return row_bytes * (kBlockQ + 2 * kStages * kBlockK)  // q tile, K and V stages
+         + sizeof(float) * kStages * kBlockK             // bias stages
+         + sizeof(unsigned) * live_words(length);        // live-tile bits
+}
+
+// kD: D rounded up to 32, 64 or 128
+template <int kD>
+__global__ void __launch_bounds__(kThreads)
+tiled_forward_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v, const float* __restrict__ kv_bias,
+                  __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int heads, int length,
+                  int dim, int causal, float scale) {
+  constexpr int kStride = kD + 8;           // bf16 per shared row: 16 bytes of padding
+  constexpr int kChunks = kD / 8;           // 16-byte chunks per row
+  constexpr int kTile = kBlockK * kStride;  // bf16 of one K or V stage
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [kBlockQ][kStride]
+  __nv_bfloat16* k_s = q_s + kBlockQ * kStride;                      // [kStages][kBlockK][kStride]
+  __nv_bfloat16* v_s = k_s + kStages * kTile;                        // [kStages][kBlockK][kStride]
+  float* bias_s = reinterpret_cast<float*>(v_s + kStages * kTile);   // [kStages][kBlockK]
+  unsigned* live_bits = reinterpret_cast<unsigned*>(bias_s + kStages * kBlockK);
+
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBlockQ;  // longest causal walk first
+  const size_t head_base = (static_cast<size_t>(b) * heads + h) * length * dim;
+  const float* bias_b = kv_bias + static_cast<size_t>(b) * length;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;  // the fragment row (and row + 8) this lane holds
+  const int t4 = lane & 3;  // its column pair within an 8-wide block
+  const int warp_row0 = q0 + warp * 16;
+
+  // Q: the block's 64 rows, in the first group of copies
+  for (int idx = tid; idx < kBlockQ * kChunks; idx += kThreads) {
+    const int r = idx / kChunks;
+    const int c = (idx % kChunks) * 8;
+    const int row = q0 + r;
+    const bool valid = row < length && c < dim;
+    cp_async_16(q_s + r * kStride + c, q + (valid ? head_base + static_cast<size_t>(row) * dim + c : 0), valid);
+  }
+
+  // the key tiles holding a real key (causal: up to the block's last row)
+  const int k_end = causal ? min(length, q0 + kBlockQ) : length;
+  const int n_tiles = (k_end + kBlockK - 1) / kBlockK;
+  for (int i = tid; i < (n_tiles + 31) / 32; i += kThreads) live_bits[i] = 0;
+  __syncthreads();
+  // a warp reads 32 keys of one tile a step, kScan steps' loads in flight at once
+  constexpr int kScan = 8;
+  for (int first = warp * 32; first < n_tiles * kBlockK; first += kScan * kThreads) {
+    bool live[kScan];
+#pragma unroll
+    for (int u = 0; u < kScan; ++u) {
+      const int key = first + u * kThreads + lane;
+      live[u] = key < k_end && bias_b[key] > kNegInf;
+    }
+#pragma unroll
+    for (int u = 0; u < kScan; ++u) {
+      const int base = first + u * kThreads;
+      const unsigned any = __ballot_sync(kFull, live[u]);  // base is uniform across the warp
+      if (lane == 0 && any) atomicOr(live_bits + base / kBlockK / 32, 1u << (base / kBlockK % 32));
+    }
+  }
+  __syncthreads();
+
+  auto load_tile = [&](int tile, int stage) {
+    const int k0 = tile * kBlockK;
+    __nv_bfloat16* ks = k_s + stage * kTile;
+    __nv_bfloat16* vs = v_s + stage * kTile;
+    for (int idx = tid; idx < kBlockK * kChunks; idx += kThreads) {
+      const int r = idx / kChunks;
+      const int c = (idx % kChunks) * 8;
+      const int key = k0 + r;
+      const bool valid = key < length && c < dim;
+      const size_t at = valid ? head_base + static_cast<size_t>(key) * dim + c : 0;
+      cp_async_16(ks + r * kStride + c, k + at, valid);
+      cp_async_16(vs + r * kStride + c, v + at, valid);
+    }
+    if (tid < kBlockK) {
+      const int key = k0 + tid;
+      cp_async_4(bias_s + stage * kBlockK + tid, bias_b + (key < length ? key : 0), key < length);
+    }
+  };
+
+  unsigned qa[kD / 16][4];  // Q as A fragments, one per 16 columns
+  float o[kD / 8][4];       // the output accumulator: rows g, g + 8 x 8-column blocks
+#pragma unroll
+  for (int dn = 0; dn < kD / 8; ++dn) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[dn][e] = 0.f;
+  }
+  float m[2] = {kNegInf, kNegInf};  // running max of rows g and g + 8
+  float l[2] = {0.f, 0.f};          // this lane's share of their running sums
+
+  int tile = next_live(live_bits, 0, n_tiles);
+  if (tile < n_tiles) load_tile(tile, 0);
+  cp_async_commit();
+  bool have_q = false;
+  int stage = 0;
+  while (tile < n_tiles) {  // uniform across the block: the bits are shared
+    const int next = next_live(live_bits, tile + 1, n_tiles);
+    if (next < n_tiles) load_tile(next, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // all but the newest group: this tile (and Q) have landed
+    __syncthreads();
+    if (!have_q) {
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk) {
+        ldmatrix_x4(qa[kk], q_s + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kStride + kk * 16 + (lane >> 4) * 8);
+      }
+      have_q = true;
+    }
+    const __nv_bfloat16* ks = k_s + stage * kTile;
+    const __nv_bfloat16* vs = v_s + stage * kTile;
+    const float* bs = bias_s + stage * kBlockK;
+    const int k0 = tile * kBlockK;
+
+    // S = Q K^T: 16 rows x 64 keys a warp, as 8 accumulator blocks of 16 x 8
+    float s[kBlockK / 8][4];
+#pragma unroll
+    for (int nb = 0; nb < kBlockK / 8; ++nb) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) {
+#pragma unroll
+      for (int np = 0; np < kBlockK / 16; ++np) {
+        unsigned bk[4];
+        ldmatrix_x4(bk, ks + (np * 16 + (lane & 7) + (lane >> 4) * 8) * kStride + kk * 16 + ((lane >> 3) & 1) * 8);
+        mma_bf16(s[2 * np], qa[kk], bk[0], bk[1]);
+        mma_bf16(s[2 * np + 1], qa[kk], bk[2], bk[3]);
+      }
+    }
+
+    // scale, bias, mask; the tile's max of each row, over the 4 lanes that hold it
+    float tile_max[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int nb = 0; nb < kBlockK / 8; ++nb) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = nb * 8 + 2 * t4 + (e & 1);
+        const int key = k0 + col;
+        const int row = warp_row0 + g + (e >> 1) * 8;
+        float x = fmaf(s[nb][e], scale, bs[col]);
+        if (key >= length || (causal && key > row)) x = kNegInf;
+        s[nb][e] = x;
+        tile_max[e >> 1] = fmaxf(tile_max[e >> 1], x);
+      }
+    }
+    float correction[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      tile_max[hh] = fmaxf(tile_max[hh], __shfl_xor_sync(kFull, tile_max[hh], 1));
+      tile_max[hh] = fmaxf(tile_max[hh], __shfl_xor_sync(kFull, tile_max[hh], 2));
+      const float m_new = fmaxf(m[hh], tile_max[hh]);
+      correction[hh] = m[hh] <= kMasked ? 0.f : __expf(m[hh] - m_new);
+      m[hh] = m_new;
+      l[hh] *= correction[hh];
+    }
+#pragma unroll
+    for (int nb = 0; nb < kBlockK / 8; ++nb) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = s[nb][e] <= kMasked ? 0.f : __expf(s[nb][e] - m[e >> 1]);
+        s[nb][e] = p;
+        l[e >> 1] += p;
+      }
+    }
+#pragma unroll
+    for (int dn = 0; dn < kD / 8; ++dn) {
+      o[dn][0] *= correction[0];
+      o[dn][1] *= correction[0];
+      o[dn][2] *= correction[1];
+      o[dn][3] *= correction[1];
+    }
+
+    // O += P V, 16 keys at a time: P's accumulator blocks 2j, 2j + 1 are the A fragment of
+    // keys 16j .. 16j + 15, split into bf16 hi and lo parts
+#pragma unroll
+    for (int j = 0; j < kBlockK / 16; ++j) {
+      unsigned p_hi[4], p_lo[4];
+      split_bf16(s[2 * j][0], s[2 * j][1], p_hi[0], p_lo[0]);
+      split_bf16(s[2 * j][2], s[2 * j][3], p_hi[1], p_lo[1]);
+      split_bf16(s[2 * j + 1][0], s[2 * j + 1][1], p_hi[2], p_lo[2]);
+      split_bf16(s[2 * j + 1][2], s[2 * j + 1][3], p_hi[3], p_lo[3]);
+#pragma unroll
+      for (int dp = 0; dp < kD / 16; ++dp) {
+        unsigned bv[4];
+        ldmatrix_x4_trans(bv, vs + (j * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kStride + dp * 16 + (lane >> 4) * 8);
+        mma_bf16(o[2 * dp], p_hi, bv[0], bv[1]);
+        mma_bf16(o[2 * dp], p_lo, bv[0], bv[1]);
+        mma_bf16(o[2 * dp + 1], p_hi, bv[2], bv[3]);
+        mma_bf16(o[2 * dp + 1], p_lo, bv[2], bv[3]);
+      }
+    }
+    __syncthreads();  // this stage is consumed before the next iteration refills it
+    tile = next;
+    stage ^= 1;
+  }
+  cp_async_wait<0>();  // Q's copies, if no tile was live
+  __syncthreads();
+
+  // finalize: the row sums over the quad, out = acc / max(l, 1e-30), lse
+  float inv[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    l[hh] += __shfl_xor_sync(kFull, l[hh], 1);
+    l[hh] += __shfl_xor_sync(kFull, l[hh], 2);
+    const float denom = fmaxf(l[hh], 1e-30f);
+    inv[hh] = 1.f / denom;
+    const int row = warp_row0 + g + hh * 8;
+    if (t4 == 0 && row < length) {
+      lse[(static_cast<size_t>(b) * heads + h) * length + row] = m[hh] <= kMasked ? kNegInf : m[hh] + logf(denom);
+    }
+  }
+  // the warp's 16 rows staged as bf16 in its own rows of the Q tile, then 16-byte stores
+  __nv_bfloat16* rows_s = q_s + warp * 16 * kStride;
+#pragma unroll
+  for (int dn = 0; dn < kD / 8; ++dn) {
+    const int c = dn * 8 + 2 * t4;
+    *reinterpret_cast<unsigned*>(rows_s + g * kStride + c) = pack_bf16(o[dn][0] * inv[0], o[dn][1] * inv[0]);
+    *reinterpret_cast<unsigned*>(rows_s + (g + 8) * kStride + c) = pack_bf16(o[dn][2] * inv[1], o[dn][3] * inv[1]);
+  }
+  __syncwarp();
+  for (int idx = lane; idx < 16 * kChunks; idx += 32) {
+    const int r = idx / kChunks;
+    const int c = (idx % kChunks) * 8;
+    const int row = warp_row0 + r;
+    if (row < length && c < dim) {
+      *reinterpret_cast<uint4*>(out + head_base + static_cast<size_t>(row) * dim + c) =
+          *reinterpret_cast<const uint4*>(rows_s + r * kStride + c);
+    }
+  }
+}
+
+template <int kD>
+cudaError_t launch_mma(const void* q, const void* k, const void* v, const float* kv_bias, void* out,
+                       float* lse, int batch, int heads, int length, int dim, int causal,
+                       cudaStream_t stream) {
+  const size_t smem = mma_shared_bytes(kD, length);
+  static size_t allowed = 48 * 1024;  // raised once per instantiation, as launch() does
+  if (smem > allowed) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        tiled_forward_mma<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    allowed = smem;
+  }
+  const dim3 grid(heads, batch, (length + kBlockQ - 1) / kBlockQ);
+  tiled_forward_mma<kD><<<grid, kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), kv_bias, static_cast<__nv_bfloat16*>(out), lse, heads,
+      length, dim, causal, 1.f / sqrtf(static_cast<float>(dim)));
+  return cudaGetLastError();
+}
+
+bool aligned_16(const void* p) { return reinterpret_cast<size_t>(p) % 16 == 0; }
+
 }  // namespace
 
 extern "C" int replay_flash_tiled_forward(const void* q, const void* k, const void* v,
@@ -319,5 +677,30 @@ extern "C" int replay_flash_tiled_forward(const void* q, const void* k, const vo
   const cudaError_t err =
       is_bf16 ? dispatch<__nv_bfloat16>(q, k, v, bias_f32, out, lse_f32, batch, heads, length, dim, causal, s)
               : dispatch<float>(q, k, v, bias_f32, out, lse_f32, batch, heads, length, dim, causal, s);
+  return static_cast<int>(err);
+}
+
+extern "C" int replay_flash_tiled_forward_mma(const void* q, const void* k, const void* v,
+                                              const void* kv_bias, void* out, void* lse, int batch,
+                                              int heads, int length, int dim, int causal,
+                                              void* stream) {
+  if (batch < 1 || heads < 1 || length < 1 || dim < 8 || dim > 128 || dim % 8 != 0 ||
+      batch > 65535 || (length + kBlockQ - 1) / kBlockQ > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (!aligned_16(q) || !aligned_16(k) || !aligned_16(v) || !aligned_16(out)) {
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  }
+  const float* bias_f32 = static_cast<const float*>(kv_bias);
+  float* lse_f32 = static_cast<float*>(lse);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (dim <= 32) {
+    err = launch_mma<32>(q, k, v, bias_f32, out, lse_f32, batch, heads, length, dim, causal, s);
+  } else if (dim <= 64) {
+    err = launch_mma<64>(q, k, v, bias_f32, out, lse_f32, batch, heads, length, dim, causal, s);
+  } else {
+    err = launch_mma<128>(q, k, v, bias_f32, out, lse_f32, batch, heads, length, dim, causal, s);
+  }
   return static_cast<int>(err);
 }

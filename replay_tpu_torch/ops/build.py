@@ -20,7 +20,10 @@ import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import TYPE_CHECKING, Dict, List, Optional, Sequence, Tuple
+
+if TYPE_CHECKING:
+    import torch
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -86,6 +89,12 @@ def build_all(names: Sequence[str]) -> Dict[str, Tuple[float, str]]:
     with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
         futures = {name: pool.submit(timed, name) for name in names}
         return {name: future.result() for name, future in futures.items()}
+
+
+def aligned(t: "torch.Tensor") -> "torch.Tensor":
+    """``t`` itself when its data starts on a 16-byte boundary, as the kernels'
+    16-byte loads need, else an aligned copy."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def load(name: str) -> ctypes.CDLL:

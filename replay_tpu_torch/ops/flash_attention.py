@@ -8,18 +8,21 @@ with a single head is read per head, never broadcast in memory.
 
 The kernel is ``replay_tpu_torch/csrc/flash_attention.cu`` (CUDA C++ for
 ``sm_90a``, plain C interface, loaded with ctypes; built at first use by
-:mod:`replay_tpu_torch.ops.build`). Its design: one block per (query tile of 16
-rows, head, batch) walking the keys in tiles of 32 with an online softmax, so
-nothing O(L²) is held on chip; K and V are staged in shared memory as f32.
+:mod:`replay_tpu_torch.ops.build`). Its design: one block per (16 or 4 query
+rows, head, batch). When K and V of the whole key range fit in shared memory
+(L ≤ 192 at D = 64: SASRec's serving and training windows) the block stages
+them once with 16-byte loads and runs one exact softmax pass, as the Pallas
+kernel does; beyond that it walks 64-key tiles with an online softmax. A warp
+owns its rows, a lane several keys with independent accumulators for the
+scores and D/32 columns for ``P·V``, so no serial chain is longer than D or L.
 
 What bounds it at the serving shape: B=64, H=1, L=50, D=64 in f32 moves 3.3 MB
 of q/k/v/out and 0.64 MB of bias, about 1.2 µs at the H100's 3.35 TB/s, and
 does 4·B·H·L²·D = 41 MFLOP, 0.6 µs at 67 TFLOP/s of f32 outside the tensor
-cores. So it is bound by memory and, below a few µs, by launch latency. The
-design reads each input once (the bias once per head), writes the output once,
-and keeps scores and probabilities in registers; it uses no tensor cores
-(``wgmma``/TMA are later work). Its time on the card is in ``PERF.md``,
-measured by ``chip_smoke.py``.
+cores. So it is bound by memory and, below a few µs, by latency: one round of
+loads and the longest dependent chain in a block, which the design shortens.
+It uses no tensor cores. Its time on the card is in ``PERF.md``, measured by
+``chip_smoke.py``.
 
 Training goes through ``_FlashAttention``, a ``torch.autograd.Function`` that
 mirrors the JAX ``jax.custom_vjp`` (``flash_attention`` with ``_flash_fwd`` /
@@ -83,7 +86,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream; raises if the launch is refused."""
     _check(q, k, v, bias)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = (build.aligned(t.contiguous()) for t in (q, k, v))
     bias = bias.to(torch.float32).contiguous()
     out = torch.empty_like(q)
     batch, heads, length, dim = q.shape

@@ -10,11 +10,16 @@ Nothing O(L²) exists on the kernel's route, forward or backward.
 
 The kernel is ``replay_tpu_torch/csrc/flash_tiled.cu`` (CUDA C++ for
 ``sm_90a``, plain C interface, loaded with ctypes; built at first use by
-:mod:`replay_tpu_torch.ops.build`). Its design, and what bounds it, is in the
-source's header: one block per (64-row query tile, head, batch) walking the
-64-key tiles up to the diagonal with an online softmax in f32, on the CUDA
-cores. It picks its own tiles: ``block_q`` and ``block_k`` are the JAX
-signature's, and ``block_k`` sets the backward's loop.
+:mod:`replay_tpu_torch.ops.build`), in two variants that :func:`_variant`
+picks from the dtype and head dim alone: ``"mma"`` for bf16 with D a multiple
+of 8 up to 128 (tensor cores: ``mma.sync`` bf16 → f32, K/V tiles
+double-buffered with ``cp.async``, P kept at f32 precision as a bf16 hi + lo
+pair), ``"simt"`` for f32 and every other D up to 256 (f32 FMAs on the CUDA
+cores). Both are one block per (64-row query tile, head, batch) walking the
+64-key tiles up to the diagonal with an online softmax in f32; their designs,
+and what bounds them, are in the source's header. The kernel picks its own
+tiles: ``block_q`` and ``block_k`` are the JAX signature's, and ``block_k``
+sets the backward's loop.
 
 Training goes through ``_FlashAttentionTiled``, a ``torch.autograd.Function``
 that mirrors the JAX ``jax.custom_vjp``: the forward is the kernel (the plain
@@ -39,7 +44,19 @@ from replay_tpu_torch.ops import build
 KERNEL = "flash_tiled"
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256
+MMA_MAX_HEAD_DIM = 128
 _DTYPES = (torch.float32, torch.bfloat16)
+VARIANTS = ("mma", "simt")
+
+
+def _variant(dtype: torch.dtype, dim: int) -> str:
+    """The kernel variant for inputs of ``dtype`` and head dim ``dim``:
+    ``"mma"`` (tensor cores) for bf16 with ``dim`` a multiple of 8 up to 128,
+    ``"simt"`` (CUDA cores) for everything else. A pure function of its
+    arguments: the choice never depends on a build or a launch."""
+    if dtype == torch.bfloat16 and dim % 8 == 0 and 8 <= dim <= MMA_MAX_HEAD_DIM:
+        return "mma"
+    return "simt"
 
 
 def padding_mask_bias(padding_mask: torch.Tensor) -> torch.Tensor:
@@ -85,11 +102,8 @@ def flash_attention_tiled_reference(
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_bias: torch.Tensor) -> None:
-    """Raise on anything the kernel does not take."""
-    devices = {t.device for t in (q, k, v, kv_bias)}
-    if len(devices) != 1 or q.device.type != "cuda":
-        msg = f"flash_attention_tiled kernel needs q, k, v and kv_bias on one CUDA device, got {devices}"
-        raise ValueError(msg)
+    """Raise on anything neither variant of the kernel takes: types and shapes
+    first, then the device."""
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         msg = f"q, k, v must share one dtype of {_DTYPES}, got {q.dtype}, {k.dtype}, {v.dtype}"
         raise TypeError(msg)
@@ -103,14 +117,22 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_bias: torch.Ten
     if tuple(kv_bias.shape) != (batch, length) or not kv_bias.is_floating_point():
         msg = f"kv_bias must be a float [B, L] = [{batch}, {length}], got {kv_bias.dtype} {tuple(kv_bias.shape)}"
         raise ValueError(msg)
+    devices = {t.device for t in (q, k, v, kv_bias)}
+    if len(devices) != 1 or q.device.type != "cuda":
+        msg = f"flash_attention_tiled kernel needs q, k, v and kv_bias on one CUDA device, got {devices}"
+        raise ValueError(msg)
 
 
 def _launch(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_bias: torch.Tensor, causal: bool
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel on the current stream; raises if the launch is refused."""
+    """Launch the CUDA kernel's variant for these inputs on the current stream;
+    raises if the launch is refused."""
     _check(q, k, v, kv_bias)
+    variant = _variant(q.dtype, q.shape[-1])
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if variant == "mma":  # its 16-byte copies
+        q, k, v = build.aligned(q), build.aligned(k), build.aligned(v)
     kv_bias = kv_bias.to(torch.float32).contiguous()
     batch, heads, length, dim = q.shape
     out = torch.empty_like(q)
@@ -118,19 +140,22 @@ def _launch(
     if out.numel() == 0:
         return out, lse
     lib = build.load(KERNEL)
-    fn = lib.replay_flash_tiled_forward
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    pointers = (q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_bias.data_ptr(), out.data_ptr(), lse.data_ptr())
+    if variant == "mma":
+        fn = lib.replay_flash_tiled_forward_mma
+        sizes = (batch, heads, length, dim, int(causal))
+    else:
+        fn = lib.replay_flash_tiled_forward
+        sizes = (batch, heads, length, dim, int(causal), int(q.dtype == torch.bfloat16))
+    fn.argtypes = [ctypes.c_void_p] * len(pointers) + [ctypes.c_int] * len(sizes) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(q.device):
-        err = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_bias.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            batch, heads, length, dim, int(causal), int(q.dtype == torch.bfloat16),
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
+        err = fn(*pointers, *sizes, torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        msg = f"flash_attention_tiled kernel launch failed: CUDA error {err} at q{tuple(q.shape)} {q.dtype}"
+        msg = f"flash_attention_tiled kernel ({variant}) launch failed: CUDA error {err} at q{tuple(q.shape)} {q.dtype}"
         raise RuntimeError(msg)
     flash_attention_tiled.launches += 1
+    flash_attention_tiled.launches_by_variant[variant] += 1
     return out, lse
 
 
@@ -224,7 +249,8 @@ def flash_attention_tiled(
     On CPU tensors the forward is the plain version; on CUDA tensors it
     launches the kernel or raises. ``block_q`` is the JAX signature's (the
     kernel picks its own tiles); ``block_k`` sets the backward's key blocks.
-    ``flash_attention_tiled.launches`` counts kernel launches."""
+    ``flash_attention_tiled.launches`` counts kernel launches, and
+    ``flash_attention_tiled.launches_by_variant`` splits them by variant."""
     if block_q < 1 or block_k < 1:
         msg = f"block_q and block_k must be positive, got {block_q}, {block_k}"
         raise ValueError(msg)
@@ -232,3 +258,4 @@ def flash_attention_tiled(
 
 
 flash_attention_tiled.launches = 0
+flash_attention_tiled.launches_by_variant = dict.fromkeys(VARIANTS, 0)

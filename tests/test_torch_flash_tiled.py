@@ -12,7 +12,8 @@ softmax over blocks); bf16 inputs one bf16 ulp (2**-7), since both sides compute
 in f32 and round the output once; the backward under another ``block_k`` within
 rtol 1e-5 / atol 1e-6, the same f32 terms summed in another grouping.
 
-The CUDA kernel itself is tested on the card in ``test_torch_kernels_cuda.py``.
+The CUDA kernel itself is tested on the card in ``test_torch_kernels_cuda.py``;
+here, which of its two variants the wrapper picks, and what it refuses.
 """
 
 import numpy as np
@@ -182,3 +183,49 @@ def test_wrapper_output_carries_a_gradient_and_launches_nothing_on_the_cpu():
     with pytest.raises(ValueError, match="positive"):
         flash_attention_tiled(*leaves, bias, block_k=0)
     assert flash_tiled.KERNEL == "flash_tiled"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_variant_is_mma_only_for_bf16_at_multiples_of_8_up_to_128(dtype):
+    got = {dim: flash_tiled._variant(dtype, dim) for dim in range(1, flash_tiled.MAX_HEAD_DIM + 1)}
+    mma = [dim for dim, variant in got.items() if variant == "mma"]
+    assert mma == (list(range(8, 129, 8)) if dtype == torch.bfloat16 else [])
+    assert set(got.values()) <= set(flash_tiled.VARIANTS)
+
+
+def test_launch_counts_by_variant_start_at_zero_for_each():
+    assert set(flash_attention_tiled.launches_by_variant) == {"mma", "simt"}
+    assert all(isinstance(n, int) for n in flash_attention_tiled.launches_by_variant.values())
+
+
+@pytest.mark.parametrize(
+    "dtype,dim,error,match",
+    [
+        (torch.float16, 64, TypeError, "dtype"),
+        (torch.float64, 64, TypeError, "dtype"),
+        (torch.bfloat16, 257, ValueError, "head dim"),
+        (torch.float32, 512, ValueError, "head dim"),
+    ],
+)
+def test_wrapper_refuses_what_neither_variant_takes(dtype, dim, error, match):
+    """Checked before the device, so meta tensors reach the checks here; the
+    launch count does not move."""
+    q = torch.zeros(2, 1, 8, dim, dtype=dtype, device="meta")
+    bias = torch.zeros(2, 8, device="meta")
+    before = dict(flash_attention_tiled.launches_by_variant)
+    with pytest.raises(error, match=match):
+        flash_attention_tiled(q, q, q, bias)
+    assert flash_attention_tiled.launches_by_variant == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wrapper_refuses_mismatched_shapes_and_bias(dtype):
+    q = torch.zeros(2, 1, 8, 16, dtype=dtype, device="meta")
+    with pytest.raises(ValueError, match="one shape"):
+        flash_attention_tiled(q, q[:, :, :4], q, torch.zeros(2, 8, device="meta"))
+    with pytest.raises(TypeError, match="dtype"):
+        flash_attention_tiled(q, q.float() if dtype == torch.bfloat16 else q.bfloat16(), q, torch.zeros(2, 8, device="meta"))
+    with pytest.raises(ValueError, match="kv_bias"):
+        flash_attention_tiled(q, q, q, torch.zeros(2, 4, device="meta"))
+    with pytest.raises(ValueError, match="kv_bias"):
+        flash_attention_tiled(q, q, q, torch.zeros(2, 8, dtype=torch.int32, device="meta"))

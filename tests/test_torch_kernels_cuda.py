@@ -15,6 +15,11 @@ summed in another order (a bf16 dh adds its rounding, 2**-8 of the largest).
 K4's gradient 1e-4: the same f32 recompute by other formulas. K5 (max abs
 error against its plain version): out f32 1e-5 and bf16 2e-2 as K4's; lse rtol
 1e-5 / atol 1e-5 (f32, about log L plus the row max); its gradient 1e-4 of the largest magnitude (dbias sums over queries).
+K5's bf16 inputs run its "mma" variant (tensor cores) where D is a multiple of 8
+up to 128, its "simt" variant elsewhere; the same limits hold for both. The
+P-precision probe's limit is set from the plain version in the test: the
+output's own bf16 rounding plus 2**-15 of the products' magnitude (f32 P carried
+as a bf16 hi + lo pair), which a P rounded to bf16 must exceed.
 """
 
 import numpy as np
@@ -59,7 +64,7 @@ def _left_padded(batch, length, seed):
 
 @pytest.mark.parametrize(
     "batch,heads,length,dim,bias_heads",
-    [(64, 1, 50, 64, 1), (8, 4, 200, 48, 4), (2, 2, 1024, 64, 1), (3, 2, 37, 256, 1), (2, 1, 5, 16, 1)],
+    [(64, 1, 50, 64, 1), (8, 4, 200, 48, 4), (2, 2, 1024, 64, 1), (3, 2, 37, 256, 1), (2, 1, 5, 16, 1), (16, 1, 130, 64, 1)],
 )
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("deterministic", [True, False], ids=["eval_mask", "train_mask"])
@@ -454,3 +459,149 @@ def test_serving_on_the_tiled_kernel_matches_the_unfused_route(cuda_device):
     assert flash_attention_tiled.launches == before + 2  # one launch per block
     assert (got - want).abs().max().item() <= 1e-4
     assert (got_hidden - want_hidden).abs().max().item() <= 1e-4
+
+
+# --------------------------------------------------------------------------- #
+# K5's mma variant (bf16, tensor cores) and K4 at short and long windows
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("length", [1000, 77])
+@pytest.mark.parametrize("dim", [32, 48, 64, 128])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_tiled_mma_matches_plain_version(cuda_device, length, dim, causal):
+    """bf16 at L not a multiple of 64, every D the mma variant takes, the
+    served padding (left-padded lengths) and one fully padded row."""
+    q, k, v, bias, _ = _tiled_case(4, 2, length, dim, torch.bfloat16, cuda_device, length * dim)
+    assert flash_tiled._variant(q.dtype, dim) == "mma"
+    before = dict(flash_attention_tiled.launches_by_variant)
+    out, lse = flash_tiled._launch(q, k, v, bias, causal)
+    torch.cuda.synchronize()
+    assert flash_attention_tiled.launches_by_variant["mma"] == before["mma"] + 1
+    assert flash_attention_tiled.launches_by_variant["simt"] == before["simt"]
+    want, want_lse = flash_attention_tiled_reference(q.float(), k.float(), v.float(), bias, causal)
+    assert out.dtype == torch.bfloat16 and torch.isfinite(out.float()).all() and torch.isfinite(lse).all()
+    assert (out.float() - want).abs().max().item() <= TOL[torch.bfloat16]
+    assert torch.allclose(lse, want_lse, rtol=1e-5, atol=1e-5)
+    assert torch.equal(out[-1].float(), torch.zeros_like(out[-1].float()))
+    assert torch.equal(lse[-1], torch.full_like(lse[-1], NEG_INF))
+
+
+@pytest.mark.parametrize("dim", [32, 64, 128])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_tiled_mma_skips_padding_tiles_without_changing_the_result(cuda_device, dim, causal):
+    """All-padding key tiles at the start, in the middle and at the end of a
+    row: the mma variant skips them, and matches the plain version and a run
+    where the same keys carry a bias just above the skip threshold."""
+    q, k, v, _, _ = _tiled_case(3, 2, 300, dim, torch.bfloat16, cuda_device, 17 + dim, dead_row=False)
+    padding = torch.ones(3, 300, dtype=torch.bool, device=cuda_device)
+    padding[0, :128] = False
+    padding[1, 64:192] = False
+    padding[1, 256:] = False
+    padding[2, :250] = False
+    bias = padding_mask_bias(padding)
+    got, lse = flash_tiled._launch(q, k, v, bias, causal)
+    want, want_lse = flash_attention_tiled_reference(q.float(), k.float(), v.float(), bias, causal)
+    assert (got.float() - want).abs().max().item() <= TOL[torch.bfloat16]
+    assert torch.allclose(lse, want_lse, rtol=1e-5, atol=1e-5)
+    # the same keys visited, not skipped: a bias of 0.9 * NEG_INF still gives them probability 0
+    visited = torch.where(padding, 0.0, 0.9 * NEG_INF).to(torch.float32)
+    again, again_lse = flash_tiled._launch(q, k, v, visited, causal)
+    assert torch.equal(again, got) and torch.allclose(again_lse, lse, rtol=1e-6, atol=0)
+
+
+def test_flash_tiled_mma_keeps_p_at_f32_precision(cuda_device):
+    """Two live keys whose unnormalised probabilities are 1 and about 0.99, V
+    entries of +256 and -256: the output is a small difference of large
+    products. The kernel must match the f32 plain version within the output's
+    bf16 rounding plus the hi + lo pair's error, and P rounded to bf16 must not."""
+    length, dim = 64, 64
+    rng = np.random.default_rng(21)
+    # row r's scores: 0 for key 0 and -c_r / 100 for key 1 (q's first column c_r * 8, k's -1/100 and 0)
+    scales = torch.tensor(rng.uniform(0.5, 2.0, length).astype(np.float32))
+    q = torch.zeros(1, 1, length, dim)
+    q[0, 0, :, 0] = scales * 8
+    k = torch.zeros(1, 1, length, dim)
+    k[0, 0, 1, 0] = -0.01
+    signs = torch.tensor(np.where(rng.random(dim) < 0.5, -1.0, 1.0).astype(np.float32))
+    v = torch.zeros(1, 1, length, dim)
+    v[0, 0, 0] = 256 * signs
+    v[0, 0, 1] = -256 * signs
+    q, k, v = (t.to(cuda_device, torch.bfloat16) for t in (q, k, v))
+    padding = torch.zeros(1, length, dtype=torch.bool, device=cuda_device)
+    padding[0, :2] = True
+    bias = padding_mask_bias(padding)
+    assert flash_tiled._variant(q.dtype, dim) == "mma"
+    got, _ = flash_tiled._launch(q, k, v, bias, False)
+    want, _ = flash_attention_tiled_reference(q.float(), k.float(), v.float(), bias, False)
+    # P rounded to bf16 before the product, from the plain version's own scores
+    s = q.float()[0, 0] @ k.float()[0, 0].T / 8 + bias[0]
+    p = torch.where(s <= NEG_INF / 2, 0.0, torch.exp(s - s.amax(dim=-1, keepdim=True)))
+    rounded = (p.to(torch.bfloat16).float() @ v.float()[0, 0]) / p.sum(dim=-1, keepdim=True)
+    products = (p @ v.float()[0, 0].abs()) / p.sum(dim=-1, keepdim=True)
+    limit = (want[0, 0].abs() * 2**-8 + products * 2**-15).max().item()
+    err = (got.float() - want).abs().max().item()
+    rounded_err = (rounded - want[0, 0]).abs().max().item()
+    assert err <= limit, (err, limit)
+    assert rounded_err > limit, (rounded_err, limit)
+
+
+@pytest.mark.parametrize("length", [16, 50, 130, 200, 1024])
+@pytest.mark.parametrize("bias_heads", [1, 2])
+@pytest.mark.parametrize("mask", ["-inf", "finfo.min", "-1e30"])
+def test_flash_attention_short_and_long_windows(cuda_device, length, bias_heads, mask):
+    """K4 at serving (16, 50), from_params (200) and long (1024) windows, and at
+    130 (one pass, six keys a lane), a bias per head or shared, each of the
+    three masks the callers write, and a row whose every entry is masked (the
+    diagonal rescue is not applied here)."""
+    neg = {"-inf": float("-inf"), "finfo.min": torch.finfo(torch.float32).min, "-1e30": -1e30}[mask]
+    rng = np.random.default_rng(length + bias_heads)
+    batch, heads, dim = 3, 2, 64
+    q, k, v = (
+        torch.tensor(rng.normal(size=(batch, heads, length, dim)).astype(np.float32)).to(cuda_device)
+        for _ in range(3)
+    )
+    lengths = rng.integers(1, length + 1, batch)
+    padding = np.arange(length)[None, :] >= length - lengths[:, None]
+    allowed = np.tril(np.ones((length, length), bool))[None] & padding[:, None, :]
+    allowed |= np.eye(length, dtype=bool)[None]
+    bias = np.where(allowed, 0.0, neg).astype(np.float32)[:, None].repeat(bias_heads, axis=1)
+    if bias_heads > 1:
+        bias = bias + np.where(allowed[:, None], rng.normal(size=bias.shape), 0.0).astype(np.float32)
+    if mask != "-inf":
+        bias[1, :, length // 2] = neg  # one row with every entry masked: softmax of equal scores
+    bias = torch.tensor(bias, device=cuda_device)
+    got = flash_attention(q, k, v, bias)
+    want = flash_attention_reference(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= TOL[torch.float32]
+    if mask != "-inf":  # -1e30 and finfo.min absorb the scores: the mean of V
+        assert (got[1, :, length // 2] - v[1].mean(dim=1)).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("length", [16, 50, 130, 200, 1024])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_head_dim_48(cuda_device, length, dtype):
+    """D=48, not a multiple of 32: the lanes past D hold no column."""
+    rng = np.random.default_rng(length)
+    q, k, v = (
+        torch.tensor(rng.normal(size=(2, 4, length, 48)).astype(np.float32)).to(cuda_device, dtype) for _ in range(3)
+    )
+    padding = torch.tensor(_left_padded(2, length, 3), device=cuda_device)
+    bias = causal_attention_mask(padding, deterministic=True) + torch.randn(2, 4, length, length, device=cuda_device)
+    got = flash_attention(q, k, v, bias)
+    want = flash_attention_reference(q.float(), k.float(), v.float(), bias)
+    assert got.dtype == dtype and (got.float() - want).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("batch", [1, 8, 64])
+def test_flash_attention_serving_buckets(cuda_device, batch):
+    """The serving buckets B=1, 8, 64 at L=50 (4 or 16 rows a block), and a
+    misaligned view, which the wrapper copies to a 16-byte boundary."""
+    rng = np.random.default_rng(batch)
+    flat = torch.tensor(rng.normal(size=3 * batch * 50 * 64 + 1).astype(np.float32), device=cuda_device)
+    q, k, v = (flat[1 + i * batch * 3200 : 1 + (i + 1) * batch * 3200].view(batch, 1, 50, 64) for i in range(3))
+    assert q.data_ptr() % 16 != 0
+    bias = causal_attention_mask(torch.tensor(_left_padded(batch, 50, 4), device=cuda_device), deterministic=True)
+    got = flash_attention(q, k, v, bias)
+    want = flash_attention_reference(q, k, v, bias)
+    assert (got - want).abs().max().item() <= TOL[torch.float32]

@@ -15,15 +15,19 @@ paths against its plain PyTorch version. Phases, one JSON line each:
 3. ``kernel``  — K4 against ``flash_attention_reference`` at three shapes, f32 and bf16,
                  with the kernel's, the plain version's and ``scaled_dot_product_attention``'s
                  times and the card's bound for the same work; K1, K2, K3 against their
-                 plain versions at the training width (f32, and bf16 hidden states) and a
-                 ragged case; K4's gradient at the training shape against autograd
-                 through the plain version; K5 through its wrapper against
+                 plain versions at the training width (f32, and bf16 hidden states), a
+                 ragged case, the long-sequence width (E=128; bf16 and f32 hidden states)
+                 and E=100, K3 on its ``tf32`` variant (tensor cores) where E is a
+                 multiple of 8 up to 128 and on its ``simt`` variant at E=100; K4's
+                 gradient at the training shape against autograd through the plain
+                 version; K5 through its wrapper against
                  ``flash_attention_tiled_reference`` at the long-sequence shape
                  (causal, f32 and bf16, full windows; bf16 with the serving windows'
                  padding; non-causal; bf16 at D=128 and D=32), the ``attention_long``
-                 shape and a ragged case with a fully padded row, each bf16 row on
-                 K5's ``mma`` variant and each f32 row on its ``simt`` variant, and
-                 its gradient at the long-sequence shape;
+                 shape, a ragged case with a fully padded row and f32 at D=256, each
+                 bf16 row on K5's ``mma`` variant, each f32 row up to D=128 on its
+                 ``tf32x3`` variant and D=256 on its ``simt`` variant, and its
+                 gradient at the long-sequence shape;
 4. ``serve``   — ``SasRec(use_flash=True)`` behind ``ScoringEngine`` answering requests,
                  checked against an engine on the same weights with ``use_flash=False``;
 5. ``train``   — ``Trainer(CEFused(), SasRec(use_flash=True))`` against
@@ -36,8 +40,12 @@ paths against its plain PyTorch version. Phases, one JSON line each:
                  route with K5's forward swapped for its plain version, with matching
                  losses, and two faulty K5s as controls the limits must catch; the
                  tiled model's f32-compute hidden states under the same comparisons
-                 (K5's ``simt`` variant; the bf16 paths run its ``mma`` variant only);
-                 step times, device time and memory of the tiled and unfused trainers.
+                 and a third control, one TF32 product per f32 product (K5's
+                 ``tf32x3`` variant; the bf16 paths run its ``mma`` variant only);
+                 ``Trainer(CEFused(), ..., precision="f32")`` on the tiled route (K5
+                 ``tf32x3``, K3 ``tf32``) against ``Trainer(CE(), ...)`` on the unfused
+                 route, 20 steps from the same weights; step times, device time and
+                 memory of the four trainers.
                  ``ScoringEngine`` on the tiled bf16 model, held to the same comparisons
                  and controls, then encode latency per bucket;
 7. ``kernels`` — every ported kernel with its launches on the paths driven.
@@ -67,9 +75,10 @@ NUM_ITEMS, EMBEDDING_DIM, NUM_BLOCKS, NUM_HEADS, SEQ_LEN = 3706, 64, 2, 1, 50
 LENGTH_BUCKETS, BATCH_BUCKETS = (16, 50), (1, 8, 64)
 SEED = 0
 
-# H100 SXM data sheet: HBM rate and dense peaks (f32 without tensor cores)
+# H100 SXM data sheet: HBM rate; dense peaks of the bf16 and TF32 tensor cores
+# and of f32 FMA on the CUDA cores
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+BF16_FLOPS, TF32_FLOPS, F32_FMA_FLOPS = 989e12, 495e12, 67e12
 
 # kernel vs plain version, max abs error: f32 differs only in summation order
 # (online softmax over 32-key tiles vs one pass); bf16 adds the output's own
@@ -104,13 +113,19 @@ TRAIN_LOSS_RTOL = 1e-4
 #   smaller than their absolute sum; the relative error is then about
 #   sqrt(N) · 1e-6 ≈ 1.6e-4
 TRAIN_GRAD_RTOL = {"cefused_vs_ce": 1e-5, "k4_route_vs_unfused": 1e-3}
-# (name, N rows, I items, num_valid, hidden dtype): the bench.py width
-# (B·L = 25,600 rows, the MovieLens-1M catalog), the same with bf16 hidden
-# states against the f32 table, and a ragged case with masked columns
+# (name, N rows, I items, num_valid, hidden dtype, E): the bench.py width
+# (B·L = 25,600 rows, the MovieLens-1M catalog, E=64), the same with bf16
+# hidden states against the f32 table, a ragged case with masked columns, the
+# long-sequence widths (B·L = 32,768 rows, E=128) with the bf16 hidden states
+# of the bf16 trainer and the f32 ones of the f32 trainer, and E=100, which K3
+# runs on its simt variant (E not a multiple of 8)
 FUSED_CASES = (
-    ("train_f32", TRAIN_BATCH * SEQ_LEN, NUM_ITEMS, None, torch.float32),
-    ("train_bf16_hidden", TRAIN_BATCH * SEQ_LEN, NUM_ITEMS, None, torch.bfloat16),
-    ("ragged", 1000, 1000, 900, torch.float32),
+    ("train_f32", TRAIN_BATCH * SEQ_LEN, NUM_ITEMS, None, torch.float32, EMBEDDING_DIM),
+    ("train_bf16_hidden", TRAIN_BATCH * SEQ_LEN, NUM_ITEMS, None, torch.bfloat16, EMBEDDING_DIM),
+    ("ragged", 1000, 1000, 900, torch.float32, EMBEDDING_DIM),
+    ("longseq_bf16_hidden", 32 * 1024, NUM_ITEMS, None, torch.bfloat16, 128),
+    ("longseq_f32", 32 * 1024, NUM_ITEMS, None, torch.float32, 128),
+    ("dim_100", TRAIN_BATCH * SEQ_LEN, NUM_ITEMS, None, torch.float32, 100),
 )
 
 # bench_suite.py's sasrec_l1024_tiled: the same catalog, E=128, 2 blocks, 2
@@ -156,8 +171,9 @@ TILED_GRAD_TOL = 1e-4
 # bench_suite.py's full windows in bf16 (the path's type) and f32, the same
 # with the serving windows' padding, bench_suite.py's attention_long shape, the
 # non-causal case, the long-sequence width split into one head of D=128 and
-# four of D=32 (bf16: K5's mma variant at its widest and narrowest D), and a
-# ragged length with one fully padded row (padding kinds: see padding_mask)
+# four of D=32 (bf16: K5's mma variant at its widest and narrowest D), a
+# ragged length with one fully padded row (padding kinds: see padding_mask),
+# and f32 at D=256, which K5 runs on its simt variant (D above 128)
 TILED_SHAPES = (
     ("longseq", LONG_BATCH, LONG_HEADS, LONG_LEN, LONG_DIM // LONG_HEADS, True, torch.bfloat16, "none"),
     ("longseq", LONG_BATCH, LONG_HEADS, LONG_LEN, LONG_DIM // LONG_HEADS, True, torch.float32, "none"),
@@ -167,6 +183,7 @@ TILED_SHAPES = (
     ("longseq_d128", LONG_BATCH, 1, LONG_LEN, LONG_DIM, True, torch.bfloat16, "none"),
     ("longseq_d32", LONG_BATCH, 4, LONG_LEN, LONG_DIM // 4, True, torch.bfloat16, "none"),
     ("ragged", 8, 2, 1000, 64, True, torch.float32, "dead"),
+    ("simt_d256", 8, 2, 1000, 256, True, torch.float32, "none"),
 )
 
 # (name, B, H, L, D, bias heads, mask): the serving width (bench_serve.py), the
@@ -267,16 +284,43 @@ def attention_case(batch, heads, length, dim, bias_heads, mask, dtype, device, s
     return q, k, v, bias
 
 
+def product_rate(a: torch.dtype, b: torch.dtype, f32_parts: int = 3) -> float:
+    """The fastest rate, FLOP/s, at which the card multiplies operands of types
+    ``a`` and ``b`` to the accuracy the kernel keeps, never below f32 FMA on the
+    CUDA cores:
+    - bf16 × bf16: one product on the bf16 tensor cores;
+    - bf16 × f32: one bf16 product per bf16 part of the f32 operand against the
+      bf16 one, which is exact: three parts carry all of f32's 24 bits,
+      ``f32_parts`` = 2 where the kernel keeps that operand as a bf16 hi + lo
+      pair (K5's ``mma`` keeps P so); faster than split TF32's two products;
+    - f32 × f32: split TF32, three products on the TF32 tensor cores (as fast
+      as the six that bf16 parts would take)."""
+    f32_operands = (a == torch.float32) + (b == torch.float32)
+    rate = {0: BF16_FLOPS, 1: max(BF16_FLOPS / f32_parts, TF32_FLOPS / 2), 2: TF32_FLOPS / 3}[f32_operands]
+    return max(rate, F32_FMA_FLOPS)
+
+
+def least_ms(moved: int, products):
+    """The larger of ``moved`` bytes over HBM rate and the ``products`` — (name,
+    FLOP, rate in FLOP/s) — each at its rate. Returns (ms, "bytes" |
+    "operations", FLOP, the rate of each product in TFLOP/s)."""
+    byte_ms = moved / HBM_BYTES_PER_S * 1e3
+    flop_ms = sum(flop / rate for _, flop, rate in products) * 1e3
+    rates = {name: rate / 1e12 for name, _, rate in products}
+    return max(byte_ms, flop_ms), ("bytes" if byte_ms >= flop_ms else "operations"), sum(p[1] for p in products), rates
+
+
 def bound(q: torch.Tensor, bias: torch.Tensor):
     """Least time the card could take for one attention call: each input read
-    once, the output written once, over HBM rate; 4·B·H·L²·D FLOP over the
-    peak for the inputs' type. Returns (ms, "bytes" | "operations", bytes, flop)."""
+    once, the output written once, over HBM rate; 2·B·H·L²·D FLOP for QKᵀ in
+    the inputs' type and as many for P·V, P in f32 (the kernel's), each at its
+    ``product_rate``. Returns (ms, "bytes" | "operations", bytes, FLOP, rates)."""
     batch, heads, length, dim = q.shape
     moved = 4 * q.numel() * q.element_size() + bias.numel() * 4  # q, k, v, out; f32 bias
-    flop = 4 * batch * heads * length * length * dim
-    byte_ms = moved / HBM_BYTES_PER_S * 1e3
-    flop_ms = flop / PEAK_FLOPS[q.dtype] * 1e3
-    return max(byte_ms, flop_ms), ("bytes" if byte_ms >= flop_ms else "operations"), moved, flop
+    half = 2 * batch * heads * length * length * dim
+    products = (("QK", half, product_rate(q.dtype, q.dtype)), ("PV", half, product_rate(torch.float32, q.dtype)))
+    ms, by, flop, rates = least_ms(moved, products)
+    return ms, by, moved, flop, rates
 
 
 def kernel_phase(device) -> dict:
@@ -300,7 +344,7 @@ def kernel_phase(device) -> dict:
                 raise AssertionError(f"K4 {name} {dtype}: non-finite output")
             err = (got.float() - want.float()).abs().max().item()
             sdpa_mask = bias.to(dtype)
-            bound_ms, bound_by, moved, flop = bound(q, bias)
+            bound_ms, bound_by, moved, flop, rates = bound(q, bias)
             record = {
                 "shape": name, "B": batch, "H": heads, "L": length, "D": dim,
                 "bias_heads": bias_heads, "mask": mask, "dtype": str(dtype).removeprefix("torch."),
@@ -311,7 +355,7 @@ def kernel_phase(device) -> dict:
                 "library_ms": graph_ms(
                     lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask)
                 ),
-                "bound_ms": bound_ms, "bound_by": bound_by, "bytes": moved, "flop": flop,
+                "bound_ms": bound_ms, "bound_by": bound_by, "bytes": moved, "flop": flop, "rates_tflops": rates,
             }
             emit("kernel", **record)
             if err > KERNEL_TOL[dtype]:
@@ -337,13 +381,14 @@ def padding_mask(rng, batch: int, length: int, padding: str) -> np.ndarray:
     return np.arange(length)[None, :] >= length - lengths[:, None]
 
 
-def tiled_bound(q: torch.Tensor, padding: torch.Tensor, causal: bool):
+def tiled_bound(q: torch.Tensor, padding: torch.Tensor, causal: bool, variant: str):
     """Least time the card could take for one K5 call on these inputs, the
     larger of two: the bytes it must move over HBM rate — k and v of the real
     keys, q of the rows that see a real key, all of out and lse written once,
-    the f32 bias row read once — and 4·H·D FLOP per (query, real key) pair
-    (causal: key ≤ row) over the peak for the inputs' type.
-    Returns (ms, bound_by, bytes, flop)."""
+    the f32 bias row read once — and 2·H·D FLOP per (query, real key) pair
+    (causal: key ≤ row) for QKᵀ in the inputs' type and as many for P·V, P in
+    f32, each at its ``product_rate`` (P in two bf16 parts on ``variant``
+    "mma", which keeps it so). Returns (ms, bound_by, bytes, FLOP, rates)."""
     batch, heads, length, dim = q.shape
     valid = padding.to(torch.float64)
     if causal:  # key k is seen by rows k .. L-1; row r sees a real key once one lies at or before it
@@ -355,24 +400,28 @@ def tiled_bound(q: torch.Tensor, padding: torch.Tensor, causal: bool):
     row_bytes = heads * dim * q.element_size()
     moved = (2 * valid.sum().item() + seeing) * row_bytes + q.numel() * q.element_size()  # k, v; q; out
     moved += batch * length * 4 + batch * heads * length * 4  # bias; lse
-    flop = 4 * heads * dim * pairs
-    byte_ms = moved / HBM_BYTES_PER_S * 1e3
-    flop_ms = flop / PEAK_FLOPS[q.dtype] * 1e3
-    return max(byte_ms, flop_ms), ("bytes" if byte_ms >= flop_ms else "operations"), int(moved), flop
+    half = 2 * heads * dim * pairs
+    p_parts = 2 if variant == "mma" else 3
+    products = (
+        ("QK", half, product_rate(q.dtype, q.dtype)),
+        ("PV", half, product_rate(torch.float32, q.dtype, f32_parts=p_parts)),
+    )
+    ms, by, flop, rates = least_ms(moved, products)
+    return ms, by, int(moved), flop, rates
 
 
-def reset_variant_counts() -> None:
-    """K5's launches by variant, set to 0 in place (the wrapper adds to this dict)."""
-    from replay_tpu_torch.ops.flash_tiled import flash_attention_tiled
+def reset_counts(*wrappers) -> None:
+    """Each wrapper's launch count set to 0, and its launches by variant where
+    it counts them (in place: the wrapper adds to that dict)."""
+    for fn in wrappers:
+        fn.launches = 0
+        for variant in getattr(fn, "launches_by_variant", ()):
+            fn.launches_by_variant[variant] = 0
 
-    for variant in flash_attention_tiled.launches_by_variant:
-        flash_attention_tiled.launches_by_variant[variant] = 0
 
-
-def variant_counts() -> dict:
-    from replay_tpu_torch.ops.flash_tiled import flash_attention_tiled
-
-    return dict(flash_attention_tiled.launches_by_variant)
+def variant_counts(fn) -> dict:
+    """The wrapper's launches by variant."""
+    return dict(fn.launches_by_variant)
 
 
 def tiled_kernel_phase(device) -> dict:
@@ -398,16 +447,16 @@ def tiled_kernel_phase(device) -> dict:
         mask = torch.tensor(padding_mask(rng, batch, length, padding), device=device)
         bias = padding_mask_bias(mask)
         variant = flash_tiled._variant(dtype, dim)
-        reset_variant_counts()
+        reset_counts(flash_attention_tiled)
         got = flash_attention_tiled(q, k, v, bias, causal)  # the wrapper the model calls
         _, lse = flash_tiled._launch(q, k, v, bias, causal)  # the wrapper returns no lse
-        ran = variant_counts()
+        ran = variant_counts(flash_attention_tiled)
         # the plain version on the same input values, its f32 result not
         # rounded: for bf16 the error is then the output's own rounding
         want, want_lse = flash_attention_tiled_reference(q.float(), k.float(), v.float(), bias, causal)
         torch.cuda.synchronize()
         label = f"K5 {name} {dtype} causal={causal}"
-        expected_variant = "mma" if dtype == torch.bfloat16 else "simt"
+        expected_variant = "simt" if dim % 8 or dim > 128 else ("mma" if dtype == torch.bfloat16 else "tf32x3")
         if variant != expected_variant or ran != {key: 2 if key == variant else 0 for key in ran}:
             raise AssertionError(f"{label}: variant {variant} (expected {expected_variant}), launches {ran}")
         if got.dtype != dtype or got.shape != q.shape or lse.shape != q.shape[:3]:
@@ -433,7 +482,7 @@ def tiled_kernel_phase(device) -> dict:
             key_mask = mask[:, None, None, :]
             library = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=key_mask)  # noqa: E731
         big = length >= 4096
-        bound_ms, bound_by, moved, flop = tiled_bound(q, mask, causal)
+        bound_ms, bound_by, moved, flop, rates = tiled_bound(q, mask, causal, variant)
         record = {
             "kernel": "K5", "variant": variant, "shape": name, "B": batch, "H": heads, "L": length, "D": dim,
             "causal": causal, "padding": padding, "real_tokens": int(mask.sum().item()),
@@ -450,7 +499,7 @@ def tiled_kernel_phase(device) -> dict:
             "library_ms": graph_ms(library, launches=10),
             "library_call": "scaled_dot_product_attention(is_causal=True)" if causal
             else "scaled_dot_product_attention(attn_mask=key padding)",
-            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": moved, "flop": flop,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": moved, "flop": flop, "rates_tflops": rates,
         }
         emit("kernel", **record)
         if err > KERNEL_TOL[dtype] or lse_err > TILED_LSE_TOL or dead_exact is False:
@@ -653,19 +702,20 @@ def serve_phase(device) -> dict:
     return {"launches": launches}
 
 
-def fused_case(rows, items, dtype, device, seed):
+def fused_case(rows, items, dim, dtype, device, seed):
     """hidden (LayerNorm-scale rows), table (the embedding init's scale), g."""
     rng = np.random.default_rng(seed)
-    hidden = torch.tensor(rng.standard_normal((rows, EMBEDDING_DIM), dtype=np.float32)).to(device, dtype)
-    table = torch.tensor(rng.standard_normal((items, EMBEDDING_DIM), dtype=np.float32) / math.sqrt(EMBEDDING_DIM))
+    hidden = torch.tensor(rng.standard_normal((rows, dim), dtype=np.float32)).to(device, dtype)
+    table = torch.tensor(rng.standard_normal((items, dim), dtype=np.float32) / math.sqrt(dim))
     grad = torch.tensor(rng.standard_normal(rows, dtype=np.float32))
     return hidden, table.to(device), grad.to(device)
 
 
 def fused_bound(kernel, hidden, table):
     """Least time for one K1/K2/K3 call: inputs read once and outputs written
-    once over HBM rate; 2·N·E·I (K1) or 4·N·E·I (K2, K3) FLOP over the peak
-    for the hidden states' type. Returns (ms, bound_by, bytes, flop)."""
+    once over HBM rate; 2·N·E·I FLOP for the logits h·Wᵀ (K1), and as many
+    again for the weighted sum, the f32 weights against W (K2) or h (K3), each
+    at its ``product_rate``. Returns (ms, bound_by, bytes, FLOP, rates)."""
     rows, dim = hidden.shape
     items = table.shape[0]
     inputs = hidden.numel() * hidden.element_size() + table.numel() * table.element_size()
@@ -674,25 +724,36 @@ def fused_bound(kernel, hidden, table):
         "K2": inputs + 2 * rows * 4 + hidden.numel() * hidden.element_size(),  # g, lse in; dh out
         "K3": inputs + 2 * rows * 4 + table.numel() * table.element_size(),  # g, lse in; dW out
     }[kernel]
-    flop = (2 if kernel == "K1" else 4) * rows * dim * items
-    byte_ms = moved / HBM_BYTES_PER_S * 1e3
-    flop_ms = flop / PEAK_FLOPS[hidden.dtype] * 1e3
-    return max(byte_ms, flop_ms), ("bytes" if byte_ms >= flop_ms else "operations"), moved, flop
+    half = 2 * rows * dim * items
+    products = [("logits", half, product_rate(hidden.dtype, table.dtype))]
+    if kernel == "K2":
+        products.append(("PW", half, product_rate(torch.float32, table.dtype)))
+    elif kernel == "K3":
+        products.append(("Ph", half, product_rate(torch.float32, hidden.dtype)))
+    ms, by, flop, rates = least_ms(moved, products)
+    return ms, by, moved, flop, rates
 
 
 def fused_ce_phase(device) -> dict:
-    """K1, K2, K3 vs their plain versions at every case; returns the records of
-    the f32 training-width case by kernel."""
+    """K1, K2, K3 vs their plain versions at every case, K3 on the variant E
+    calls for; returns the records by case and kernel."""
     from replay_tpu_torch.ops import fused_ce as fc
 
     records = {}
-    for index, (name, rows, items, num_valid, dtype) in enumerate(FUSED_CASES):
-        hidden, table, grad = fused_case(rows, items, dtype, device, 100 + index)
+    for index, (name, rows, items, num_valid, dtype, dim) in enumerate(FUSED_CASES):
+        hidden, table, grad = fused_case(rows, items, dim, dtype, device, 100 + index)
         valid = items if num_valid is None else num_valid
         lse = fc.fused_lse_forward(hidden, table, num_valid)
         want_lse = fc.fused_lse_reference(hidden, table, num_valid)
         dh = fc.fused_lse_dh(hidden, table, grad, want_lse, num_valid)
+        reset_counts(fc.fused_lse_dw)
         dw = fc.fused_lse_dw(hidden, table, grad, want_lse, num_valid)
+        dw_variant = fc._dw_variant(dim)
+        expected_variant = "tf32" if dim % 8 == 0 and dim <= 128 else "simt"
+        if dw_variant != expected_variant or variant_counts(fc.fused_lse_dw) != {
+            key: int(key == dw_variant) for key in fc.DW_VARIANTS
+        }:
+            raise AssertionError(f"K3 {name}: variant {dw_variant} (expected {expected_variant}), launches {variant_counts(fc.fused_lse_dw)}")
         # the plain versions on the same input values, their f32 results not
         # rounded: for a bf16 dh the error is then its own rounding
         want_dh = fc.fused_lse_dh_reference(hidden.float(), table, grad, want_lse, num_valid)
@@ -729,27 +790,31 @@ def fused_ce_phase(device) -> dict:
             tol = FUSED_TOL[kernel] * scale
             if kernel == "K2" and dtype == torch.bfloat16:
                 tol = FUSED_TOL_BF16_DH * scale
-            bound_ms, bound_by, moved, flop = fused_bound(kernel, hidden, table)
+            bound_ms, bound_by, moved, flop, rates = fused_bound(kernel, hidden, table)
             record = {
-                "kernel": kernel, "case": name, "N": rows, "I": items, "E": EMBEDDING_DIM,
+                "kernel": kernel, "case": name, "N": rows, "I": items, "E": dim,
+                "variant": dw_variant if kernel == "K3" else None,
                 "num_valid": valid, "hidden_dtype": str(dtype).removeprefix("torch."), "table_dtype": "float32",
                 "max_abs_err": err, "tol": tol, "max_abs_plain": scale if kernel != "K1" else None,
                 "ms": graph_ms(run, launches=10, reps=5), "eager_ms": eager_ms(run, launches=10, reps=5),
                 "plain_ms": graph_ms(plain, launches=5, reps=5),
                 "library_ms": graph_ms(library(kernel), launches=5, reps=5),
-                "bound_ms": bound_ms, "bound_by": bound_by, "bytes": moved, "flop": flop,
+                "bound_ms": bound_ms, "bound_by": bound_by, "bytes": moved, "flop": flop, "rates_tflops": rates,
             }
             emit("kernel", **record)
             if err > tol:
                 raise AssertionError(f"{kernel} {name}: max abs err {err} > {tol}")
-            if name == "train_f32":
-                records[kernel] = record
-    # run to run, the kernels' fixed summation order gives the same bits
-    hidden, table, grad = fused_case(TRAIN_BATCH * SEQ_LEN, NUM_ITEMS, torch.float32, device, 100)
-    lse = fc.fused_lse_forward(hidden, table)
-    for fn in (fc.fused_lse_dh, fc.fused_lse_dw):
-        if not torch.equal(fn(hidden, table, grad, lse), fn(hidden, table, grad, lse)):
-            raise AssertionError(f"{fn.__name__} differs between two runs on the same inputs")
+            records.setdefault(name, {})[kernel] = record
+    # run to run, the kernels' fixed summation order gives the same bits: the
+    # bench.py width in f32, and K3 at the long-sequence width on bf16 hidden states
+    for name, rows, items, _, dtype, dim in FUSED_CASES:
+        if name not in ("train_f32", "longseq_bf16_hidden"):
+            continue
+        hidden, table, grad = fused_case(rows, items, dim, dtype, device, 100)
+        lse = fc.fused_lse_forward(hidden, table)
+        for fn in (fc.fused_lse_dh, fc.fused_lse_dw) if name == "train_f32" else (fc.fused_lse_dw,):
+            if not torch.equal(fn(hidden, table, grad, lse), fn(hidden, table, grad, lse)):
+                raise AssertionError(f"{fn.__name__} {name} differs between two runs on the same inputs")
     return records
 
 
@@ -931,14 +996,14 @@ def train_phase(device) -> dict:
         raise AssertionError(f"gradients: finite={finite}, relative errors {grad_err} vs {TRAIN_GRAD_RTOL}")
 
     # the main path: counts start at 0 here and are read right after its steps
-    for counter in counters:
-        counter.launches = 0
+    reset_counts(*counters)
     fused_losses = []
     for _ in range(TRAIN_STEPS):
         fused_state, loss = fused.train_step(fused_state, batch)
         fused_losses.append(loss)
     torch.cuda.synchronize()
     launches = {fn.__name__: fn.launches for fn in counters}
+    dw_variants = variant_counts(fc.fused_lse_dw)
     plain_losses = []
     for _ in range(TRAIN_STEPS):
         plain_state, loss = plain.train_step(plain_state, batch)
@@ -954,6 +1019,8 @@ def train_phase(device) -> dict:
     }
     if launches != expected or after_plain != launches:
         raise AssertionError(f"launches {launches}, after the plain trainer {after_plain}, expected {expected}")
+    if dw_variants != {"tf32": TRAIN_STEPS, "simt": 0}:
+        raise AssertionError(f"training ran K3's variants {dw_variants}, not tf32 only")
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(fused_losses, plain_losses))
     if not all(math.isfinite(x) for x in fused_losses + plain_losses) or loss_err > TRAIN_LOSS_RTOL:
         raise AssertionError(f"fused vs plain losses differ by rtol {loss_err}: {fused_losses} vs {plain_losses}")
@@ -1013,7 +1080,7 @@ def train_phase(device) -> dict:
         )
     emit(
         "train", batch=TRAIN_BATCH, seq_len=SEQ_LEN, items=NUM_ITEMS, embedding_dim=EMBEDDING_DIM,
-        blocks=NUM_BLOCKS, steps=TRAIN_STEPS, launches=launches, fused_losses=fused_losses,
+        blocks=NUM_BLOCKS, steps=TRAIN_STEPS, launches=launches, k3_variants=dw_variants, fused_losses=fused_losses,
         plain_losses=plain_losses, loss_max_rtol=loss_err, loss_tol=TRAIN_LOSS_RTOL,
         fused_metrics=fused_metrics, plain_metrics=plain_metrics, metric_max_abs_err=metric_err,
         metric_tol=metric_tol, logits_max_abs_err=logits_err, top10_ranks_checked=int(pinned.sum()),
@@ -1087,6 +1154,18 @@ def k5_bf16_scores_fault(q, k, v, bias, causal):
     return out.to(q.dtype), lse
 
 
+def k5_tf32_fault(q, k, v, bias, causal):
+    """A faulty K5, for the controls: the plain version with its two products
+    on cuBLAS's TF32 path, one TF32 product per f32 product — the precision
+    that the tf32x3 variant's hi + lo splits keep above."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        return k5_plain(q, k, v, bias, causal)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
 # the comparisons of the long-sequence phase: (name, K5's forward or None for
 # the unfused route, is it a control)
 LONGSEQ_COMPARISONS = (
@@ -1096,6 +1175,11 @@ LONGSEQ_COMPARISONS = (
     ("bf16_scores_fault", k5_bf16_scores_fault, True),
 )
 FAULTS = tuple(name for name, _, control in LONGSEQ_COMPARISONS if control)
+# the f32-compute forward's comparisons add a third control: one TF32 product
+# per f32 product (in bf16 compute, where q, k, v are exact in TF32, it would
+# test little)
+F32_COMPARISONS = LONGSEQ_COMPARISONS + (("tf32_products_fault", k5_tf32_fault, True),)
+F32_FAULTS = tuple(name for name, _, control in F32_COMPARISONS if control)
 
 
 def check_readings(kind: str, readings: dict, limit: float, sound, caught) -> None:
@@ -1115,7 +1199,7 @@ def longseq_phase(device) -> dict:
     faulty K5s as controls."""
     from replay_tpu_torch.data import FeatureHint, FeatureType
     from replay_tpu_torch.data.nn import TensorFeatureInfo, TensorSchema
-    from replay_tpu_torch.nn.loss import CEFused
+    from replay_tpu_torch.nn.loss import CE, CEFused
     from replay_tpu_torch.nn.sequential.sasrec import SasRec
     from replay_tpu_torch.nn.train import OptimizerFactory, Trainer
     from replay_tpu_torch.ops import fused_ce as fc
@@ -1154,20 +1238,20 @@ def longseq_phase(device) -> dict:
         return state, [float(x) for x in values]
 
     # the main path: counts start at 0 here and are read right after its steps
-    for counter in counters:
-        counter.launches = 0
-    reset_variant_counts()
+    reset_counts(*counters)
     tiled_state, tiled_losses = losses(tiled)
     train_launches = {fn.__name__: fn.launches for fn in counters}
-    train_variants = variant_counts()
+    train_variants, train_dw_variants = variant_counts(flash_attention_tiled), variant_counts(fc.fused_lse_dw)
     expected = {
         "flash_attention_tiled": LONG_BLOCKS * LONG_STEPS, "fused_lse_forward": LONG_STEPS,
         "fused_lse_dh": LONG_STEPS, "fused_lse_dw": LONG_STEPS, "flash_attention": 0,
     }
     if train_launches != expected:
         raise AssertionError(f"longseq launches {train_launches}, expected {expected}")
-    if train_variants != {"mma": expected["flash_attention_tiled"], "simt": 0}:
+    if train_variants != {"mma": expected["flash_attention_tiled"], "tf32x3": 0, "simt": 0}:
         raise AssertionError(f"bf16 training ran K5's variants {train_variants}, not mma only")
+    if train_dw_variants != {"tf32": LONG_STEPS, "simt": 0}:
+        raise AssertionError(f"bf16 training ran K3's variants {train_dw_variants}, not tf32 only")
     if not tiled_losses[-1] < tiled_losses[0] or int(tiled_state.bad_steps):
         raise AssertionError(f"longseq loss did not fall or steps were skipped: {tiled_losses}")
     if tiled_state.flat_params.dtype != torch.float32:
@@ -1193,15 +1277,14 @@ def longseq_phase(device) -> dict:
     unfused_f32 = tiled_model.clone(use_flash=False).to(device)
     f32_err = {}
     with torch.no_grad():
-        # a path of its own: the f32-compute forward, on K5's simt variant, counted from 0
-        flash_attention_tiled.launches = 0
-        reset_variant_counts()
+        # a path of its own: the f32-compute forward, on K5's tf32x3 variant, counted from 0
+        reset_counts(flash_attention_tiled)
         hidden = tiled_model(ids, real)
         torch.cuda.synchronize()
-        f32_launches, f32_variants = flash_attention_tiled.launches, variant_counts()
-        if f32_variants != {"mma": 0, "simt": LONG_BLOCKS} or f32_launches != LONG_BLOCKS:
-            raise AssertionError(f"the f32 forward ran K5's variants {f32_variants}, not simt once a block")
-        for name, forward, _ in LONGSEQ_COMPARISONS:
+        f32_launches, f32_variants = flash_attention_tiled.launches, variant_counts(flash_attention_tiled)
+        if f32_variants != {"mma": 0, "tf32x3": LONG_BLOCKS, "simt": 0} or f32_launches != LONG_BLOCKS:
+            raise AssertionError(f"the f32 forward ran K5's variants {f32_variants}, not tf32x3 once a block")
+        for name, forward, _ in F32_COMPARISONS:
             if forward is None:
                 other = unfused_f32(ids, real)
             else:
@@ -1211,10 +1294,43 @@ def longseq_phase(device) -> dict:
     if flash_attention_tiled.launches != f32_launches:
         raise AssertionError("a comparison of the f32 forward launched K5")
     emit("longseq_check", part="f32_hidden", max_abs_err=f32_err, limit=LONGSEQ_F32_TOL)
-    check_readings("f32 hidden states", f32_err, LONGSEQ_F32_TOL, ("unfused", "k5_plain"), FAULTS)
+    check_readings("f32 hidden states", f32_err, LONGSEQ_F32_TOL, ("unfused", "k5_plain"), F32_FAULTS)
+
+    # the f32 trainer, SasRec's default compute, from the same weights: the
+    # tiled route on K5 (tf32x3) and K1–K3 (K3 on tf32) against the unfused
+    # route with CE, whose logits are plain torch ops, step by step
+    f32_tiled = Trainer(tiled_model.clone(), CEFused(), optimizer=optimizer, precision="f32", device=device)
+    f32_plain = Trainer(SasRec(schema, use_flash=False, **width), CE(), optimizer=optimizer, precision="f32", device=device)
+    if f32_tiled.model.dtype != torch.float32:
+        raise AssertionError(f"precision='f32' left the tiled model in {f32_tiled.model.dtype}")
+    # the main path: counts start at 0 here and are read right after its steps
+    reset_counts(*counters)
+    f32_tiled_state, f32_tiled_losses = losses(f32_tiled)
+    f32_train_launches = {fn.__name__: fn.launches for fn in counters}
+    f32_train_variants, f32_dw_variants = variant_counts(flash_attention_tiled), variant_counts(fc.fused_lse_dw)
+    if f32_train_launches != expected:
+        raise AssertionError(f"longseq f32 launches {f32_train_launches}, expected {expected}")
+    if f32_train_variants != {"mma": 0, "tf32x3": expected["flash_attention_tiled"], "simt": 0}:
+        raise AssertionError(f"f32 training ran K5's variants {f32_train_variants}, not tf32x3 only")
+    if f32_dw_variants != {"tf32": LONG_STEPS, "simt": 0}:
+        raise AssertionError(f"f32 training ran K3's variants {f32_dw_variants}, not tf32 only")
+    if not f32_tiled_losses[-1] < f32_tiled_losses[0] or int(f32_tiled_state.bad_steps):
+        raise AssertionError(f"longseq f32 loss did not fall or steps were skipped: {f32_tiled_losses}")
+    f32_plain_state, f32_plain_losses = losses(f32_plain)
+    if {fn.__name__: fn.launches for fn in counters} != f32_train_launches:
+        raise AssertionError("the unfused f32 trainer launched a kernel")
+    if not all(math.isfinite(x) for x in f32_plain_losses) or int(f32_plain_state.bad_steps):
+        raise AssertionError(f"longseq f32 unfused: non-finite losses or skipped steps {f32_plain_losses}")
+    f32_loss_err = max(abs(a - b) / abs(b) for a, b in zip(f32_tiled_losses, f32_plain_losses))
+    emit("longseq_check", part="f32_train", loss_rel_err=f32_loss_err, limit=TRAIN_LOSS_RTOL)
+    if f32_loss_err > TRAIN_LOSS_RTOL:
+        raise AssertionError(f"longseq f32 losses differ by rtol {f32_loss_err}: {f32_tiled_losses} vs {f32_plain_losses}")
 
     train_perf = {}
-    for name, trainer, state in (("tiled", tiled, tiled_state), ("unfused", plain, plain_state)):
+    for name, trainer, state in (
+        ("tiled", tiled, tiled_state), ("unfused", plain, plain_state),
+        ("f32_tiled", f32_tiled, f32_tiled_state), ("f32_unfused", f32_plain, f32_plain_state),
+    ):
         _, train_perf[name] = trainer_perf(
             trainer, state, batch, LONG_TIMED_STEPS, LONG_WARMUP_STEPS, LONG_PROFILED_STEPS, LONG_BATCH * LONG_LEN
         )
@@ -1238,8 +1354,7 @@ def longseq_phase(device) -> dict:
         by_length.setdefault(lb, []).append((window[LONG_LEN - lb :], mask[LONG_LEN - lb :]))
 
     # the main path: counts start at 0 here and are read at the end of the serving part
-    flash_attention_tiled.launches = 0
-    reset_variant_counts()
+    reset_counts(flash_attention_tiled)
     serve_max = {name: 0.0 for name, _, _ in LONGSEQ_COMPARISONS}
     serve_sum, logit_count, top_checked = {name: 0.0 for name in serve_max}, 0, 0
     for lb, rows in sorted(by_length.items()):
@@ -1298,26 +1413,31 @@ def longseq_phase(device) -> dict:
             record["device_busy_share"] = record["device_ms"] / record["p50_ms"]
             latency[f"L={lb},B={bucket}"] = record
     serve_launches = flash_attention_tiled.launches
-    serve_variants = variant_counts()
+    serve_variants = variant_counts(flash_attention_tiled)
     encode_calls = engine.stats()["encode_calls"]
     if serve_launches != LONG_BLOCKS * encode_calls:
         raise AssertionError(f"K5 serving launches {serve_launches} != {LONG_BLOCKS} x {encode_calls} encode calls")
-    if serve_variants != {"mma": serve_launches, "simt": 0}:
+    if serve_variants != {"mma": serve_launches, "tf32x3": 0, "simt": 0}:
         raise AssertionError(f"bf16 serving ran K5's variants {serve_variants}, not mma only")
     emit(
         "longseq", batch=LONG_BATCH, seq_len=LONG_LEN, items=NUM_ITEMS, embedding_dim=LONG_DIM,
         blocks=LONG_BLOCKS, heads=LONG_HEADS, precision=tiled.precision.describe(), steps=LONG_STEPS,
-        train_launches=train_launches, train_k5_variants=train_variants, f32_forward_k5_variants=f32_variants,
+        train_launches=train_launches, train_k5_variants=train_variants, train_k3_variants=train_dw_variants,
+        f32_forward_k5_variants=f32_variants,
         tiled_losses=tiled_losses, other_losses=other_losses,
         loss_rel_err=loss_err, loss_limit=LONGSEQ_LOSS_RTOL, f32_hidden_max_abs_err=f32_err,
-        f32_limit=LONGSEQ_F32_TOL, train_perf=train_perf,
+        f32_limit=LONGSEQ_F32_TOL,
+        f32_train_launches=f32_train_launches, f32_train_k5_variants=f32_train_variants,
+        f32_train_k3_variants=f32_dw_variants, f32_tiled_losses=f32_tiled_losses,
+        f32_unfused_losses=f32_plain_losses, f32_loss_rel_err=f32_loss_err, f32_loss_limit=TRAIN_LOSS_RTOL,
+        train_perf=train_perf,
         serve_requests=len(requests), serve_encode_calls=encode_calls, serve_k5_launches=serve_launches,
         serve_k5_variants=serve_variants,
         serve_logits_mean_abs_err=serve_mean, serve_mean_limit=LONGSEQ_SERVE_MEAN_TOL,
         serve_logits_max_abs_err=serve_max, serve_max_limit=LONGSEQ_SERVE_MAX_TOL, top10_ranks_checked=top_checked,
         serve_stats=engine.stats(), serve_latency_ms=latency,
     )
-    return {"train": train_launches, "serve": serve_launches, "f32": f32_launches}
+    return {"train": train_launches, "serve": serve_launches, "f32": f32_launches, "f32_train": f32_train_launches}
 
 
 def main() -> int:
@@ -1347,6 +1467,19 @@ def main() -> int:
     trained = train_phase(device)
     longseq = longseq_phase(device)
 
+    kernels = kernel_records(k4, fused, tiled_records, served, trained, longseq)
+    emit("kernels", kernels=[{k: r[k] for k in ("name", "launches", "passed")} for r in kernels])
+    print(card, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    device_record = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}
+    print(json.dumps({"ok": True, "device": device_record}), flush=True)
+    return 0
+
+
+def kernel_records(k4, fused, tiled_records, served, trained, longseq) -> list:
+    """The kernels line: every kernel of the paths driven, one entry per
+    instantiation a path runs, with its launches there; raises if one of them
+    launched no time."""
     kernels = [
         {
             "name": "flash_attention",
@@ -1365,19 +1498,27 @@ def main() -> int:
             "shape": f"B={k4['B']} H={k4['H']} L={k4['L']} D={k4['D']} {k4['dtype']}",
         }
     ]
+    # K1–K3, one entry per kernel and instantiation on the paths: f32 at the
+    # bench.py width (train), bf16 hidden states at the long-sequence width
+    # (the bf16 trainer), f32 there (the f32 trainer)
     fused_kernels = (
         ("fused_lse_forward", "K1", 132), ("fused_lse_dh", "K2", 156), ("fused_lse_dw", "K3", 177),
     )
-    for name, kernel, line in fused_kernels:
-        record = fused[kernel]
-        kernels.append(
-            {
-                "name": name,
+    fused_paths = (
+        ("", "train_f32", "train", trained),
+        ("_longseq_bf16_hidden", "longseq_bf16_hidden", "longseq_train", longseq["train"]),
+        ("_longseq_f32", "longseq_f32", "longseq_f32_train", longseq["f32_train"]),
+    )
+    for suffix, case, path, path_launches in fused_paths:
+        for name, kernel, line in fused_kernels:
+            record = fused[case][kernel]
+            entry = {
+                "name": name + suffix,
                 "route": "cuda",
                 "source": "replay_tpu_torch/csrc/fused_ce.cu",
                 "replaces": f"replay_tpu/ops/fused_ce.py:{line}",
-                "launches": trained[name] + longseq["train"][name],
-                "launches_by_path": {"train": trained[name], "longseq_train": longseq["train"][name]},
+                "launches": path_launches[name],
+                "launches_by_path": {path: path_launches[name]},
                 "max_abs_err": record["max_abs_err"],
                 "ms": record["ms"],
                 "plain_ms": record["plain_ms"],
@@ -1387,16 +1528,21 @@ def main() -> int:
                 "passed": True,
                 "shape": f"N={record['N']} E={record['E']} I={record['I']} {record['hidden_dtype']}",
             }
-        )
+            if kernel == "K3":
+                entry["variant"] = record["variant"]
+            kernels.append(entry)
     # K5, one entry per variant: bf16 (mma) on the long-sequence training and
-    # serving paths, f32 (simt) on the f32-compute forward
+    # serving paths, f32 (tf32x3) on the f32-compute forward and the f32 trainer
     k5_paths = (
         ("flash_attention_tiled", "mma", torch.bfloat16,
          {"longseq_train": longseq["train"]["flash_attention_tiled"], "longseq_serve": longseq["serve"]}),
-        ("flash_attention_tiled_f32", "simt", torch.float32, {"longseq_f32_forward": longseq["f32"]}),
+        ("flash_attention_tiled_f32", "tf32x3", torch.float32,
+         {"longseq_f32_forward": longseq["f32"], "longseq_f32_train": longseq["f32_train"]["flash_attention_tiled"]}),
     )
     for name, variant, dtype, by_path in k5_paths:
         k5 = tiled_records[("longseq", dtype)]
+        if k5["variant"] != variant:
+            raise AssertionError(f"{name}: the kernel phase timed {k5['variant']}, the paths ran {variant}")
         kernels.append(
             {
                 "name": name,
@@ -1419,12 +1565,7 @@ def main() -> int:
     idle = [r["name"] for r in kernels if r["launches"] < 1]
     if idle:
         raise AssertionError(f"kernels never launched on the paths driven: {idle}")
-    emit("kernels", kernels=[{k: r[k] for k in ("name", "launches", "passed")} for r in kernels])
-    print(card, flush=True)
-    print(json.dumps({"kernels": kernels}), flush=True)
-    device_record = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}
-    print(json.dumps({"ok": True, "device": device_record}), flush=True)
-    return 0
+    return kernels
 
 
 if __name__ == "__main__":

@@ -51,6 +51,8 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "tensor_core.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -361,13 +363,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* bia
                    cudaStream_t stream) {
   constexpr int kRows = kWarps * kRowsPerWarp;
   const size_t smem = shared_bytes(32 * kChunks, kRows, tile_len, tile_len >= length ? length : 0);
-  static size_t allowed = 48 * 1024;  // raised once per instantiation, before a launch that needs it
-  if (smem > allowed) {
-    const cudaError_t err = cudaFuncSetAttribute(attention_forward<T, kChunks, kKeys, kRowsPerWarp>,
-                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    allowed = smem;
-  }
+  const cudaError_t err = allow_shared_memory<attention_forward<T, kChunks, kKeys, kRowsPerWarp>>(smem);
+  if (err != cudaSuccess) return err;
   const dim3 grid((length + kRows - 1) / kRows, heads, batch);
   attention_forward<T, kChunks, kKeys, kRowsPerWarp><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bias,

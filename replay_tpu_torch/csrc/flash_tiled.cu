@@ -27,19 +27,26 @@
 // Layout: q, k, v, out contiguous [B, H, L, D], f32 or bf16, all one type; kv_bias
 // contiguous f32 [B, L]; lse f32 [B, H, L].
 //
-// Two variants, two C entry points; ops/flash_tiled.py::_variant picks one from the dtype and D
-// alone (never from a failed build or launch):
-//   "mma"  (replay_flash_tiled_forward_mma): bf16 with D a multiple of 8 up to 128, on the
-//          tensor cores;
-//   "simt" (replay_flash_tiled_forward): f32, and bf16 at any other D <= 256, on the CUDA cores.
-// Both walk the same tiles in the same order under the same semantics.
+// Three variants, three C entry points; ops/flash_tiled.py::_variant picks one from the dtype
+// and D alone (never from a failed build or launch):
+//   "mma"    (replay_flash_tiled_forward_mma): bf16 with D a multiple of 8 up to 128, on the
+//            bf16 tensor cores;
+//   "tf32x3" (replay_flash_tiled_forward_tf32x3): f32 with D a multiple of 8 up to 128, on the
+//            TF32 tensor cores at f32 accuracy (split TF32, tensor_core.cuh);
+//   "simt"   (replay_flash_tiled_forward): any other D up to 256, f32 or bf16, on the CUDA cores.
+// All walk the same tiles in the same order under the same semantics.
 //
 // What bounds it at the slice's shape, B=32, H=2, L=1024, D=64, causal, no padding: the causal
 // product is 4 B H D L(L+1)/2 = 8.6 GFLOP, 0.13 ms at the 67 TFLOP/s of f32 on the CUDA cores or
 // 0.009 ms at the 989 TFLOP/s of bf16 tensor cores; q, k, v and out are 34 MB in bf16, 0.010 ms
-// at 3.35 TB/s. So in bf16 it is bound by bytes and by the tensor cores about equally, and in
-// f32 on the CUDA cores by operations. Times on the card are in PERF.md, measured by
-// chip_smoke.py.
+// at 3.35 TB/s. P is f32 (the Pallas kernel's), and bf16 V is exact in bf16, so P V takes one
+// bf16 product per bf16 part of P: two where P is kept as a bf16 hi + lo pair, as the "mma"
+// variant keeps it (989 / 2 TFLOP/s), three for all of f32's 24 bits (989 / 3, faster than two
+// TF32 products at 495 / 2). With S = Q K^T at 989, the bf16 call takes at least 0.013 ms at the
+// "mma" variant's accuracy. In f32 both products take three TF32 products at f32 accuracy
+// (495 / 3 TFLOP/s, as fast as six bf16 ones): 0.052 ms, against 0.13 ms for f32 FMAs on the
+// CUDA cores (67 TFLOP/s). So every variant is bound by operations. Times on the card are in
+// PERF.md, measured by chip_smoke.py.
 //
 // "simt" design. A block has 4 warps and owns 64 query rows; key tiles are 64 keys. Q, K and V
 // tiles are staged in shared memory as f32 (odd row strides for Q and K, so the column walk of
@@ -67,12 +74,25 @@
 // a bit mask in shared memory, built once per block, so a padding tile is never loaded.
 // Not yet: wgmma, TMA and warp specialisation.
 //
+// "tf32x3" design: the "mma" variant's block, pipeline, tile walk and online softmax, on f32
+// tiles (K/V stages of 64 x (D + 8) and 64 x (D + 4) floats, double-buffered with cp.async),
+// with both products on mma.sync m16n8k8 TF32 -> f32, three products per tile product: each f32
+// operand is split at fragment load into TF32 hi + lo and a b = a_hi b_hi + a_hi b_lo + a_lo b_hi,
+// which keeps about 2^-21 relative where one TF32 product keeps 2^-11. The k index of both
+// products is permuted so that a lane's two k slots are two neighbouring columns: Q and K
+// fragments are float2 reads, and P's S-accumulator registers are its A fragment for P V as they
+// lie (V's rows are read in the same order). Q's hi and lo fragments stay in registers for
+// D <= 64 and are read from shared memory for each key tile at D = 128. The output is written as
+// f32 pairs from the accumulator registers.
+//
 // C interface, bound from Python with ctypes: each entry point launches on the given stream,
 // does not synchronise, allocates nothing, and returns cudaGetLastError() (0 when the launch
 // was accepted).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -300,15 +320,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* kv_
                    float* lse, int batch, int heads, int length, int dim, int causal,
                    cudaStream_t stream) {
   const size_t smem = shared_bytes(dim);
-  // raised once per instantiation, before any launch that needs it (never inside a graph capture
-  // that follows an eager call of the same shape)
-  static size_t allowed = 48 * 1024;
-  if (smem > allowed) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        tiled_forward<T, kDimCap>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    allowed = smem;
-  }
+  const cudaError_t err = allow_shared_memory<tiled_forward<T, kDimCap>>(smem);
+  if (err != cudaSuccess) return err;
   const dim3 grid((length + kBlockQ - 1) / kBlockQ, heads, batch);
   tiled_forward<T, kDimCap><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), kv_bias,
@@ -331,28 +344,6 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, const float* k
 // ----------------------------------------------------------------------------------------------
 
 constexpr int kStages = 2;  // K/V tiles in flight
-
-__device__ __forceinline__ unsigned shared_address(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared memory, asynchronously; zero-filled (src not read) unless valid
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(shared_address(dst)), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_4(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(shared_address(dst)), "l"(src),
-               "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
-}
 
 __device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -399,6 +390,102 @@ __device__ __forceinline__ int next_live(const unsigned* bits, int from, int n_t
 }
 
 int live_words(int length) { return ((length + kBlockK - 1) / kBlockK + 31) / 32; }
+
+// Sets bit j of `bits` when key tile j (of the n_tiles covering keys 0 .. k_end - 1) holds a key
+// whose bias is above NEG_INF. Called by the whole block; ends with a barrier.
+__device__ __forceinline__ void scan_live_tiles(const float* __restrict__ bias_b, int k_end, int n_tiles,
+                                                unsigned* bits) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  for (int i = tid; i < (n_tiles + 31) / 32; i += kThreads) bits[i] = 0;
+  __syncthreads();
+  // a warp reads 32 keys of one tile a step, kScan steps' loads in flight at once
+  constexpr int kScan = 8;
+  for (int first = warp * 32; first < n_tiles * kBlockK; first += kScan * kThreads) {
+    bool live[kScan];
+#pragma unroll
+    for (int u = 0; u < kScan; ++u) {
+      const int key = first + u * kThreads + lane;
+      live[u] = key < k_end && bias_b[key] > kNegInf;
+    }
+#pragma unroll
+    for (int u = 0; u < kScan; ++u) {
+      const int base = first + u * kThreads;
+      const unsigned any = __ballot_sync(kFull, live[u]);  // base is uniform across the warp
+      if (lane == 0 && any) atomicOr(bits + base / kBlockK / 32, 1u << (base / kBlockK % 32));
+    }
+  }
+  __syncthreads();
+}
+
+// One key tile's online-softmax step on a warp's m16n8 score fragments, shared by the "mma" and
+// "tf32x3" variants, whose accumulators lie alike: a lane holds rows row0 and row0 + 8, columns
+// 2 t4 and 2 t4 + 1 of each 8-key block. Scales the scores, adds the tile's bias row `bs` (keys
+// k0 ..), masks keys past L and (causal) past the row; takes the tile's row max over the 4 lanes
+// that share a row; corrects the running max m, the lane's share l of the running sum, and the
+// accumulator o; and turns s into P in place, adding P to l.
+template <int kD>
+__device__ __forceinline__ void softmax_tile(float (&s)[kBlockK / 8][4], float (&m)[2], float (&l)[2],
+                                             float (&o)[kD / 8][4], const float* bs, int k0, int row0,
+                                             int length, int causal, float scale, int t4) {
+  float tile_max[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int nb = 0; nb < kBlockK / 8; ++nb) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = nb * 8 + 2 * t4 + (e & 1);
+      const int key = k0 + col;
+      const int row = row0 + (e >> 1) * 8;
+      float x = fmaf(s[nb][e], scale, bs[col]);
+      if (key >= length || (causal && key > row)) x = kNegInf;
+      s[nb][e] = x;
+      tile_max[e >> 1] = fmaxf(tile_max[e >> 1], x);
+    }
+  }
+  float correction[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    tile_max[hh] = fmaxf(tile_max[hh], __shfl_xor_sync(kFull, tile_max[hh], 1));
+    tile_max[hh] = fmaxf(tile_max[hh], __shfl_xor_sync(kFull, tile_max[hh], 2));
+    const float m_new = fmaxf(m[hh], tile_max[hh]);
+    correction[hh] = m[hh] <= kMasked ? 0.f : __expf(m[hh] - m_new);
+    m[hh] = m_new;
+    l[hh] *= correction[hh];
+  }
+#pragma unroll
+  for (int nb = 0; nb < kBlockK / 8; ++nb) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = s[nb][e] <= kMasked ? 0.f : __expf(s[nb][e] - m[e >> 1]);
+      s[nb][e] = p;
+      l[e >> 1] += p;
+    }
+  }
+#pragma unroll
+  for (int dn = 0; dn < kD / 8; ++dn) {
+    o[dn][0] *= correction[0];
+    o[dn][1] *= correction[0];
+    o[dn][2] *= correction[1];
+    o[dn][3] *= correction[1];
+  }
+}
+
+// The end of the walk for rows row0 and row0 + 8 (same layout): adds the quad's shares of each
+// row sum, writes lse (`lse_rows` is the head's [L]) for rows below L, and returns in inv the
+// factor 1 / max(l, 1e-30) by which the accumulator becomes the output.
+__device__ __forceinline__ void finish_rows(float (&l)[2], const float (&m)[2], float (&inv)[2],
+                                            float* __restrict__ lse_rows, int row0, int length, int t4) {
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    l[hh] += __shfl_xor_sync(kFull, l[hh], 1);
+    l[hh] += __shfl_xor_sync(kFull, l[hh], 2);
+    const float denom = fmaxf(l[hh], 1e-30f);
+    inv[hh] = 1.f / denom;
+    const int row = row0 + hh * 8;
+    if (t4 == 0 && row < length) lse_rows[row] = m[hh] <= kMasked ? kNegInf : m[hh] + logf(denom);
+  }
+}
 
 size_t mma_shared_bytes(int dim_cap, int length) {
   const size_t row_bytes = static_cast<size_t>(dim_cap + 8) * sizeof(__nv_bfloat16);
@@ -448,25 +535,7 @@ tiled_forward_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
   // the key tiles holding a real key (causal: up to the block's last row)
   const int k_end = causal ? min(length, q0 + kBlockQ) : length;
   const int n_tiles = (k_end + kBlockK - 1) / kBlockK;
-  for (int i = tid; i < (n_tiles + 31) / 32; i += kThreads) live_bits[i] = 0;
-  __syncthreads();
-  // a warp reads 32 keys of one tile a step, kScan steps' loads in flight at once
-  constexpr int kScan = 8;
-  for (int first = warp * 32; first < n_tiles * kBlockK; first += kScan * kThreads) {
-    bool live[kScan];
-#pragma unroll
-    for (int u = 0; u < kScan; ++u) {
-      const int key = first + u * kThreads + lane;
-      live[u] = key < k_end && bias_b[key] > kNegInf;
-    }
-#pragma unroll
-    for (int u = 0; u < kScan; ++u) {
-      const int base = first + u * kThreads;
-      const unsigned any = __ballot_sync(kFull, live[u]);  // base is uniform across the warp
-      if (lane == 0 && any) atomicOr(live_bits + base / kBlockK / 32, 1u << (base / kBlockK % 32));
-    }
-  }
-  __syncthreads();
+  scan_live_tiles(bias_b, k_end, n_tiles, live_bits);
 
   auto load_tile = [&](int tile, int stage) {
     const int k0 = tile * kBlockK;
@@ -538,47 +607,7 @@ tiled_forward_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
       }
     }
 
-    // scale, bias, mask; the tile's max of each row, over the 4 lanes that hold it
-    float tile_max[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int nb = 0; nb < kBlockK / 8; ++nb) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = nb * 8 + 2 * t4 + (e & 1);
-        const int key = k0 + col;
-        const int row = warp_row0 + g + (e >> 1) * 8;
-        float x = fmaf(s[nb][e], scale, bs[col]);
-        if (key >= length || (causal && key > row)) x = kNegInf;
-        s[nb][e] = x;
-        tile_max[e >> 1] = fmaxf(tile_max[e >> 1], x);
-      }
-    }
-    float correction[2];
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      tile_max[hh] = fmaxf(tile_max[hh], __shfl_xor_sync(kFull, tile_max[hh], 1));
-      tile_max[hh] = fmaxf(tile_max[hh], __shfl_xor_sync(kFull, tile_max[hh], 2));
-      const float m_new = fmaxf(m[hh], tile_max[hh]);
-      correction[hh] = m[hh] <= kMasked ? 0.f : __expf(m[hh] - m_new);
-      m[hh] = m_new;
-      l[hh] *= correction[hh];
-    }
-#pragma unroll
-    for (int nb = 0; nb < kBlockK / 8; ++nb) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = s[nb][e] <= kMasked ? 0.f : __expf(s[nb][e] - m[e >> 1]);
-        s[nb][e] = p;
-        l[e >> 1] += p;
-      }
-    }
-#pragma unroll
-    for (int dn = 0; dn < kD / 8; ++dn) {
-      o[dn][0] *= correction[0];
-      o[dn][1] *= correction[0];
-      o[dn][2] *= correction[1];
-      o[dn][3] *= correction[1];
-    }
+    softmax_tile<kD>(s, m, l, o, bs, k0, warp_row0 + g, length, causal, scale, t4);
 
     // O += P V, 16 keys at a time: P's accumulator blocks 2j, 2j + 1 are the A fragment of
     // keys 16j .. 16j + 15, split into bf16 hi and lo parts
@@ -606,19 +635,9 @@ tiled_forward_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
   cp_async_wait<0>();  // Q's copies, if no tile was live
   __syncthreads();
 
-  // finalize: the row sums over the quad, out = acc / max(l, 1e-30), lse
+  // finalize: out = acc / max(l, 1e-30), lse
   float inv[2];
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    l[hh] += __shfl_xor_sync(kFull, l[hh], 1);
-    l[hh] += __shfl_xor_sync(kFull, l[hh], 2);
-    const float denom = fmaxf(l[hh], 1e-30f);
-    inv[hh] = 1.f / denom;
-    const int row = warp_row0 + g + hh * 8;
-    if (t4 == 0 && row < length) {
-      lse[(static_cast<size_t>(b) * heads + h) * length + row] = m[hh] <= kMasked ? kNegInf : m[hh] + logf(denom);
-    }
-  }
+  finish_rows(l, m, inv, lse + (static_cast<size_t>(b) * heads + h) * length, warp_row0 + g, length, t4);
   // the warp's 16 rows staged as bf16 in its own rows of the Q tile, then 16-byte stores
   __nv_bfloat16* rows_s = q_s + warp * 16 * kStride;
 #pragma unroll
@@ -644,13 +663,8 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, const float*
                        float* lse, int batch, int heads, int length, int dim, int causal,
                        cudaStream_t stream) {
   const size_t smem = mma_shared_bytes(kD, length);
-  static size_t allowed = 48 * 1024;  // raised once per instantiation, as launch() does
-  if (smem > allowed) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        tiled_forward_mma<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    allowed = smem;
-  }
+  const cudaError_t err = allow_shared_memory<tiled_forward_mma<kD>>(smem);
+  if (err != cudaSuccess) return err;
   const dim3 grid(heads, batch, (length + kBlockQ - 1) / kBlockQ);
   tiled_forward_mma<kD><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
@@ -659,7 +673,227 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, const float*
   return cudaGetLastError();
 }
 
-bool aligned_16(const void* p) { return reinterpret_cast<size_t>(p) % 16 == 0; }
+// ----------------------------------------------------------------------------------------------
+// The "tf32x3" variant: f32, D a multiple of 8 up to 128, on the TF32 tensor cores at f32 accuracy
+// ----------------------------------------------------------------------------------------------
+
+size_t tf32x3_shared_bytes(int dim_cap, int length) {
+  const size_t qk_row = static_cast<size_t>(dim_cap + 8) * sizeof(float);
+  const size_t v_row = static_cast<size_t>(dim_cap + 4) * sizeof(float);
+  return qk_row * (kBlockQ + kStages * kBlockK)  // q tile, K stages
+         + v_row * kStages * kBlockK             // V stages
+         + sizeof(float) * kStages * kBlockK     // bias stages
+         + sizeof(unsigned) * live_words(length);
+}
+
+// kD: D rounded up to 32, 64 or 128
+template <int kD>
+__global__ void __launch_bounds__(kThreads)
+tiled_forward_tf32x3(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                     const float* __restrict__ kv_bias, float* __restrict__ out, float* __restrict__ lse,
+                     int heads, int length, int dim, int causal, float scale) {
+  constexpr int kQKStride = kD + 8;  // floats per Q and K row (= 8 mod 32): float2 fragment reads hit distinct banks
+  constexpr int kVStride = kD + 4;   // floats per V row (= 4 mod 32): P V's column reads hit distinct banks
+  constexpr int kChunks = kD / 4;    // 16-byte chunks per row
+  constexpr int kKTile = kBlockK * kQKStride;
+  constexpr int kVTile = kBlockK * kVStride;
+  constexpr bool kQInRegisters = kD <= 64;  // Q's hi and lo fragments: 2 kD / 2 registers a lane
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* q_s = reinterpret_cast<float*>(smem_raw);        // [kBlockQ][kQKStride]
+  float* k_s = q_s + kBlockQ * kQKStride;                 // [kStages][kBlockK][kQKStride]
+  float* v_s = k_s + kStages * kKTile;                    // [kStages][kBlockK][kVStride]
+  float* bias_s = v_s + kStages * kVTile;                 // [kStages][kBlockK]
+  unsigned* live_bits = reinterpret_cast<unsigned*>(bias_s + kStages * kBlockK);
+
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBlockQ;  // longest causal walk first
+  const size_t head_base = (static_cast<size_t>(b) * heads + h) * length * dim;
+  const float* bias_b = kv_bias + static_cast<size_t>(b) * length;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;  // the fragment row (and row + 8) this lane holds
+  const int t4 = lane & 3;  // its k slots t4, t4 + 4, which stand for columns 2 t4, 2 t4 + 1
+  const int warp_row0 = q0 + warp * 16;
+
+  // Q: the block's 64 rows, in the first group of copies
+  for (int idx = tid; idx < kBlockQ * kChunks; idx += kThreads) {
+    const int r = idx / kChunks;
+    const int c = (idx % kChunks) * 4;
+    const int row = q0 + r;
+    const bool valid = row < length && c < dim;
+    cp_async_16(q_s + r * kQKStride + c, q + (valid ? head_base + static_cast<size_t>(row) * dim + c : 0), valid);
+  }
+
+  const int k_end = causal ? min(length, q0 + kBlockQ) : length;
+  const int n_tiles = (k_end + kBlockK - 1) / kBlockK;
+  scan_live_tiles(bias_b, k_end, n_tiles, live_bits);
+
+  auto load_tile = [&](int tile, int stage) {
+    const int k0 = tile * kBlockK;
+    float* ks = k_s + stage * kKTile;
+    float* vs = v_s + stage * kVTile;
+    for (int idx = tid; idx < kBlockK * kChunks; idx += kThreads) {
+      const int r = idx / kChunks;
+      const int c = (idx % kChunks) * 4;
+      const int key = k0 + r;
+      const bool valid = key < length && c < dim;
+      const size_t at = valid ? head_base + static_cast<size_t>(key) * dim + c : 0;
+      cp_async_16(ks + r * kQKStride + c, k + at, valid);
+      cp_async_16(vs + r * kVStride + c, v + at, valid);
+    }
+    if (tid < kBlockK) {
+      const int key = k0 + tid;
+      cp_async_4(bias_s + stage * kBlockK + tid, bias_b + (key < length ? key : 0), key < length);
+    }
+  };
+
+  // the warp's A fragment of Q for columns 8 kk .. 8 kk + 7, split into hi and lo
+  auto q_fragment = [&](int kk, unsigned (&hi)[4], unsigned (&lo)[4]) {
+    const float* top = q_s + (warp * 16 + g) * kQKStride + kk * 8 + 2 * t4;
+    const float2 r0 = *reinterpret_cast<const float2*>(top);
+    const float2 r8 = *reinterpret_cast<const float2*>(top + 8 * kQKStride);
+    tf32_parts(r0.x, hi[0], lo[0]);
+    tf32_parts(r8.x, hi[1], lo[1]);
+    tf32_parts(r0.y, hi[2], lo[2]);
+    tf32_parts(r8.y, hi[3], lo[3]);
+  };
+
+  unsigned q_hi[kQInRegisters ? kD / 8 : 1][4], q_lo[kQInRegisters ? kD / 8 : 1][4];
+  float o[kD / 8][4];  // the output accumulator: rows g, g + 8 x 8-column blocks
+#pragma unroll
+  for (int dn = 0; dn < kD / 8; ++dn) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[dn][e] = 0.f;
+  }
+  float m[2] = {kNegInf, kNegInf};  // running max of rows g and g + 8
+  float l[2] = {0.f, 0.f};          // this lane's share of their running sums
+
+  int tile = next_live(live_bits, 0, n_tiles);
+  if (tile < n_tiles) load_tile(tile, 0);
+  cp_async_commit();
+  bool have_q = false;
+  int stage = 0;
+  while (tile < n_tiles) {  // uniform across the block: the bits are shared
+    const int next = next_live(live_bits, tile + 1, n_tiles);
+    if (next < n_tiles) load_tile(next, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // all but the newest group: this tile (and Q) have landed
+    __syncthreads();
+    if constexpr (kQInRegisters) {
+      if (!have_q) {
+#pragma unroll
+        for (int kk = 0; kk < kD / 8; ++kk) q_fragment(kk, q_hi[kk], q_lo[kk]);
+        have_q = true;
+      }
+    }
+    const float* ks = k_s + stage * kKTile;
+    const float* vs = v_s + stage * kVTile;
+    const float* bs = bias_s + stage * kBlockK;
+    const int k0 = tile * kBlockK;
+
+    // S = Q K^T: 16 rows x 64 keys a warp, as 8 accumulator blocks of 16 x 8, 3xTF32
+    float s[kBlockK / 8][4];
+#pragma unroll
+    for (int nb = 0; nb < kBlockK / 8; ++nb) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < kD / 8; ++kk) {
+      unsigned a_hi[4], a_lo[4];
+      if constexpr (kQInRegisters) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          a_hi[e] = q_hi[kk][e];
+          a_lo[e] = q_lo[kk][e];
+        }
+      } else {
+        q_fragment(kk, a_hi, a_lo);
+      }
+#pragma unroll
+      for (int nb = 0; nb < kBlockK / 8; ++nb) {
+        // B = K^T: key nb * 8 + g, columns 8 kk + 2 t4 and + 1 in slots t4 and t4 + 4
+        const float2 kv = *reinterpret_cast<const float2*>(ks + (nb * 8 + g) * kQKStride + kk * 8 + 2 * t4);
+        unsigned b_hi[2], b_lo[2];
+        tf32_parts(kv.x, b_hi[0], b_lo[0]);
+        tf32_parts(kv.y, b_hi[1], b_lo[1]);
+        mma_split<true, true>(s[nb], a_hi, a_lo, b_hi, b_lo);
+      }
+    }
+
+    softmax_tile<kD>(s, m, l, o, bs, k0, warp_row0 + g, length, causal, scale, t4);
+
+    // O += P V, 8 keys at a time, 3xTF32: P's accumulator block nb is the A fragment of keys
+    // nb * 8 + 2 t4 (slot t4) and + 1 (slot t4 + 4); V's rows are read in that order
+#pragma unroll
+    for (int nb = 0; nb < kBlockK / 8; ++nb) {
+      unsigned p_hi[4], p_lo[4];
+      tf32_parts(s[nb][0], p_hi[0], p_lo[0]);
+      tf32_parts(s[nb][2], p_hi[1], p_lo[1]);
+      tf32_parts(s[nb][1], p_hi[2], p_lo[2]);
+      tf32_parts(s[nb][3], p_hi[3], p_lo[3]);
+      const float* v0 = vs + (nb * 8 + 2 * t4) * kVStride + g;
+#pragma unroll
+      for (int dn = 0; dn < kD / 8; ++dn) {
+        unsigned b_hi[2], b_lo[2];
+        tf32_parts(v0[dn * 8], b_hi[0], b_lo[0]);
+        tf32_parts(v0[kVStride + dn * 8], b_hi[1], b_lo[1]);
+        mma_split<true, true>(o[dn], p_hi, p_lo, b_hi, b_lo);
+      }
+    }
+    __syncthreads();  // this stage is consumed before the next iteration refills it
+    tile = next;
+    stage ^= 1;
+  }
+  cp_async_wait<0>();  // Q's copies, if no tile was live
+
+  // finalize: out = acc / max(l, 1e-30), lse; f32 pairs stored as they lie
+  float inv[2];
+  finish_rows(l, m, inv, lse + (static_cast<size_t>(b) * heads + h) * length, warp_row0 + g, length, t4);
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = warp_row0 + g + hh * 8;
+    if (row >= length) continue;
+    float* out_row = out + head_base + static_cast<size_t>(row) * dim;
+#pragma unroll
+    for (int dn = 0; dn < kD / 8; ++dn) {
+      const int c = dn * 8 + 2 * t4;
+      if (c < dim) {
+        *reinterpret_cast<float2*>(out_row + c) = make_float2(o[dn][2 * hh] * inv[hh], o[dn][2 * hh + 1] * inv[hh]);
+      }
+    }
+  }
+}
+
+template <int kD>
+cudaError_t launch_tf32x3(const void* q, const void* k, const void* v, const float* kv_bias, void* out,
+                          float* lse, int batch, int heads, int length, int dim, int causal,
+                          cudaStream_t stream) {
+  const size_t smem = tf32x3_shared_bytes(kD, length);
+  const cudaError_t err = allow_shared_memory<tiled_forward_tf32x3<kD>>(smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(heads, batch, (length + kBlockQ - 1) / kBlockQ);
+  tiled_forward_tf32x3<kD><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v), kv_bias,
+      static_cast<float*>(out), lse, heads, length, dim, causal, 1.f / sqrtf(static_cast<float>(dim)));
+  return cudaGetLastError();
+}
+
+// what the tensor-core variants refuse: shapes outside their range, pointers off a 16-byte boundary
+int refuse_tensor_core(const void* q, const void* k, const void* v, const void* out, int batch, int heads,
+                       int length, int dim) {
+  if (batch < 1 || heads < 1 || length < 1 || dim < 8 || dim > 128 || dim % 8 != 0 ||
+      batch > 65535 || (length + kBlockQ - 1) / kBlockQ > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto aligned_16 = [](const void* p) { return reinterpret_cast<size_t>(p) % 16 == 0; };
+  if (!aligned_16(q) || !aligned_16(k) || !aligned_16(v) || !aligned_16(out)) {
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  }
+  return 0;
+}
 
 }  // namespace
 
@@ -684,13 +918,7 @@ extern "C" int replay_flash_tiled_forward_mma(const void* q, const void* k, cons
                                               const void* kv_bias, void* out, void* lse, int batch,
                                               int heads, int length, int dim, int causal,
                                               void* stream) {
-  if (batch < 1 || heads < 1 || length < 1 || dim < 8 || dim > 128 || dim % 8 != 0 ||
-      batch > 65535 || (length + kBlockQ - 1) / kBlockQ > 65535) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (!aligned_16(q) || !aligned_16(k) || !aligned_16(v) || !aligned_16(out)) {
-    return static_cast<int>(cudaErrorMisalignedAddress);
-  }
+  if (const int refused = refuse_tensor_core(q, k, v, out, batch, heads, length, dim)) return refused;
   const float* bias_f32 = static_cast<const float*>(kv_bias);
   float* lse_f32 = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -701,6 +929,25 @@ extern "C" int replay_flash_tiled_forward_mma(const void* q, const void* k, cons
     err = launch_mma<64>(q, k, v, bias_f32, out, lse_f32, batch, heads, length, dim, causal, s);
   } else {
     err = launch_mma<128>(q, k, v, bias_f32, out, lse_f32, batch, heads, length, dim, causal, s);
+  }
+  return static_cast<int>(err);
+}
+
+extern "C" int replay_flash_tiled_forward_tf32x3(const void* q, const void* k, const void* v,
+                                                 const void* kv_bias, void* out, void* lse, int batch,
+                                                 int heads, int length, int dim, int causal,
+                                                 void* stream) {
+  if (const int refused = refuse_tensor_core(q, k, v, out, batch, heads, length, dim)) return refused;
+  const float* bias_f32 = static_cast<const float*>(kv_bias);
+  float* lse_f32 = static_cast<float*>(lse);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (dim <= 32) {
+    err = launch_tf32x3<32>(q, k, v, bias_f32, out, lse_f32, batch, heads, length, dim, causal, s);
+  } else if (dim <= 64) {
+    err = launch_tf32x3<64>(q, k, v, bias_f32, out, lse_f32, batch, heads, length, dim, causal, s);
+  } else {
+    err = launch_tf32x3<128>(q, k, v, bias_f32, out, lse_f32, batch, heads, length, dim, causal, s);
   }
   return static_cast<int>(err);
 }

@@ -15,10 +15,15 @@
 // Layout: h is contiguous [rows, dim], w contiguous [items, dim], each f32 or
 // bf16 (loaded and converted to f32 before any product, as the Pallas kernels'
 // astype(f32)); g and lse are f32 [rows]; dh is [rows, dim] in h's type, dW
-// [items, dim] in w's type. Products are f32 FMAs on the CUDA cores: no TF32,
-// no tensor cores, so f32 inputs keep f32 parity with the plain version.
+// [items, dim] in w's type. K1, K2 and K3's "simt" variant multiply with f32 FMAs on the CUDA
+// cores; K3's "tf32" variant on the TF32 tensor cores with each f32 operand split into TF32
+// hi + lo (tensor_core.cuh). Either way f32 inputs keep f32 accuracy against the plain version.
 //
-// Work split. A block of 256 threads owns a 64 x 64 tile of (rows x items)
+// K3 has two variants, two C entry points; ops/fused_ce.py::_dw_variant picks one from dim
+// alone: "tf32" (replay_fused_lse_grad_table_tf32, design below, after the simt kernels) for dim
+// a multiple of 8 up to 128, "simt" (replay_fused_lse_grad_table) for any other dim.
+//
+// Work split of the simt kernels. A block of 256 threads owns a 64 x 64 tile of (rows x items)
 // logits at a time, each thread 4 x 4 of them (rows ty + 16a, items tx + 16b),
 // computed by sweeping dim in chunks of 32 staged in shared memory. So a block
 // needs 33 KB of shared memory whatever dim is: the Pallas kernels' VMEM guard,
@@ -28,7 +33,7 @@
 //    merge theirs by shuffle at the end.
 //  - K2: one block per (64-row tile, 64-column slice of dim) walks every item
 //    tile: weights P = g exp(logit - lse) go to shared memory, then dh += P W.
-//  - K3: one block per (64-item tile, 64-column slice, split of the rows)
+//  - K3 "simt": one block per (64-item tile, 64-column slice, split of the rows)
 //    walks the row tiles of its split: dW += P^T h.
 // The TPU kernels accumulate dh and dW across the inner grid axis, which is
 // right only because a TPU grid runs in order. CUDA blocks run in no order, so
@@ -41,10 +46,11 @@
 //
 // What bounds them on an H100: at N = 25,600 rows, E = 64, I = 3,706 items K1
 // does 2NEI = 12.1 GFLOP against 7.6 MB of inputs, K2 and K3 4NEI = 24.3 GFLOP
-// each: all three are bound by f32 operations (67 TFLOP/s outside the tensor
-// cores), not by memory. This first version reads its operands from shared
-// memory for every FMA pair and uses no tensor cores; bf16 `mma`/`wgmma` with
-// TMA is later work.
+// each: all three are bound by operations, not by memory. In f32 the card does
+// them at f32 accuracy fastest as 3xTF32 on the tensor cores (495 / 3 TFLOP/s:
+// 0.15 ms for K3), against 67 TFLOP/s for f32 FMAs on the CUDA cores (0.36 ms).
+// K1, K2 and K3's simt variant read their operands from shared memory for every
+// FMA pair; K3's tf32 variant runs on mma.sync; wgmma with TMA is later work.
 //
 // C interface, bound from Python with ctypes: each function launches on the
 // given stream, does not synchronise, allocates nothing, and returns
@@ -55,6 +61,8 @@
 #include <math_constants.h>
 
 #include <cstddef>
+
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -376,14 +384,10 @@ cudaError_t run_grad_hidden(const void* h, const void* w, const float* g, const 
   return cudaGetLastError();
 }
 
-template <typename TH, typename TW>
-cudaError_t run_grad_table(const void* h, const void* w, const float* g, const float* lse,
-                           void* dw, float* partial, int rows, int items, int dim, int num_valid,
-                           int splits, int rows_per_split, cudaStream_t stream) {
-  const dim3 grid(tiles(items), slices(dim), static_cast<unsigned>(splits));
-  lse_grad_table<TH, TW><<<grid, kThreads, 0, stream>>>(
-      static_cast<const TH*>(h), static_cast<const TW*>(w), g, lse, static_cast<TW*>(dw),
-      splits > 1 ? partial : nullptr, rows, items, dim, num_valid, rows_per_split);
+// After a K3 launch: its error, or with several splits, add_partials' launch into dw.
+template <typename TW>
+cudaError_t finish_partials(const float* partial, void* dw, int items, int dim, int splits,
+                            cudaStream_t stream) {
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
   const size_t count = static_cast<size_t>(items) * dim;
@@ -392,8 +396,275 @@ cudaError_t run_grad_table(const void* h, const void* w, const float* g, const f
   return cudaGetLastError();
 }
 
+template <typename TH, typename TW>
+cudaError_t run_grad_table(const void* h, const void* w, const float* g, const float* lse,
+                           void* dw, float* partial, int rows, int items, int dim, int num_valid,
+                           int splits, int rows_per_split, cudaStream_t stream) {
+  const dim3 grid(tiles(items), slices(dim), static_cast<unsigned>(splits));
+  lse_grad_table<TH, TW><<<grid, kThreads, 0, stream>>>(
+      static_cast<const TH*>(h), static_cast<const TW*>(w), g, lse, static_cast<TW*>(dw),
+      splits > 1 ? partial : nullptr, rows, items, dim, num_valid, rows_per_split);
+  return finish_partials<TW>(partial, dw, items, dim, splits, stream);
+}
+
+// ----------------------------------------------------------------------------------------------
+// K3's "tf32" variant: dim a multiple of 8 up to 128, on the TF32 tensor cores
+// ----------------------------------------------------------------------------------------------
+//
+// One block of 4 warps per (64-item tile, row split) owns the whole dW tile, 64 items x dim, in
+// registers: a warp 16 items, a lane (dim / 8) x 4 f32. The W tile stays in shared memory for
+// the block's life, split once into TF32 hi and lo; 64-row tiles of h stream through a cp.async
+// double buffer with their g and lse. Per row tile, each warp computes
+//   S^T = W h^T      (its 16 items x 64 rows, mma.sync m16n8k8, k over dim),
+//   P^T = g exp(S^T + mask - lse) in registers,
+//   dW += P^T h      (P^T's accumulator registers as the A fragment, rows in permuted order),
+// so the logits of a (row tile, item tile) pair are computed once, whatever dim is. Each product
+// takes as many TF32 terms as its operands need for f32 accuracy (tensor_core.cuh): an f32
+// operand hi + lo, a bf16 one (exact in TF32) hi alone; so f32 h and W take 3 + 3 products, bf16
+// h against an f32 W 2 + 2, bf16 both 1 + 2 (P is f32). Shared memory rows are padded so that
+// every fragment read hits 32 distinct banks.
+
+constexpr int kTileTF = 64;         // items of a block, rows of an h tile
+constexpr int kThreadsTF = 128;     // 4 warps, 16 items each
+constexpr int kMaxDimTF = 128;      // dW tile in registers: 64 f32 a lane at dim = 128
+constexpr int kStagesTF = 2;        // h tiles in flight
+
+template <typename T>
+__host__ __device__ constexpr bool needs_lo() { return sizeof(T) == sizeof(float); }  // f32: hi + lo; bf16: exact in TF32
+
+// floats per W row, elements per h row: f32 rows 4 words past a multiple of 32
+template <int kDim>
+__host__ __device__ constexpr int w_stride() { return kDim + 4; }
+template <typename TH, int kDim>
+__host__ __device__ constexpr int h_stride() { return kDim + (sizeof(TH) == sizeof(float) ? 4 : 8); }
+
+template <typename TH, typename TW, int kDim>
+size_t grad_table_tf32_bytes() {
+  const size_t w = sizeof(unsigned) * kTileTF * w_stride<kDim>() * (needs_lo<TW>() ? 2 : 1);
+  const size_t rows = sizeof(TH) * kStagesTF * kTileTF * h_stride<TH, kDim>();
+  return w + rows + sizeof(float) * 2 * kStagesTF * kTileTF;  // + g and lse stages
+}
+
+// S^T = W h^T for the warp's 16 items (w_hi/w_lo rows from item0) against a 64-row tile of h in
+// shared memory: s[nb] is the 16 x 8 block of rows nb * 8 .. nb * 8 + 7. Lane (fr, fc) of the
+// result holds items fr, fr + 8 and rows 2 fc, 2 fc + 1 of each block.
+template <typename TH, typename TW, int kDim>
+__device__ __forceinline__ void logits_tile_tf32(const unsigned* w_hi, const unsigned* w_lo, const TH* hs,
+                                                 int fr, int fc, float (&s)[kTileTF / 8][4]) {
+  constexpr int kW = w_stride<kDim>();
+  constexpr int kH = h_stride<TH, kDim>();
+#pragma unroll
+  for (int nb = 0; nb < kTileTF / 8; ++nb) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
+  }
+#pragma unroll
+  for (int kk = 0; kk < kDim / 8; ++kk) {
+    const int at = fr * kW + kk * 8 + fc;
+    const unsigned a_hi[4] = {w_hi[at], w_hi[at + 8 * kW], w_hi[at + 4], w_hi[at + 8 * kW + 4]};
+    unsigned a_lo[4] = {0u, 0u, 0u, 0u};
+    if constexpr (needs_lo<TW>()) {
+      a_lo[0] = w_lo[at];
+      a_lo[1] = w_lo[at + 8 * kW];
+      a_lo[2] = w_lo[at + 4];
+      a_lo[3] = w_lo[at + 8 * kW + 4];
+    }
+#pragma unroll
+    for (int nb = 0; nb < kTileTF / 8; ++nb) {
+      const TH* h_row = hs + (nb * 8 + fr) * kH + kk * 8 + fc;  // B = h^T: row nb * 8 + fr, columns fc, fc + 4
+      unsigned b_hi[2], b_lo[2];
+      tf32_parts(h_row[0], b_hi[0], b_lo[0]);
+      tf32_parts(h_row[4], b_hi[1], b_lo[1]);
+      mma_split<needs_lo<TW>(), needs_lo<TH>()>(s[nb], a_hi, a_lo, b_hi, b_lo);
+    }
+  }
+}
+
+// acc += P^T h: p[nb] the (items x rows nb * 8 ..) accumulator block of P^T as logits_tile_tf32
+// leaves it, at f32 precision; acc[dn] the 16 x 8 block of dW columns dn * 8 .. dn * 8 + 7.
+template <typename TH, int kDim>
+__device__ __forceinline__ void weighted_rows_tf32(const float (&p)[kTileTF / 8][4], const TH* hs, int fr,
+                                                   int fc, float (&acc)[kDim / 8][4]) {
+  constexpr int kH = h_stride<TH, kDim>();
+#pragma unroll
+  for (int nb = 0; nb < kTileTF / 8; ++nb) {
+    // slot fc is row nb * 8 + 2 fc, slot fc + 4 row nb * 8 + 2 fc + 1: the A fragment is c0, c2, c1, c3
+    unsigned p_hi[4], p_lo[4];
+    tf32_parts(p[nb][0], p_hi[0], p_lo[0]);
+    tf32_parts(p[nb][2], p_hi[1], p_lo[1]);
+    tf32_parts(p[nb][1], p_hi[2], p_lo[2]);
+    tf32_parts(p[nb][3], p_hi[3], p_lo[3]);
+    const TH* h0 = hs + (nb * 8 + 2 * fc) * kH + fr;
+#pragma unroll
+    for (int dn = 0; dn < kDim / 8; ++dn) {
+      unsigned b_hi[2], b_lo[2];
+      tf32_parts(h0[dn * 8], b_hi[0], b_lo[0]);
+      tf32_parts(h0[kH + dn * 8], b_hi[1], b_lo[1]);
+      mma_split<true, needs_lo<TH>()>(acc[dn], p_hi, p_lo, b_hi, b_lo);
+    }
+  }
+}
+
+__device__ __forceinline__ void store_pair(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
+// K3, "tf32". Grid: (item tiles, row splits). With one split the result goes to dw in w's type;
+// otherwise to the split's f32 partial [items, dim], which add_partials sums.
+template <typename TH, typename TW, int kDim>
+__global__ void __launch_bounds__(kThreadsTF)
+lse_grad_table_tf32(const TH* __restrict__ h, const TW* __restrict__ w, const float* __restrict__ g,
+                    const float* __restrict__ lse, TW* __restrict__ dw, float* __restrict__ partial,
+                    int rows, int items, int dim, int num_valid, int rows_per_split) {
+  constexpr int kW = w_stride<kDim>();
+  constexpr int kH = h_stride<TH, kDim>();
+  constexpr int kChunk = 16 / sizeof(TH);  // elements of h per 16-byte copy
+  constexpr int kRowTile = kTileTF * kH;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned* w_hi = reinterpret_cast<unsigned*>(smem_raw);  // [kTileTF][kW], TF32 bits
+  unsigned* w_lo = w_hi + kTileTF * kW;                    // [kTileTF][kW] if W needs a lo part
+  TH* h_s = reinterpret_cast<TH*>(w_lo + (needs_lo<TW>() ? kTileTF * kW : 0));  // [kStagesTF][kTileTF][kH]
+  float* g_s = reinterpret_cast<float*>(h_s + kStagesTF * kRowTile);            // [kStagesTF][kTileTF]
+  float* lse_s = g_s + kStagesTF * kTileTF;                                       // [kStagesTF][kTileTF]
+
+  const int i0 = blockIdx.x * kTileTF;
+  const int row_begin = blockIdx.y * rows_per_split;
+  const int row_end = min(rows, row_begin + rows_per_split);
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int fr = (tid & 31) >> 2;  // fragment row: items fr, fr + 8 of the warp's 16
+  const int fc = tid & 3;
+  const int item0 = i0 + warp * 16 + fr;
+
+  auto load_rows = [&](int n0, int stage) {
+    TH* hs = h_s + stage * kRowTile;
+    for (int idx = tid; idx < kTileTF * (kDim / kChunk); idx += kThreadsTF) {
+      const int r = idx / (kDim / kChunk);
+      const int c = (idx % (kDim / kChunk)) * kChunk;
+      const int n = n0 + r;
+      const bool valid = n < row_end && c < dim;
+      cp_async_16(hs + r * kH + c, h + (valid ? static_cast<size_t>(n) * dim + c : 0), valid);
+    }
+    if (tid < kTileTF) {
+      const int n = n0 + tid;
+      const bool valid = n < row_end;
+      cp_async_4(g_s + stage * kTileTF + tid, g + (valid ? n : 0), valid);
+      cp_async_4(lse_s + stage * kTileTF + tid, lse + (valid ? n : 0), valid);
+    }
+  };
+
+  // the first row tile flies while the W tile is read, converted and split
+  if (row_begin < row_end) load_rows(row_begin, 0);
+  cp_async_commit();
+  for (int idx = tid; idx < kTileTF * kDim; idx += kThreadsTF) {
+    const int r = idx / kDim;
+    const int c = idx - r * kDim;
+    const int i = i0 + r;
+    const float x = (i < items && c < dim) ? to_f32(w[static_cast<size_t>(i) * dim + c]) : 0.f;
+    unsigned lo;
+    tf32_parts(x, w_hi[r * kW + c], lo);
+    if constexpr (needs_lo<TW>()) w_lo[r * kW + c] = lo;
+  }
+
+  float acc[kDim / 8][4];
+#pragma unroll
+  for (int dn = 0; dn < kDim / 8; ++dn) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[dn][e] = 0.f;
+  }
+  int stage = 0;
+  for (int n0 = row_begin; n0 < row_end; n0 += kTileTF) {
+    if (n0 + kTileTF < row_end) load_rows(n0 + kTileTF, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // all but the newest group: this row tile has landed
+    __syncthreads();     // ... for every thread; on the first pass the W tile is written too
+    const TH* hs = h_s + stage * kRowTile;
+    const float* gs = g_s + stage * kTileTF;
+    const float* ls = lse_s + stage * kTileTF;
+
+    float s[kTileTF / 8][4];
+    logits_tile_tf32<TH, TW, kDim>(w_hi + warp * 16 * kW, w_lo + warp * 16 * kW, hs, fr, fc, s);
+    // P^T = g exp(S^T + mask - lse); 0 for items past the table and rows past the split
+#pragma unroll
+    for (int nb = 0; nb < kTileTF / 8; ++nb) {
+      const int r = nb * 8 + 2 * fc;
+      const float2 g2 = *reinterpret_cast<const float2*>(gs + r);
+      const float2 lse2 = *reinterpret_cast<const float2*>(ls + r);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = item0 + (e >> 1) * 8;
+        const int n = n0 + r + (e & 1);
+        const float g_n = (e & 1) ? g2.y : g2.x;
+        const float lse_n = (e & 1) ? lse2.y : lse2.x;
+        s[nb][e] = (i < items && n < row_end) ? expf(masked(s[nb][e], i, num_valid) - lse_n) * g_n : 0.f;
+      }
+    }
+    weighted_rows_tf32<TH, kDim>(s, hs, fr, fc, acc);
+    __syncthreads();  // this stage is consumed before the next pass refills it
+    stage ^= 1;
+  }
+  cp_async_wait<0>();  // the first tile's copies, if the split had no row
+
+  float* split_out = partial == nullptr
+                         ? nullptr
+                         : partial + static_cast<size_t>(blockIdx.y) * items * dim;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int i = item0 + hh * 8;
+    if (i >= items) continue;
+#pragma unroll
+    for (int dn = 0; dn < kDim / 8; ++dn) {
+      const int c = dn * 8 + 2 * fc;
+      if (c >= dim) continue;
+      const size_t at = static_cast<size_t>(i) * dim + c;
+      if (split_out == nullptr) {
+        store_pair(dw + at, acc[dn][2 * hh], acc[dn][2 * hh + 1]);
+      } else {
+        store_pair(split_out + at, acc[dn][2 * hh], acc[dn][2 * hh + 1]);
+      }
+    }
+  }
+}
+
+template <typename TH, typename TW, int kDim>
+cudaError_t run_grad_table_tf32(const void* h, const void* w, const float* g, const float* lse, void* dw,
+                                float* partial, int rows, int items, int dim, int num_valid, int splits,
+                                int rows_per_split, cudaStream_t stream) {
+  const size_t smem = grad_table_tf32_bytes<TH, TW, kDim>();
+  const cudaError_t err = allow_shared_memory<lse_grad_table_tf32<TH, TW, kDim>>(smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(tiles(items), static_cast<unsigned>(splits));
+  lse_grad_table_tf32<TH, TW, kDim><<<grid, kThreadsTF, smem, stream>>>(
+      static_cast<const TH*>(h), static_cast<const TW*>(w), g, lse, static_cast<TW*>(dw),
+      splits > 1 ? partial : nullptr, rows, items, dim, num_valid, rows_per_split);
+  return finish_partials<TW>(partial, dw, items, dim, splits, stream);
+}
+
+template <typename TH, typename TW>
+cudaError_t dispatch_grad_table_tf32(const void* h, const void* w, const float* g, const float* lse, void* dw,
+                                     float* partial, int rows, int items, int dim, int num_valid, int splits,
+                                     int rows_per_split, cudaStream_t stream) {
+  if (dim <= 32) {
+    return run_grad_table_tf32<TH, TW, 32>(h, w, g, lse, dw, partial, rows, items, dim, num_valid, splits, rows_per_split, stream);
+  }
+  if (dim <= 64) {
+    return run_grad_table_tf32<TH, TW, 64>(h, w, g, lse, dw, partial, rows, items, dim, num_valid, splits, rows_per_split, stream);
+  }
+  return run_grad_table_tf32<TH, TW, 128>(h, w, g, lse, dw, partial, rows, items, dim, num_valid, splits, rows_per_split, stream);
+}
+
 bool bad_shape(int rows, int items, int dim) {
   return rows < 1 || items < 1 || dim < 1 || slices(dim) > 65535u;
+}
+
+// what both K3 variants refuse in their row split
+bool bad_split(int rows, int items, int dim, const void* partial, int splits, int rows_per_split) {
+  return bad_shape(rows, items, dim) || splits < 1 || splits > 65535 || rows_per_split < 1 ||
+         rows_per_split % kTile != 0 || static_cast<long long>(splits) * rows_per_split < rows ||
+         (splits > 1 && partial == nullptr);
 }
 
 }  // namespace
@@ -439,10 +710,7 @@ extern "C" int replay_fused_lse_grad_table(const void* h, const void* w, const v
                                            int items, int dim, int num_valid, int splits,
                                            int rows_per_split, int h_bf16, int w_bf16,
                                            void* stream) {
-  if (bad_shape(rows, items, dim) || splits < 1 || splits > 65535 || rows_per_split < 1 ||
-      rows_per_split % kTile != 0 ||
-      static_cast<long long>(splits) * rows_per_split < rows ||
-      (splits > 1 && partial == nullptr)) {
+  if (bad_split(rows, items, dim, partial, splits, rows_per_split)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const float* g32 = static_cast<const float*>(g);
@@ -456,6 +724,33 @@ extern "C" int replay_fused_lse_grad_table(const void* h, const void* w, const v
   } else {
     err = w_bf16 ? run_grad_table<float, __nv_bfloat16>(h, w, g32, lse32, dw, part, rows, items, dim, num_valid, splits, rows_per_split, s)
                  : run_grad_table<float, float>(h, w, g32, lse32, dw, part, rows, items, dim, num_valid, splits, rows_per_split, s);
+  }
+  return static_cast<int>(err);
+}
+
+// K3's "tf32" variant: as replay_fused_lse_grad_table, for dim a multiple of 8 up to 128 and h on
+// a 16-byte boundary
+extern "C" int replay_fused_lse_grad_table_tf32(const void* h, const void* w, const void* g,
+                                                const void* lse, void* dw, void* partial, int rows,
+                                                int items, int dim, int num_valid, int splits,
+                                                int rows_per_split, int h_bf16, int w_bf16,
+                                                void* stream) {
+  if (bad_split(rows, items, dim, partial, splits, rows_per_split) || dim < 8 || dim > kMaxDimTF ||
+      dim % 8 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (reinterpret_cast<size_t>(h) % 16 != 0) return static_cast<int>(cudaErrorMisalignedAddress);
+  const float* g32 = static_cast<const float*>(g);
+  const float* lse32 = static_cast<const float*>(lse);
+  float* part = static_cast<float*>(partial);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (h_bf16) {
+    err = w_bf16 ? dispatch_grad_table_tf32<__nv_bfloat16, __nv_bfloat16>(h, w, g32, lse32, dw, part, rows, items, dim, num_valid, splits, rows_per_split, s)
+                 : dispatch_grad_table_tf32<__nv_bfloat16, float>(h, w, g32, lse32, dw, part, rows, items, dim, num_valid, splits, rows_per_split, s);
+  } else {
+    err = w_bf16 ? dispatch_grad_table_tf32<float, __nv_bfloat16>(h, w, g32, lse32, dw, part, rows, items, dim, num_valid, splits, rows_per_split, s)
+                 : dispatch_grad_table_tf32<float, float>(h, w, g32, lse32, dw, part, rows, items, dim, num_valid, splits, rows_per_split, s);
   }
   return static_cast<int>(err);
 }

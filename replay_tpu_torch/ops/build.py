@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-Each kernel source ``replay_tpu_torch/csrc/<name>.cu`` has a plain C interface.
+Each kernel source ``replay_tpu_torch/csrc/<name>.cu`` has a plain C interface
+(device helpers they share are in ``csrc/*.cuh``).
 At first use it is compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared
 library under ``replay_tpu_torch/_build/`` (listed in ``.gitignore``) and loaded
 with ``ctypes``. The library's file name carries a hash of the source and the
@@ -52,8 +53,11 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library for ``csrc/<name>.cu`` lives once built."""
+    """Where the library for ``csrc/<name>.cu`` lives once built. The hash covers
+    the source and every shared header of ``csrc/`` (``*.cuh``)."""
     digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 

@@ -10,16 +10,18 @@ Nothing O(L²) exists on the kernel's route, forward or backward.
 
 The kernel is ``replay_tpu_torch/csrc/flash_tiled.cu`` (CUDA C++ for
 ``sm_90a``, plain C interface, loaded with ctypes; built at first use by
-:mod:`replay_tpu_torch.ops.build`), in two variants that :func:`_variant`
+:mod:`replay_tpu_torch.ops.build`), in three variants that :func:`_variant`
 picks from the dtype and head dim alone: ``"mma"`` for bf16 with D a multiple
 of 8 up to 128 (tensor cores: ``mma.sync`` bf16 → f32, K/V tiles
 double-buffered with ``cp.async``, P kept at f32 precision as a bf16 hi + lo
-pair), ``"simt"`` for f32 and every other D up to 256 (f32 FMAs on the CUDA
-cores). Both are one block per (64-row query tile, head, batch) walking the
-64-key tiles up to the diagonal with an online softmax in f32; their designs,
-and what bounds them, are in the source's header. The kernel picks its own
-tiles: ``block_q`` and ``block_k`` are the JAX signature's, and ``block_k``
-sets the backward's loop.
+pair), ``"tf32x3"`` for f32 at the same D (the same design on the TF32 tensor
+cores, each f32 operand split into TF32 hi + lo and each product taken as three
+TF32 products, which keeps f32 accuracy), ``"simt"`` for every other D up to
+256 (f32 FMAs on the CUDA cores). All are one block per (64-row query tile,
+head, batch) walking the 64-key tiles up to the diagonal with an online
+softmax in f32; their designs, and what bounds them, are in the source's
+header. The kernel picks its own tiles: ``block_q`` and ``block_k`` are the
+JAX signature's, and ``block_k`` sets the backward's loop.
 
 Training goes through ``_FlashAttentionTiled``, a ``torch.autograd.Function``
 that mirrors the JAX ``jax.custom_vjp``: the forward is the kernel (the plain
@@ -46,16 +48,23 @@ NEG_INF = -1e30
 MAX_HEAD_DIM = 256
 MMA_MAX_HEAD_DIM = 128
 _DTYPES = (torch.float32, torch.bfloat16)
-VARIANTS = ("mma", "simt")
+VARIANTS = ("mma", "tf32x3", "simt")
+# each variant's C entry point in the kernel's library
+_ENTRY_POINTS = {
+    "mma": "replay_flash_tiled_forward_mma",
+    "tf32x3": "replay_flash_tiled_forward_tf32x3",
+    "simt": "replay_flash_tiled_forward",
+}
 
 
 def _variant(dtype: torch.dtype, dim: int) -> str:
-    """The kernel variant for inputs of ``dtype`` and head dim ``dim``:
-    ``"mma"`` (tensor cores) for bf16 with ``dim`` a multiple of 8 up to 128,
-    ``"simt"`` (CUDA cores) for everything else. A pure function of its
-    arguments: the choice never depends on a build or a launch."""
-    if dtype == torch.bfloat16 and dim % 8 == 0 and 8 <= dim <= MMA_MAX_HEAD_DIM:
-        return "mma"
+    """The kernel variant for inputs of ``dtype`` and head dim ``dim``: on the
+    tensor cores where ``dim`` is a multiple of 8 up to 128 — ``"mma"`` for
+    bf16, ``"tf32x3"`` for f32 — and ``"simt"`` (CUDA cores) for every other
+    ``dim``. A pure function of its arguments: the choice never depends on a
+    build or a launch."""
+    if dim % 8 == 0 and 8 <= dim <= MMA_MAX_HEAD_DIM:
+        return "mma" if dtype == torch.bfloat16 else "tf32x3"
     return "simt"
 
 
@@ -131,7 +140,7 @@ def _launch(
     _check(q, k, v, kv_bias)
     variant = _variant(q.dtype, q.shape[-1])
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    if variant == "mma":  # its 16-byte copies
+    if variant != "simt":  # the tensor-core variants' 16-byte copies
         q, k, v = build.aligned(q), build.aligned(k), build.aligned(v)
     kv_bias = kv_bias.to(torch.float32).contiguous()
     batch, heads, length, dim = q.shape
@@ -139,14 +148,11 @@ def _launch(
     lse = torch.empty((batch, heads, length), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, lse
-    lib = build.load(KERNEL)
+    fn = getattr(build.load(KERNEL), _ENTRY_POINTS[variant])
     pointers = (q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_bias.data_ptr(), out.data_ptr(), lse.data_ptr())
-    if variant == "mma":
-        fn = lib.replay_flash_tiled_forward_mma
-        sizes = (batch, heads, length, dim, int(causal))
-    else:
-        fn = lib.replay_flash_tiled_forward
-        sizes = (batch, heads, length, dim, int(causal), int(q.dtype == torch.bfloat16))
+    sizes = (batch, heads, length, dim, int(causal))
+    if variant == "simt":
+        sizes += (int(q.dtype == torch.bfloat16),)
     fn.argtypes = [ctypes.c_void_p] * len(pointers) + [ctypes.c_int] * len(sizes) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(q.device):

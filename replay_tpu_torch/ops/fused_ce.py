@@ -18,20 +18,26 @@ precision ladder's rung, are converted to f32 before each product).
 The kernels are ``replay_tpu_torch/csrc/fused_ce.cu`` (CUDA C++ for ``sm_90a``,
 plain C interface, loaded with ctypes; built at first use by
 :mod:`replay_tpu_torch.ops.build`). Their design, and what bounds them, is in
-the source's header: 64 × 64 logits tiles in f32 FMA with the embedding swept
-in chunks, one owner thread per output element summing in a fixed order (no
-atomics: the result is the same from run to run), K3's rows split into a fixed
-number of parts added in order by a second pass.
+the source's header: K1, K2 and K3's ``"simt"`` variant on 64 × 64 logits tiles
+in f32 FMA with the embedding swept in chunks; K3's ``"tf32"`` variant, which
+:func:`_dw_variant` picks for E a multiple of 8 up to 128, on the TF32 tensor
+cores (``mma.sync``, each f32 operand split into TF32 hi + lo, so f32 accuracy
+is kept), a block owning a whole 64-item × E tile of dW so that each logits
+tile is computed once. Each output element has one owner that sums in a fixed
+order (no atomics: the result is the same from run to run), and K3's rows are
+split into a fixed number of parts added in order by a second pass.
 
 ``tile`` and ``item_tile`` are the JAX signature's tile sizes. The port's
-kernels choose their own tiles (64 rows × 64 items, 33 KB of shared memory for
-any embedding width, so nothing has to shrink to fit), and the two arguments
-never change a result: they are checked and otherwise unused.
+kernels choose their own tiles (64 rows × 64 items; 33 KB of shared memory for
+any embedding width in the simt kernels, at most 133 KB at E=128 in K3's tf32
+variant, so nothing has to shrink to fit), and the two arguments never change
+a result: they are checked and otherwise unused.
 
 On CPU tensors each wrapper runs its plain version; on CUDA tensors it launches
 its kernel or raises. ``fused_lse_forward.launches``, ``fused_lse_dh.launches``
 and ``fused_lse_dw.launches`` count kernel launches (K3's second pass, which
-adds the row splits, is part of its launch).
+adds the row splits, is part of its launch); ``fused_lse_dw.launches_by_variant``
+splits K3's by variant.
 """
 
 from __future__ import annotations
@@ -48,10 +54,14 @@ KERNEL = "fused_ce"
 _MASK = -1e30  # finite catalog-padding mask, as the Pallas kernels'
 _DTYPES = (torch.float32, torch.bfloat16)
 _KERNEL_TILE = 64  # rows and items of the kernels' logits tile (csrc/fused_ce.cu)
-# K3 splits its rows until about this many blocks are in flight: two per SM of
-# an H100 (132 SMs). A constant, so the split, and with it the summation
-# order, depends on the shapes only, never on the card.
-_DW_TARGET_BLOCKS = 264
+# K3 splits its rows until about this many blocks are launched, by variant:
+# "simt" two per SM of an H100 (132 SMs); "tf32" eight per SM, since a block
+# owns a whole item tile (fewer blocks) and 1 to 3 fit an SM, so that the last
+# wave of blocks is a small share of the run. Constants, so the split, and with
+# it the summation order, depends on the shapes only, never on the card.
+_DW_TARGET_BLOCKS = {"simt": 264, "tf32": 1056}
+DW_VARIANTS = ("tf32", "simt")
+TF32_MAX_DIM = 128
 
 
 def _num_valid(table: torch.Tensor, num_valid) -> int:
@@ -189,12 +199,25 @@ def fused_lse_dh(hidden, table, grad, lse, num_valid=None) -> torch.Tensor:
     return dh
 
 
-def dw_row_split(rows: int, items: int, dim: int) -> Tuple[int, int]:
-    """K3's ``(splits, rows_per_split)``: the rows cut into parts, each a whole
-    number of 64-row tiles, until about ``_DW_TARGET_BLOCKS`` blocks run."""
+def _dw_variant(dim: int) -> str:
+    """K3's variant for embedding width ``dim``: ``"tf32"`` (tensor cores) for
+    ``dim`` a multiple of 8 up to 128, ``"simt"`` (CUDA cores) for every other
+    ``dim``. Every pair of input types takes the same variant: in ``"tf32"``
+    each product takes the TF32 terms its operands need. A pure function of its
+    argument: the choice never depends on a build or a launch."""
+    return "tf32" if dim % 8 == 0 and 8 <= dim <= TF32_MAX_DIM else "simt"
+
+
+def dw_row_split(rows: int, items: int, dim: int, variant: str) -> Tuple[int, int]:
+    """K3's ``(splits, rows_per_split)`` for ``variant``: the rows cut into
+    parts, each a whole number of 64-row tiles, until about
+    ``_DW_TARGET_BLOCKS[variant]`` blocks run (a "simt" block owns a 64-column
+    slice of an item tile, a "tf32" block the whole item tile)."""
     row_tiles = max(1, math.ceil(rows / _KERNEL_TILE))
-    blocks = math.ceil(items / _KERNEL_TILE) * math.ceil(dim / _KERNEL_TILE)
-    wanted = min(row_tiles, max(1, math.ceil(_DW_TARGET_BLOCKS / blocks)))
+    blocks = math.ceil(items / _KERNEL_TILE)
+    if variant == "simt":
+        blocks *= math.ceil(dim / _KERNEL_TILE)
+    wanted = min(row_tiles, max(1, math.ceil(_DW_TARGET_BLOCKS[variant] / blocks)))
     tiles_per_split = math.ceil(row_tiles / wanted)
     return math.ceil(row_tiles / tiles_per_split), tiles_per_split * _KERNEL_TILE
 
@@ -206,17 +229,20 @@ def fused_lse_dw(hidden, table, grad, lse, num_valid=None) -> torch.Tensor:
         return fused_lse_dw_reference(hidden, table, grad, lse, num_valid)
     _check(hidden, table, grad, lse)
     valid = _num_valid(table, num_valid)
+    variant = _dw_variant(table.shape[1])
     hidden, table, grad, lse = (t.contiguous() for t in (hidden, table, grad, lse))
     if hidden.shape[0] == 0:
         return torch.zeros_like(table)
+    if variant == "tf32":  # its 16-byte copies of h
+        hidden = build.aligned(hidden)
     dw = torch.empty_like(table)
-    splits, rows_per_split = dw_row_split(hidden.shape[0], table.shape[0], table.shape[1])
+    splits, rows_per_split = dw_row_split(hidden.shape[0], table.shape[0], table.shape[1], variant)
     partial = (
         torch.empty((splits, *table.shape), dtype=torch.float32, device=table.device)
         if splits > 1
         else None
     )
-    fn = _library("replay_fused_lse_grad_table")
+    fn = _library("replay_fused_lse_grad_table_tf32" if variant == "tf32" else "replay_fused_lse_grad_table")
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     with torch.cuda.device(hidden.device):
         err = fn(
@@ -225,14 +251,16 @@ def fused_lse_dw(hidden, table, grad, lse, num_valid=None) -> torch.Tensor:
             hidden.shape[0], table.shape[0], hidden.shape[1], _clamp(valid), splits, rows_per_split,
             *_types(hidden, table), torch.cuda.current_stream(hidden.device).cuda_stream,
         )
-    _raise_on(err, "fused_lse_dw (K3)", hidden, table)
+    _raise_on(err, f"fused_lse_dw (K3, {variant})", hidden, table)
     fused_lse_dw.launches += 1
+    fused_lse_dw.launches_by_variant[variant] += 1
     return dw
 
 
 fused_lse_forward.launches = 0
 fused_lse_dh.launches = 0
 fused_lse_dw.launches = 0
+fused_lse_dw.launches_by_variant = dict.fromkeys(DW_VARIANTS, 0)
 
 
 class _FusedLSE(torch.autograd.Function):

@@ -13,7 +13,8 @@ in f32 and round the output once; the backward under another ``block_k`` within
 rtol 1e-5 / atol 1e-6, the same f32 terms summed in another grouping.
 
 The CUDA kernel itself is tested on the card in ``test_torch_kernels_cuda.py``;
-here, which of its two variants the wrapper picks, and what it refuses.
+here, which of its three variants the wrapper picks, what it refuses, and that
+the card's TF32 precision probe tells one TF32 product from three.
 """
 
 import numpy as np
@@ -23,6 +24,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import tf32_probes
 from replay_tpu.ops import flash_tiled as jax_tiled
 from replay_tpu_torch.ops import flash_tiled
 from replay_tpu_torch.ops.flash_tiled import (
@@ -187,15 +189,67 @@ def test_wrapper_output_carries_a_gradient_and_launches_nothing_on_the_cpu():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_variant_is_mma_only_for_bf16_at_multiples_of_8_up_to_128(dtype):
+    """The tensor-core variants take D a multiple of 8 up to 128 — ``mma`` in
+    bf16, ``tf32x3`` in f32 — and ``simt`` every other D."""
     got = {dim: flash_tiled._variant(dtype, dim) for dim in range(1, flash_tiled.MAX_HEAD_DIM + 1)}
+    tensor_cores = list(range(8, 129, 8))
     mma = [dim for dim, variant in got.items() if variant == "mma"]
-    assert mma == (list(range(8, 129, 8)) if dtype == torch.bfloat16 else [])
+    tf32x3 = [dim for dim, variant in got.items() if variant == "tf32x3"]
+    assert mma == (tensor_cores if dtype == torch.bfloat16 else [])
+    assert tf32x3 == (tensor_cores if dtype == torch.float32 else [])
+    assert [dim for dim, variant in got.items() if variant == "simt"] == [
+        dim for dim in got if dim not in tensor_cores
+    ]
     assert set(got.values()) <= set(flash_tiled.VARIANTS)
 
 
 def test_launch_counts_by_variant_start_at_zero_for_each():
-    assert set(flash_attention_tiled.launches_by_variant) == {"mma", "simt"}
+    assert set(flash_attention_tiled.launches_by_variant) == {"mma", "tf32x3", "simt"} == set(flash_tiled.VARIANTS)
     assert all(isinstance(n, int) for n in flash_attention_tiled.launches_by_variant.values())
+
+
+def test_each_variant_has_an_entry_point():
+    assert set(flash_tiled._ENTRY_POINTS) == set(flash_tiled.VARIANTS)
+    assert len(set(flash_tiled._ENTRY_POINTS.values())) == len(flash_tiled.VARIANTS)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_tf32x3_probe_tells_one_tf32_product_from_three(causal):
+    """The inputs of the card's TF32 precision probe (``tf32_probes.k5_probe``):
+    with one TF32 product per f32 product K5's output misses its f32 limit
+    (1e-5), with three it keeps it, in the numpy emulation; and the plain
+    version, which the card's test holds the kernel to, matches the exact
+    result well inside the limit. Causal or not, rows 1.. see both live keys."""
+    q, k, v, padding = tf32_probes.k5_probe()
+    exact = tf32_probes.k5_emulated(q, k, v, padding)
+    one = np.abs(tf32_probes.k5_emulated(q, k, v, padding, lo=()) - exact).max()
+    three = np.abs(tf32_probes.k5_emulated(q, k, v, padding, lo=tf32_probes.K5_OPERANDS) - exact).max()
+    assert one > tf32_probes.K5_LIMIT > 4 * three, (one, three)
+    bias = padding_mask_bias(torch.tensor(padding))
+    plain, _ = flash_attention_tiled_reference(*(torch.tensor(t) for t in (q, k, v)), bias, causal)
+    rows = slice(1, None) if causal else slice(None)
+    assert np.abs(plain[0, 0].numpy()[rows] - exact[rows]).max() < tf32_probes.K5_LIMIT / 4
+
+
+@pytest.mark.parametrize("dropped", tf32_probes.K5_OPERANDS)
+def test_tf32x3_probe_fails_when_any_one_operand_loses_its_lo_part(dropped):
+    """On the same probe, a K5 that splits every operand but one (q or k in
+    S = q kᵀ, p or v in P·V) into hi + lo misses the limit by far, in the
+    numpy emulation: the card's probe sees each part the design keeps."""
+    q, k, v, padding = tf32_probes.k5_probe()
+    exact = tf32_probes.k5_emulated(q, k, v, padding)
+    kept = tuple(name for name in tf32_probes.K5_OPERANDS if name != dropped)
+    assert np.abs(tf32_probes.k5_emulated(q, k, v, padding, lo=kept) - exact).max() > 4 * tf32_probes.K5_LIMIT
+
+
+def test_tf32_rounding_is_to_nearest_at_10_mantissa_bits():
+    one_ulp = 2.0**-10
+    x = np.array([1 + one_ulp, 1 + one_ulp / 2, 1 + one_ulp / 2 - 2.0**-20, -(1 + 3 * one_ulp / 2), 2.0**-20], np.float32)
+    np.testing.assert_array_equal(
+        tf32_probes.tf32(x), np.array([1 + one_ulp, 1 + one_ulp, 1, -(1 + 2 * one_ulp), 2.0**-20], np.float32)
+    )
+    hi, lo = tf32_probes.parts(np.float32(np.pi))
+    assert hi != np.float32(np.pi) and abs(float(hi) + float(lo) - float(np.float32(np.pi))) <= np.pi * 2.0**-21
 
 
 @pytest.mark.parametrize(

@@ -10,7 +10,9 @@ Tolerances are the JAX test's own: log-sum-exp rtol = atol = 2e-5, gradients
 rtol 2e-4 / atol 2e-5 (f32 throughout, summation orders differ). A bf16 ``dh``
 is compared to one bf16 ulp (rtol 2**-7). Losses: rtol 1e-5, f32 means of
 values that already agree to 2e-5. The CUDA kernels are tested on the card in
-``test_torch_kernels_cuda.py``.
+``test_torch_kernels_cuda.py``; here, which of K3's two variants the wrapper
+picks, its row split, and that the card's K3 precision probe tells one TF32
+product from three.
 """
 
 import types
@@ -22,6 +24,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import tf32_probes
 from replay_tpu.nn.loss import CE as JaxCE
 from replay_tpu.nn.loss import CEFused as JaxCEFused
 from replay_tpu.nn.loss import base as jax_base
@@ -209,3 +212,62 @@ def test_loss_base_helpers_match_jax(rank):
     )
     with pytest.raises(ValueError, match="rank"):
         loss_base.broadcast_negatives(torch.zeros(1, 1, 1, 1), 3, 4)
+
+
+def test_dw_variant_is_tf32_at_multiples_of_8_up_to_128():
+    got = {dim: fused_ce._dw_variant(dim) for dim in range(1, 300)}
+    assert [dim for dim, variant in got.items() if variant == "tf32"] == list(range(8, 129, 8))
+    assert set(got.values()) == set(fused_ce.DW_VARIANTS) == {"tf32", "simt"}
+    assert set(fused_ce.fused_lse_dw.launches_by_variant) == set(fused_ce.DW_VARIANTS)
+    assert all(isinstance(n, int) for n in fused_ce.fused_lse_dw.launches_by_variant.values())
+
+
+@pytest.mark.parametrize(
+    "rows,items,dim",
+    [(25600, 3706, 64), (32768, 3706, 128), (1000, 1000, 64), (5, 3, 16), (77, 129, 100), (130, 70, 256)],
+)
+@pytest.mark.parametrize("variant", ["tf32", "simt"])
+def test_dw_row_split_covers_the_rows_in_whole_tiles(rows, items, dim, variant):
+    """Each split a whole number of 64-row tiles, together covering every row
+    and none twice, about the variant's target of blocks, from shapes alone."""
+    splits, per_split = fused_ce.dw_row_split(rows, items, dim, variant)
+    assert per_split % 64 == 0 and splits * per_split >= rows > (splits - 1) * per_split
+    blocks = -(-items // 64) * (1 if variant == "tf32" else -(-dim // 64))
+    row_tiles = -(-rows // 64)
+    assert splits == row_tiles or splits * blocks >= fused_ce._DW_TARGET_BLOCKS[variant]
+    assert fused_ce.dw_row_split(rows, items, dim, variant) == (splits, per_split)
+
+
+def test_k3_probe_tells_one_tf32_product_from_three():
+    """The inputs of the card's K3 precision probe (``tf32_probes.k3_probe``):
+    with one TF32 product per f32 product dW misses its limit (1e-4 of the
+    largest |dW|), with three it keeps it, in the numpy emulation; and K3's
+    plain version, which the card's test holds the kernel to, matches the
+    exact result well inside the limit."""
+    h, table, g = tf32_probes.k3_probe()
+    exact = tf32_probes.k3_emulated(h, table, g)
+    limit = tf32_probes.K3_LIMIT * np.abs(exact).max()
+    one = np.abs(tf32_probes.k3_emulated(h, table, g, lo=()) - exact).max()
+    three = np.abs(tf32_probes.k3_emulated(h, table, g, lo=tf32_probes.K3_OPERANDS) - exact).max()
+    assert one > limit > 4 * three, (one, limit, three)
+    ht, wt, gt = (torch.tensor(t) for t in (h, table, g))
+    lse = fused_ce.fused_lse_reference(ht, wt)
+    plain = fused_ce.fused_lse_dw_reference(ht, wt, gt, lse).numpy()
+    assert np.abs(plain - exact).max() < limit / 4
+
+
+@pytest.mark.parametrize("dropped", tf32_probes.K3_OPERANDS)
+def test_k3_probe_fails_when_any_one_operand_loses_its_lo_part(dropped):
+    """On the same probe, a K3 that splits every operand but one (h, in both
+    products; W, in the logits; the softmax weights P, in dW = Pᵀh) into hi +
+    lo misses the limit by far, in the numpy emulation: the table's logits
+    spread so that W's rounding reaches the weights, and the card's probe
+    sees each part the design keeps."""
+    h, table, g = tf32_probes.k3_probe()
+    exact = tf32_probes.k3_emulated(h, table, g)
+    limit = tf32_probes.K3_LIMIT * np.abs(exact).max()
+    kept = tuple(name for name in tf32_probes.K3_OPERANDS if name != dropped)
+    assert np.abs(tf32_probes.k3_emulated(h, table, g, lo=kept) - exact).max() > 4 * limit
+    lse = fused_ce.fused_lse_reference(torch.tensor(h), torch.tensor(table)).numpy()
+    weights = np.exp(h.astype(np.float64) @ table.T - lse[:, None])
+    assert 0.3 < weights.max(axis=1).mean() < 0.9  # neither uniform nor one-hot

@@ -15,17 +15,23 @@ summed in another order (a bf16 dh adds its rounding, 2**-8 of the largest).
 K4's gradient 1e-4: the same f32 recompute by other formulas. K5 (max abs
 error against its plain version): out f32 1e-5 and bf16 2e-2 as K4's; lse rtol
 1e-5 / atol 1e-5 (f32, about log L plus the row max); its gradient 1e-4 of the largest magnitude (dbias sums over queries).
-K5's bf16 inputs run its "mma" variant (tensor cores) where D is a multiple of 8
-up to 128, its "simt" variant elsewhere; the same limits hold for both. The
-P-precision probe's limit is set from the plain version in the test: the
-output's own bf16 rounding plus 2**-15 of the products' magnitude (f32 P carried
-as a bf16 hi + lo pair), which a P rounded to bf16 must exceed.
+K5 runs its "mma" variant (bf16 tensor cores) for bf16 and its "tf32x3"
+variant (TF32 tensor cores, three products per f32 product) for f32 where D is
+a multiple of 8 up to 128, its "simt" variant elsewhere; the same limits hold
+for all. K3 runs its "tf32" variant where E is a multiple of 8 up to 128, its
+"simt" variant elsewhere, under the same limits. The P-precision probe's limit
+is set from the plain version in the test: the output's own bf16 rounding plus
+2**-15 of the products' magnitude (f32 P carried as a bf16 hi + lo pair), which
+a P rounded to bf16 must exceed. The TF32 probes (``tf32_probes``) hold the
+tf32 kernels to their f32 limits on inputs where one TF32 product per f32
+product misses them.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import tf32_probes
 from replay_tpu_torch.data import FeatureHint, FeatureType
 from replay_tpu_torch.data.nn import TensorFeatureInfo, TensorSchema
 from replay_tpu_torch.nn.loss import CEFused
@@ -159,11 +165,18 @@ def test_fused_ce_kernels_match_plain_versions(cuda_device, rows, items, dim, nu
     grad = torch.randn(rows, device=cuda_device, generator=gen)
     counters = (fused_ce.fused_lse_forward, fused_ce.fused_lse_dh, fused_ce.fused_lse_dw)
     before = [c.launches for c in counters]
+    variants_before = dict(fused_ce.fused_lse_dw.launches_by_variant)
     lse = fused_ce.fused_lse_forward(hidden, table, num_valid)
     dh = fused_ce.fused_lse_dh(hidden, table, grad, lse, num_valid)
     dw = fused_ce.fused_lse_dw(hidden, table, grad, lse, num_valid)
     torch.cuda.synchronize()
     assert [c.launches for c in counters] == [b + 1 for b in before]
+    # K3 on the tensor cores where E is a multiple of 8 up to 128, on its simt variant elsewhere
+    variant = "tf32" if dim % 8 == 0 and dim <= 128 else "simt"
+    assert fused_ce._dw_variant(dim) == variant
+    assert fused_ce.fused_lse_dw.launches_by_variant == {
+        key: count + (key == variant) for key, count in variants_before.items()
+    }
     assert lse.dtype == torch.float32 and dh.dtype == hidden_dtype and dw.dtype == table_dtype
     h32, w32 = hidden.float(), table.float()
     want_lse = fused_ce.fused_lse_reference(h32, w32, num_valid)
@@ -605,3 +618,115 @@ def test_flash_attention_serving_buckets(cuda_device, batch):
     got = flash_attention(q, k, v, bias)
     want = flash_attention_reference(q, k, v, bias)
     assert (got - want).abs().max().item() <= TOL[torch.float32]
+
+
+# --------------------------------------------------------------------------- #
+# K5's tf32x3 variant (f32, TF32 tensor cores) and K3's tf32 variant
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("length", [1000, 77])
+@pytest.mark.parametrize("dim", [32, 48, 64, 128])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_tiled_tf32x3_matches_plain_version(cuda_device, length, dim, causal):
+    """f32 at L not a multiple of 64, every D the tf32x3 variant takes at each
+    of its three widths, the served padding and one fully padded row."""
+    q, k, v, bias, _ = _tiled_case(4, 2, length, dim, torch.float32, cuda_device, length * dim + 1)
+    assert flash_tiled._variant(q.dtype, dim) == "tf32x3"
+    before = dict(flash_attention_tiled.launches_by_variant)
+    out, lse = flash_tiled._launch(q, k, v, bias, causal)
+    torch.cuda.synchronize()
+    assert flash_attention_tiled.launches_by_variant == {
+        key: count + (key == "tf32x3") for key, count in before.items()
+    }
+    want, want_lse = flash_attention_tiled_reference(q, k, v, bias, causal)
+    assert out.dtype == torch.float32 and torch.isfinite(out).all() and torch.isfinite(lse).all()
+    assert (out - want).abs().max().item() <= TOL[torch.float32]
+    assert torch.allclose(lse, want_lse, rtol=1e-5, atol=1e-5)
+    assert torch.equal(out[-1], torch.zeros_like(out[-1]))
+    assert torch.equal(lse[-1], torch.full_like(lse[-1], NEG_INF))
+
+
+@pytest.mark.parametrize("dim", [32, 64, 128])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_tiled_tf32x3_skips_padding_tiles_without_changing_the_result(cuda_device, dim, causal):
+    """All-padding key tiles at the start, in the middle and at the end of a
+    row: the tf32x3 variant skips them, and matches the plain version and a run
+    where the same keys carry a bias just above the skip threshold."""
+    q, k, v, _, _ = _tiled_case(3, 2, 300, dim, torch.float32, cuda_device, 27 + dim, dead_row=False)
+    padding = torch.ones(3, 300, dtype=torch.bool, device=cuda_device)
+    padding[0, :128] = False
+    padding[1, 64:192] = False
+    padding[1, 256:] = False
+    padding[2, :250] = False
+    bias = padding_mask_bias(padding)
+    got, lse = flash_tiled._launch(q, k, v, bias, causal)
+    want, want_lse = flash_attention_tiled_reference(q, k, v, bias, causal)
+    assert (got - want).abs().max().item() <= TOL[torch.float32]
+    assert torch.allclose(lse, want_lse, rtol=1e-5, atol=1e-5)
+    visited = torch.where(padding, 0.0, 0.9 * NEG_INF).to(torch.float32)
+    again, again_lse = flash_tiled._launch(q, k, v, visited, causal)
+    assert torch.equal(again, got) and torch.allclose(again_lse, lse, rtol=1e-6, atol=0)
+
+
+def test_flash_tiled_tf32x3_keeps_f32_precision(cuda_device):
+    """The TF32 probe (``tf32_probes.k5_probe``): the kernel within 1e-5 of the
+    f32 plain version, where a K5 with any one operand in one TF32 part
+    (emulated) is not."""
+    q, k, v, padding = tf32_probes.k5_probe()
+    exact = tf32_probes.k5_emulated(q, k, v, padding)
+    one_term = min(
+        np.abs(tf32_probes.k5_emulated(q, k, v, padding, lo=tuple(set(tf32_probes.K5_OPERANDS) - {name})) - exact).max()
+        for name in tf32_probes.K5_OPERANDS
+    )
+    qt, kt, vt = (torch.tensor(t, device=cuda_device) for t in (q, k, v))
+    bias = padding_mask_bias(torch.tensor(padding, device=cuda_device))
+    assert flash_tiled._variant(qt.dtype, qt.shape[-1]) == "tf32x3"
+    got, _ = flash_tiled._launch(qt, kt, vt, bias, False)
+    want, _ = flash_attention_tiled_reference(qt, kt, vt, bias, False)
+    err = (got - want).abs().max().item()
+    assert err <= tf32_probes.K5_LIMIT < one_term, (err, one_term)
+
+
+def test_fused_ce_k3_tf32_keeps_f32_precision(cuda_device):
+    """The TF32 probe (``tf32_probes.k3_probe``): K3 within 1e-4 of the largest
+    |dW| of its f32 plain version, where a K3 with any one operand (h, W or
+    the softmax weights) in one TF32 part (emulated) is not; four row splits
+    added by the second pass."""
+    h, table, g = tf32_probes.k3_probe()
+    exact = tf32_probes.k3_emulated(h, table, g)
+    one_term = min(
+        np.abs(tf32_probes.k3_emulated(h, table, g, lo=tuple(set(tf32_probes.K3_OPERANDS) - {name})) - exact).max()
+        for name in tf32_probes.K3_OPERANDS
+    )
+    ht, wt, gt = (torch.tensor(t, device=cuda_device) for t in (h, table, g))
+    assert fused_ce._dw_variant(ht.shape[1]) == "tf32"
+    assert fused_ce.dw_row_split(*ht.shape[:1], *wt.shape, "tf32")[0] == 4
+    lse = fused_ce.fused_lse_reference(ht, wt)
+    got = fused_ce.fused_lse_dw(ht, wt, gt, lse)
+    want = fused_ce.fused_lse_dw_reference(ht, wt, gt, lse)
+    limit = tf32_probes.K3_LIMIT * want.abs().max().item()
+    err = (got - want).abs().max().item()
+    assert err <= limit < one_term, (err, limit, one_term)
+
+
+@pytest.mark.parametrize(
+    "kernel,dtype", [("K5", torch.float32), ("K3", torch.float32), ("K3", torch.bfloat16)],
+    ids=["k5_tf32x3", "k3_tf32_f32", "k3_tf32_bf16_hidden"],
+)
+def test_tf32_kernels_are_the_same_from_run_to_run(cuda_device, kernel, dtype):
+    """At the long-sequence width: K5 tf32x3 at B=32 H=2 L=1024 D=64 causal, K3
+    at N=32,768 E=128 against the 3,706-item table (f32, and bf16 hidden
+    states), the same bits twice."""
+    gen = torch.Generator(cuda_device).manual_seed(23)
+    if kernel == "K5":
+        q, k, v = (torch.randn(32, 2, 1024, 64, device=cuda_device, generator=gen) for _ in range(3))
+        bias = torch.zeros(32, 1024, device=cuda_device)
+        assert flash_tiled._variant(q.dtype, 64) == "tf32x3"
+        first, second = (flash_tiled._launch(q, k, v, bias, True) for _ in range(2))
+        assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+        return
+    hidden = torch.randn(32768, 128, device=cuda_device, generator=gen).to(dtype)
+    table = torch.randn(3706, 128, device=cuda_device, generator=gen) / 128**0.5
+    grad = torch.randn(32768, device=cuda_device, generator=gen)
+    assert fused_ce._dw_variant(128) == "tf32"
+    lse = fused_ce.fused_lse_forward(hidden, table)
+    assert torch.equal(fused_ce.fused_lse_dw(hidden, table, grad, lse), fused_ce.fused_lse_dw(hidden, table, grad, lse))

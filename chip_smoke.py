@@ -17,7 +17,7 @@ paths against its plain PyTorch version. Phases, one JSON line each:
                  times and the card's bound for the same work; K1, K2, K3 against their
                  plain versions at the training width (f32, and bf16 hidden states), a
                  ragged case, the long-sequence width (E=128; bf16 and f32 hidden states)
-                 and E=100, K3 on its ``tf32`` variant (tensor cores) where E is a
+                 and E=100, each on its ``tf32`` variant (tensor cores) where E is a
                  multiple of 8 up to 128 and on its ``simt`` variant at E=100; K4's
                  gradient at the training shape against autograd through the plain
                  version; K5 through its wrapper against
@@ -43,15 +43,17 @@ paths against its plain PyTorch version. Phases, one JSON line each:
                  and a third control, one TF32 product per f32 product (K5's
                  ``tf32x3`` variant; the bf16 paths run its ``mma`` variant only);
                  ``Trainer(CEFused(), ..., precision="f32")`` on the tiled route (K5
-                 ``tf32x3``, K3 ``tf32``) against ``Trainer(CE(), ...)`` on the unfused
+                 ``tf32x3``, K1–K3 ``tf32``) against ``Trainer(CE(), ...)`` on the unfused
                  route, 20 steps from the same weights; step times, device time and
                  memory of the four trainers.
                  ``ScoringEngine`` on the tiled bf16 model, held to the same comparisons
                  and controls, then encode latency per bucket;
 7. ``kernels`` — every ported kernel with its launches on the paths driven.
 
-Then the card's name and power limit on a line of their own, one JSON object
-listing the kernels, and, as the last line, ``{"ok": true, "device": ...}``.
+Every trainer's device time per step comes from a profiler trace that agrees
+with a second trace of the same steps (``device_time_per_step``). Then the
+card's name and power limit on a line of their own, one JSON object listing
+the kernels, and, as the last line, ``{"ok": true, "device": ...}``.
 Any failed check raises: the script exits non-zero and never falls back to
 the CPU. It needs one CUDA device and ``nvcc``.
 """
@@ -424,6 +426,17 @@ def variant_counts(fn) -> dict:
     return dict(fn.launches_by_variant)
 
 
+def fused_variant_counts(fc) -> dict:
+    """K1's, K2's and K3's launches by variant, by wrapper."""
+    return {fn.__name__: variant_counts(fn) for fn in (fc.fused_lse_forward, fc.fused_lse_dh, fc.fused_lse_dw)}
+
+
+def check_fused_variants(path: str, counts: dict, steps: int) -> None:
+    """Each of K1, K2 and K3 ran its tf32 variant once a step, and nothing else."""
+    if any(by_variant != {"tf32": steps, "simt": 0} for by_variant in counts.values()):
+        raise AssertionError(f"{path} ran K1-K3's variants {counts}, not tf32 only")
+
+
 def tiled_kernel_phase(device) -> dict:
     """K5 vs its plain version at every shape, each on the variant its dtype and
     D call for; returns the records by (shape, dtype)."""
@@ -735,25 +748,27 @@ def fused_bound(kernel, hidden, table):
 
 
 def fused_ce_phase(device) -> dict:
-    """K1, K2, K3 vs their plain versions at every case, K3 on the variant E
+    """K1, K2, K3 vs their plain versions at every case, each on the variant E
     calls for; returns the records by case and kernel."""
     from replay_tpu_torch.ops import fused_ce as fc
 
+    wrappers = (fc.fused_lse_forward, fc.fused_lse_dh, fc.fused_lse_dw)
     records = {}
     for index, (name, rows, items, num_valid, dtype, dim) in enumerate(FUSED_CASES):
         hidden, table, grad = fused_case(rows, items, dim, dtype, device, 100 + index)
         valid = items if num_valid is None else num_valid
+        reset_counts(*wrappers)
         lse = fc.fused_lse_forward(hidden, table, num_valid)
         want_lse = fc.fused_lse_reference(hidden, table, num_valid)
         dh = fc.fused_lse_dh(hidden, table, grad, want_lse, num_valid)
-        reset_counts(fc.fused_lse_dw)
         dw = fc.fused_lse_dw(hidden, table, grad, want_lse, num_valid)
-        dw_variant = fc._dw_variant(dim)
+        variant = fc._variant(dim)
         expected_variant = "tf32" if dim % 8 == 0 and dim <= 128 else "simt"
-        if dw_variant != expected_variant or variant_counts(fc.fused_lse_dw) != {
-            key: int(key == dw_variant) for key in fc.DW_VARIANTS
-        }:
-            raise AssertionError(f"K3 {name}: variant {dw_variant} (expected {expected_variant}), launches {variant_counts(fc.fused_lse_dw)}")
+        ran = {fn.__name__: variant_counts(fn) for fn in wrappers}
+        if variant != expected_variant or any(
+            counts != {key: int(key == variant) for key in fc.VARIANTS} for counts in ran.values()
+        ):
+            raise AssertionError(f"fused_ce {name}: variant {variant} (expected {expected_variant}), launches {ran}")
         # the plain versions on the same input values, their f32 results not
         # rounded: for a bf16 dh the error is then its own rounding
         want_dh = fc.fused_lse_dh_reference(hidden.float(), table, grad, want_lse, num_valid)
@@ -793,7 +808,7 @@ def fused_ce_phase(device) -> dict:
             bound_ms, bound_by, moved, flop, rates = fused_bound(kernel, hidden, table)
             record = {
                 "kernel": kernel, "case": name, "N": rows, "I": items, "E": dim,
-                "variant": dw_variant if kernel == "K3" else None,
+                "variant": variant,
                 "num_valid": valid, "hidden_dtype": str(dtype).removeprefix("torch."), "table_dtype": "float32",
                 "max_abs_err": err, "tol": tol, "max_abs_plain": scale if kernel != "K1" else None,
                 "ms": graph_ms(run, launches=10, reps=5), "eager_ms": eager_ms(run, launches=10, reps=5),
@@ -806,13 +821,15 @@ def fused_ce_phase(device) -> dict:
                 raise AssertionError(f"{kernel} {name}: max abs err {err} > {tol}")
             records.setdefault(name, {})[kernel] = record
     # run to run, the kernels' fixed summation order gives the same bits: the
-    # bench.py width in f32, and K3 at the long-sequence width on bf16 hidden states
+    # bench.py width in f32 and the long-sequence width on bf16 hidden states
     for name, rows, items, _, dtype, dim in FUSED_CASES:
         if name not in ("train_f32", "longseq_bf16_hidden"):
             continue
         hidden, table, grad = fused_case(rows, items, dim, dtype, device, 100)
         lse = fc.fused_lse_forward(hidden, table)
-        for fn in (fc.fused_lse_dh, fc.fused_lse_dw) if name == "train_f32" else (fc.fused_lse_dw,):
+        if not torch.equal(lse, fc.fused_lse_forward(hidden, table)):
+            raise AssertionError(f"fused_lse_forward {name} differs between two runs on the same inputs")
+        for fn in (fc.fused_lse_dh, fc.fused_lse_dw):
             if not torch.equal(fn(hidden, table, grad, lse), fn(hidden, table, grad, lse)):
                 raise AssertionError(f"{fn.__name__} {name} differs between two runs on the same inputs")
     return records
@@ -891,23 +908,72 @@ def step_times(trainer, state, batch, steps: int):
     return state, times
 
 
-def device_time_per_step(trainer, state, batch, steps: int) -> dict:
-    """Kernel time per step from a profiler trace of ``steps`` steps, and the
-    kernels that take most of it."""
+# A step launches a fixed number of kernels, fixed by the trainer's code, and
+# its kernels and copies run one after another on one stream. A trace that
+# lost events shows fewer kernels, so a device time is read only from a trace
+# whose kernel count is a whole number per step and agrees exactly with
+# another trace of the same path, and whose device events took no longer
+# than the CUDA events around the same steps. One retrace is allowed; then
+# the run fails with every reading. The batch's host-to-device copies are
+# timed but not counted: their number varies between traces of the same
+# steps (400 and 399 for 10 steps of the bf16 long-sequence trainer on an
+# H100, beside 5,390 kernels in both).
+TRACES_AT_MOST = 3
+COPY_EVENTS = ("Memcpy", "Memset")
+
+
+def traced_steps(trainer, state, batch, steps: int):
+    """One profiler trace of ``steps`` steps, between two CUDA events: the
+    kernels and copies it holds, their summed device time and the events'
+    time, and the profiler's averages and device events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
         for _ in range(steps):
             state, _ = trainer.train_step(state, batch)
+        end.record()
         torch.cuda.synchronize()
     events = prof.key_averages()
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    device = [e for e in events if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    copies = [e for e in device if e.key.startswith(COPY_EVENTS)]
+    reading = {
+        "kernels": sum(e.count for e in device) - sum(e.count for e in copies),
+        "copies": sum(e.count for e in copies),
+        "device_ms": sum(e.self_device_time_total for e in device) / 1e3,
+        "event_ms": start.elapsed_time(end),
+    }
+    return state, reading, events, device
+
+
+def device_time_per_step(trainer, state, batch, steps: int) -> dict:
+    """Kernel time per step from a profiler trace of ``steps`` steps that
+    agrees with another (see ``TRACES_AT_MOST``), and the kernels that take
+    most of it; ``traces`` counts the traces taken (2 when none had to be
+    retaken)."""
+    from torch.autograd import DeviceType
+
+    readings, sound_counts = [], []
+    for _ in range(TRACES_AT_MOST):
+        state, reading, events, kernels = traced_steps(trainer, state, batch, steps)
+        readings.append(reading)
+        if reading["kernels"] % steps or reading["device_ms"] > reading["event_ms"]:
+            continue
+        if reading["kernels"] in sound_counts:
+            break
+        sound_counts.append(reading["kernels"])
+    else:
+        raise AssertionError(f"no two profiler traces of {steps} steps agree: {readings}")
     kernels.sort(key=lambda e: -e.self_device_time_total)
     host = sorted((e for e in events if e.device_type == DeviceType.CPU), key=lambda e: -e.self_cpu_time_total)
     return state, {
-        "device_ms": sum(e.self_device_time_total for e in kernels) / steps / 1e3,
-        "kernels_per_step": sum(e.count for e in kernels) / steps,
+        "device_ms": reading["device_ms"] / steps,
+        "kernels_per_step": reading["kernels"] // steps,
+        "copies_per_step": reading["copies"] / steps,
+        "traces": len(readings),
+        "trace_readings": readings,
         "top_kernels_ms": {e.key[:60]: e.self_device_time_total / steps / 1e3 for e in kernels[:6]},
         # where the host's time goes, profiled (the profiler's own cost included)
         "top_host_ops_ms": {e.key[:60]: e.self_cpu_time_total / steps / 1e3 for e in host[:6]},
@@ -1003,7 +1069,7 @@ def train_phase(device) -> dict:
         fused_losses.append(loss)
     torch.cuda.synchronize()
     launches = {fn.__name__: fn.launches for fn in counters}
-    dw_variants = variant_counts(fc.fused_lse_dw)
+    fused_variants = fused_variant_counts(fc)
     plain_losses = []
     for _ in range(TRAIN_STEPS):
         plain_state, loss = plain.train_step(plain_state, batch)
@@ -1019,8 +1085,7 @@ def train_phase(device) -> dict:
     }
     if launches != expected or after_plain != launches:
         raise AssertionError(f"launches {launches}, after the plain trainer {after_plain}, expected {expected}")
-    if dw_variants != {"tf32": TRAIN_STEPS, "simt": 0}:
-        raise AssertionError(f"training ran K3's variants {dw_variants}, not tf32 only")
+    check_fused_variants("training", fused_variants, TRAIN_STEPS)
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(fused_losses, plain_losses))
     if not all(math.isfinite(x) for x in fused_losses + plain_losses) or loss_err > TRAIN_LOSS_RTOL:
         raise AssertionError(f"fused vs plain losses differ by rtol {loss_err}: {fused_losses} vs {plain_losses}")
@@ -1080,7 +1145,7 @@ def train_phase(device) -> dict:
         )
     emit(
         "train", batch=TRAIN_BATCH, seq_len=SEQ_LEN, items=NUM_ITEMS, embedding_dim=EMBEDDING_DIM,
-        blocks=NUM_BLOCKS, steps=TRAIN_STEPS, launches=launches, k3_variants=dw_variants, fused_losses=fused_losses,
+        blocks=NUM_BLOCKS, steps=TRAIN_STEPS, launches=launches, fused_ce_variants=fused_variants, fused_losses=fused_losses,
         plain_losses=plain_losses, loss_max_rtol=loss_err, loss_tol=TRAIN_LOSS_RTOL,
         fused_metrics=fused_metrics, plain_metrics=plain_metrics, metric_max_abs_err=metric_err,
         metric_tol=metric_tol, logits_max_abs_err=logits_err, top10_ranks_checked=int(pinned.sum()),
@@ -1192,20 +1257,15 @@ def check_readings(kind: str, readings: dict, limit: float, sound, caught) -> No
             raise AssertionError(f"longseq {kind}: control {name} ({readings[name]}) passes the limit {limit}")
 
 
-def longseq_phase(device) -> dict:
-    """The long-sequence path at the sasrec_l1024_tiled width, bf16 compute:
-    training on K5 (and K1–K3), then serving on K5; each against the unfused
-    attention route and against K5's plain version in the same model, with two
-    faulty K5s as controls."""
+def longseq_setup(device):
+    """The long-sequence width's schema, model widths, optimizer, the tiled
+    model from seed ``SEED``, a copy of its initial weights, the bf16 tiled
+    trainer on it and the bf16 unfused one (both ``CEFused``)."""
     from replay_tpu_torch.data import FeatureHint, FeatureType
     from replay_tpu_torch.data.nn import TensorFeatureInfo, TensorSchema
-    from replay_tpu_torch.nn.loss import CE, CEFused
+    from replay_tpu_torch.nn.loss import CEFused
     from replay_tpu_torch.nn.sequential.sasrec import SasRec
     from replay_tpu_torch.nn.train import OptimizerFactory, Trainer
-    from replay_tpu_torch.ops import fused_ce as fc
-    from replay_tpu_torch.ops.flash_attention import flash_attention
-    from replay_tpu_torch.ops.flash_tiled import flash_attention_tiled
-    from replay_tpu_torch.serve import ScoringEngine, make_window
 
     schema = TensorSchema(
         TensorFeatureInfo(
@@ -1224,24 +1284,47 @@ def longseq_phase(device) -> dict:
     plain = Trainer(SasRec(schema, use_flash=False, **width), CEFused(), optimizer=optimizer, precision="bf16", device=device)
     if tiled.model.dtype != torch.bfloat16 or plain.model.dtype != torch.bfloat16:
         raise AssertionError("precision='bf16' did not reach the models")
+    return schema, width, optimizer, tiled_model, initial, tiled, plain
+
+
+def trained_losses(trainer, batch, initial, forward=None):
+    """``LONG_STEPS`` steps from ``initial`` on ``batch``, K5's forward
+    swapped for ``forward`` where given: the state after them and the losses."""
+    state = trainer.init_state(batch, params=initial)
+    values = []
+    with k5_forward(forward) if forward is not None else contextlib.nullcontext():
+        for _ in range(LONG_STEPS):
+            state, loss = trainer.train_step(state, batch)
+            values.append(loss)
+    torch.cuda.synchronize()
+    return state, [float(x) for x in values]
+
+
+def longseq_phase(device) -> dict:
+    """The long-sequence path at the sasrec_l1024_tiled width, bf16 compute:
+    training on K5 (and K1–K3), then serving on K5; each against the unfused
+    attention route and against K5's plain version in the same model, with two
+    faulty K5s as controls."""
+    from replay_tpu_torch.nn.loss import CE, CEFused
+    from replay_tpu_torch.nn.sequential.sasrec import SasRec
+    from replay_tpu_torch.nn.train import Trainer
+    from replay_tpu_torch.ops import fused_ce as fc
+    from replay_tpu_torch.ops.flash_attention import flash_attention
+    from replay_tpu_torch.ops.flash_tiled import flash_attention_tiled
+    from replay_tpu_torch.serve import ScoringEngine, make_window
+
+    schema, width, optimizer, tiled_model, initial, tiled, plain = longseq_setup(device)
     batch = next_item_batch(LONG_BATCH, LONG_LEN)
     counters = (flash_attention_tiled, fc.fused_lse_forward, fc.fused_lse_dh, fc.fused_lse_dw, flash_attention)
 
     def losses(trainer, forward=None):
-        state = trainer.init_state(batch, params=initial)
-        values = []
-        with k5_forward(forward) if forward is not None else contextlib.nullcontext():
-            for _ in range(LONG_STEPS):
-                state, loss = trainer.train_step(state, batch)
-                values.append(loss)
-        torch.cuda.synchronize()
-        return state, [float(x) for x in values]
+        return trained_losses(trainer, batch, initial, forward)
 
     # the main path: counts start at 0 here and are read right after its steps
     reset_counts(*counters)
     tiled_state, tiled_losses = losses(tiled)
     train_launches = {fn.__name__: fn.launches for fn in counters}
-    train_variants, train_dw_variants = variant_counts(flash_attention_tiled), variant_counts(fc.fused_lse_dw)
+    train_variants, train_fused_variants = variant_counts(flash_attention_tiled), fused_variant_counts(fc)
     expected = {
         "flash_attention_tiled": LONG_BLOCKS * LONG_STEPS, "fused_lse_forward": LONG_STEPS,
         "fused_lse_dh": LONG_STEPS, "fused_lse_dw": LONG_STEPS, "flash_attention": 0,
@@ -1250,8 +1333,7 @@ def longseq_phase(device) -> dict:
         raise AssertionError(f"longseq launches {train_launches}, expected {expected}")
     if train_variants != {"mma": expected["flash_attention_tiled"], "tf32x3": 0, "simt": 0}:
         raise AssertionError(f"bf16 training ran K5's variants {train_variants}, not mma only")
-    if train_dw_variants != {"tf32": LONG_STEPS, "simt": 0}:
-        raise AssertionError(f"bf16 training ran K3's variants {train_dw_variants}, not tf32 only")
+    check_fused_variants("bf16 training", train_fused_variants, LONG_STEPS)
     if not tiled_losses[-1] < tiled_losses[0] or int(tiled_state.bad_steps):
         raise AssertionError(f"longseq loss did not fall or steps were skipped: {tiled_losses}")
     if tiled_state.flat_params.dtype != torch.float32:
@@ -1307,13 +1389,12 @@ def longseq_phase(device) -> dict:
     reset_counts(*counters)
     f32_tiled_state, f32_tiled_losses = losses(f32_tiled)
     f32_train_launches = {fn.__name__: fn.launches for fn in counters}
-    f32_train_variants, f32_dw_variants = variant_counts(flash_attention_tiled), variant_counts(fc.fused_lse_dw)
+    f32_train_variants, f32_fused_variants = variant_counts(flash_attention_tiled), fused_variant_counts(fc)
     if f32_train_launches != expected:
         raise AssertionError(f"longseq f32 launches {f32_train_launches}, expected {expected}")
     if f32_train_variants != {"mma": 0, "tf32x3": expected["flash_attention_tiled"], "simt": 0}:
         raise AssertionError(f"f32 training ran K5's variants {f32_train_variants}, not tf32x3 only")
-    if f32_dw_variants != {"tf32": LONG_STEPS, "simt": 0}:
-        raise AssertionError(f"f32 training ran K3's variants {f32_dw_variants}, not tf32 only")
+    check_fused_variants("f32 training", f32_fused_variants, LONG_STEPS)
     if not f32_tiled_losses[-1] < f32_tiled_losses[0] or int(f32_tiled_state.bad_steps):
         raise AssertionError(f"longseq f32 loss did not fall or steps were skipped: {f32_tiled_losses}")
     f32_plain_state, f32_plain_losses = losses(f32_plain)
@@ -1422,13 +1503,13 @@ def longseq_phase(device) -> dict:
     emit(
         "longseq", batch=LONG_BATCH, seq_len=LONG_LEN, items=NUM_ITEMS, embedding_dim=LONG_DIM,
         blocks=LONG_BLOCKS, heads=LONG_HEADS, precision=tiled.precision.describe(), steps=LONG_STEPS,
-        train_launches=train_launches, train_k5_variants=train_variants, train_k3_variants=train_dw_variants,
+        train_launches=train_launches, train_k5_variants=train_variants, train_fused_ce_variants=train_fused_variants,
         f32_forward_k5_variants=f32_variants,
         tiled_losses=tiled_losses, other_losses=other_losses,
         loss_rel_err=loss_err, loss_limit=LONGSEQ_LOSS_RTOL, f32_hidden_max_abs_err=f32_err,
         f32_limit=LONGSEQ_F32_TOL,
         f32_train_launches=f32_train_launches, f32_train_k5_variants=f32_train_variants,
-        f32_train_k3_variants=f32_dw_variants, f32_tiled_losses=f32_tiled_losses,
+        f32_train_fused_ce_variants=f32_fused_variants, f32_tiled_losses=f32_tiled_losses,
         f32_unfused_losses=f32_plain_losses, f32_loss_rel_err=f32_loss_err, f32_loss_limit=TRAIN_LOSS_RTOL,
         train_perf=train_perf,
         serve_requests=len(requests), serve_encode_calls=encode_calls, serve_k5_launches=serve_launches,
@@ -1512,6 +1593,8 @@ def kernel_records(k4, fused, tiled_records, served, trained, longseq) -> list:
     for suffix, case, path, path_launches in fused_paths:
         for name, kernel, line in fused_kernels:
             record = fused[case][kernel]
+            if record["variant"] != "tf32":
+                raise AssertionError(f"{name}{suffix}: the kernel phase timed {record['variant']}, the paths ran tf32")
             entry = {
                 "name": name + suffix,
                 "route": "cuda",
@@ -1528,8 +1611,7 @@ def kernel_records(k4, fused, tiled_records, served, trained, longseq) -> list:
                 "passed": True,
                 "shape": f"N={record['N']} E={record['E']} I={record['I']} {record['hidden_dtype']}",
             }
-            if kernel == "K3":
-                entry["variant"] = record["variant"]
+            entry["variant"] = record["variant"]
             kernels.append(entry)
     # K5, one entry per variant: bf16 (mma) on the long-sequence training and
     # serving paths, f32 (tf32x3) on the f32-compute forward and the f32 trainer

@@ -825,24 +825,10 @@ tiled_forward_tf32x3(const float* __restrict__ q, const float* __restrict__ k, c
 
     softmax_tile<kD>(s, m, l, o, bs, k0, warp_row0 + g, length, causal, scale, t4);
 
-    // O += P V, 8 keys at a time, 3xTF32: P's accumulator block nb is the A fragment of keys
-    // nb * 8 + 2 t4 (slot t4) and + 1 (slot t4 + 4); V's rows are read in that order
-#pragma unroll
-    for (int nb = 0; nb < kBlockK / 8; ++nb) {
-      unsigned p_hi[4], p_lo[4];
-      tf32_parts(s[nb][0], p_hi[0], p_lo[0]);
-      tf32_parts(s[nb][2], p_hi[1], p_lo[1]);
-      tf32_parts(s[nb][1], p_hi[2], p_lo[2]);
-      tf32_parts(s[nb][3], p_hi[3], p_lo[3]);
-      const float* v0 = vs + (nb * 8 + 2 * t4) * kVStride + g;
-#pragma unroll
-      for (int dn = 0; dn < kD / 8; ++dn) {
-        unsigned b_hi[2], b_lo[2];
-        tf32_parts(v0[dn * 8], b_hi[0], b_lo[0]);
-        tf32_parts(v0[kVStride + dn * 8], b_hi[1], b_lo[1]);
-        mma_split<true, true>(o[dn], p_hi, p_lo, b_hi, b_lo);
-      }
-    }
+    // O += P V, 3xTF32: P's accumulator block nb is the A fragment of keys nb * 8 + 2 t4 (slot
+    // t4) and + 1 (slot t4 + 4); V's rows are read in that order; the tile's products are summed
+    // apart and added to O rounded
+    add_tile_products<true, kBlockK, kD, kVStride>(s, vs + 2 * t4 * kVStride + g, o);
     __syncthreads();  // this stage is consumed before the next iteration refills it
     tile = next;
     stage ^= 1;

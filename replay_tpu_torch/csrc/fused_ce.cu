@@ -15,13 +15,12 @@
 // Layout: h is contiguous [rows, dim], w contiguous [items, dim], each f32 or
 // bf16 (loaded and converted to f32 before any product, as the Pallas kernels'
 // astype(f32)); g and lse are f32 [rows]; dh is [rows, dim] in h's type, dW
-// [items, dim] in w's type. K1, K2 and K3's "simt" variant multiply with f32 FMAs on the CUDA
-// cores; K3's "tf32" variant on the TF32 tensor cores with each f32 operand split into TF32
-// hi + lo (tensor_core.cuh). Either way f32 inputs keep f32 accuracy against the plain version.
-//
-// K3 has two variants, two C entry points; ops/fused_ce.py::_dw_variant picks one from dim
-// alone: "tf32" (replay_fused_lse_grad_table_tf32, design below, after the simt kernels) for dim
-// a multiple of 8 up to 128, "simt" (replay_fused_lse_grad_table) for any other dim.
+// [items, dim] in w's type. Each kernel has two variants, two C entry points:
+// "simt" multiplies with f32 FMAs on the CUDA cores; "tf32" on the TF32 tensor cores with each f32
+// operand split into TF32 hi + lo (tensor_core.cuh). Either way f32 inputs keep f32 accuracy
+// against the plain version. ops/fused_ce.py::_variant picks one from dim alone, the same for
+// all three: "tf32" (replay_fused_lse_*_tf32, design below, after the simt kernels) for dim a
+// multiple of 8 up to 128, "simt" for any other dim.
 //
 // Work split of the simt kernels. A block of 256 threads owns a 64 x 64 tile of (rows x items)
 // logits at a time, each thread 4 x 4 of them (rows ty + 16a, items tx + 16b),
@@ -49,8 +48,8 @@
 // each: all three are bound by operations, not by memory. In f32 the card does
 // them at f32 accuracy fastest as 3xTF32 on the tensor cores (495 / 3 TFLOP/s:
 // 0.15 ms for K3), against 67 TFLOP/s for f32 FMAs on the CUDA cores (0.36 ms).
-// K1, K2 and K3's simt variant read their operands from shared memory for every
-// FMA pair; K3's tf32 variant runs on mma.sync; wgmma with TMA is later work.
+// The simt variants read their operands from shared memory for every FMA pair;
+// the tf32 variants run on mma.sync; wgmma with TMA is later work.
 //
 // C interface, bound from Python with ctypes: each function launches on the
 // given stream, does not synchronise, allocates nothing, and returns
@@ -61,6 +60,7 @@
 #include <math_constants.h>
 
 #include <cstddef>
+#include <type_traits>
 
 #include "tensor_core.cuh"
 
@@ -408,99 +408,135 @@ cudaError_t run_grad_table(const void* h, const void* w, const float* g, const f
 }
 
 // ----------------------------------------------------------------------------------------------
-// K3's "tf32" variant: dim a multiple of 8 up to 128, on the TF32 tensor cores
+// The "tf32" variants of K1, K2 and K3: dim a multiple of 8 up to 128, on the TF32 tensor cores
 // ----------------------------------------------------------------------------------------------
 //
-// One block of 4 warps per (64-item tile, row split) owns the whole dW tile, 64 items x dim, in
-// registers: a warp 16 items, a lane (dim / 8) x 4 f32. The W tile stays in shared memory for
-// the block's life, split once into TF32 hi and lo; 64-row tiles of h stream through a cp.async
-// double buffer with their g and lse. Per row tile, each warp computes
-//   S^T = W h^T      (its 16 items x 64 rows, mma.sync m16n8k8, k over dim),
-//   P^T = g exp(S^T + mask - lse) in registers,
-//   dW += P^T h      (P^T's accumulator registers as the A fragment, rows in permuted order),
-// so the logits of a (row tile, item tile) pair are computed once, whatever dim is. Each product
-// takes as many TF32 terms as its operands need for f32 accuracy (tensor_core.cuh): an f32
-// operand hi + lo, a bf16 one (exact in TF32) hi alone; so f32 h and W take 3 + 3 products, bf16
-// h against an f32 W 2 + 2, bf16 both 1 + 2 (P is f32). Shared memory rows are padded so that
-// every fragment read hits 32 distinct banks.
+// One skeleton serves all three. A block of 4 warps keeps a 64-row tile of one operand in shared
+// memory for its life, split once into TF32 hi and lo (the "resident" tile), and streams tiles of
+// the other operand through a cp.async double buffer, split in registers as each warp reads them
+// (the "streamed" tiles). Per streamed tile each warp computes the logits of its 16 resident rows
+// against the tile on mma.sync m16n8k8 (k over dim) and uses them in registers:
+//  - K1 (lse_forward_tf32): h resident, W streamed. A running max and sum per row (online
+//    softmax), merged over the lane quad of the row at the end: lse = m + log s.
+//  - K2 (lse_grad_hidden_tf32): h resident, W streamed. P = g exp(S + mask - lse), then
+//    dh += P W with P's accumulator registers as the A fragment (W's rows read in the permuted
+//    order of tensor_core.cuh), each item tile's products summed apart and added rounded
+//    (add_tile_products); dh [64, dim] stays in registers, a warp 16 rows, a lane (dim / 8) x 4
+//    f32, and is written once at the end.
+//  - K3 (lse_grad_table_tf32): W resident, h streamed with its g and lse. P^T = g exp(S^T + mask
+//    - lse), then dW += P^T h, a row tile at a time as K2's. A block per (64-item tile, row split); the splits' f32 partials are
+//    added in split order by add_partials.
+// So the logits of a (row tile, item tile) pair are computed once, whatever dim is, and every
+// output element has one owner that sums in a fixed order: the same bits from run to run. Each
+// product takes as many TF32 terms as its operands need for f32 accuracy (tensor_core.cuh): an
+// f32 operand hi + lo, a bf16 one (exact in TF32) hi alone. So, logits + weighted sum: K1 f32 h
+// and W 3, bf16 h against f32 W 2, bf16 both 1; K2 3 + 3, 2 + 3, 1 + 2; K3 3 + 3, 2 + 2, 1 + 2
+// (P is f32). Shared memory rows are padded so that every fragment read hits 32 distinct banks.
+//
+// Occupancy. K1 and K2 stream 64 items a tile unless the resident h (hi + lo for f32) and two
+// stages of W then leave one block an SM: f32 h and W at dim 128 (132 KB) stream 32 items a tile
+// (99 KB, two blocks an SM). The summation order over items is the same either way.
 
-constexpr int kTileTF = 64;         // items of a block, rows of an h tile
-constexpr int kThreadsTF = 128;     // 4 warps, 16 items each
-constexpr int kMaxDimTF = 128;      // dW tile in registers: 64 f32 a lane at dim = 128
-constexpr int kStagesTF = 2;        // h tiles in flight
+constexpr int kTileTF = 64;         // resident rows of a block; streamed rows of a tile, at most
+constexpr int kThreadsTF = 128;     // 4 warps, 16 resident rows each
+constexpr int kMaxDimTF = 128;      // K2's dh and K3's dW tile in registers: 64 f32 a lane at dim = 128
+constexpr int kStagesTF = 2;        // streamed tiles in flight
+constexpr size_t kTwoBlocksTF = 113 * 1024;  // the most shared memory a block may take for two to fit an SM
 
 template <typename T>
 __host__ __device__ constexpr bool needs_lo() { return sizeof(T) == sizeof(float); }  // f32: hi + lo; bf16: exact in TF32
 
-// floats per W row, elements per h row: f32 rows 4 words past a multiple of 32
+// words (TF32 bits) per resident row, elements per streamed row: f32 rows 4 words past a multiple of 32
 template <int kDim>
-__host__ __device__ constexpr int w_stride() { return kDim + 4; }
-template <typename TH, int kDim>
-__host__ __device__ constexpr int h_stride() { return kDim + (sizeof(TH) == sizeof(float) ? 4 : 8); }
+__host__ __device__ constexpr int resident_stride() { return kDim + 4; }
+template <typename T, int kDim>
+__host__ __device__ constexpr int streamed_stride() { return kDim + (sizeof(T) == sizeof(float) ? 4 : 8); }
 
-template <typename TH, typename TW, int kDim>
-size_t grad_table_tf32_bytes() {
-  const size_t w = sizeof(unsigned) * kTileTF * w_stride<kDim>() * (needs_lo<TW>() ? 2 : 1);
-  const size_t rows = sizeof(TH) * kStagesTF * kTileTF * h_stride<TH, kDim>();
-  return w + rows + sizeof(float) * 2 * kStagesTF * kTileTF;  // + g and lse stages
+template <typename TR, int kDim>
+__host__ __device__ constexpr size_t resident_bytes() {
+  return sizeof(unsigned) * kTileTF * resident_stride<kDim>() * (needs_lo<TR>() ? 2 : 1);
+}
+template <typename TS, int kDim, int kRows>
+__host__ __device__ constexpr size_t streamed_bytes() {
+  return sizeof(TS) * kStagesTF * kRows * streamed_stride<TS, kDim>();
 }
 
-// S^T = W h^T for the warp's 16 items (w_hi/w_lo rows from item0) against a 64-row tile of h in
-// shared memory: s[nb] is the 16 x 8 block of rows nb * 8 .. nb * 8 + 7. Lane (fr, fc) of the
-// result holds items fr, fr + 8 and rows 2 fc, 2 fc + 1 of each block.
+// K1, K2: W rows per streamed tile, 64 unless that leaves one block an SM
 template <typename TH, typename TW, int kDim>
-__device__ __forceinline__ void logits_tile_tf32(const unsigned* w_hi, const unsigned* w_lo, const TH* hs,
-                                                 int fr, int fc, float (&s)[kTileTF / 8][4]) {
-  constexpr int kW = w_stride<kDim>();
-  constexpr int kH = h_stride<TH, kDim>();
+__host__ __device__ constexpr int item_rows() {
+  return resident_bytes<TH, kDim>() + streamed_bytes<TW, kDim, kTileTF>() <= kTwoBlocksTF ? kTileTF : kTileTF / 2;
+}
+template <typename TH, typename TW, int kDim>
+constexpr size_t row_tile_tf32_bytes() {
+  return resident_bytes<TH, kDim>() + streamed_bytes<TW, kDim, item_rows<TH, TW, kDim>()>();
+}
+template <typename TH, typename TW, int kDim>
+constexpr size_t grad_table_tf32_bytes() {  // + the stages' g and lse
+  return resident_bytes<TW, kDim>() + streamed_bytes<TH, kDim, kTileTF>() + sizeof(float) * 2 * kStagesTF * kTileTF;
+}
+
+// The resident tile: rows r0 .. r0 + 63 of x [extent, dim] in f32, split once into TF32 hi (and lo
+// where TR needs one); rows past extent and columns past dim are 0.
+template <typename TR, int kDim>
+__device__ __forceinline__ void load_resident(const TR* __restrict__ x, int r0, int extent, int dim,
+                                              unsigned* hi, unsigned* lo) {
+  constexpr int kR = resident_stride<kDim>();
+  for (int idx = threadIdx.x; idx < kTileTF * kDim; idx += kThreadsTF) {
+    const int r = idx / kDim;
+    const int c = idx - r * kDim;
+    const float v = (r0 + r < extent && c < dim) ? to_f32(x[static_cast<size_t>(r0 + r) * dim + c]) : 0.f;
+    unsigned part;
+    tf32_parts(v, hi[r * kR + c], part);
+    if constexpr (needs_lo<TR>()) lo[r * kR + c] = part;
+  }
+}
+
+// A streamed tile: rows r0 .. r0 + kRows - 1 of x [extent, dim], copied as they are by cp.async
+// (16 bytes each: x on a 16-byte boundary, dim a multiple of 8); rows past extent and columns past
+// dim are zero-filled. The caller commits the group.
+template <typename TS, int kDim, int kRows>
+__device__ __forceinline__ void load_streamed(const TS* __restrict__ x, int r0, int extent, int dim, TS* tile) {
+  constexpr int kS = streamed_stride<TS, kDim>();
+  constexpr int kChunk = 16 / sizeof(TS);  // elements per 16-byte copy
+  for (int idx = threadIdx.x; idx < kRows * (kDim / kChunk); idx += kThreadsTF) {
+    const int r = idx / (kDim / kChunk);
+    const int c = (idx % (kDim / kChunk)) * kChunk;
+    const bool valid = r0 + r < extent && c < dim;
+    cp_async_16(tile + r * kS + c, x + (valid ? static_cast<size_t>(r0 + r) * dim + c : 0), valid);
+  }
+}
+
+// The logits of the warp's 16 resident rows (r_hi / r_lo from its first row) against a streamed
+// tile of kRows rows: s[nb] is the 16 x 8 block of streamed rows nb * 8 .. nb * 8 + 7. Lane
+// (fr, fc) holds resident rows fr, fr + 8 and streamed rows nb * 8 + 2 fc, nb * 8 + 2 fc + 1.
+template <typename TR, typename TS, int kDim, int kRows>
+__device__ __forceinline__ void logits_tile_tf32(const unsigned* r_hi, const unsigned* r_lo, const TS* tile,
+                                                 int fr, int fc, float (&s)[kRows / 8][4]) {
+  constexpr int kR = resident_stride<kDim>();
+  constexpr int kS = streamed_stride<TS, kDim>();
 #pragma unroll
-  for (int nb = 0; nb < kTileTF / 8; ++nb) {
+  for (int nb = 0; nb < kRows / 8; ++nb) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
   }
 #pragma unroll
   for (int kk = 0; kk < kDim / 8; ++kk) {
-    const int at = fr * kW + kk * 8 + fc;
-    const unsigned a_hi[4] = {w_hi[at], w_hi[at + 8 * kW], w_hi[at + 4], w_hi[at + 8 * kW + 4]};
+    const int at = fr * kR + kk * 8 + fc;
+    const unsigned a_hi[4] = {r_hi[at], r_hi[at + 8 * kR], r_hi[at + 4], r_hi[at + 8 * kR + 4]};
     unsigned a_lo[4] = {0u, 0u, 0u, 0u};
-    if constexpr (needs_lo<TW>()) {
-      a_lo[0] = w_lo[at];
-      a_lo[1] = w_lo[at + 8 * kW];
-      a_lo[2] = w_lo[at + 4];
-      a_lo[3] = w_lo[at + 8 * kW + 4];
+    if constexpr (needs_lo<TR>()) {
+      a_lo[0] = r_lo[at];
+      a_lo[1] = r_lo[at + 8 * kR];
+      a_lo[2] = r_lo[at + 4];
+      a_lo[3] = r_lo[at + 8 * kR + 4];
     }
 #pragma unroll
-    for (int nb = 0; nb < kTileTF / 8; ++nb) {
-      const TH* h_row = hs + (nb * 8 + fr) * kH + kk * 8 + fc;  // B = h^T: row nb * 8 + fr, columns fc, fc + 4
+    for (int nb = 0; nb < kRows / 8; ++nb) {
+      const TS* row = tile + (nb * 8 + fr) * kS + kk * 8 + fc;  // B = tile^T: row nb * 8 + fr, columns fc, fc + 4
       unsigned b_hi[2], b_lo[2];
-      tf32_parts(h_row[0], b_hi[0], b_lo[0]);
-      tf32_parts(h_row[4], b_hi[1], b_lo[1]);
-      mma_split<needs_lo<TW>(), needs_lo<TH>()>(s[nb], a_hi, a_lo, b_hi, b_lo);
-    }
-  }
-}
-
-// acc += P^T h: p[nb] the (items x rows nb * 8 ..) accumulator block of P^T as logits_tile_tf32
-// leaves it, at f32 precision; acc[dn] the 16 x 8 block of dW columns dn * 8 .. dn * 8 + 7.
-template <typename TH, int kDim>
-__device__ __forceinline__ void weighted_rows_tf32(const float (&p)[kTileTF / 8][4], const TH* hs, int fr,
-                                                   int fc, float (&acc)[kDim / 8][4]) {
-  constexpr int kH = h_stride<TH, kDim>();
-#pragma unroll
-  for (int nb = 0; nb < kTileTF / 8; ++nb) {
-    // slot fc is row nb * 8 + 2 fc, slot fc + 4 row nb * 8 + 2 fc + 1: the A fragment is c0, c2, c1, c3
-    unsigned p_hi[4], p_lo[4];
-    tf32_parts(p[nb][0], p_hi[0], p_lo[0]);
-    tf32_parts(p[nb][2], p_hi[1], p_lo[1]);
-    tf32_parts(p[nb][1], p_hi[2], p_lo[2]);
-    tf32_parts(p[nb][3], p_hi[3], p_lo[3]);
-    const TH* h0 = hs + (nb * 8 + 2 * fc) * kH + fr;
-#pragma unroll
-    for (int dn = 0; dn < kDim / 8; ++dn) {
-      unsigned b_hi[2], b_lo[2];
-      tf32_parts(h0[dn * 8], b_hi[0], b_lo[0]);
-      tf32_parts(h0[kH + dn * 8], b_hi[1], b_lo[1]);
-      mma_split<true, needs_lo<TH>()>(acc[dn], p_hi, p_lo, b_hi, b_lo);
+      tf32_parts(row[0], b_hi[0], b_lo[0]);
+      tf32_parts(row[4], b_hi[1], b_lo[1]);
+      mma_split<needs_lo<TR>(), needs_lo<TS>()>(s[nb], a_hi, a_lo, b_hi, b_lo);
     }
   }
 }
@@ -512,6 +548,177 @@ __device__ __forceinline__ void store_pair(__nv_bfloat16* p, float x, float y) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
 }
 
+// Writes acc, rows r and r + 8 of out [extent, dim] as add_tile_products leaves them, past extent
+// and dim nothing.
+template <typename T, int kDim>
+__device__ __forceinline__ void store_rows(const float (&acc)[kDim / 8][4], T* out, int r, int extent, int dim,
+                                           int fc) {
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    if (r + hh * 8 >= extent) continue;
+#pragma unroll
+    for (int dn = 0; dn < kDim / 8; ++dn) {
+      const int c = dn * 8 + 2 * fc;
+      if (c < dim) store_pair(out + static_cast<size_t>(r + hh * 8) * dim + c, acc[dn][2 * hh], acc[dn][2 * hh + 1]);
+    }
+  }
+}
+
+// K1, "tf32". Grid: (row tiles). A lane keeps a running max and sum for its rows fr, fr + 8 over
+// its columns of each tile; the running max starts at -inf and is only updated from a tile in
+// which the lane has a column, as in lse_forward.
+template <typename TH, typename TW, int kDim>
+__global__ void __launch_bounds__(kThreadsTF)
+lse_forward_tf32(const TH* __restrict__ h, const TW* __restrict__ w, float* __restrict__ lse, int rows, int items,
+                 int dim, int num_valid) {
+  constexpr int kItems = item_rows<TH, TW, kDim>();
+  constexpr int kR = resident_stride<kDim>();
+  constexpr int kItemTile = kItems * streamed_stride<TW, kDim>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned* h_hi = reinterpret_cast<unsigned*>(smem_raw);                        // [kTileTF][kR], TF32 bits
+  unsigned* h_lo = h_hi + kTileTF * kR;                                          // [kTileTF][kR] if h needs a lo part
+  TW* w_s = reinterpret_cast<TW*>(h_lo + (needs_lo<TH>() ? kTileTF * kR : 0));  // [kStagesTF][kItems][kS]
+
+  const int n0 = blockIdx.x * kTileTF;
+  const int warp = threadIdx.x >> 5;
+  const int fr = (threadIdx.x & 31) >> 2;  // fragment row: rows fr, fr + 8 of the warp's 16
+  const int fc = threadIdx.x & 3;
+  const int row = n0 + warp * 16 + fr;
+
+  // the first item tile flies while the h tile is read, converted and split
+  load_streamed<TW, kDim, kItems>(w, 0, items, dim, w_s);
+  cp_async_commit();
+  load_resident<TH, kDim>(h, n0, rows, dim, h_hi, h_lo);
+
+  float run_max[2] = {-CUDART_INF_F, -CUDART_INF_F};
+  float run_sum[2] = {0.f, 0.f};
+  int stage = 0;
+  for (int i0 = 0; i0 < items; i0 += kItems) {
+    if (i0 + kItems < items) load_streamed<TW, kDim, kItems>(w, i0 + kItems, items, dim, w_s + (stage ^ 1) * kItemTile);
+    cp_async_commit();
+    cp_async_wait<1>();  // all but the newest group: this item tile has landed
+    __syncthreads();     // ... for every thread; on the first pass the h tile is written too
+    float s[kItems / 8][4];
+    logits_tile_tf32<TH, TW, kDim, kItems>(h_hi + warp * 16 * kR, h_lo + warp * 16 * kR, w_s + stage * kItemTile,
+                                           fr, fc, s);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float tile_max = -CUDART_INF_F;
+      bool any = false;
+#pragma unroll
+      for (int nb = 0; nb < kItems / 8; ++nb) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int i = i0 + nb * 8 + 2 * fc + j;
+          s[nb][2 * hh + j] = masked(s[nb][2 * hh + j], i, num_valid);
+          if (i < items) {
+            any = true;
+            tile_max = fmaxf(tile_max, s[nb][2 * hh + j]);
+          }
+        }
+      }
+      // no column of this tile is the lane's (a NaN logit is not skipped: fmaxf drops it from
+      // the max, but the sum below carries it to lse)
+      if (!any) continue;
+      const float new_max = fmaxf(run_max[hh], tile_max);
+      float tile_sum = 0.f;
+#pragma unroll
+      for (int nb = 0; nb < kItems / 8; ++nb) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          if (i0 + nb * 8 + 2 * fc + j < items) tile_sum += expf(s[nb][2 * hh + j] - new_max);
+        }
+      }
+      run_sum[hh] = run_sum[hh] * expf(run_max[hh] - new_max) + tile_sum;
+      run_max[hh] = new_max;
+    }
+    __syncthreads();  // this stage is consumed before the next pass refills it
+    stage ^= 1;
+  }
+  // merge the 4 lanes of each row (fc = 0..3 of one lane quad)
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float m = run_max[hh];
+    float sum = run_sum[hh];
+#pragma unroll
+    for (int offset = 2; offset > 0; offset >>= 1) {
+      const float m_other = __shfl_xor_sync(kFull, m, offset);
+      const float s_other = __shfl_xor_sync(kFull, sum, offset);
+      const float merged = fmaxf(m, m_other);
+      if (merged != -CUDART_INF_F) {  // a lane with no column at all has max -inf, sum 0
+        sum = (m == -CUDART_INF_F ? 0.f : sum * expf(m - merged)) +
+              (m_other == -CUDART_INF_F ? 0.f : s_other * expf(m_other - merged));
+        m = merged;
+      }
+    }
+    const int n = row + hh * 8;
+    if (fc == 0 && n < rows) lse[n] = m + logf(sum);
+  }
+}
+
+// K2, "tf32". Grid: (row tiles).
+template <typename TH, typename TW, int kDim>
+__global__ void __launch_bounds__(kThreadsTF)
+lse_grad_hidden_tf32(const TH* __restrict__ h, const TW* __restrict__ w, const float* __restrict__ g,
+                     const float* __restrict__ lse, TH* __restrict__ dh, int rows, int items, int dim,
+                     int num_valid) {
+  constexpr int kItems = item_rows<TH, TW, kDim>();
+  constexpr int kR = resident_stride<kDim>();
+  constexpr int kItemTile = kItems * streamed_stride<TW, kDim>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned* h_hi = reinterpret_cast<unsigned*>(smem_raw);                        // [kTileTF][kR], TF32 bits
+  unsigned* h_lo = h_hi + kTileTF * kR;                                          // [kTileTF][kR] if h needs a lo part
+  TW* w_s = reinterpret_cast<TW*>(h_lo + (needs_lo<TH>() ? kTileTF * kR : 0));  // [kStagesTF][kItems][kS]
+
+  const int n0 = blockIdx.x * kTileTF;
+  const int warp = threadIdx.x >> 5;
+  const int fr = (threadIdx.x & 31) >> 2;  // fragment row: rows fr, fr + 8 of the warp's 16
+  const int fc = threadIdx.x & 3;
+  const int row = n0 + warp * 16 + fr;
+
+  load_streamed<TW, kDim, kItems>(w, 0, items, dim, w_s);
+  cp_async_commit();
+  load_resident<TH, kDim>(h, n0, rows, dim, h_hi, h_lo);
+  float g_r[2], lse_r[2];  // rows past the input get weight 0
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int n = row + hh * 8;
+    g_r[hh] = n < rows ? g[n] : 0.f;
+    lse_r[hh] = n < rows ? lse[n] : 0.f;
+  }
+
+  float acc[kDim / 8][4];
+#pragma unroll
+  for (int dn = 0; dn < kDim / 8; ++dn) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[dn][e] = 0.f;
+  }
+  int stage = 0;
+  for (int i0 = 0; i0 < items; i0 += kItems) {
+    if (i0 + kItems < items) load_streamed<TW, kDim, kItems>(w, i0 + kItems, items, dim, w_s + (stage ^ 1) * kItemTile);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const TW* ws = w_s + stage * kItemTile;
+    float s[kItems / 8][4];
+    logits_tile_tf32<TH, TW, kDim, kItems>(h_hi + warp * 16 * kR, h_lo + warp * 16 * kR, ws, fr, fc, s);
+    // P = g exp(S + mask - lse); 0 for items past the table (and, by g, rows past the input)
+#pragma unroll
+    for (int nb = 0; nb < kItems / 8; ++nb) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = i0 + nb * 8 + 2 * fc + (e & 1);
+        s[nb][e] = i < items ? expf(masked(s[nb][e], i, num_valid) - lse_r[e >> 1]) * g_r[e >> 1] : 0.f;
+      }
+    }
+    add_tile_products<needs_lo<TW>(), kItems, kDim, streamed_stride<TW, kDim>()>(
+        s, ws + 2 * fc * streamed_stride<TW, kDim>() + fr, acc);
+    __syncthreads();
+    stage ^= 1;
+  }
+  store_rows<TH, kDim>(acc, dh, row, rows, dim, fc);
+}
+
 // K3, "tf32". Grid: (item tiles, row splits). With one split the result goes to dw in w's type;
 // otherwise to the split's f32 partial [items, dim], which add_partials sums.
 template <typename TH, typename TW, int kDim>
@@ -519,10 +726,8 @@ __global__ void __launch_bounds__(kThreadsTF)
 lse_grad_table_tf32(const TH* __restrict__ h, const TW* __restrict__ w, const float* __restrict__ g,
                     const float* __restrict__ lse, TW* __restrict__ dw, float* __restrict__ partial,
                     int rows, int items, int dim, int num_valid, int rows_per_split) {
-  constexpr int kW = w_stride<kDim>();
-  constexpr int kH = h_stride<TH, kDim>();
-  constexpr int kChunk = 16 / sizeof(TH);  // elements of h per 16-byte copy
-  constexpr int kRowTile = kTileTF * kH;
+  constexpr int kW = resident_stride<kDim>();
+  constexpr int kRowTile = kTileTF * streamed_stride<TH, kDim>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned* w_hi = reinterpret_cast<unsigned*>(smem_raw);  // [kTileTF][kW], TF32 bits
   unsigned* w_lo = w_hi + kTileTF * kW;                    // [kTileTF][kW] if W needs a lo part
@@ -540,14 +745,7 @@ lse_grad_table_tf32(const TH* __restrict__ h, const TW* __restrict__ w, const fl
   const int item0 = i0 + warp * 16 + fr;
 
   auto load_rows = [&](int n0, int stage) {
-    TH* hs = h_s + stage * kRowTile;
-    for (int idx = tid; idx < kTileTF * (kDim / kChunk); idx += kThreadsTF) {
-      const int r = idx / (kDim / kChunk);
-      const int c = (idx % (kDim / kChunk)) * kChunk;
-      const int n = n0 + r;
-      const bool valid = n < row_end && c < dim;
-      cp_async_16(hs + r * kH + c, h + (valid ? static_cast<size_t>(n) * dim + c : 0), valid);
-    }
+    load_streamed<TH, kDim, kTileTF>(h, n0, row_end, dim, h_s + stage * kRowTile);
     if (tid < kTileTF) {
       const int n = n0 + tid;
       const bool valid = n < row_end;
@@ -559,15 +757,7 @@ lse_grad_table_tf32(const TH* __restrict__ h, const TW* __restrict__ w, const fl
   // the first row tile flies while the W tile is read, converted and split
   if (row_begin < row_end) load_rows(row_begin, 0);
   cp_async_commit();
-  for (int idx = tid; idx < kTileTF * kDim; idx += kThreadsTF) {
-    const int r = idx / kDim;
-    const int c = idx - r * kDim;
-    const int i = i0 + r;
-    const float x = (i < items && c < dim) ? to_f32(w[static_cast<size_t>(i) * dim + c]) : 0.f;
-    unsigned lo;
-    tf32_parts(x, w_hi[r * kW + c], lo);
-    if constexpr (needs_lo<TW>()) w_lo[r * kW + c] = lo;
-  }
+  load_resident<TW, kDim>(w, i0, items, dim, w_hi, w_lo);
 
   float acc[kDim / 8][4];
 #pragma unroll
@@ -586,7 +776,7 @@ lse_grad_table_tf32(const TH* __restrict__ h, const TW* __restrict__ w, const fl
     const float* ls = lse_s + stage * kTileTF;
 
     float s[kTileTF / 8][4];
-    logits_tile_tf32<TH, TW, kDim>(w_hi + warp * 16 * kW, w_lo + warp * 16 * kW, hs, fr, fc, s);
+    logits_tile_tf32<TW, TH, kDim, kTileTF>(w_hi + warp * 16 * kW, w_lo + warp * 16 * kW, hs, fr, fc, s);
     // P^T = g exp(S^T + mask - lse); 0 for items past the table and rows past the split
 #pragma unroll
     for (int nb = 0; nb < kTileTF / 8; ++nb) {
@@ -602,62 +792,82 @@ lse_grad_table_tf32(const TH* __restrict__ h, const TW* __restrict__ w, const fl
         s[nb][e] = (i < items && n < row_end) ? expf(masked(s[nb][e], i, num_valid) - lse_n) * g_n : 0.f;
       }
     }
-    weighted_rows_tf32<TH, kDim>(s, hs, fr, fc, acc);
+    add_tile_products<needs_lo<TH>(), kTileTF, kDim, streamed_stride<TH, kDim>()>(
+        s, hs + 2 * fc * streamed_stride<TH, kDim>() + fr, acc);
     __syncthreads();  // this stage is consumed before the next pass refills it
     stage ^= 1;
   }
   cp_async_wait<0>();  // the first tile's copies, if the split had no row
 
-  float* split_out = partial == nullptr
-                         ? nullptr
-                         : partial + static_cast<size_t>(blockIdx.y) * items * dim;
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int i = item0 + hh * 8;
-    if (i >= items) continue;
-#pragma unroll
-    for (int dn = 0; dn < kDim / 8; ++dn) {
-      const int c = dn * 8 + 2 * fc;
-      if (c >= dim) continue;
-      const size_t at = static_cast<size_t>(i) * dim + c;
-      if (split_out == nullptr) {
-        store_pair(dw + at, acc[dn][2 * hh], acc[dn][2 * hh + 1]);
-      } else {
-        store_pair(split_out + at, acc[dn][2 * hh], acc[dn][2 * hh + 1]);
-      }
-    }
+  if (partial == nullptr) {
+    store_rows<TW, kDim>(acc, dw, item0, items, dim, fc);
+  } else {
+    store_rows<float, kDim>(acc, partial + static_cast<size_t>(blockIdx.y) * items * dim, item0, items, dim, fc);
   }
+}
+
+// Runs kKernel with `smem` bytes of dynamic shared memory, once opted in to them.
+template <auto kKernel, typename... Args>
+cudaError_t launch_tf32(dim3 grid, size_t smem, cudaStream_t stream, Args... args) {
+  const cudaError_t err = allow_shared_memory<kKernel>(smem);
+  if (err != cudaSuccess) return err;
+  kKernel<<<grid, kThreadsTF, smem, stream>>>(args...);
+  return cudaGetLastError();
+}
+
+template <typename TH, typename TW, int kDim>
+cudaError_t run_forward_tf32(const void* h, const void* w, float* lse, int rows, int items, int dim, int num_valid,
+                             cudaStream_t stream) {
+  return launch_tf32<lse_forward_tf32<TH, TW, kDim>>(
+      dim3(tiles(rows)), row_tile_tf32_bytes<TH, TW, kDim>(), stream, static_cast<const TH*>(h),
+      static_cast<const TW*>(w), lse, rows, items, dim, num_valid);
+}
+
+template <typename TH, typename TW, int kDim>
+cudaError_t run_grad_hidden_tf32(const void* h, const void* w, const float* g, const float* lse, void* dh, int rows,
+                                 int items, int dim, int num_valid, cudaStream_t stream) {
+  return launch_tf32<lse_grad_hidden_tf32<TH, TW, kDim>>(
+      dim3(tiles(rows)), row_tile_tf32_bytes<TH, TW, kDim>(), stream, static_cast<const TH*>(h),
+      static_cast<const TW*>(w), g, lse, static_cast<TH*>(dh), rows, items, dim, num_valid);
 }
 
 template <typename TH, typename TW, int kDim>
 cudaError_t run_grad_table_tf32(const void* h, const void* w, const float* g, const float* lse, void* dw,
                                 float* partial, int rows, int items, int dim, int num_valid, int splits,
                                 int rows_per_split, cudaStream_t stream) {
-  const size_t smem = grad_table_tf32_bytes<TH, TW, kDim>();
-  const cudaError_t err = allow_shared_memory<lse_grad_table_tf32<TH, TW, kDim>>(smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(tiles(items), static_cast<unsigned>(splits));
-  lse_grad_table_tf32<TH, TW, kDim><<<grid, kThreadsTF, smem, stream>>>(
+  const cudaError_t err = launch_tf32<lse_grad_table_tf32<TH, TW, kDim>>(
+      dim3(tiles(items), static_cast<unsigned>(splits)), grad_table_tf32_bytes<TH, TW, kDim>(), stream,
       static_cast<const TH*>(h), static_cast<const TW*>(w), g, lse, static_cast<TW*>(dw),
       splits > 1 ? partial : nullptr, rows, items, dim, num_valid, rows_per_split);
+  if (err != cudaSuccess) return err;
   return finish_partials<TW>(partial, dw, items, dim, splits, stream);
 }
 
-template <typename TH, typename TW>
-cudaError_t dispatch_grad_table_tf32(const void* h, const void* w, const float* g, const float* lse, void* dw,
-                                     float* partial, int rows, int items, int dim, int num_valid, int splits,
-                                     int rows_per_split, cudaStream_t stream) {
-  if (dim <= 32) {
-    return run_grad_table_tf32<TH, TW, 32>(h, w, g, lse, dw, partial, rows, items, dim, num_valid, splits, rows_per_split, stream);
-  }
-  if (dim <= 64) {
-    return run_grad_table_tf32<TH, TW, 64>(h, w, g, lse, dw, partial, rows, items, dim, num_valid, splits, rows_per_split, stream);
-  }
-  return run_grad_table_tf32<TH, TW, 128>(h, w, g, lse, dw, partial, rows, items, dim, num_valid, splits, rows_per_split, stream);
+// run(TH{}, TW{}) with the element types the flags name
+template <typename Run>
+cudaError_t by_types(int h_bf16, int w_bf16, Run&& run) {
+  if (h_bf16) return w_bf16 ? run(__nv_bfloat16{}, __nv_bfloat16{}) : run(__nv_bfloat16{}, 0.f);
+  return w_bf16 ? run(0.f, __nv_bfloat16{}) : run(0.f, 0.f);
+}
+
+// run(std::integral_constant<int, kDim>{}) with the tf32 kernels' smallest kDim of 32, 64, 128 that holds dim
+template <typename Run>
+cudaError_t by_dim(int dim, Run&& run) {
+  if (dim <= 32) return run(std::integral_constant<int, 32>{});
+  if (dim <= 64) return run(std::integral_constant<int, 64>{});
+  return run(std::integral_constant<int, kMaxDimTF>{});
 }
 
 bool bad_shape(int rows, int items, int dim) {
   return rows < 1 || items < 1 || dim < 1 || slices(dim) > 65535u;
+}
+
+// what the tf32 variants refuse besides: dim not a multiple of 8 in 8 .. 128, or the streamed
+// operand off a 16-byte boundary
+int bad_tf32(int dim, const void* streamed) {
+  if (dim < 8 || dim > kMaxDimTF || dim % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (reinterpret_cast<size_t>(streamed) % 16 != 0) return static_cast<int>(cudaErrorMisalignedAddress);
+  return 0;
 }
 
 // what both K3 variants refuse in their row split
@@ -673,17 +883,24 @@ extern "C" int replay_fused_lse_forward(const void* h, const void* w, void* lse,
                                         int items, int dim, int num_valid, int h_bf16,
                                         int w_bf16, void* stream) {
   if (bad_shape(rows, items, dim)) return static_cast<int>(cudaErrorInvalidValue);
-  float* out = static_cast<float*>(lse);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (h_bf16) {
-    err = w_bf16 ? run_forward<__nv_bfloat16, __nv_bfloat16>(h, w, out, rows, items, dim, num_valid, s)
-                 : run_forward<__nv_bfloat16, float>(h, w, out, rows, items, dim, num_valid, s);
-  } else {
-    err = w_bf16 ? run_forward<float, __nv_bfloat16>(h, w, out, rows, items, dim, num_valid, s)
-                 : run_forward<float, float>(h, w, out, rows, items, dim, num_valid, s);
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(by_types(h_bf16, w_bf16, [&](auto th, auto tw) {
+    return run_forward<decltype(th), decltype(tw)>(h, w, static_cast<float*>(lse), rows, items, dim, num_valid,
+                                                   static_cast<cudaStream_t>(stream));
+  }));
+}
+
+// K1's "tf32" variant: as replay_fused_lse_forward, for dim a multiple of 8 up to 128 and w on a
+// 16-byte boundary
+extern "C" int replay_fused_lse_forward_tf32(const void* h, const void* w, void* lse, int rows, int items, int dim,
+                                             int num_valid, int h_bf16, int w_bf16, void* stream) {
+  if (bad_shape(rows, items, dim)) return static_cast<int>(cudaErrorInvalidValue);
+  if (const int err = bad_tf32(dim, w)) return err;
+  return static_cast<int>(by_types(h_bf16, w_bf16, [&](auto th, auto tw) {
+    return by_dim(dim, [&](auto d) {
+      return run_forward_tf32<decltype(th), decltype(tw), decltype(d)::value>(
+          h, w, static_cast<float*>(lse), rows, items, dim, num_valid, static_cast<cudaStream_t>(stream));
+    });
+  }));
 }
 
 extern "C" int replay_fused_lse_grad_hidden(const void* h, const void* w, const void* g,
@@ -691,18 +908,27 @@ extern "C" int replay_fused_lse_grad_hidden(const void* h, const void* w, const 
                                             int dim, int num_valid, int h_bf16, int w_bf16,
                                             void* stream) {
   if (bad_shape(rows, items, dim)) return static_cast<int>(cudaErrorInvalidValue);
-  const float* g32 = static_cast<const float*>(g);
-  const float* lse32 = static_cast<const float*>(lse);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (h_bf16) {
-    err = w_bf16 ? run_grad_hidden<__nv_bfloat16, __nv_bfloat16>(h, w, g32, lse32, dh, rows, items, dim, num_valid, s)
-                 : run_grad_hidden<__nv_bfloat16, float>(h, w, g32, lse32, dh, rows, items, dim, num_valid, s);
-  } else {
-    err = w_bf16 ? run_grad_hidden<float, __nv_bfloat16>(h, w, g32, lse32, dh, rows, items, dim, num_valid, s)
-                 : run_grad_hidden<float, float>(h, w, g32, lse32, dh, rows, items, dim, num_valid, s);
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(by_types(h_bf16, w_bf16, [&](auto th, auto tw) {
+    return run_grad_hidden<decltype(th), decltype(tw)>(h, w, static_cast<const float*>(g),
+                                                       static_cast<const float*>(lse), dh, rows, items, dim,
+                                                       num_valid, static_cast<cudaStream_t>(stream));
+  }));
+}
+
+// K2's "tf32" variant: as replay_fused_lse_grad_hidden, for dim a multiple of 8 up to 128 and w on
+// a 16-byte boundary
+extern "C" int replay_fused_lse_grad_hidden_tf32(const void* h, const void* w, const void* g, const void* lse,
+                                                 void* dh, int rows, int items, int dim, int num_valid, int h_bf16,
+                                                 int w_bf16, void* stream) {
+  if (bad_shape(rows, items, dim)) return static_cast<int>(cudaErrorInvalidValue);
+  if (const int err = bad_tf32(dim, w)) return err;
+  return static_cast<int>(by_types(h_bf16, w_bf16, [&](auto th, auto tw) {
+    return by_dim(dim, [&](auto d) {
+      return run_grad_hidden_tf32<decltype(th), decltype(tw), decltype(d)::value>(
+          h, w, static_cast<const float*>(g), static_cast<const float*>(lse), dh, rows, items, dim, num_valid,
+          static_cast<cudaStream_t>(stream));
+    });
+  }));
 }
 
 extern "C" int replay_fused_lse_grad_table(const void* h, const void* w, const void* g,
@@ -713,19 +939,11 @@ extern "C" int replay_fused_lse_grad_table(const void* h, const void* w, const v
   if (bad_split(rows, items, dim, partial, splits, rows_per_split)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const float* g32 = static_cast<const float*>(g);
-  const float* lse32 = static_cast<const float*>(lse);
-  float* part = static_cast<float*>(partial);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (h_bf16) {
-    err = w_bf16 ? run_grad_table<__nv_bfloat16, __nv_bfloat16>(h, w, g32, lse32, dw, part, rows, items, dim, num_valid, splits, rows_per_split, s)
-                 : run_grad_table<__nv_bfloat16, float>(h, w, g32, lse32, dw, part, rows, items, dim, num_valid, splits, rows_per_split, s);
-  } else {
-    err = w_bf16 ? run_grad_table<float, __nv_bfloat16>(h, w, g32, lse32, dw, part, rows, items, dim, num_valid, splits, rows_per_split, s)
-                 : run_grad_table<float, float>(h, w, g32, lse32, dw, part, rows, items, dim, num_valid, splits, rows_per_split, s);
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(by_types(h_bf16, w_bf16, [&](auto th, auto tw) {
+    return run_grad_table<decltype(th), decltype(tw)>(
+        h, w, static_cast<const float*>(g), static_cast<const float*>(lse), dw, static_cast<float*>(partial), rows,
+        items, dim, num_valid, splits, rows_per_split, static_cast<cudaStream_t>(stream));
+  }));
 }
 
 // K3's "tf32" variant: as replay_fused_lse_grad_table, for dim a multiple of 8 up to 128 and h on
@@ -735,22 +953,15 @@ extern "C" int replay_fused_lse_grad_table_tf32(const void* h, const void* w, co
                                                 int items, int dim, int num_valid, int splits,
                                                 int rows_per_split, int h_bf16, int w_bf16,
                                                 void* stream) {
-  if (bad_split(rows, items, dim, partial, splits, rows_per_split) || dim < 8 || dim > kMaxDimTF ||
-      dim % 8 != 0) {
+  if (bad_split(rows, items, dim, partial, splits, rows_per_split)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (reinterpret_cast<size_t>(h) % 16 != 0) return static_cast<int>(cudaErrorMisalignedAddress);
-  const float* g32 = static_cast<const float*>(g);
-  const float* lse32 = static_cast<const float*>(lse);
-  float* part = static_cast<float*>(partial);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (h_bf16) {
-    err = w_bf16 ? dispatch_grad_table_tf32<__nv_bfloat16, __nv_bfloat16>(h, w, g32, lse32, dw, part, rows, items, dim, num_valid, splits, rows_per_split, s)
-                 : dispatch_grad_table_tf32<__nv_bfloat16, float>(h, w, g32, lse32, dw, part, rows, items, dim, num_valid, splits, rows_per_split, s);
-  } else {
-    err = w_bf16 ? dispatch_grad_table_tf32<float, __nv_bfloat16>(h, w, g32, lse32, dw, part, rows, items, dim, num_valid, splits, rows_per_split, s)
-                 : dispatch_grad_table_tf32<float, float>(h, w, g32, lse32, dw, part, rows, items, dim, num_valid, splits, rows_per_split, s);
-  }
-  return static_cast<int>(err);
+  if (const int err = bad_tf32(dim, h)) return err;
+  return static_cast<int>(by_types(h_bf16, w_bf16, [&](auto th, auto tw) {
+    return by_dim(dim, [&](auto d) {
+      return run_grad_table_tf32<decltype(th), decltype(tw), decltype(d)::value>(
+          h, w, static_cast<const float*>(g), static_cast<const float*>(lse), dw, static_cast<float*>(partial),
+          rows, items, dim, num_valid, splits, rows_per_split, static_cast<cudaStream_t>(stream));
+    });
+  }));
 }

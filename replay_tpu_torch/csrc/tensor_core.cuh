@@ -101,4 +101,53 @@ __device__ __forceinline__ void mma_split(float (&d)[4], const unsigned (&a_hi)[
   mma_tf32(d, a_hi, b_hi);
 }
 
+// acc += P B over one tile of kK rows of B. P is the 16 x kK product that mma.sync left in p (one
+// accumulator block of 8 columns per entry, f32), B is [kK][kN] in shared memory with row stride
+// kStride, and b points at B + 2t kStride + g (the permuted k order above: the lane's slots t and
+// t + 4 are rows 2t and 2t + 1 of each block of 8). P is split into hi + lo; B into hi + lo where
+// kSplitB says it needs one.
+//
+// A tile's products go into zeroed registers, and from there into acc with a rounded f32 add.
+// mma.sync adds its products to its accumulator the tensor cores' way (aligned to the largest term
+// and cut, not rounded); carried in one accumulator across the thousands of mma.sync of a catalog,
+// a row split or a long row of keys, those cuts add up one way, past the f32 limits of the kernels
+// that use this (K2's gradient over 3,706 items drifted by 2.5e-5 of its largest value). Summed a
+// tile at a time, each tile's cuts are relative to that tile's sum, and the tiles' sums are added
+// rounded. The columns go in passes of up to 8 blocks (32 more registers a lane at most), each
+// block its own chain of mma.sync, so that 8 chains are in flight.
+template <bool kSplitB, int kK, int kN, int kStride, typename TB>
+__device__ __forceinline__ void add_tile_products(const float (&p)[kK / 8][4], const TB* b, float (&acc)[kN / 8][4]) {
+  constexpr int kPass = kN / 8 < 8 ? kN / 8 : 8;  // column blocks summed at once
+#pragma unroll
+  for (int d0 = 0; d0 < kN / 8; d0 += kPass) {
+    float part[kPass][4];
+#pragma unroll
+    for (int j = 0; j < kPass; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[j][e] = 0.f;
+    }
+#pragma unroll
+    for (int kb = 0; kb < kK / 8; ++kb) {
+      unsigned p_hi[4], p_lo[4];  // P's A fragment: c0, c2, c1, c3 (see above)
+      tf32_parts(p[kb][0], p_hi[0], p_lo[0]);
+      tf32_parts(p[kb][2], p_hi[1], p_lo[1]);
+      tf32_parts(p[kb][1], p_hi[2], p_lo[2]);
+      tf32_parts(p[kb][3], p_hi[3], p_lo[3]);
+      const TB* row = b + kb * 8 * kStride + d0 * 8;
+#pragma unroll
+      for (int j = 0; j < kPass; ++j) {
+        unsigned b_hi[2], b_lo[2];
+        tf32_parts(row[j * 8], b_hi[0], b_lo[0]);
+        tf32_parts(row[kStride + j * 8], b_hi[1], b_lo[1]);
+        mma_split<true, kSplitB>(part[j], p_hi, p_lo, b_hi, b_lo);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kPass; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[d0 + j][e] += part[j][e];
+    }
+  }
+}
+
 }  // namespace

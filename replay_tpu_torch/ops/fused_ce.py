@@ -18,26 +18,28 @@ precision ladder's rung, are converted to f32 before each product).
 The kernels are ``replay_tpu_torch/csrc/fused_ce.cu`` (CUDA C++ for ``sm_90a``,
 plain C interface, loaded with ctypes; built at first use by
 :mod:`replay_tpu_torch.ops.build`). Their design, and what bounds them, is in
-the source's header: K1, K2 and K3's ``"simt"`` variant on 64 × 64 logits tiles
-in f32 FMA with the embedding swept in chunks; K3's ``"tf32"`` variant, which
-:func:`_dw_variant` picks for E a multiple of 8 up to 128, on the TF32 tensor
-cores (``mma.sync``, each f32 operand split into TF32 hi + lo, so f32 accuracy
-is kept), a block owning a whole 64-item × E tile of dW so that each logits
-tile is computed once. Each output element has one owner that sums in a fixed
-order (no atomics: the result is the same from run to run), and K3's rows are
-split into a fixed number of parts added in order by a second pass.
+the source's header. Each kernel has two variants, and :func:`_variant` picks
+one from E alone, the same for all three: ``"tf32"`` for E a multiple of 8 up
+to 128, on the TF32 tensor cores (``mma.sync``, each f32 operand split into
+TF32 hi + lo, so f32 accuracy is kept), a block holding one operand's 64-row
+tile and streaming the other's, so that each logits tile is computed once
+(K1 and K2 hold rows of h, K3 items of W); ``"simt"`` for any other E, on
+64 × 64 logits tiles in f32 FMA with the embedding swept in chunks. Each
+output element has one owner that sums in a fixed order (no atomics: the
+result is the same from run to run), and K3's rows are split into a fixed
+number of parts added in order by a second pass.
 
 ``tile`` and ``item_tile`` are the JAX signature's tile sizes. The port's
 kernels choose their own tiles (64 rows × 64 items; 33 KB of shared memory for
-any embedding width in the simt kernels, at most 133 KB at E=128 in K3's tf32
-variant, so nothing has to shrink to fit), and the two arguments never change
+any embedding width in the simt kernels, at most 133 KB at E=128 in the tf32
+variants, so nothing has to shrink to fit), and the two arguments never change
 a result: they are checked and otherwise unused.
 
 On CPU tensors each wrapper runs its plain version; on CUDA tensors it launches
 its kernel or raises. ``fused_lse_forward.launches``, ``fused_lse_dh.launches``
 and ``fused_lse_dw.launches`` count kernel launches (K3's second pass, which
-adds the row splits, is part of its launch); ``fused_lse_dw.launches_by_variant``
-splits K3's by variant.
+adds the row splits, is part of its launch); each wrapper's
+``launches_by_variant`` splits them by variant.
 """
 
 from __future__ import annotations
@@ -60,7 +62,8 @@ _KERNEL_TILE = 64  # rows and items of the kernels' logits tile (csrc/fused_ce.c
 # wave of blocks is a small share of the run. Constants, so the split, and with
 # it the summation order, depends on the shapes only, never on the card.
 _DW_TARGET_BLOCKS = {"simt": 264, "tf32": 1056}
-DW_VARIANTS = ("tf32", "simt")
+VARIANTS = ("tf32", "simt")
+DW_VARIANTS = VARIANTS
 TF32_MAX_DIM = 128
 
 
@@ -151,6 +154,24 @@ def _clamp(num_valid: int) -> int:
     return max(-1, min(num_valid, 2**31 - 1))
 
 
+def _variant(dim: int) -> str:
+    """The variant of K1, K2 and K3 for embedding width ``dim``: ``"tf32"``
+    (tensor cores) for ``dim`` a multiple of 8 up to 128, ``"simt"`` (CUDA
+    cores) for every other ``dim``. Every pair of input types takes the same
+    variant: in ``"tf32"`` each product takes the TF32 terms its operands need.
+    A pure function of its argument: the choice never depends on a build or a
+    launch."""
+    return "tf32" if dim % 8 == 0 and 8 <= dim <= TF32_MAX_DIM else "simt"
+
+
+_dw_variant = _variant  # K3's rule, under its earlier name
+
+
+def _entry(kernel: str, variant: str) -> str:
+    """The C entry point of ``kernel`` ("forward", "grad_hidden", "grad_table") in ``variant``."""
+    return f"replay_fused_lse_{kernel}_tf32" if variant == "tf32" else f"replay_fused_lse_{kernel}"
+
+
 def fused_lse_forward(hidden: torch.Tensor, table: torch.Tensor, num_valid=None) -> torch.Tensor:
     """K1: ``[N]`` f32 catalog log-sum-exp. The plain version for CPU tensors;
     on CUDA tensors the kernel, or raise."""
@@ -158,11 +179,14 @@ def fused_lse_forward(hidden: torch.Tensor, table: torch.Tensor, num_valid=None)
         return fused_lse_reference(hidden, table, num_valid)
     _check(hidden, table)
     valid = _num_valid(table, num_valid)
+    variant = _variant(table.shape[1])
     hidden, table = hidden.contiguous(), table.contiguous()
     lse = torch.empty(hidden.shape[0], dtype=torch.float32, device=hidden.device)
     if hidden.shape[0] == 0:
         return lse
-    fn = _library("replay_fused_lse_forward")
+    if variant == "tf32":  # its 16-byte copies of W
+        table = build.aligned(table)
+    fn = _library(_entry("forward", variant))
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     with torch.cuda.device(hidden.device):
         err = fn(
@@ -170,8 +194,9 @@ def fused_lse_forward(hidden: torch.Tensor, table: torch.Tensor, num_valid=None)
             hidden.shape[1], _clamp(valid), *_types(hidden, table),
             torch.cuda.current_stream(hidden.device).cuda_stream,
         )
-    _raise_on(err, "fused_lse_forward (K1)", hidden, table)
+    _raise_on(err, f"fused_lse_forward (K1, {variant})", hidden, table)
     fused_lse_forward.launches += 1
+    fused_lse_forward.launches_by_variant[variant] += 1
     return lse
 
 
@@ -182,11 +207,14 @@ def fused_lse_dh(hidden, table, grad, lse, num_valid=None) -> torch.Tensor:
         return fused_lse_dh_reference(hidden, table, grad, lse, num_valid)
     _check(hidden, table, grad, lse)
     valid = _num_valid(table, num_valid)
+    variant = _variant(table.shape[1])
     hidden, table, grad, lse = (t.contiguous() for t in (hidden, table, grad, lse))
     dh = torch.empty_like(hidden)
     if hidden.shape[0] == 0:
         return dh
-    fn = _library("replay_fused_lse_grad_hidden")
+    if variant == "tf32":  # its 16-byte copies of W
+        table = build.aligned(table)
+    fn = _library(_entry("grad_hidden", variant))
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     with torch.cuda.device(hidden.device):
         err = fn(
@@ -194,18 +222,10 @@ def fused_lse_dh(hidden, table, grad, lse, num_valid=None) -> torch.Tensor:
             hidden.shape[0], table.shape[0], hidden.shape[1], _clamp(valid), *_types(hidden, table),
             torch.cuda.current_stream(hidden.device).cuda_stream,
         )
-    _raise_on(err, "fused_lse_dh (K2)", hidden, table)
+    _raise_on(err, f"fused_lse_dh (K2, {variant})", hidden, table)
     fused_lse_dh.launches += 1
+    fused_lse_dh.launches_by_variant[variant] += 1
     return dh
-
-
-def _dw_variant(dim: int) -> str:
-    """K3's variant for embedding width ``dim``: ``"tf32"`` (tensor cores) for
-    ``dim`` a multiple of 8 up to 128, ``"simt"`` (CUDA cores) for every other
-    ``dim``. Every pair of input types takes the same variant: in ``"tf32"``
-    each product takes the TF32 terms its operands need. A pure function of its
-    argument: the choice never depends on a build or a launch."""
-    return "tf32" if dim % 8 == 0 and 8 <= dim <= TF32_MAX_DIM else "simt"
 
 
 def dw_row_split(rows: int, items: int, dim: int, variant: str) -> Tuple[int, int]:
@@ -229,7 +249,7 @@ def fused_lse_dw(hidden, table, grad, lse, num_valid=None) -> torch.Tensor:
         return fused_lse_dw_reference(hidden, table, grad, lse, num_valid)
     _check(hidden, table, grad, lse)
     valid = _num_valid(table, num_valid)
-    variant = _dw_variant(table.shape[1])
+    variant = _variant(table.shape[1])
     hidden, table, grad, lse = (t.contiguous() for t in (hidden, table, grad, lse))
     if hidden.shape[0] == 0:
         return torch.zeros_like(table)
@@ -242,7 +262,7 @@ def fused_lse_dw(hidden, table, grad, lse, num_valid=None) -> torch.Tensor:
         if splits > 1
         else None
     )
-    fn = _library("replay_fused_lse_grad_table_tf32" if variant == "tf32" else "replay_fused_lse_grad_table")
+    fn = _library(_entry("grad_table", variant))
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     with torch.cuda.device(hidden.device):
         err = fn(
@@ -257,10 +277,9 @@ def fused_lse_dw(hidden, table, grad, lse, num_valid=None) -> torch.Tensor:
     return dw
 
 
-fused_lse_forward.launches = 0
-fused_lse_dh.launches = 0
-fused_lse_dw.launches = 0
-fused_lse_dw.launches_by_variant = dict.fromkeys(DW_VARIANTS, 0)
+for _wrapper in (fused_lse_forward, fused_lse_dh, fused_lse_dw):
+    _wrapper.launches = 0
+    _wrapper.launches_by_variant = dict.fromkeys(VARIANTS, 0)
 
 
 class _FusedLSE(torch.autograd.Function):

@@ -10,9 +10,9 @@ Tolerances are the JAX test's own: log-sum-exp rtol = atol = 2e-5, gradients
 rtol 2e-4 / atol 2e-5 (f32 throughout, summation orders differ). A bf16 ``dh``
 is compared to one bf16 ulp (rtol 2**-7). Losses: rtol 1e-5, f32 means of
 values that already agree to 2e-5. The CUDA kernels are tested on the card in
-``test_torch_kernels_cuda.py``; here, which of K3's two variants the wrapper
-picks, its row split, and that the card's K3 precision probe tells one TF32
-product from three.
+``test_torch_kernels_cuda.py``; here, which of their two variants the wrappers
+pick (one rule for K1, K2 and K3), K3's row split, and that the card's
+precision probes (K3's; K1's and K2's) tell one TF32 product from three.
 """
 
 import types
@@ -271,3 +271,69 @@ def test_k3_probe_fails_when_any_one_operand_loses_its_lo_part(dropped):
     lse = fused_ce.fused_lse_reference(torch.tensor(h), torch.tensor(table)).numpy()
     weights = np.exp(h.astype(np.float64) @ table.T - lse[:, None])
     assert 0.3 < weights.max(axis=1).mean() < 0.9  # neither uniform nor one-hot
+
+
+@pytest.mark.parametrize("wrapper", ["fused_lse_forward", "fused_lse_dh", "fused_lse_dw"])
+def test_one_variant_rule_for_k1_k2_and_k3(wrapper):
+    """K1, K2 and K3 take their variant from one pure function of E (K3's rule,
+    still reachable by its earlier name), and each wrapper counts its launches
+    by variant; on CPU tensors the plain version runs and nothing is counted."""
+    assert fused_ce._dw_variant is fused_ce._variant
+    got = {dim: fused_ce._variant(dim) for dim in range(1, 300)}
+    assert [dim for dim, variant in got.items() if variant == "tf32"] == list(range(8, 129, 8))
+    fn = getattr(fused_ce, wrapper)
+    assert set(fn.launches_by_variant) == set(fused_ce.VARIANTS) == {"tf32", "simt"}
+    h, w, g = _inputs(6)
+    args = (torch.tensor(h), torch.tensor(w)) if wrapper == "fused_lse_forward" else (
+        torch.tensor(h), torch.tensor(w), torch.tensor(g), torch.zeros(N)
+    )
+    before = (fn.launches, dict(fn.launches_by_variant))
+    fn(*args)
+    assert (fn.launches, fn.launches_by_variant) == before
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K2"])
+def test_lse_probe_tells_one_tf32_product_from_three(kernel):
+    """The inputs of the card's K1 and K2 precision probe
+    (``tf32_probes.lse_probe``): with one TF32 product per f32 product lse
+    misses K1's limit (1e-4) and dh K2's (1e-4 of the largest |dh|), with three
+    both keep them, in the numpy emulation; and the plain versions, which the
+    card's test holds the kernels to, match the exact results well inside."""
+    h, table, g = tf32_probes.lse_probe()
+    ht, wt, gt = (torch.tensor(t) for t in (h, table, g))
+    lse = fused_ce.fused_lse_reference(ht, wt)
+    if kernel == "K1":
+        exact, limit = tf32_probes.k1_emulated(h, table), tf32_probes.K1_LIMIT
+        one = np.abs(tf32_probes.k1_emulated(h, table, lo=()) - exact).max()
+        three = np.abs(tf32_probes.k1_emulated(h, table, lo=tf32_probes.K1_OPERANDS) - exact).max()
+        plain = lse.numpy()
+    else:
+        exact = tf32_probes.k2_emulated(h, table, g)
+        limit = tf32_probes.K2_LIMIT * np.abs(exact).max()
+        one = np.abs(tf32_probes.k2_emulated(h, table, g, lo=()) - exact).max()
+        three = np.abs(tf32_probes.k2_emulated(h, table, g, lo=tf32_probes.K2_OPERANDS) - exact).max()
+        plain = fused_ce.fused_lse_dh_reference(ht, wt, gt, lse).numpy()
+    assert one > limit > 4 * three, (one, limit, three)
+    assert np.abs(plain - exact).max() < limit / 4
+
+
+@pytest.mark.parametrize(
+    "kernel,dropped", [("K1", name) for name in tf32_probes.K1_OPERANDS] + [("K2", name) for name in tf32_probes.K2_OPERANDS]
+)
+def test_lse_probe_fails_when_any_one_operand_loses_its_lo_part(kernel, dropped):
+    """On the same probe, a K1 or K2 that splits every operand but one (h in
+    the logits; W in the logits and, for K2, in dh = P W; the weights P) into
+    hi + lo misses its limit by far, in the numpy emulation."""
+    h, table, g = tf32_probes.lse_probe()
+    operands = tf32_probes.K1_OPERANDS if kernel == "K1" else tf32_probes.K2_OPERANDS
+    kept = tuple(name for name in operands if name != dropped)
+    if kernel == "K1":
+        exact = tf32_probes.k1_emulated(h, table)
+        err = np.abs(tf32_probes.k1_emulated(h, table, lo=kept) - exact).max()
+        assert err > 4 * tf32_probes.K1_LIMIT
+    else:
+        exact = tf32_probes.k2_emulated(h, table, g)
+        err = np.abs(tf32_probes.k2_emulated(h, table, g, lo=kept) - exact).max()
+        assert err > 4 * tf32_probes.K2_LIMIT * np.abs(exact).max()
+    weights = np.exp(h.astype(np.float64) @ table.T - tf32_probes.k1_emulated(h, table)[:, None])
+    assert 0.05 < weights.max(axis=1).mean() < 0.9  # neither uniform nor one-hot

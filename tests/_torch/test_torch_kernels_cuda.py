@@ -5,7 +5,7 @@ neither JAX nor the JAX package, so it runs on a GPU machine that has only
 PyTorch; the repo's ``tests/conftest.py`` needs pandas and the JAX package's
 data module, so skip it there:
 
-    python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
+    python -m pytest --noconftest tests/_torch/test_torch_kernels_cuda.py -q
 
 Tolerances (max abs error against the plain version, f32 result): K4 f32
 1e-5, the kernel differing only in summation order; bf16 2e-2, its output's
@@ -19,7 +19,7 @@ K5 runs its "mma" variant (bf16 tensor cores) for bf16 and its "tf32x3"
 variant (TF32 tensor cores, three products per f32 product) for f32 where D is
 a multiple of 8 up to 128, its "simt" variant elsewhere; the same limits hold
 for all. K3 runs its "tf32" variant where E is a multiple of 8 up to 128, its
-"simt" variant elsewhere, under the same limits. The P-precision probe's limit
+"simt" variant elsewhere, under the same limits; so do K1 and K2. The P-precision probe's limit
 is set from the plain version in the test: the output's own bf16 rounding plus
 2**-15 of the products' magnitude (f32 P carried as a bf16 hi + lo pair), which
 a P rounded to bf16 must exceed. The TF32 probes (``tf32_probes``) hold the
@@ -730,3 +730,101 @@ def test_tf32_kernels_are_the_same_from_run_to_run(cuda_device, kernel, dtype):
     assert fused_ce._dw_variant(128) == "tf32"
     lse = fused_ce.fused_lse_forward(hidden, table)
     assert torch.equal(fused_ce.fused_lse_dw(hidden, table, grad, lse), fused_ce.fused_lse_dw(hidden, table, grad, lse))
+
+
+@pytest.mark.parametrize(
+    "rows,items,dim,num_valid",
+    [(25600, 3706, 64, None), (32768, 3706, 128, None), (1000, 1000, 128, 900), (300, 1000, 32, 0),
+     (130, 77, 40, 50), (5, 3, 8, None)],
+    ids=["train_width", "longseq_width", "ragged_e128", "fully_masked_e32", "e40", "tiny"],
+)
+@pytest.mark.parametrize(
+    "hidden_dtype,table_dtype",
+    [(torch.float32, torch.float32), (torch.bfloat16, torch.float32), (torch.bfloat16, torch.bfloat16),
+     (torch.float32, torch.bfloat16)],
+    ids=["f32", "bf16_hidden", "bf16_both", "bf16_table"],
+)
+def test_fused_ce_k1_k2_tf32_match_plain_versions(cuda_device, rows, items, dim, num_valid, hidden_dtype, table_dtype):
+    """K1 and K2 on their tf32 variant, every pair of input types the wrappers
+    take, rows and items not multiples of 64, masked columns, a fully masked
+    table, E below its instantiation's width (40 on the 64-wide one) and f32
+    h and W at E=128 (the instantiation that streams 32 items a tile)."""
+    gen = torch.Generator(cuda_device).manual_seed(rows + dim)
+    hidden = torch.randn(rows, dim, device=cuda_device, generator=gen).to(hidden_dtype)
+    table = (torch.randn(items, dim, device=cuda_device, generator=gen) / dim**0.5).to(table_dtype)
+    grad = torch.randn(rows, device=cuda_device, generator=gen)
+    assert fused_ce._variant(dim) == "tf32"
+    counters = (fused_ce.fused_lse_forward, fused_ce.fused_lse_dh)
+    before = [dict(c.launches_by_variant) for c in counters]
+    lse = fused_ce.fused_lse_forward(hidden, table, num_valid)
+    dh = fused_ce.fused_lse_dh(hidden, table, grad, lse, num_valid)
+    torch.cuda.synchronize()
+    assert [c.launches_by_variant for c in counters] == [{**b, "tf32": b["tf32"] + 1} for b in before]
+    assert lse.dtype == torch.float32 and dh.dtype == hidden_dtype
+    h32, w32 = hidden.float(), table.float()
+    want_lse = fused_ce.fused_lse_reference(h32, w32, num_valid)
+    want_dh = fused_ce.fused_lse_dh_reference(h32, w32, grad, lse, num_valid)
+    assert torch.isfinite(lse).all() and torch.isfinite(dh.float()).all()
+    if num_valid == 0:  # every column masked: finite, at the mask
+        assert torch.allclose(lse, torch.full_like(lse, -1e30), rtol=1e-6)
+    assert torch.allclose(lse, want_lse, rtol=1e-6, atol=1e-4)
+    dh_tol = (2**-8 if hidden_dtype == torch.bfloat16 else 1e-4) * want_dh.abs().max().item()
+    assert (dh.float() - want_dh).abs().max().item() <= dh_tol
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K2"])
+def test_fused_ce_k1_k2_tf32_keep_f32_precision(cuda_device, kernel):
+    """The TF32 probe (``tf32_probes.lse_probe``): K1 within 1e-4 of the f32
+    plain version's lse, K2 within 1e-4 of its largest |dh|, where a kernel
+    with any one operand (h, W, or K2's weights P) in one TF32 part (emulated)
+    is not."""
+    h, table, g = tf32_probes.lse_probe()
+    ht, wt, gt = (torch.tensor(t, device=cuda_device) for t in (h, table, g))
+    assert fused_ce._variant(ht.shape[1]) == "tf32"
+    want_lse = fused_ce.fused_lse_reference(ht, wt)
+    if kernel == "K1":
+        exact = tf32_probes.k1_emulated(h, table)
+        one_term = min(
+            np.abs(tf32_probes.k1_emulated(h, table, lo=tuple(set(tf32_probes.K1_OPERANDS) - {name})) - exact).max()
+            for name in tf32_probes.K1_OPERANDS
+        )
+        err = (fused_ce.fused_lse_forward(ht, wt) - want_lse).abs().max().item()
+        limit = tf32_probes.K1_LIMIT
+    else:
+        exact = tf32_probes.k2_emulated(h, table, g)
+        one_term = min(
+            np.abs(tf32_probes.k2_emulated(h, table, g, lo=tuple(set(tf32_probes.K2_OPERANDS) - {name})) - exact).max()
+            for name in tf32_probes.K2_OPERANDS
+        )
+        want = fused_ce.fused_lse_dh_reference(ht, wt, gt, want_lse)
+        err = (fused_ce.fused_lse_dh(ht, wt, gt, want_lse) - want).abs().max().item()
+        limit = tf32_probes.K2_LIMIT * want.abs().max().item()
+    assert err <= limit < one_term, (err, limit, one_term)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16_hidden"])
+def test_k1_k2_tf32_are_the_same_from_run_to_run(cuda_device, dtype):
+    """K1 and K2 tf32 at the long-sequence width (N=32,768, E=128, the
+    3,706-item table; f32, and bf16 hidden states): the same bits twice."""
+    gen = torch.Generator(cuda_device).manual_seed(29)
+    hidden = torch.randn(32768, 128, device=cuda_device, generator=gen).to(dtype)
+    table = torch.randn(3706, 128, device=cuda_device, generator=gen) / 128**0.5
+    grad = torch.randn(32768, device=cuda_device, generator=gen)
+    assert fused_ce._variant(128) == "tf32"
+    lse = fused_ce.fused_lse_forward(hidden, table)
+    assert torch.equal(lse, fused_ce.fused_lse_forward(hidden, table))
+    assert torch.equal(fused_ce.fused_lse_dh(hidden, table, grad, lse), fused_ce.fused_lse_dh(hidden, table, grad, lse))
+
+
+@pytest.mark.parametrize("dim", [64, 100], ids=["tf32", "simt"])
+def test_fused_lse_forward_carries_a_nan_logit_to_lse(cuda_device, dim):
+    """A NaN in one row of h makes that row's lse NaN, on either variant, and
+    leaves the other rows as they were."""
+    gen = torch.Generator(cuda_device).manual_seed(31)
+    hidden = torch.randn(200, dim, device=cuda_device, generator=gen)
+    table = torch.randn(300, dim, device=cuda_device, generator=gen) / dim**0.5
+    clean = fused_ce.fused_lse_forward(hidden, table)
+    hidden[70, 3] = float("nan")
+    got = fused_ce.fused_lse_forward(hidden, table)
+    assert torch.isnan(got[70]) and torch.isfinite(got[torch.arange(200, device=cuda_device) != 70]).all()
+    assert torch.equal(got[:64], clean[:64]) and torch.equal(got[128:], clean[128:])

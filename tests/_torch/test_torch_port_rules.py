@@ -1,6 +1,6 @@
 """The rules the PyTorch port keeps.
 
-* ``replay_tpu_torch`` and ``chip_smoke.py`` import nothing of JAX, flax, optax
+* ``replay_tpu_torch``, ``chip_smoke.py`` and ``chip_tf32_readings.py`` import nothing of JAX, flax, optax
   or the JAX package, at run time or in their sources, and no pandas (the GPU
   machine has none).
 * Entry points run on the GPU unless the caller asks for the CPU by name.
@@ -35,7 +35,7 @@ from replay_tpu_torch.ops import fused_ce as fused_module
 from replay_tpu_torch.ops.flash_attention import flash_attention
 from replay_tpu_torch.serve import ScoringEngine
 
-REPO = Path(__file__).resolve().parents[1]
+REPO = Path(__file__).resolve().parents[2]  # tests/_torch/ -> the repo
 PORT = REPO / "replay_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "replay_tpu", "pandas")
 
@@ -45,7 +45,7 @@ def _forbidden(module: str) -> bool:
 
 
 def _sources():
-    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "chip_tf32_readings.py"]
 
 
 def test_importing_the_port_loads_no_jax():
@@ -66,6 +66,18 @@ def test_importing_the_port_loads_no_jax():
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120, check=False
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_the_import_rule_scans_the_port_and_chip_smoke():
+    """The files the import rule below reads: every module of the port and
+    the smoke script, so that a wrong root cannot make it pass on nothing."""
+    scanned = {str(p.relative_to(REPO)) for p in _sources()}
+    assert (REPO / "chip_smoke.py").is_file() and "chip_smoke.py" in scanned
+    assert {
+        "replay_tpu_torch/__init__.py", "replay_tpu_torch/ops/fused_ce.py", "replay_tpu_torch/ops/build.py",
+        "replay_tpu_torch/nn/train.py", "replay_tpu_torch/serve/engine.py",
+    } <= scanned
+    assert len(scanned) > 30
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(REPO)))

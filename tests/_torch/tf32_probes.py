@@ -2,13 +2,14 @@
 split TF32 (three products, hi + lo parts) passes it, and a numpy emulation of
 both arithmetics.
 
-K5's ``tf32x3`` variant and K3's ``tf32`` variant multiply f32 operands on the
-TF32 tensor cores. A TF32 value keeps 10 of f32's 23 mantissa bits; each f32
+K5's ``tf32x3`` variant and the ``tf32`` variants of K1, K2 and K3 multiply f32
+operands on the TF32 tensor cores. A TF32 value keeps 10 of f32's 23 mantissa bits; each f32
 operand x is split into ``hi``, x rounded to TF32, and ``lo``, ``x - hi`` cut
 to TF32, and a product is ``a_hi b_hi + a_hi b_lo + a_lo b_hi``. The probes
 below are built so that the limits the kernels are held to (K5: 1e-5 absolute
-on the output; K3: 1e-4 of the largest |dW|) see the difference, even where
-only one operand (``K5_OPERANDS``, ``K3_OPERANDS``) loses its lo part: the
+on the output; K1: 1e-4 absolute on lse; K2 and K3: 1e-4 of the largest |dh|
+or |dW|) see the difference, even where only one operand (``K5_OPERANDS``,
+``K1_OPERANDS``, ``K2_OPERANDS``, ``K3_OPERANDS``) loses its lo part: the
 tests on the card run the kernels on them, and the CPU tests run this
 emulation, which shows without a card that each probe tells the arithmetics
 apart.
@@ -22,8 +23,12 @@ sums in f32.
 import numpy as np
 
 K5_OPERANDS = ("q", "k", "p", "v")  # S = q kᵀ, out = p v
+K1_OPERANDS = ("h", "w")  # logits = h wᵀ
+K2_OPERANDS = ("h", "w", "p")  # logits = h wᵀ, dh = p w
 K3_OPERANDS = ("h", "w", "p")  # logits = h wᵀ, dW = pᵀ h
 K5_LIMIT = 1e-5  # K5 in f32 against its plain version, max abs error
+K1_LIMIT = 1e-4  # K1 in f32 against its plain version, max abs error of lse
+K2_LIMIT = 1e-4  # K2 in f32 against its plain version, over the largest |dh|
 K3_LIMIT = 1e-4  # K3 with an f32 table against its plain version, over the largest |dW|
 
 
@@ -124,3 +129,63 @@ def k3_emulated(h, table, g, lo=None) -> np.ndarray:
     if lo is None:
         return weights.T @ h.astype(np.float64)
     return matmul(weights.T.astype(np.float32), h, "p" in lo, "h" in lo)
+
+
+def lse_probe(seed: int = 33):
+    """The probe of K1 and K2: ``h`` ``[128, 64]`` f32, a 128-item table and
+    ``g``. The first 32 columns carry the logits: h about 3 and the table about
+    0.25 there, so every logit is about 30 and a rounding of h or W of 2**-12
+    moves it by about 1e-3, which lse takes whole (K1) and the weights
+    ``g exp(logit - lse)`` take as a relative error against the given lse (K2);
+    the logits spread so that each row's largest softmax weight is about 0.15.
+    The last 32 columns of h are 0 and those of the table come in item pairs
+    ``x`` and ``-x + d`` (|x| in [4, 8), d about 0.2) whose logits differ by
+    about 1%: there dh is a sum of the pairs' differences, small beside its
+    terms, so that a rounding of the weights P or of W in ``dh = P W`` moves it
+    past 1e-4 of the largest |dh| too. Split TF32 keeps both errors near 2**-21
+    of the terms."""
+    rng = np.random.default_rng(seed)
+    rows, dim, items = 128, 64, 128
+    half = dim // 2
+    h = np.zeros((rows, dim), dtype=np.float32)
+    h[:, :half] = 3.0 + rng.standard_normal((rows, half))
+    table = np.empty((items, dim), dtype=np.float32)
+    base = 0.25 + 0.1 * rng.standard_normal((items // 2, half))
+    table[0::2, :half] = base
+    table[1::2, :half] = base + 0.02 * rng.standard_normal((items // 2, half))
+    x = rng.uniform(4.0, 8.0, (items // 2, half)) * rng.choice([-1.0, 1.0], (items // 2, half))
+    table[0::2, half:] = x
+    table[1::2, half:] = -x + 0.2 * rng.standard_normal((items // 2, half))
+    g = rng.standard_normal(rows).astype(np.float32)
+    return h, table, g
+
+
+def _exact_lse(h, table) -> np.ndarray:
+    logits = h.astype(np.float64) @ table.T.astype(np.float64)
+    top = logits.max(axis=-1, keepdims=True)
+    return top + np.log(np.exp(logits - top).sum(axis=-1, keepdims=True))
+
+
+def k1_emulated(h, table, lo=None) -> np.ndarray:
+    """K1 on these inputs, ``[N]`` lse: exactly (float64) for ``lo=None``, else
+    with the logits in TF32, the operands named in ``lo`` (of ``K1_OPERANDS``)
+    split into hi + lo parts and the others rounded to one TF32 part."""
+    if lo is None:
+        return _exact_lse(h, table)[:, 0]
+    logits = matmul(h, table.T, "h" in lo, "w" in lo)
+    top = logits.max(axis=-1, keepdims=True)
+    return (top + np.log(np.exp(logits - top).sum(axis=-1, keepdims=True)))[:, 0]
+
+
+def k2_emulated(h, table, g, lo=None) -> np.ndarray:
+    """K2 on these inputs, its lse from the exact logits: ``dh = (g·softmax) W``
+    exactly (float64) for ``lo=None``, else with both products in TF32, the
+    operands named in ``lo`` (of ``K2_OPERANDS``) split into hi + lo parts and
+    the others rounded to one TF32 part; the weights, as the kernel keeps
+    them, are f32."""
+    lse = _exact_lse(h, table)
+    logits = h.astype(np.float64) @ table.T.astype(np.float64) if lo is None else matmul(h, table.T, "h" in lo, "w" in lo)
+    weights = g[:, None].astype(np.float64) * np.exp(logits - lse)
+    if lo is None:
+        return weights @ table.astype(np.float64)
+    return matmul(weights.astype(np.float32), table, "p" in lo, "w" in lo)

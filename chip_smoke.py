@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Drives the port (``replay_tpu_torch``, never the JAX package) through its
-serving path at the ``bench_serve.py`` width, its training path at the
+serving path and its scoring service at the ``bench_serve.py`` width and
+traffic, its training path at the
 ``bench.py`` width and its long-sequence path (training and serving) at the
 ``bench_suite.py`` ``sasrec_l1024_tiled`` width, and holds every kernel of those
 paths against its plain PyTorch version. Phases, one JSON line each:
@@ -30,6 +31,13 @@ paths against its plain PyTorch version. Phases, one JSON line each:
                  gradient at the long-sequence shape;
 4. ``serve``   — ``SasRec(use_flash=True)`` behind ``ScoringEngine`` answering requests,
                  checked against an engine on the same weights with ``use_flash=False``;
+   ``service`` — the same model behind ``ScoringService`` in retrieval mode (MIPS top-100,
+                 logistic re-rank, top-10) under ``bench_serve.py``'s traffic: 512 users
+                 seeded cold, a closed loop of 8 threads × 64 requests, Poisson arrivals
+                 at 500/s for 8 s, then one more profiled second; every response primary,
+                 checked against a direct path on the unfused model; the bitwise contract
+                 (fill, row position, advance = re-encode); a stale-cache control the
+                 check must catch; qps, p50/p99, fill per lane, goodput, device busy share;
 5. ``train``   — ``Trainer(CEFused(), SasRec(use_flash=True))`` against
                  ``Trainer(CE(), SasRec(use_flash=False))`` from the same weights: 20
                  steps with matching losses and kernel launch counts, validation and
@@ -67,6 +75,7 @@ import math
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -89,6 +98,20 @@ KERNEL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 # serving logits, kernel route vs unfused route on the same weights: two encoder
 # blocks, each with f32 rounding differences of ~1e-6, amplified by the head
 SERVE_TOL = 1e-4
+
+# bench_serve.py's service run (its defaults, bench_serve.py:100-140; traffic
+# :1056-1212): 512 users with histories of 1–99 items, every user seeded cold,
+# a closed loop of 8 client threads × 64 requests, then Poisson arrivals at
+# 500/s for 8 s; a request is a pure hit (70%), an advance by one new item
+# (20%) or a full history resend (10%). Retrieval mode: MIPS top-100, the
+# logistic re-rank, top-10; one length bucket (50), batch buckets (1, 8, 64),
+# max wait 2 ms, a cache of 1,024 users, a breaker of 5 failures / 0.3 s.
+SERVICE_USERS, SERVICE_CLIENTS, SERVICE_CLOSED_REQUESTS = 512, 8, 64
+SERVICE_RATE, SERVICE_SECONDS, SERVICE_CANDIDATES, SERVICE_TOPK = 500, 8, 100, 10
+SERVICE_MAX_WAIT_MS, SERVICE_CACHE, SERVICE_WAIT_S = 2.0, 1024, 120.0
+# the bitwise contract: one request among co-riders at these fills and at the
+# first and last row
+SERVICE_FILLS = (3, 8, 64)
 
 # bench.py's training width: batch 512 windows of L=50, the same model
 TRAIN_BATCH = 512
@@ -711,6 +734,436 @@ def serve_phase(device) -> dict:
         max_abs_err_vs_unfused=max_err, tol=SERVE_TOL, top10_ranks_checked=top_checked,
         slate_err=slate_err, retrieval_hidden_err=hidden_err, stats=engine.stats(),
         latency_ms=latency,
+    )
+    return {"launches": launches}
+
+
+class EventRecorder:
+    """A ``RunLogger`` that keeps the service's events in memory."""
+
+    def __init__(self) -> None:
+        self.events = []
+        self._lock = threading.Lock()
+
+    def log_event(self, event) -> None:
+        with self._lock:
+            self.events.append((event.event, dict(event.payload)))
+
+    def close(self) -> None:
+        pass
+
+    def named(self, name: str) -> list:
+        with self._lock:
+            return [payload for event, payload in self.events if event == name]
+
+
+class ServiceClient:
+    """bench_serve.py's request mix (``one_request``, :1128-1137) against a
+    service. Each request is returned with the history it must be answered
+    from: the user's items after the request, as the client holds them. A
+    lock per user keeps a history's update and its submit in one order."""
+
+    def __init__(self, service, histories: dict) -> None:
+        self.service = service
+        self.histories = {user: list(items) for user, items in histories.items()}
+        self.locks = {user: threading.Lock() for user in histories}
+
+    def seed(self, user):
+        with self.locks[user]:
+            items = list(self.histories[user])
+            return self.service.submit(user, history=items), items
+
+    def request(self, rng, user: int):
+        draw = rng.random()
+        with self.locks[user]:
+            history = self.histories[user]
+            if draw < 0.7:
+                future = self.service.submit(user)
+            elif draw < 0.9:
+                new_item = int(rng.integers(0, NUM_ITEMS))
+                history.append(new_item)
+                future = self.service.submit(user, new_items=[new_item])
+            else:
+                future = self.service.submit(user, history=history)
+            return future, list(history)
+
+
+def stale_cache(capacity: int):
+    """The control's fault: a user state cache that keeps the pre-advance
+    state. An advance is encoded and answered from the advanced window, but
+    the cache goes on holding the old window and its embedding, so the next
+    hit is answered from a stale state."""
+    from replay_tpu_torch.serve import UserStateCache
+
+    class StaleCache(UserStateCache):
+        def advance_user(self, user_id, new_items, pad_id=0):
+            state = self.peek(user_id)
+            if state is None:
+                return super().advance_user(user_id, new_items, pad_id)
+            return self.advance(state, new_items, pad_id)  # never stored
+
+        def refresh_embedding(self, user_id, state, embedding, param_generation=0):
+            current = self.peek(user_id)
+            if current is not None and state.generation > current.generation:
+                return  # the advanced state never lands
+            super().refresh_embedding(user_id, state, embedding, param_generation)
+
+    return StaleCache(capacity)
+
+
+def service_setup(device):
+    """The model (K4 route), the same weights on the unfused route, the item
+    table, the re-rank's two weights and the users' histories, all from SEED;
+    histories drawn as bench_serve.py:1056-1059 draws them."""
+    from replay_tpu_torch.data import FeatureHint, FeatureType
+    from replay_tpu_torch.data.nn import TensorFeatureInfo, TensorSchema
+    from replay_tpu_torch.nn.sequential.sasrec import SasRec
+
+    schema = TensorSchema(
+        TensorFeatureInfo(
+            "item_id", FeatureType.CATEGORICAL, is_seq=True, feature_hint=FeatureHint.ITEM_ID,
+            cardinality=NUM_ITEMS, embedding_dim=EMBEDDING_DIM,
+        )
+    )
+    width = dict(
+        embedding_dim=EMBEDDING_DIM, num_blocks=NUM_BLOCKS, num_heads=NUM_HEADS,
+        max_sequence_length=SEQ_LEN, dropout_rate=0.0, device=device,
+    )
+    model = SasRec(schema, use_flash=True, generator=torch.Generator().manual_seed(SEED), **width)
+    plain_model = SasRec(schema, use_flash=False, **width)
+    rng = np.random.default_rng(SEED)
+    rerank = np.array([1.0 + rng.random(), rng.normal(scale=0.5)], np.float32)  # weight > 0, bias
+    histories = {
+        user: rng.integers(0, NUM_ITEMS, size=int(rng.integers(1, 2 * SEQ_LEN))).tolist()
+        for user in range(SERVICE_USERS)
+    }
+    return model, plain_model, model.state_dict(), model.get_item_weights().detach(), rerank, histories
+
+
+def build_service(model, params, item_weights, rerank, histories, device, **overrides):
+    """ScoringService as bench_serve.py:1098-1120 builds it, retrieval mode."""
+    from replay_tpu_torch.models import MIPSIndex
+    from replay_tpu_torch.obs import Tracer
+    from replay_tpu_torch.serve import CandidatePipeline, CircuitBreaker, FallbackScorer, ScoringService
+
+    pipeline = CandidatePipeline(
+        MIPSIndex(item_weights, device=device), num_candidates=SERVICE_CANDIDATES, top_k=SERVICE_TOPK,
+        reranker_weights=rerank,
+    )
+    kwargs = dict(
+        batch_buckets=BATCH_BUCKETS, max_wait_ms=SERVICE_MAX_WAIT_MS, cache_capacity=SERVICE_CACHE,
+        retrieval=pipeline, tracer=Tracer(),
+        breaker=CircuitBreaker(failure_threshold=5, reset_timeout_s=0.3),
+        fallback=FallbackScorer.from_interactions([i for h in histories.values() for i in h], NUM_ITEMS),
+        device=device,
+    )
+    kwargs.update(overrides)
+    return ScoringService(model, params, **kwargs)
+
+
+def direct_top10(plain, item_table: np.ndarray, rerank: np.ndarray, windows: list, bucket: int):
+    """The direct path for ``windows`` at batch ``bucket``: ``encode`` on the
+    unfused model, a float64 host MIPS over the item table (top-100, the lower
+    id first among equal scores), the re-rank in float64, then the top-11
+    (the 11th pins the 10th rank's gap). Returns (ids [n, 11], scores [n, 11])."""
+    from replay_tpu_torch.serve import make_window
+
+    rows = [make_window(items, SEQ_LEN) for items in windows]
+    rows += rows[:1] * (bucket - len(rows))  # fill the bucket, as the engine pads
+    _, hidden = plain.encode(SEQ_LEN, np.stack([r[0] for r in rows]), np.stack([r[1] for r in rows]))
+    scores = hidden[: len(windows)].double().cpu().numpy() @ item_table.T
+    candidates = np.argsort(-scores, axis=1, kind="stable")[:, :SERVICE_CANDIDATES]
+    values = np.take_along_axis(scores, candidates, axis=1)
+    weight, bias = (float(x) for x in rerank)
+    ranking = 1.0 / (1.0 + np.exp(-(values * weight + bias)))
+    order = np.argsort(-ranking, axis=1, kind="stable")[:, : SERVICE_TOPK + 1]
+    return np.take_along_axis(candidates, order, axis=1), np.take_along_axis(ranking, order, axis=1)
+
+
+def check_responses(plain, item_table, rerank, records) -> dict:
+    """Holds each (history, response) of ``records`` to the direct path:
+    top-10 ids wherever a rank is clear of its neighbours by more than
+    SERVE_TOL, scores within SERVE_TOL. Returns the reading and the failures
+    (the caller decides whether they fail the run)."""
+    by_bucket = {}
+    for items, response in records:
+        by_bucket.setdefault(response.batch_bucket, []).append((items, response))
+    failures, pinned, max_err = [], 0, 0.0
+    for bucket, group in sorted(by_bucket.items()):
+        for start in range(0, len(group), bucket):
+            chunk = group[start : start + bucket]
+            want_ids, want_scores = direct_top10(plain, item_table, rerank, [c[0] for c in chunk], bucket)
+            for (items, response), ids, scores in zip(chunk, want_ids, want_scores):
+                got_ids, got_scores = np.asarray(response.item_ids), np.asarray(response.scores)
+                if got_ids.shape != (SERVICE_TOPK,) or not np.isfinite(got_scores).all():
+                    failures.append(f"user {response.user_id}: ids {got_ids.shape}, scores {got_scores}")
+                    continue
+                err = float(np.abs(got_scores.astype(np.float64) - scores[:SERVICE_TOPK]).max())
+                max_err = max(max_err, err)
+                bad = err > SERVE_TOL
+                for rank in range(SERVICE_TOPK):
+                    gap_prev = math.inf if rank == 0 else scores[rank - 1] - scores[rank]
+                    if min(gap_prev, scores[rank] - scores[rank + 1]) > SERVE_TOL:
+                        pinned += 1
+                        bad = bad or got_ids[rank] != ids[rank]
+                if bad:
+                    failures.append(
+                        f"user {response.user_id} ({response.served_from}, bucket {bucket}): ids "
+                        f"{got_ids.tolist()} vs {ids[:SERVICE_TOPK].tolist()}, max score err {err}"
+                    )
+    return {"checked": len(records), "pinned_ranks": pinned, "max_score_err": max_err, "failures": failures}
+
+
+def percentile_ms(latencies: list, q: float) -> float:
+    ordered = sorted(latencies)
+    return ordered[min(len(ordered) - 1, max(math.ceil(q * len(ordered)) - 1, 0))] * 1e3
+
+
+def open_loop(client, seconds: float, rng) -> dict:
+    """bench_serve.py's open loop (:1168-1194): Poisson arrivals at
+    SERVICE_RATE for ``seconds``; waits (bounded) until every request is
+    answered. Returns the requests with their histories, latencies, errors."""
+    latencies, errors, lock = [], [], threading.Lock()
+    records, done = [], [0]
+
+    def on_done(submitted_at):
+        def callback(future):
+            latency = time.perf_counter() - submitted_at
+            with lock:
+                done[0] += 1
+                if future.exception() is None:
+                    latencies.append(latency)
+                else:
+                    errors.append(repr(future.exception()))
+
+        return callback
+
+    start = time.perf_counter()
+    while time.perf_counter() < start + seconds:
+        user = int(rng.integers(0, SERVICE_USERS))
+        submitted_at = time.perf_counter()
+        future, items = client.request(rng, user)
+        future.add_done_callback(on_done(submitted_at))
+        records.append((items, future))
+        time.sleep(min(float(rng.exponential(1.0 / SERVICE_RATE)), 1.0))
+    deadline = time.perf_counter() + SERVICE_WAIT_S
+    while True:
+        with lock:
+            if done[0] >= len(records):
+                break
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"open loop: {len(records) - done[0]} requests unanswered after {SERVICE_WAIT_S} s")
+        time.sleep(0.002)
+    elapsed = time.perf_counter() - start
+    return {"records": records, "latencies": latencies, "errors": errors, "elapsed": elapsed}
+
+
+def profiled_open_second(client, rng) -> dict:
+    """One more second of open-loop arrivals under ``torch.profiler``: device
+    time (kernels and copies, summed) per second of wall clock, and K4's
+    kernels in the trace, which must equal its launches in the same window
+    (a trace that lost events fails the run)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from replay_tpu_torch.ops.flash_attention import flash_attention
+
+    before = flash_attention.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        second = open_loop(client, 1.0, rng)
+        wall = time.perf_counter() - t0
+    launched = flash_attention.launches - before
+    device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    device_ms = sum(e.self_device_time_total for e in device) / 1e3
+    traced_k4 = sum(e.count for e in device if "attention_forward" in e.key)
+    if traced_k4 != launched:
+        raise AssertionError(f"the profiled second traced {traced_k4} K4 kernels of {launched} launched")
+    device.sort(key=lambda e: -e.self_device_time_total)
+    return {
+        **second,
+        "device_ms_per_s": device_ms / wall,
+        "device_busy_share": device_ms / (wall * 1e3),
+        "traced_k4_kernels": traced_k4,
+        "top_device_ms": {e.key[:60]: e.self_device_time_total / 1e3 for e in device[:5]},
+    }
+
+
+def bitwise_contract(service, histories) -> dict:
+    """One user's request among co-riders at each fill of SERVICE_FILLS, first
+    and last in its batch: its scores and ids bitwise equal within a batch
+    bucket; an advance bitwise equal to a full re-encode of the same window.
+    Equality across buckets is reported, not required."""
+    target, others = histories[0], [histories[user] for user in range(1, max(SERVICE_FILLS))]
+    by_bucket = {}
+    for fill in SERVICE_FILLS:
+        for position in (0, fill - 1):
+            rows = others[: fill - 1]
+            rows.insert(position, target)
+            calls = service.engine.encode_calls
+            futures = [service.submit(f"fill{fill}-{position}-{i}", history=items) for i, items in enumerate(rows)]
+            response = [f.result(timeout=SERVICE_WAIT_S) for f in futures][position]
+            if service.engine.encode_calls != calls + 1 or response.served_from != "cold":
+                raise AssertionError(f"fill {fill}: {service.engine.encode_calls - calls} encode batches, not one")
+            by_bucket.setdefault(response.batch_bucket, []).append(response)
+    within = all(
+        np.array_equal(r.scores, group[0].scores) and np.array_equal(r.item_ids, group[0].item_ids)
+        for group in by_bucket.values() for r in group
+    )
+    alone = service.score("alone", history=target, timeout=SERVICE_WAIT_S)
+    firsts = [alone] + [group[0] for _, group in sorted(by_bucket.items())]
+    across = all(np.array_equal(r.scores, alone.scores) for r in firsts)
+    service.score("advance", history=target, timeout=SERVICE_WAIT_S)
+    advanced = service.score("advance", new_items=[7], timeout=SERVICE_WAIT_S)
+    reencoded = service.score("reencode", history=list(target) + [7], timeout=SERVICE_WAIT_S)
+    advance_equal = (
+        advanced.served_from == "advance" and advanced.batch_bucket == reencoded.batch_bucket
+        and np.array_equal(advanced.scores, reencoded.scores) and np.array_equal(advanced.item_ids, reencoded.item_ids)
+    )
+    record = {
+        "buckets": {str(b): len(g) for b, g in sorted(by_bucket.items())},
+        "within_bucket_bitwise": within, "advance_equals_reencode_bitwise": advance_equal,
+        "across_buckets_bitwise": across,
+    }
+    if not (within and advance_equal):
+        raise AssertionError(f"the bitwise contract failed: {record}")
+    return record
+
+
+def stale_cache_control(service, histories, plain, item_table, rerank, users: int = 64) -> dict:
+    """The control: a service whose cache keeps the pre-advance state. Seed
+    ``users`` users, advance each by one item, then ask each for a pure hit;
+    the response check must fail for it."""
+    rng = np.random.default_rng(50)
+    control = {user: list(histories[user]) for user in range(users)}
+    records = []
+    for step in ("seed", "advance", "hit"):
+        batch = []
+        for user, items in control.items():
+            if step == "seed":
+                future = service.submit(user, history=items)
+            elif step == "advance":
+                items.append(int(rng.integers(0, NUM_ITEMS)))
+                future = service.submit(user, new_items=items[-1:])
+            else:
+                future = service.submit(user)
+            batch.append((list(items), future))
+        records += [(items, f.result(timeout=SERVICE_WAIT_S)) for items, f in batch]
+    reading = check_responses(plain, item_table, rerank, records)
+    if not reading["failures"]:
+        raise AssertionError("the stale-cache control passed the response check: the check catches nothing")
+    return {"checked": reading["checked"], "caught": len(reading["failures"]), "max_score_err": reading["max_score_err"]}
+
+
+def service_phase(device) -> dict:
+    """ScoringService in retrieval mode at bench_serve.py's width and traffic
+    (module constants SERVICE_*), on K4; returns K4's launches on it."""
+    from replay_tpu_torch.ops.flash_attention import flash_attention
+    from replay_tpu_torch.serve import ScoringEngine
+
+    model, plain_model, params, item_weights, rerank, histories = service_setup(device)
+    plain = ScoringEngine(plain_model, params, batch_buckets=BATCH_BUCKETS, outputs="hidden", device=device)
+    item_table = item_weights.double().cpu().numpy()
+    events = EventRecorder()
+    service = build_service(model, params, item_weights, rerank, histories, device, logger=events)
+    client = ServiceClient(service, histories)
+    errors, closed_records = [], []
+
+    allocated_before = torch.cuda.memory_allocated(device)
+    # the main path: counts start at 0 here and are read once the loops end
+    flash_attention.launches = 0
+    service.start()
+    try:
+        seeded = [client.seed(user) for user in range(SERVICE_USERS)]
+        seed_records = [(items, f.result(timeout=SERVICE_WAIT_S)) for f, items in seeded]
+        seed_batches = len(events.named("on_serve_batch"))
+
+        def closed_client(index: int) -> None:
+            rng = np.random.default_rng(1000 + index)
+            for _ in range(SERVICE_CLOSED_REQUESTS):
+                future, items = client.request(rng, int(rng.integers(0, SERVICE_USERS)))
+                try:
+                    closed_records.append((items, future.result(timeout=SERVICE_WAIT_S)))
+                except Exception as exc:  # noqa: BLE001 — recorded, fails the phase below
+                    errors.append(repr(exc))
+
+        threads = [threading.Thread(target=closed_client, args=(i,), daemon=True) for i in range(SERVICE_CLIENTS)]
+        closed_start = time.perf_counter()
+        for thread in threads:
+            thread.start()
+        for thread in threads:
+            thread.join(timeout=SERVICE_WAIT_S * SERVICE_CLOSED_REQUESTS)
+        closed_elapsed = time.perf_counter() - closed_start
+        if any(thread.is_alive() for thread in threads):
+            raise AssertionError("a closed-loop client never finished")
+        closed_batches = events.named("on_serve_batch")[seed_batches:]
+
+        open_rng = np.random.default_rng(7)
+        opened = open_loop(client, SERVICE_SECONDS, open_rng)
+        profiled = profiled_open_second(client, open_rng)
+    finally:
+        service.close()
+    launches = flash_attention.launches
+    encode_calls = service.engine.stats()["encode_calls"]
+
+    # checks: no errors, every response primary, K4 once per block per encode
+    # batch and nothing else, every closed-loop and every 8th open-loop
+    # response against the direct path
+    open_records = [
+        (items, f.result(timeout=0)) for items, f in opened["records"] + profiled["records"]
+        if f.exception(timeout=0) is None
+    ]
+    errors += opened["errors"] + profiled["errors"]
+    responses = [r for _, r in seed_records + closed_records + open_records]
+    not_primary = sorted({r.served_by for r in responses} - {"primary"})
+    if errors or not_primary or len(closed_records) != SERVICE_CLIENTS * SERVICE_CLOSED_REQUESTS:
+        raise AssertionError(f"service: errors {errors[:5]} ({len(errors)}), served_by {not_primary}")
+    if launches < 1 or launches != model.num_blocks * encode_calls:
+        raise AssertionError(f"service: K4 launches {launches} != {model.num_blocks} x {encode_calls} encode batches")
+    checked = closed_records + open_records[::8]
+    reading = check_responses(plain, item_table, rerank, checked)
+    if reading["failures"]:
+        raise AssertionError(f"service responses differ from the direct path: {reading['failures'][:5]}")
+
+    # the bitwise contract and the control, each on a service of its own
+    bitwise_service = build_service(model, params, item_weights, rerank, histories, device, max_wait_ms=100.0)
+    with bitwise_service:
+        bitwise = bitwise_contract(bitwise_service, histories)
+    control_service = build_service(model, params, item_weights, rerank, histories, device)
+    control_service.cache = stale_cache(SERVICE_CACHE)
+    with control_service:
+        control = stale_cache_control(control_service, histories, plain, item_table, rerank)
+    phase_calls = encode_calls + bitwise_service.engine.encode_calls + control_service.engine.encode_calls
+    if flash_attention.launches != model.num_blocks * phase_calls:
+        raise AssertionError(f"K4 ran {flash_attention.launches} times in the phase, not {model.num_blocks} x {phase_calls}")
+    # the serve worker's thread had a cuBLAS handle of its own, and cuBLAS
+    # keeps a workspace (32 MiB on the H100) per handle and stream: free it,
+    # so that the memory the later phases read is theirs
+    torch.cuda.synchronize()
+    left_allocated = torch.cuda.memory_allocated(device) - allocated_before
+    torch._C._cuda_clearCublasWorkspaces()
+
+    fills = {}
+    for batch in closed_batches + events.named("on_serve_batch")[seed_batches + len(closed_batches):]:
+        fills.setdefault(batch["lane"], []).append(batch["fill"])
+    stats = service.stats()
+    (end,) = events.named("on_serve_end")
+    open_latencies = opened["latencies"]
+    emit(
+        "service", users=SERVICE_USERS, requests=stats["requests"], errors=len(errors), served_by=stats["served_by"],
+        served_from=stats["served_from"], hit_share=stats["served_from"]["hit"] / max(stats["answered"], 1),
+        closed_requests=len(closed_records), closed_qps=len(closed_records) / closed_elapsed,
+        open_requests=len(opened["records"]), open_qps=len(opened["records"]) / opened["elapsed"],
+        open_p50_ms=percentile_ms(open_latencies, 0.5), open_p99_ms=percentile_ms(open_latencies, 0.99),
+        mean_fill_by_lane={lane: statistics.fmean(f) for lane, f in sorted(fills.items())},
+        batches_by_lane={lane: len(f) for lane, f in sorted(fills.items())},
+        k4_launches=launches, encode_batches=encode_calls, num_blocks=model.num_blocks,
+        checked=reading["checked"], pinned_ranks=reading["pinned_ranks"], max_score_err=reading["max_score_err"],
+        tol=SERVE_TOL, bitwise=bitwise, stale_cache_control=control,
+        goodput_fractions=end["goodput"]["fractions"], goodput_wall_s=end["goodput"]["wall_seconds"],
+        profiled_second={k: profiled[k] for k in ("device_ms_per_s", "device_busy_share", "traced_k4_kernels", "top_device_ms")}
+        | {"requests": len(profiled["records"])},
+        rerank_weights=rerank.tolist(), allocated_left_by_the_phase_bytes=left_allocated, stats=stats,
     )
     return {"launches": launches}
 
@@ -1545,10 +1998,11 @@ def main() -> int:
     tiled_records = tiled_kernel_phase(device)
     tiled_backward_check(device)
     served = serve_phase(device)
+    serviced = service_phase(device)
     trained = train_phase(device)
     longseq = longseq_phase(device)
 
-    kernels = kernel_records(k4, fused, tiled_records, served, trained, longseq)
+    kernels = kernel_records(k4, fused, tiled_records, served, serviced, trained, longseq)
     emit("kernels", kernels=[{k: r[k] for k in ("name", "launches", "passed")} for r in kernels])
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -1557,7 +2011,7 @@ def main() -> int:
     return 0
 
 
-def kernel_records(k4, fused, tiled_records, served, trained, longseq) -> list:
+def kernel_records(k4, fused, tiled_records, served, serviced, trained, longseq) -> list:
     """The kernels line: every kernel of the paths driven, one entry per
     instantiation a path runs, with its launches there; raises if one of them
     launched no time."""
@@ -1567,8 +2021,10 @@ def kernel_records(k4, fused, tiled_records, served, trained, longseq) -> list:
             "route": "cuda",
             "source": "replay_tpu_torch/csrc/flash_attention.cu",
             "replaces": "replay_tpu/ops/flash_attention.py:32",
-            "launches": served["launches"] + trained["flash_attention"],
-            "launches_by_path": {"serve": served["launches"], "train": trained["flash_attention"]},
+            "launches": served["launches"] + serviced["launches"] + trained["flash_attention"],
+            "launches_by_path": {
+                "serve": served["launches"], "service": serviced["launches"], "train": trained["flash_attention"],
+            },
             "max_abs_err": k4["max_abs_err"],
             "ms": k4["ms"],
             "plain_ms": k4["plain_ms"],

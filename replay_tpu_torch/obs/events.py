@@ -1,0 +1,190 @@
+"""Event sinks: one JSON-able record per observation.
+
+Copied from ``replay_tpu/obs/events.py``: :class:`TrainerEvent`, the
+:class:`RunLogger` protocol and :class:`JsonlLogger`. The scoring service
+emits its event family through them::
+
+    on_serve_start            (mode, bucket ladders, max_wait, cache capacity,
+                               queue-depth bound, default deadline)
+      on_serve_batch*         (one per dispatched micro-batch: lane, rows,
+                               bucket, fill, max queue wait, dropped
+                               expired/cancelled counts)
+      on_shed*                (admission control refused work: lane, depth,
+                               retry-after hint; throttled, carries the
+                               coalesced `count` per emit)
+      on_breaker*             (circuit-breaker transition: from/to state,
+                               consecutive failures — one per transition)
+      on_degrade*             (traffic rerouted down the degradation ladder:
+                               to cache_only/fallback, reason; throttled)
+    on_serve_end              (request totals, cache hit rate, batch fill
+                               ratio, queue-wait stats, shed/deadline-miss/
+                               degradation totals, breaker stats, serve
+                               goodput)
+
+Every event flattens to one JSON-able dict (``event`` + ``time`` + optional
+``step``/``epoch`` + the payload), so a run directory's ``events.jsonl`` is a
+self-describing artifact. The TensorBoard, console and multi sinks are not
+copied yet.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Any, Dict, Mapping, Optional
+
+
+def _jsonable(value: Any) -> Any:
+    """Coerce numpy / torch scalars and containers into plain, STRICT JSON
+    types. Non-finite floats become null: shape-stable keys survive, and the
+    emitted lines stay valid RFC-8259 JSON (the bare ``NaN`` token is not)."""
+    if isinstance(value, Mapping):
+        return {str(k): _jsonable(v) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return [_jsonable(v) for v in value]
+    if isinstance(value, float):
+        return value if math.isfinite(value) else None
+    if isinstance(value, (str, bool, int)) or value is None:
+        return value
+    # numpy / torch scalars and 0-d arrays expose item(); arrays expose tolist()
+    if hasattr(value, "item") and getattr(value, "ndim", None) in (0, None):
+        try:
+            return _jsonable(value.item())
+        except (TypeError, ValueError):
+            pass
+    if hasattr(value, "tolist"):
+        try:
+            return _jsonable(value.tolist())
+        except (TypeError, ValueError):
+            pass
+    return str(value)
+
+
+@dataclass
+class TrainerEvent:
+    """One observation from a training run.
+
+    ``payload`` keys flatten into the record next to ``event``/``time``/
+    ``step``/``epoch``, so consumers index events.jsonl lines by plain keys.
+    """
+
+    event: str
+    step: Optional[int] = None
+    epoch: Optional[int] = None
+    time: float = field(default_factory=time.time)
+    payload: Dict[str, Any] = field(default_factory=dict)
+
+    def to_record(self) -> Dict[str, Any]:
+        record: Dict[str, Any] = {"event": self.event, "time": self.time}
+        if self.step is not None:
+            record["step"] = int(self.step)
+        if self.epoch is not None:
+            record["epoch"] = int(self.epoch)
+        for key, value in self.payload.items():
+            record[str(key)] = _jsonable(value)
+        return record
+
+
+class RunLogger:
+    """Protocol for event sinks. Subclasses implement :meth:`log_event`;
+    :meth:`close` is optional (flush/teardown). Usable as a context manager."""
+
+    def log_event(self, event: TrainerEvent) -> None:
+        raise NotImplementedError
+
+    def close(self) -> None:
+        pass
+
+    def __enter__(self) -> "RunLogger":
+        return self
+
+    def __exit__(self, *exc_info) -> None:
+        self.close()
+
+
+class JsonlLogger(RunLogger):
+    """One JSON line per event, appended to ``run_dir/filename``.
+
+    Lines are flushed as written so a crashed run keeps its telemetry. The
+    same sink doubles as a raw-record writer (:meth:`log_record`) for
+    artifacts that are single records rather than event streams
+    (``mode="w"``).
+
+    Thread-safe: the serve stack emits from client threads (``on_shed``/
+    ``on_breaker``) concurrently with the worker's ``on_serve_batch``, so each
+    line is serialized first and written in one locked call — concurrent
+    emits can interleave lines, never tear one.
+
+    Bounded growth (week-long runs, the serving service): ``max_bytes``
+    enables size-based rotation — when appending a line would push the file
+    past the bound, ``events.jsonl`` rotates to ``events.jsonl.1`` (existing
+    backups shift up, the oldest beyond ``rotate`` is dropped) and a fresh
+    file continues the stream. ``obs.report`` reads the rotated shards oldest-
+    first, so a rotated run still summarizes as one stream (minus whatever the
+    bound evicted). A single record is never split across shards.
+
+    Multi-host runs: pass this process's ``process_index`` and non-zero
+    processes write ``events.p<i>.jsonl`` next to process 0's ``events.jsonl``
+    — the shard layout ``obs.report`` merges into one cross-host report (each
+    record additionally carries its ``process_index`` stamp).
+    """
+
+    def __init__(
+        self,
+        run_dir: str,
+        filename: str = "events.jsonl",
+        mode: str = "a",
+        max_bytes: Optional[int] = None,
+        rotate: int = 3,
+        process_index: Optional[int] = None,
+    ) -> None:
+        self.run_dir = str(run_dir)
+        os.makedirs(self.run_dir, exist_ok=True)
+        if process_index:
+            root, ext = os.path.splitext(filename)
+            filename = f"{root}.p{int(process_index)}{ext}"
+        self.path = os.path.join(self.run_dir, filename)
+        if max_bytes is not None and max_bytes < 1:
+            msg = "max_bytes must be a positive byte bound (or None)"
+            raise ValueError(msg)
+        if rotate < 1:
+            msg = "rotate must keep at least one backup shard"
+            raise ValueError(msg)
+        self.max_bytes = max_bytes
+        self.rotate = int(rotate)
+        self._fh = open(self.path, mode)
+        self._lock = threading.Lock()
+
+    def _rotate_locked(self) -> None:
+        """Shift ``path.(i)`` → ``path.(i+1)`` (oldest dropped) and reopen a
+        fresh base file. Caller holds the lock."""
+        self._fh.close()
+        for index in range(self.rotate - 1, 0, -1):
+            source = f"{self.path}.{index}"
+            if os.path.exists(source):
+                os.replace(source, f"{self.path}.{index + 1}")
+        os.replace(self.path, f"{self.path}.1")
+        self._fh = open(self.path, "a")
+
+    def log_record(self, record: Mapping[str, Any]) -> None:
+        line = json.dumps(_jsonable(record), allow_nan=False) + "\n"
+        with self._lock:
+            if (
+                self.max_bytes is not None
+                and self._fh.tell() > 0
+                and self._fh.tell() + len(line) > self.max_bytes
+            ):
+                self._rotate_locked()
+            self._fh.write(line)
+            self._fh.flush()
+
+    def log_event(self, event: TrainerEvent) -> None:
+        self.log_record(event.to_record())
+
+    def close(self) -> None:
+        if not self._fh.closed:
+            self._fh.close()

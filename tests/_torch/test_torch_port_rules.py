@@ -33,7 +33,8 @@ from replay_tpu_torch.ops import flash_attention as flash_module
 from replay_tpu_torch.ops import flash_tiled as tiled_module
 from replay_tpu_torch.ops import fused_ce as fused_module
 from replay_tpu_torch.ops.flash_attention import flash_attention
-from replay_tpu_torch.serve import ScoringEngine
+from replay_tpu_torch.models import MIPSIndex
+from replay_tpu_torch.serve import ScoringEngine, ScoringService
 
 REPO = Path(__file__).resolve().parents[2]  # tests/_torch/ -> the repo
 PORT = REPO / "replay_tpu_torch"
@@ -66,6 +67,21 @@ def test_importing_the_port_loads_no_jax():
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120, check=False
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize(
+    "subpackage, modules",
+    [("obs", ("events", "trace")), ("models", ("ann",)), ("serve", ("service", "batcher", "pipeline", "promote"))],
+)
+def test_the_rules_reach_every_subpackage(subpackage, modules):
+    """The walk above and the source scan below cover the service slice's
+    subpackages by name, so that a move cannot drop them silently."""
+    walked = {m.name for m in pkgutil.walk_packages(replay_tpu_torch.__path__, "replay_tpu_torch.")}
+    scanned = {str(p.relative_to(REPO)) for p in _sources()}
+    for module in modules:
+        assert f"replay_tpu_torch.{subpackage}.{module}" in walked
+        assert f"replay_tpu_torch/{subpackage}/{module}.py" in scanned
+    assert f"replay_tpu_torch/{subpackage}/__init__.py" in scanned
 
 
 def test_the_import_rule_scans_the_port_and_chip_smoke():
@@ -109,6 +125,8 @@ def test_entry_points_need_cuda_unless_asked_for_the_cpu(monkeypatch):
         "SasRec": lambda **kw: SasRec(_schema(), embedding_dim=8, num_blocks=1, max_sequence_length=4, **kw),
         "CompiledInference.compile": lambda **kw: CompiledInference.compile(model, params, 4, **kw),
         "ScoringEngine": lambda **kw: ScoringEngine(model, params, **kw),
+        "ScoringService": lambda **kw: ScoringService(model, params, **kw),
+        "MIPSIndex": lambda **kw: MIPSIndex(np.zeros((20, 8), np.float32), **kw),
         "Trainer": lambda **kw: Trainer(model, CE(), **kw),
     }
     for name, call in calls.items():

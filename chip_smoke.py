@@ -5,10 +5,15 @@
 
 Drives the port (``replay_tpu_torch``, never the JAX package) through its
 serving path and its scoring service at the ``bench_serve.py`` width and
-traffic, its training path at the
+traffic, its serialized inference form, its training path at the
 ``bench.py`` width and its long-sequence path (training and serving) at the
 ``bench_suite.py`` ``sasrec_l1024_tiled`` width, and holds every kernel of those
-paths against its plain PyTorch version. Phases, one JSON line each:
+paths against its plain PyTorch version. Serving runs on CUDA graphs (one
+captured graph per bucket, replayed by every encode) and is held bit for bit
+to the eager bound program; training runs per step and, through
+``Trainer.train_steps`` / ``fit(scan_chunk=K)``, as one graph of K steps held
+bit for bit to the per-step path. Kernel launches are counted through graph
+replays. Phases, one JSON line each:
 
 1. ``env``     — the card's name and power limit (``nvidia-smi``), torch and CUDA versions;
 2. ``build``   — compile the kernels from ``replay_tpu_torch/csrc/`` with nvcc for sm_90a,
@@ -31,6 +36,9 @@ paths against its plain PyTorch version. Phases, one JSON line each:
                  gradient at the long-sequence shape;
 4. ``serve``   — ``SasRec(use_flash=True)`` behind ``ScoringEngine`` answering requests,
                  checked against an engine on the same weights with ``use_flash=False``;
+                 every bucket's replay bitwise equal to the eager bound program, across a
+                 ``swap_params``, under per-call params and for held outputs; graph and
+                 eager encode latency, device busy, K4 in the trace = K4 counted;
    ``service`` — the same model behind ``ScoringService`` in retrieval mode (MIPS top-100,
                  logistic re-rank, top-10) under ``bench_serve.py``'s traffic: 512 users
                  seeded cold, a closed loop of 8 threads × 64 requests, Poisson arrivals
@@ -38,10 +46,16 @@ paths against its plain PyTorch version. Phases, one JSON line each:
                  checked against a direct path on the unfused model; the bitwise contract
                  (fill, row position, advance = re-encode); a stale-cache control the
                  check must catch; qps, p50/p99, fill per lane, goodput, device busy share;
+   ``serialize`` — ``CompiledInference.serialize`` → ``deserialize`` in each output mode and
+                 ``export_inference`` → ``import_inference``: bitwise equal to the live
+                 instance, K4 in the loaded program's trace;
 5. ``train``   — ``Trainer(CEFused(), SasRec(use_flash=True))`` against
                  ``Trainer(CE(), SasRec(use_flash=False))`` from the same weights: 20
                  steps with matching losses and kernel launch counts, validation and
                  top-k on held-out windows, then step times, device time and memory;
+                 ``train_steps`` at K=32 and ``fit(scan_chunk=32)`` over 70 batches
+                 (``device_feed`` on and off) bitwise against the per-step path, with
+                 their step time, device busy, launches and memory;
 6. ``longseq`` — ``Trainer(CEFused(), SasRec(use_flash="tiled"), precision="bf16")`` on
                  bench_suite.py's full windows: 20 steps with K5 launched twice a step;
                  the same from the same weights on ``use_flash=False``, and on the tiled
@@ -54,8 +68,10 @@ paths against its plain PyTorch version. Phases, one JSON line each:
                  ``tf32x3``, K1–K3 ``tf32``) against ``Trainer(CE(), ...)`` on the unfused
                  route, 20 steps from the same weights; step times, device time and
                  memory of the four trainers.
-                 ``ScoringEngine`` on the tiled bf16 model, held to the same comparisons
-                 and controls, then encode latency per bucket;
+                 ``train_steps`` / ``fit(scan_chunk=8)`` on the bf16 tiled trainer as in
+                 ``train``; ``ScoringEngine`` on the tiled bf16 model, held to the same
+                 comparisons and controls (the K5 swaps reach the eager program) and to
+                 the graph checks of ``serve``, then encode latency per bucket;
 7. ``kernels`` — every ported kernel with its launches on the paths driven.
 
 Every trainer's device time per step comes from a profiler trace that agrees
@@ -72,6 +88,7 @@ import contextlib
 import functools
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -116,6 +133,9 @@ SERVICE_FILLS = (3, 8, 64)
 # bench.py's training width: batch 512 windows of L=50, the same model
 TRAIN_BATCH = 512
 TRAIN_STEPS, WARMUP_STEPS, TIMED_STEPS, PROFILED_STEPS = 20, 5, 50, 10
+# K steps a dispatch: bench.py's REPLAY_TPU_BENCH_SCAN_K default, and a fit
+# over two chunks and a tail of 6
+SCAN_K, SCAN_BATCHES = 32, 70
 # K1–K3 vs their plain versions, max abs error over max |plain|: f32 products
 # summed in another order, over E = 64 per logit and up to 25,600 rows per dW
 # entry; K1's lse (about 9 at this width) against an absolute 1e-4. A bf16 dh
@@ -159,6 +179,8 @@ FUSED_CASES = (
 LONG_DIM, LONG_BLOCKS, LONG_HEADS, LONG_LEN, LONG_BATCH = 128, 2, 2, 1024, 32
 LONG_LENGTH_BUCKETS, LONG_BATCH_BUCKETS = (256, 1024), (1, 8, 32)
 LONG_STEPS, LONG_WARMUP_STEPS, LONG_TIMED_STEPS, LONG_PROFILED_STEPS = 20, 5, 30, 10
+# K steps a dispatch at the long-sequence width: two chunks and a tail of 3
+LONG_SCAN_K, LONG_SCAN_BATCHES = 8, 19
 # The long-sequence path is checked end to end against the unfused attention
 # route (other formulas: bf16 scores and softmax) and against the same model
 # with K5's forward swapped for its plain version (the same formulas; only
@@ -584,24 +606,146 @@ def tiled_backward_check(device) -> dict:
     return record
 
 
-def device_time_per_encode(engine, length_bucket, ids, mask, calls: int = 20) -> dict:
+def device_time_per_encode(engine, length_bucket, ids, mask, wrapper, blocks: int, calls: int = 20) -> dict:
     """Device time of one encode from a profiler trace: kernel time summed over
-    ``calls`` encodes, per call, and the kernels that take most of it. The
-    profiler's own cost inflates the wall time, so the busy share divides by
-    the unprofiled p50 instead."""
+    ``calls`` encodes (graph replays), per call, and the kernels that take most
+    of it; the attention kernel's launches counted through the replays must
+    equal its kernels in the trace. The profiler's own cost inflates the wall
+    time, so the busy share divides by the unprofiled p50 instead."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    before = wrapper.launches
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             engine.encode(length_bucket, ids, mask)
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     kernels.sort(key=lambda e: -e.self_device_time_total)
+    launched, traced = wrapper.launches - before, traced_kernels(kernels, [wrapper])[wrapper.__name__]
+    if launched != traced or launched != calls * blocks:
+        raise AssertionError(f"{calls} encodes: {wrapper.__name__} counted {launched} launches, the trace holds {traced}")
     return {
         "device_ms": sum(e.self_device_time_total for e in kernels) / calls / 1e3,
         "device_kernels": sum(e.count for e in kernels) / calls,
+        "traced_attention_kernels": traced,
         "top_kernels_ms": {e.key[:60]: e.self_device_time_total / calls / 1e3 for e in kernels[:4]},
     }
+
+
+# each kernel's function name in a profiler trace (the demangled name of its
+# __global__ function, templated or not), by the wrapper that counts it
+TRACE_NAMES = {
+    "flash_attention": r"\battention_forward[<(]",
+    "flash_attention_tiled": r"\btiled_forward(_mma|_tf32x3)?[<(]",
+    "fused_lse_forward": r"\blse_forward(_tf32)?[<(]",
+    "fused_lse_dh": r"\blse_grad_hidden(_tf32)?[<(]",
+    "fused_lse_dw": r"\blse_grad_table(_tf32)?[<(]",
+}
+
+
+def traced_kernels(events, wrappers) -> dict:
+    """Each wrapper's kernels in a profiler trace's device events."""
+    return {
+        fn.__name__: sum(e.count for e in events if re.search(TRACE_NAMES[fn.__name__], e.key)) for fn in wrappers
+    }
+
+
+def eager_encode(engine, length_bucket, ids, mask, params=None):
+    """``engine.encode`` through the eager bound program (``nn/compiled.py::bind``),
+    no graph: the reference a replay is held to, and the program that the K5
+    swaps of the long-sequence comparisons reach. Pads as the engine does."""
+    from replay_tpu_torch.nn.compiled import as_device_tensor, pad_rows
+
+    compiled = engine._encoders[length_bucket]
+    rows, bucket = len(ids), engine.batch_bucket(len(ids))
+    device = engine.device
+    out = compiled._compiled[bucket](
+        engine.params if params is None else params,
+        pad_rows(as_device_tensor(ids, torch.int32, device), bucket),
+        pad_rows(as_device_tensor(mask, torch.bool, device), bucket),
+        engine._candidates_on_device,
+    )
+    if engine.outputs == "both":
+        return out[0][:rows], out[1][:rows]
+    return None, out[:rows]
+
+
+def eager_score_hidden(engine, hidden, params=None):
+    """``engine.score_hidden`` through the eager bound program, no graph."""
+    from replay_tpu_torch.nn.compiled import pad_rows
+
+    rows = hidden.shape[0]
+    padded = pad_rows(hidden, engine.batch_bucket(rows))
+    return engine._hidden_scorer(engine.params if params is None else params, padded, engine._candidates_on_device)[:rows]
+
+
+def bitwise_equal(got, want) -> bool:
+    """Outputs (tensors, or tuples of tensors and ``None``) equal bit for bit."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    return len(got) == len(want) and all(
+        (a is None and b is None) or (a is not None and b is not None and a.dtype == b.dtype and torch.equal(a, b))
+        for a, b in zip(got, want)
+    )
+
+
+def graph_contract(engine, other_params, requests, seq_len) -> dict:
+    """Every bucket of ``engine`` (each length bucket × batch bucket, at a full
+    and a partial fill): the replay bitwise equal to the eager bound program on
+    the same inputs; so too under a per-call ``params=`` (``other_params``),
+    after it with the installed set, after a ``swap_params`` to the other set
+    and after swapping back, and for two calls whose outputs are both held
+    until the end; the hit lane's graphs on the returned states likewise.
+    Raises on the first mismatch; returns the comparisons made."""
+    from replay_tpu_torch.serve import make_window
+
+    installed, checked = engine.params, 0
+
+    def check(label, got, want):
+        nonlocal checked
+        checked += 1
+        if not bitwise_equal(got, want):
+            raise AssertionError(f"graph replay differs from the eager program: {label}")
+
+    held = []
+    for lb in engine.length_buckets:
+        for bucket in engine.batch_buckets:
+            for fill in sorted({bucket, max(1, bucket - 3)}):
+                windows = [make_window(requests[(bucket + i) % len(requests)], lb) for i in range(fill)]
+                ids, mask = np.stack([w[0] for w in windows]), np.stack([w[1] for w in windows])
+                label = f"L={lb} B={bucket} fill={fill}"
+                got = engine.encode(lb, ids, mask)
+                check(label, got, eager_encode(engine, lb, ids, mask))
+                held.append((label, got, ids, mask))
+                check(label + " params=", engine.encode(lb, ids, mask, params=other_params),
+                      eager_encode(engine, lb, ids, mask, params=other_params))
+                check(label + " after params=", engine.encode(lb, ids, mask), got)
+                if engine.outputs == "both":
+                    hidden = got[1]
+                    check(label + " hit lane", engine.score_hidden(hidden), eager_score_hidden(engine, hidden))
+                    check(label + " hit lane params=", engine.score_hidden(hidden, params=other_params),
+                          eager_score_hidden(engine, hidden, params=other_params))
+    engine.swap_params(other_params)
+    for label, _, ids, mask in held[:: max(1, len(held) // 4)]:
+        lb = ids.shape[1]
+        check(label + " swapped", engine.encode(lb, ids, mask), eager_encode(engine, lb, ids, mask))
+    engine.swap_params(installed)
+    for label, got, ids, mask in held:  # every output held since its call, checked again now
+        lb = ids.shape[1]
+        check(label + " held", got, eager_encode(engine, lb, ids, mask))
+        check(label + " swapped back", engine.encode(lb, ids, mask), got)
+    return {"comparisons": checked, "buckets": len(engine.length_buckets) * len(engine.batch_buckets)}
+
+
+def encode_latency(call, calls: int, skip: int) -> dict:
+    """Host-clock p50/p99 of ``call()``, which synchronises, after ``skip`` warm calls."""
+    times = []
+    for _ in range(calls + skip):
+        t0 = time.perf_counter()
+        call()
+        times.append((time.perf_counter() - t0) * 1e3)
+    times = sorted(times[skip:])
+    return {"p50_ms": times[len(times) // 2], "p99_ms": times[min(len(times) - 1, math.ceil(0.99 * len(times)) - 1)]}
 
 
 def histories(rng, count: int):
@@ -629,6 +773,8 @@ def serve_phase(device) -> dict:
     model = SasRec(schema, use_flash=True, generator=torch.Generator().manual_seed(SEED), **width)
     plain_model = SasRec(schema, use_flash=False, **width)
     params = model.state_dict()
+    # a second parameter set of the same shapes: the swaps and per-call params
+    other = SasRec(schema, use_flash=True, generator=torch.Generator().manual_seed(SEED + 1), **width).state_dict()
     buckets = dict(length_buckets=LENGTH_BUCKETS, batch_buckets=BATCH_BUCKETS, device=device)
     engine = ScoringEngine(model, params, **buckets)
     plain = ScoringEngine(plain_model, params, **buckets)
@@ -702,39 +848,56 @@ def serve_phase(device) -> dict:
     if no_logits is not None or slate_err > 1e-5 or hidden_err > 1e-5:
         raise AssertionError(f"slate err {slate_err}, retrieval hidden err {hidden_err}")
 
-    # latency per (length, batch) bucket: host clock around encode, which
-    # synchronises with the device before it returns
-    latency = {}
+    # latency per (length, batch) bucket: host clock around encode (a graph
+    # replay), which synchronises with the device before it returns
+    latency, inputs = {}, {}
     for lb in LENGTH_BUCKETS:
         for bucket in BATCH_BUCKETS:
             windows = [make_window(requests[i % len(requests)], lb) for i in range(bucket)]
             ids = np.stack([w[0] for w in windows])
             mask = np.stack([w[1] for w in windows])
-            times = []
-            for _ in range(110):
-                t0 = time.perf_counter()
-                engine.encode(lb, ids, mask)
-                times.append((time.perf_counter() - t0) * 1e3)
-            times = sorted(times[10:])
+            inputs[lb, bucket] = ids, mask
             record = {
-                "p50_ms": times[len(times) // 2],
-                "p99_ms": times[min(len(times) - 1, math.ceil(0.99 * len(times)) - 1)],
-                **device_time_per_encode(engine, lb, ids, mask),
+                **encode_latency(lambda: engine.encode(lb, ids, mask), 100, 10),
+                **device_time_per_encode(engine, lb, ids, mask, flash_attention, model.num_blocks),
             }
             record["device_busy_share"] = record["device_ms"] / record["p50_ms"]
             latency[f"L={lb},B={bucket}"] = record
 
     launches = flash_attention.launches
     encode_calls = sum(e.stats()["encode_calls"] for e in flash_engines)
-    # (a) every encode ran K4 once per block, and nothing else launched it
-    if launches != model.num_blocks * encode_calls:
-        raise AssertionError(f"K4 launches {launches} != {model.num_blocks} x {encode_calls} encode calls")
+    replays = sum(e.graph_counts()["encode"]["replays"] for e in flash_engines)
+    # (a) every encode was one replay, which ran K4 once per block, and
+    # nothing else launched it
+    if launches != model.num_blocks * encode_calls or replays != encode_calls:
+        raise AssertionError(
+            f"K4 launches {launches} != {model.num_blocks} x {encode_calls} encode calls, or {replays} replays"
+        )
+
+    # the graphs against the eager bound program, every bucket and output mode
+    # (these and the eager timings below are comparisons, after the count)
+    contract = {
+        name: graph_contract(e, other, requests, SEQ_LEN)
+        for name, e in (("both", engine), ("slate", slate_engine), ("hidden", hidden_engine))
+    }
+    for lb, bucket in inputs:
+        ids, mask = inputs[lb, bucket]
+
+        def eager():
+            eager_encode(engine, lb, ids, mask)
+            torch.cuda.synchronize()
+
+        latency[f"L={lb},B={bucket}"]["eager"] = encode_latency(eager, 100, 10)
     emit(
-        "serve", requests=len(requests), encode_calls=encode_calls, k4_launches=launches,
+        "serve", requests=len(requests), encode_calls=encode_calls, k4_launches=launches, replays=replays,
+        graphs={name: e.graph_counts() for name, e in (("both", engine), ("slate", slate_engine), ("hidden", hidden_engine))},
+        graph_contract=contract,
         max_abs_err_vs_unfused=max_err, tol=SERVE_TOL, top10_ranks_checked=top_checked,
         slate_err=slate_err, retrieval_hidden_err=hidden_err, stats=engine.stats(),
         latency_ms=latency,
     )
+    for e in (engine, plain, slate_engine, hidden_engine):
+        e.close()
     return {"launches": launches}
 
 
@@ -1134,8 +1297,16 @@ def service_phase(device) -> dict:
     with control_service:
         control = stale_cache_control(control_service, histories, plain, item_table, rerank)
     phase_calls = encode_calls + bitwise_service.engine.encode_calls + control_service.engine.encode_calls
-    if flash_attention.launches != model.num_blocks * phase_calls:
-        raise AssertionError(f"K4 ran {flash_attention.launches} times in the phase, not {model.num_blocks} x {phase_calls}")
+    # the two later services were built inside the window: their captures'
+    # warm-up runs launched K4 too, once per block each
+    warmups = sum(svc.engine.graph_counts()["encode"]["warmups"] for svc in (bitwise_service, control_service))
+    if flash_attention.launches != model.num_blocks * (phase_calls + warmups):
+        raise AssertionError(
+            f"K4 ran {flash_attention.launches} times in the phase, not {model.num_blocks} x ({phase_calls} + {warmups})"
+        )
+    graphs = service.engine.graph_counts()
+    if graphs["encode"]["replays"] != encode_calls:
+        raise AssertionError(f"service: {graphs['encode']['replays']} replays for {encode_calls} encode batches")
     # the serve worker's thread had a cuBLAS handle of its own, and cuBLAS
     # keeps a workspace (32 MiB on the H100) per handle and stream: free it,
     # so that the memory the later phases read is theirs
@@ -1164,7 +1335,106 @@ def service_phase(device) -> dict:
         profiled_second={k: profiled[k] for k in ("device_ms_per_s", "device_busy_share", "traced_k4_kernels", "top_device_ms")}
         | {"requests": len(profiled["records"])},
         rerank_weights=rerank.tolist(), allocated_left_by_the_phase_bytes=left_allocated, stats=stats,
+        graphs=graphs,
     )
+    return {"launches": launches}
+
+
+def serialize_phase(device) -> dict:
+    """The serialized form at the bench_serve.py width on K4:
+    ``CompiledInference.serialize`` → ``deserialize`` in each output mode (and
+    with a candidate slate), every bucket's replay bitwise equal to the live
+    instance's at a full and a partial fill; the loaded program's trace holds
+    K4 (its ``replay_tpu_torch::`` operator launches the kernel), as many as
+    counted; then ``export_inference`` → ``import_inference`` against the live
+    one-bucket instance. Returns K4's launches in the phase."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from replay_tpu_torch.data import FeatureHint, FeatureType
+    from replay_tpu_torch.data.nn import TensorFeatureInfo, TensorSchema
+    from replay_tpu_torch.nn.compiled import CompiledInference, export_inference, import_inference
+    from replay_tpu_torch.nn.sequential.sasrec import SasRec
+    from replay_tpu_torch.ops.flash_attention import flash_attention
+    from replay_tpu_torch.serve import make_window
+
+    schema = TensorSchema(
+        TensorFeatureInfo(
+            "item_id", FeatureType.CATEGORICAL, is_seq=True, feature_hint=FeatureHint.ITEM_ID,
+            cardinality=NUM_ITEMS, embedding_dim=EMBEDDING_DIM,
+        )
+    )
+    model = SasRec(
+        schema, embedding_dim=EMBEDDING_DIM, num_blocks=NUM_BLOCKS, num_heads=NUM_HEADS, max_sequence_length=SEQ_LEN,
+        use_flash=True, generator=torch.Generator().manual_seed(SEED), device=device,
+    )
+    params = model.state_dict()
+    rng = np.random.default_rng(SEED + 2)
+    requests = histories(rng, 80)
+    slate = np.sort(rng.choice(NUM_ITEMS, 100, replace=False)).astype(np.int32)
+
+    def windows(rows, offset=0):
+        made = [make_window(requests[(offset + i) % len(requests)], SEQ_LEN) for i in range(rows)]
+        return np.stack([w[0] for w in made]), np.stack([w[1] for w in made])
+
+    def traced(call):
+        """K4 launches counted and K4 kernels in a trace, over one ``call()``."""
+        before = flash_attention.launches
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        return flash_attention.launches - before, traced_kernels(events, [flash_attention])["flash_attention"]
+
+    reset_counts(flash_attention)
+    records = {}
+    for outputs, candidates in (("logits", None), ("hidden", None), ("both", None), ("both", slate)):
+        label = outputs + ("+slate" if candidates is not None else "")
+        live = CompiledInference.compile(
+            model, params, SEQ_LEN, mode="dynamic_batch_size", dynamic_buckets=BATCH_BUCKETS, outputs=outputs,
+            candidates_count=None if candidates is None else len(candidates), device=device,
+        )
+        t0 = time.perf_counter()
+        payload = live.serialize()
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        served = CompiledInference.deserialize(payload, device=device)
+        load_s = time.perf_counter() - t0
+        if b"replay_tpu_torch.flash_attention_forward" not in payload:
+            raise AssertionError(f"serialize {label}: the payload's programs do not hold K4's operator")
+        kwargs = {} if candidates is None else {"candidates": candidates}
+        compared = 0
+        for bucket in BATCH_BUCKETS:
+            for fill in sorted({bucket, max(1, bucket - 3)}):
+                ids, mask = windows(fill, bucket)
+                if not bitwise_equal(served(ids, mask, **kwargs), live(ids, mask, **kwargs)):
+                    raise AssertionError(f"serialize {label}: bucket {bucket} fill {fill} differs from the live instance")
+                compared += 1
+        ids, mask = windows(max(BATCH_BUCKETS))
+        launched, in_trace = traced(lambda: served(ids, mask, **kwargs))
+        if launched != NUM_BLOCKS or in_trace != launched:
+            raise AssertionError(f"serialize {label}: one replay counted {launched} K4 launches, the trace {in_trace}")
+        records[label] = {
+            "bytes": len(payload), "serialize_s": export_s, "deserialize_and_capture_s": load_s,
+            "compared": compared, "traced_k4": in_trace, "graphs": len(served.graphs.keys),
+        }
+        live.close()
+        served.close()
+
+    batch = max(BATCH_BUCKETS)
+    payload = export_inference(model, params, SEQ_LEN, batch, device=device)
+    imported = import_inference(payload, device=device)
+    live = CompiledInference.compile(model, params, SEQ_LEN, batch_size=batch, device=device)
+    ids, mask = windows(batch, 7)
+    if not bitwise_equal(imported(ids, mask), live(ids, mask)):
+        raise AssertionError("import_inference differs from the live instance")
+    launched, in_trace = traced(lambda: imported(ids, mask))
+    if launched != NUM_BLOCKS or in_trace != launched:
+        raise AssertionError(f"import_inference: {launched} K4 launches counted, {in_trace} in the trace")
+    live.close()
+    records["export_inference"] = {"bytes": len(payload), "traced_k4": in_trace}
+    launches = flash_attention.launches
+    emit("serialize", k4_launches=launches, outputs=records)
     return {"launches": launches}
 
 
@@ -1318,10 +1588,10 @@ def flash_backward_check(device) -> dict:
     return record
 
 
-def next_item_batch(batch: int, length: int):
-    """Full next-item windows from default_rng(0), as bench.py:222-230 and
-    bench_suite.py:211-223 (``sasrec_batch``) build them: no padding."""
-    rng = np.random.default_rng(0)
+def next_item_batch(batch: int, length: int, seed: int = 0):
+    """Full next-item windows from default_rng(seed), as bench.py:222-230 and
+    bench_suite.py:211-223 (``sasrec_batch``) build them (seed 0): no padding."""
+    rng = np.random.default_rng(seed)
     items = rng.integers(0, NUM_ITEMS, size=(batch, length + 1)).astype(np.int32)
     mask = np.ones((batch, length), dtype=bool)
     return {
@@ -1370,27 +1640,55 @@ def step_times(trainer, state, batch, steps: int):
 # the run fails with every reading. The batch's host-to-device copies are
 # timed but not counted: their number varies between traces of the same
 # steps (400 and 399 for 10 steps of the bf16 long-sequence trainer on an
-# H100, beside 5,390 kernels in both).
+# H100, beside 5,390 kernels in both). A trace that starts cold also missed
+# one kernel of the window in every trace (429 of the bf16 step's 430 bf16
+# casts in 10 steps, three traces in a row, on an H100, after this script's
+# CUDA graph phases): each trace runs one more step first as the profiler's
+# warm-up cycle, whose events the profiler drops, and reads the window after it.
 TRACES_AT_MOST = 3
 COPY_EVENTS = ("Memcpy", "Memset")
+
+
+def device_events(events) -> list:
+    """A trace's kernels and copies: its device events with device time, less
+    the profiler's own ``ProfilerStep`` range."""
+    from torch.autograd import DeviceType
+
+    return [
+        e for e in events
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0 and not e.key.startswith("ProfilerStep")
+    ]
+
+
+@contextlib.contextmanager
+def profiled_window(primer):
+    """A profiler whose recording starts warm: ``primer()`` runs as its warm-up
+    cycle (traced, then dropped), and the block's work is the one active cycle
+    that ``key_averages()`` reads. Yields the profiler."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    plan = schedule(wait=0, warmup=1, active=1, repeat=1)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], schedule=plan) as prof:
+        primer()
+        torch.cuda.synchronize()
+        prof.step()
+        yield prof
+        torch.cuda.synchronize()
+        prof.step()
 
 
 def traced_steps(trainer, state, batch, steps: int):
     """One profiler trace of ``steps`` steps, between two CUDA events: the
     kernels and copies it holds, their summed device time and the events'
     time, and the profiler's averages and device events."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiled_window(lambda: trainer.train_step(state, batch)) as prof:
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         for _ in range(steps):
             state, _ = trainer.train_step(state, batch)
         end.record()
-        torch.cuda.synchronize()
     events = prof.key_averages()
-    device = [e for e in events if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    device = device_events(events)
     copies = [e for e in device if e.key.startswith(COPY_EVENTS)]
     reading = {
         "kernels": sum(e.count for e in device) - sum(e.count for e in copies),
@@ -1411,6 +1709,8 @@ def device_time_per_step(trainer, state, batch, steps: int) -> dict:
     readings, sound_counts = [], []
     for _ in range(TRACES_AT_MOST):
         state, reading, events, kernels = traced_steps(trainer, state, batch, steps)
+        # the kernels whose count is not a whole number per step, for the failure report
+        reading["uneven"] = {e.key[:80]: e.count for e in kernels if e.count % steps}
         readings.append(reading)
         if reading["kernels"] % steps or reading["device_ms"] > reading["event_ms"]:
             continue
@@ -1452,6 +1752,156 @@ def trainer_perf(trainer, state, batch, steps: int, warmup: int, profiled: int, 
     state, device_record = device_time_per_step(trainer, state, batch, profiled)
     record.update(device_record, device_busy_share=device_record["device_ms"] / p50)
     return state, record
+
+
+def traced_chunks(trainer, state, chunk, repeats: int, counters):
+    """One profiler trace of ``repeats`` ``train_steps`` calls on ``chunk``
+    (each one graph replay, after the stacking and the copy to the card),
+    between two CUDA events: kernels and copies, device time, each counter's
+    kernels in the trace and its launches counted through the replays."""
+    with profiled_window(lambda: trainer.train_steps(state, chunk)) as prof:
+        before = {fn.__name__: fn.launches for fn in counters}
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(repeats):
+            state, _ = trainer.train_steps(state, chunk)
+        end.record()
+    device = device_events(prof.key_averages())
+    copies = [e for e in device if e.key.startswith(COPY_EVENTS)]
+    kernels = [e for e in device if not e.key.startswith(COPY_EVENTS)]
+    reading = {
+        "kernels": sum(e.count for e in kernels),
+        "copies": sum(e.count for e in copies),
+        "device_ms": sum(e.self_device_time_total for e in device) / 1e3,
+        "event_ms": start.elapsed_time(end),
+        "traced": traced_kernels(kernels, counters),
+        "launched": {fn.__name__: fn.launches - before[fn.__name__] for fn in counters},
+    }
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    reading["top_kernels_ms"] = {e.key[:60]: e.self_device_time_total / 1e3 for e in kernels[:6]}
+    return state, reading
+
+
+def chunk_checks(trainer, initial, batches, chunk: int, counters, per_step: dict, tokens: int) -> dict:
+    """``Trainer.train_steps`` (K = ``chunk`` steps, one CUDA graph) and
+    ``fit(scan_chunk=K)`` against the per-step path, from ``initial``.
+
+    The per-step path runs twice first: where the two runs are bitwise equal,
+    the graph's ``[K]`` losses and final parameters, and the chunked fit's
+    parameters and history (``device_feed`` on and off), must be bitwise equal
+    to them; where not, within the two runs' spread. Launches: each counter
+    once per step times ``per_step[name]``, for the K replayed steps and the
+    capture's one eager warm-up step. Then time and memory: ``train_steps``
+    calls and a whole ``fit`` on a captured state against the per-step
+    ``fit``, and two profiler traces of replays that must agree with each
+    other and with the launch counts."""
+    device = trainer.device
+    steps = batches[:chunk]
+
+    def per_step_run():
+        state = trainer.init_state(steps[0], params=initial)
+        losses = torch.stack([trainer.train_step(state, b)[1] for b in steps])
+        torch.cuda.synchronize()
+        return losses, state.flat_params.clone()
+
+    (losses_a, params_a), (losses_b, params_b) = per_step_run(), per_step_run()
+    deterministic = torch.equal(losses_a, losses_b) and torch.equal(params_a, params_b)
+    spread = {"loss": (losses_a - losses_b).abs().max().item(), "params": (params_a - params_b).abs().max().item()}
+
+    reset_counts(*counters)
+    warmups = trainer.capture_warmups
+    state = trainer.init_state(steps[0], params=initial)
+    state, graph_losses = trainer.train_steps(state, steps)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counters}
+    variants = {fn.__name__: variant_counts(fn) for fn in counters if hasattr(fn, "launches_by_variant")}
+    warmups = trainer.capture_warmups - warmups
+    expected = {name: per_step[name] * (chunk + warmups) for name in launches}
+    if launches != expected or warmups != 1:
+        raise AssertionError(f"train_steps K={chunk}: launches {launches}, expected {expected} ({warmups} warm-ups)")
+    graph_losses = torch.as_tensor(graph_losses, device=device)
+    graph_spread = {
+        "loss": (graph_losses - losses_a).abs().max().item(),
+        "params": (state.flat_params - params_a).abs().max().item(),
+    }
+    held = (
+        torch.equal(graph_losses, losses_a) and torch.equal(state.flat_params, params_a)
+        if deterministic else all(graph_spread[key] <= spread[key] for key in spread)
+    )
+    if not held or int(state.bad_steps):
+        raise AssertionError(f"train_steps K={chunk} vs the per-step path: {graph_spread} (per-step spread {spread})")
+
+    def fit_run(**kwargs):
+        run_state = trainer.init_state(batches[0], params=initial)
+        trainer.history = []
+        run_state = trainer.fit(batches, state=run_state, log_every=0, **kwargs)
+        torch.cuda.synchronize()
+        return run_state.flat_params.clone(), [dict(r) for r in trainer.history], run_state.step
+
+    fits = {
+        "per_step": fit_run(), "per_step_again": fit_run(),
+        "device_feed": fit_run(scan_chunk=chunk, device_feed=True),
+        "device_feed_off": fit_run(scan_chunk=chunk, device_feed=False),
+    }
+    reference = fits["per_step"]
+    fit_deterministic = torch.equal(reference[0], fits["per_step_again"][0])
+    fit_spread = (reference[0] - fits["per_step_again"][0]).abs().max().item()
+    fit_readings = {}
+    for name in ("device_feed", "device_feed_off"):
+        params, history, step = fits[name]
+        err = (params - reference[0]).abs().max().item()
+        fit_readings[name] = {"params_max_abs_diff": err, "history_equal": history == reference[1], "step": step}
+        sound = (err == 0 and history == reference[1]) if fit_deterministic else err <= fit_spread
+        if not sound or step != len(batches):
+            raise AssertionError(f"fit(scan_chunk={chunk}, {name}) vs fit(): {fit_readings[name]}, spread {fit_spread}")
+
+    # time and memory on a captured state: the train_steps calls (stack, copy
+    # to the card, one replay, the losses back), then whole fits
+    torch.cuda.reset_peak_memory_stats(device)
+    at_start = torch.cuda.memory_allocated(device)
+    state = trainer.init_state(steps[0], params=initial)
+    state, _ = trainer.train_steps(state, steps)  # the capture
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        state, _ = trainer.train_steps(state, steps)
+        times.append((time.perf_counter() - t0) * 1e3 / chunk)
+    peak = torch.cuda.max_memory_allocated(device)
+    per_step_ms = statistics.median(times)
+    fit_ms = {}
+    for name, kwargs in (("per_step", {}), ("chunked", dict(scan_chunk=chunk, device_feed=True))):
+        run_state = trainer.init_state(batches[0], params=initial)
+        run_state = trainer.fit(batches[:chunk], state=run_state, log_every=0, **kwargs)  # warm, captured
+        t0 = time.perf_counter()
+        trainer.fit(batches, state=run_state, log_every=0, **kwargs)
+        torch.cuda.synchronize()
+        fit_ms[name] = (time.perf_counter() - t0) * 1e3 / len(batches)
+    readings = []
+    for _ in range(TRACES_AT_MOST):
+        state, reading = traced_chunks(trainer, state, steps, 2, counters)
+        readings.append(reading)
+        sound = reading["traced"] == reading["launched"] and reading["device_ms"] <= reading["event_ms"]
+        if sound and len(readings) > 1 and readings[-2]["kernels"] == reading["kernels"]:
+            break
+    else:
+        raise AssertionError(f"no two profiler traces of K={chunk} replays agree with the counts: {readings}")
+    device_ms = reading["device_ms"] / (2 * chunk)
+    return {
+        "chunk": chunk, "per_step_bitwise_deterministic": deterministic, "per_step_spread": spread,
+        "graph_vs_per_step": graph_spread, "graph_losses": graph_losses.tolist(), "launches": launches,
+        "variants": variants,
+        "capture_warmup_steps": warmups, "fit_batches": len(batches), "fit_bitwise_deterministic": fit_deterministic,
+        "fit": fit_readings,
+        "perf": {
+            "train_steps_ms_per_step": per_step_ms, "tokens_per_s": tokens / (per_step_ms / 1e3),
+            "fit_ms_per_step": fit_ms, "fit_tokens_per_s": {k: tokens / (v / 1e3) for k, v in fit_ms.items()},
+            "device_ms_per_step": device_ms, "device_busy_share": device_ms / per_step_ms,
+            "kernels_per_step": reading["kernels"] / (2 * chunk), "copies_per_step": reading["copies"] / (2 * chunk),
+            "traced_kernels": reading["traced"], "launched": reading["launched"], "traces": len(readings),
+            "top_kernels_ms_per_step": {k: v / (2 * chunk) for k, v in reading["top_kernels_ms"].items()},
+            "max_memory_allocated_bytes": peak, "memory_allocated_at_start_bytes": at_start,
+        },
+    }
 
 
 def loss_gradient(model, loss, batch, device) -> torch.Tensor:
@@ -1499,6 +1949,7 @@ def train_phase(device) -> dict:
     plain = Trainer(SasRec(schema, use_flash=False, **width), CE(), optimizer=optimizer, device=device)
     batch = next_item_batch(TRAIN_BATCH, SEQ_LEN)
     fused_state = fused.init_state(batch)
+    initial = {name: value.detach().clone() for name, value in fused_model.state_dict().items()}
     plain_state = plain.init_state(batch, params=fused_model.state_dict())
     counters = (fc.fused_lse_forward, fc.fused_lse_dh, fc.fused_lse_dw, flash_attention)
 
@@ -1596,6 +2047,15 @@ def train_phase(device) -> dict:
             trainer, state, batch, TIMED_STEPS, WARMUP_STEPS, PROFILED_STEPS,
             TRAIN_BATCH * SEQ_LEN,
         )
+    # K steps a dispatch: train_steps at bench.py's REPLAY_TPU_BENCH_SCAN_K and
+    # fit(scan_chunk) over two chunks and a tail, from the fused trainer's
+    # initial weights, against its per-step path
+    batches = [next_item_batch(TRAIN_BATCH, SEQ_LEN, seed) for seed in range(1, SCAN_BATCHES + 1)]
+    per_step = {"flash_attention": NUM_BLOCKS, "fused_lse_forward": 1, "fused_lse_dh": 1, "fused_lse_dw": 1}
+    chunked = chunk_checks(fused, initial, batches, SCAN_K, counters, per_step, TRAIN_BATCH * SEQ_LEN)
+    check_fused_variants(
+        "training on a graph", {k: v for k, v in chunked["variants"].items() if k.startswith("fused")}, SCAN_K + 1
+    )
     emit(
         "train", batch=TRAIN_BATCH, seq_len=SEQ_LEN, items=NUM_ITEMS, embedding_dim=EMBEDDING_DIM,
         blocks=NUM_BLOCKS, steps=TRAIN_STEPS, launches=launches, fused_ce_variants=fused_variants, fused_losses=fused_losses,
@@ -1603,9 +2063,9 @@ def train_phase(device) -> dict:
         fused_metrics=fused_metrics, plain_metrics=plain_metrics, metric_max_abs_err=metric_err,
         metric_tol=metric_tol, logits_max_abs_err=logits_err, top10_ranks_checked=int(pinned.sum()),
         param_max_abs_err=worst_params, grad_rel_err=grad_err, grad_tol=TRAIN_GRAD_RTOL,
-        perf=perf,
+        perf=perf, chunked=chunked,
     )
-    return launches
+    return {**launches, "graph": chunked["launches"]}
 
 
 def pinned_top10(got: torch.Tensor, want: torch.Tensor, tol: float) -> int:
@@ -1869,11 +2329,29 @@ def longseq_phase(device) -> dict:
             trainer, state, batch, LONG_TIMED_STEPS, LONG_WARMUP_STEPS, LONG_PROFILED_STEPS, LONG_BATCH * LONG_LEN
         )
 
+    # K steps a dispatch on the bf16 tiled trainer: train_steps and
+    # fit(scan_chunk) over two chunks and a tail, against its per-step path
+    batches = [next_item_batch(LONG_BATCH, LONG_LEN, seed) for seed in range(1, LONG_SCAN_BATCHES + 1)]
+    per_step = {
+        "flash_attention_tiled": LONG_BLOCKS, "fused_lse_forward": 1, "fused_lse_dh": 1, "fused_lse_dw": 1,
+        "flash_attention": 0,
+    }
+    chunked = chunk_checks(tiled, initial, batches, LONG_SCAN_K, counters, per_step, LONG_BATCH * LONG_LEN)
+    graph_steps = LONG_SCAN_K + chunked["capture_warmup_steps"]
+    if chunked["variants"]["flash_attention_tiled"] != {"mma": LONG_BLOCKS * graph_steps, "tf32x3": 0, "simt": 0}:
+        raise AssertionError(f"bf16 training on a graph ran K5's variants {chunked['variants']}, not mma only")
+    check_fused_variants(
+        "bf16 training on a graph", {k: v for k, v in chunked["variants"].items() if k.startswith("fused")}, graph_steps
+    )
+
     # serving: the tiled bf16 model behind ScoringEngine; the comparisons run
     # on engines of their own, so that the main engine's encodes are its own
     served = SasRec(schema, use_flash="tiled", dtype=torch.bfloat16, generator=torch.Generator().manual_seed(SEED), **width)
     unfused_served = SasRec(schema, use_flash=False, dtype=torch.bfloat16, **width)
     params = served.state_dict()
+    other = SasRec(
+        schema, use_flash="tiled", dtype=torch.bfloat16, generator=torch.Generator().manual_seed(SEED + 1), **width
+    ).state_dict()
     buckets = dict(length_buckets=LONG_LENGTH_BUCKETS, batch_buckets=LONG_BATCH_BUCKETS, device=device)
     engine = ScoringEngine(served, params, **buckets)
     check_engine = ScoringEngine(served, params, **buckets)
@@ -1911,9 +2389,9 @@ def longseq_phase(device) -> dict:
             for name, forward, _ in LONGSEQ_COMPARISONS:
                 if forward is None:
                     want, _ = unfused.encode(lb, ids, mask)
-                else:
+                else:  # the eager program: a graph replay would not see the swap
                     with k5_forward(forward):
-                        want, _ = check_engine.encode(lb, ids, mask)
+                        want, _ = eager_encode(check_engine, lb, ids, mask)
                 diff = (logits - want).abs()
                 serve_max[name] = max(serve_max[name], diff.max().item())
                 serve_sum[name] += diff.sum().item()
@@ -1927,32 +2405,41 @@ def longseq_phase(device) -> dict:
     check_readings("serving logits, mean", serve_mean, LONGSEQ_SERVE_MEAN_TOL, ("k5_plain",), FAULTS)
     check_readings("serving logits, largest", serve_max, LONGSEQ_SERVE_MAX_TOL, ("unfused",), ())
 
-    latency = {}
+    latency, inputs = {}, {}
     for lb in LONG_LENGTH_BUCKETS:
         for bucket in LONG_BATCH_BUCKETS:
             windows = [make_window(requests[i % len(requests)], lb) for i in range(bucket)]
             ids = np.stack([w[0] for w in windows])
             mask = np.stack([w[1] for w in windows])
-            times = []
-            for _ in range(35):
-                t0 = time.perf_counter()
-                engine.encode(lb, ids, mask)
-                times.append((time.perf_counter() - t0) * 1e3)
-            times = sorted(times[5:])
+            inputs[lb, bucket] = ids, mask
             record = {
-                "p50_ms": times[len(times) // 2],
-                "p99_ms": times[min(len(times) - 1, math.ceil(0.99 * len(times)) - 1)],
-                **device_time_per_encode(engine, lb, ids, mask, calls=10),
+                **encode_latency(lambda: engine.encode(lb, ids, mask), 30, 5),
+                **device_time_per_encode(engine, lb, ids, mask, flash_attention_tiled, LONG_BLOCKS, calls=10),
             }
             record["device_busy_share"] = record["device_ms"] / record["p50_ms"]
             latency[f"L={lb},B={bucket}"] = record
     serve_launches = flash_attention_tiled.launches
     serve_variants = variant_counts(flash_attention_tiled)
     encode_calls = engine.stats()["encode_calls"]
-    if serve_launches != LONG_BLOCKS * encode_calls:
-        raise AssertionError(f"K5 serving launches {serve_launches} != {LONG_BLOCKS} x {encode_calls} encode calls")
+    replays = engine.graph_counts()["encode"]["replays"]
+    if serve_launches != LONG_BLOCKS * encode_calls or replays != encode_calls:
+        raise AssertionError(
+            f"K5 serving launches {serve_launches} != {LONG_BLOCKS} x {encode_calls} encode calls, or {replays} replays"
+        )
     if serve_variants != {"mma": serve_launches, "tf32x3": 0, "simt": 0}:
         raise AssertionError(f"bf16 serving ran K5's variants {serve_variants}, not mma only")
+    # the graphs against the eager bound program (comparisons, after the count)
+    contract = graph_contract(engine, other, requests, LONG_LEN)
+    for lb, bucket in inputs:
+        ids, mask = inputs[lb, bucket]
+
+        def eager():
+            eager_encode(engine, lb, ids, mask)
+            torch.cuda.synchronize()
+
+        latency[f"L={lb},B={bucket}"]["eager"] = encode_latency(eager, 30, 5)
+    for e in (engine, check_engine, unfused):
+        e.close()
     emit(
         "longseq", batch=LONG_BATCH, seq_len=LONG_LEN, items=NUM_ITEMS, embedding_dim=LONG_DIM,
         blocks=LONG_BLOCKS, heads=LONG_HEADS, precision=tiled.precision.describe(), steps=LONG_STEPS,
@@ -1969,9 +2456,13 @@ def longseq_phase(device) -> dict:
         serve_k5_variants=serve_variants,
         serve_logits_mean_abs_err=serve_mean, serve_mean_limit=LONGSEQ_SERVE_MEAN_TOL,
         serve_logits_max_abs_err=serve_max, serve_max_limit=LONGSEQ_SERVE_MAX_TOL, top10_ranks_checked=top_checked,
-        serve_stats=engine.stats(), serve_latency_ms=latency,
+        serve_stats=engine.stats(), serve_latency_ms=latency, serve_replays=replays,
+        serve_graphs=engine.graph_counts(), serve_graph_contract=contract, chunked=chunked,
     )
-    return {"train": train_launches, "serve": serve_launches, "f32": f32_launches, "f32_train": f32_train_launches}
+    return {
+        "train": train_launches, "serve": serve_launches, "f32": f32_launches, "f32_train": f32_train_launches,
+        "graph": chunked["launches"],
+    }
 
 
 def main() -> int:
@@ -1999,10 +2490,11 @@ def main() -> int:
     tiled_backward_check(device)
     served = serve_phase(device)
     serviced = service_phase(device)
+    serialized = serialize_phase(device)
     trained = train_phase(device)
     longseq = longseq_phase(device)
 
-    kernels = kernel_records(k4, fused, tiled_records, served, serviced, trained, longseq)
+    kernels = kernel_records(k4, fused, tiled_records, served, serviced, serialized, trained, longseq)
     emit("kernels", kernels=[{k: r[k] for k in ("name", "launches", "passed")} for r in kernels])
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -2011,20 +2503,23 @@ def main() -> int:
     return 0
 
 
-def kernel_records(k4, fused, tiled_records, served, serviced, trained, longseq) -> list:
+def kernel_records(k4, fused, tiled_records, served, serviced, serialized, trained, longseq) -> list:
     """The kernels line: every kernel of the paths driven, one entry per
-    instantiation a path runs, with its launches there; raises if one of them
-    launched no time."""
+    instantiation a path runs, with its launches there (counted through graph
+    replays: the serving paths and ``*_graph`` run on captured graphs); raises
+    if one of them launched no time."""
+    k4_paths = {
+        "serve": served["launches"], "service": serviced["launches"], "serialize": serialized["launches"],
+        "train": trained["flash_attention"], "train_graph": trained["graph"]["flash_attention"],
+    }
     kernels = [
         {
             "name": "flash_attention",
             "route": "cuda",
             "source": "replay_tpu_torch/csrc/flash_attention.cu",
             "replaces": "replay_tpu/ops/flash_attention.py:32",
-            "launches": served["launches"] + serviced["launches"] + trained["flash_attention"],
-            "launches_by_path": {
-                "serve": served["launches"], "service": serviced["launches"], "train": trained["flash_attention"],
-            },
+            "launches": sum(k4_paths.values()),
+            "launches_by_path": k4_paths,
             "max_abs_err": k4["max_abs_err"],
             "ms": k4["ms"],
             "plain_ms": k4["plain_ms"],
@@ -2042,11 +2537,11 @@ def kernel_records(k4, fused, tiled_records, served, serviced, trained, longseq)
         ("fused_lse_forward", "K1", 132), ("fused_lse_dh", "K2", 156), ("fused_lse_dw", "K3", 177),
     )
     fused_paths = (
-        ("", "train_f32", "train", trained),
-        ("_longseq_bf16_hidden", "longseq_bf16_hidden", "longseq_train", longseq["train"]),
-        ("_longseq_f32", "longseq_f32", "longseq_f32_train", longseq["f32_train"]),
+        ("", "train_f32", {"train": trained, "train_graph": trained["graph"]}),
+        ("_longseq_bf16_hidden", "longseq_bf16_hidden", {"longseq_train": longseq["train"], "longseq_train_graph": longseq["graph"]}),
+        ("_longseq_f32", "longseq_f32", {"longseq_f32_train": longseq["f32_train"]}),
     )
-    for suffix, case, path, path_launches in fused_paths:
+    for suffix, case, paths in fused_paths:
         for name, kernel, line in fused_kernels:
             record = fused[case][kernel]
             if record["variant"] != "tf32":
@@ -2056,8 +2551,8 @@ def kernel_records(k4, fused, tiled_records, served, serviced, trained, longseq)
                 "route": "cuda",
                 "source": "replay_tpu_torch/csrc/fused_ce.cu",
                 "replaces": f"replay_tpu/ops/fused_ce.py:{line}",
-                "launches": path_launches[name],
-                "launches_by_path": {path: path_launches[name]},
+                "launches": sum(path_launches[name] for path_launches in paths.values()),
+                "launches_by_path": {path: path_launches[name] for path, path_launches in paths.items()},
                 "max_abs_err": record["max_abs_err"],
                 "ms": record["ms"],
                 "plain_ms": record["plain_ms"],
@@ -2073,7 +2568,8 @@ def kernel_records(k4, fused, tiled_records, served, serviced, trained, longseq)
     # serving paths, f32 (tf32x3) on the f32-compute forward and the f32 trainer
     k5_paths = (
         ("flash_attention_tiled", "mma", torch.bfloat16,
-         {"longseq_train": longseq["train"]["flash_attention_tiled"], "longseq_serve": longseq["serve"]}),
+         {"longseq_train": longseq["train"]["flash_attention_tiled"], "longseq_serve": longseq["serve"],
+          "longseq_train_graph": longseq["graph"]["flash_attention_tiled"]}),
         ("flash_attention_tiled_f32", "tf32x3", torch.float32,
          {"longseq_f32_forward": longseq["f32"], "longseq_f32_train": longseq["f32_train"]["flash_attention_tiled"]}),
     )

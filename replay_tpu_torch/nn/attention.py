@@ -49,7 +49,8 @@ def dot_product_attention(
         return flash_attention_tiled(q, k, v, padding_mask_bias(padding_mask), causal).to(q.dtype)
     if use_flash:
         return flash_attention(q, k, v, mask).to(q.dtype)
-    scale = 1.0 / torch.sqrt(torch.tensor(q.shape[-1], dtype=q.dtype, device=q.device))
+    # a fill on the device, not a host copy: CUDA graphs capture this route too
+    scale = 1.0 / torch.sqrt(torch.full((), q.shape[-1], dtype=q.dtype, device=q.device))
     scores = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale + mask.to(q.dtype)
     return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(scores, dim=-1), v)
 

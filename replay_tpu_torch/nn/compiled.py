@@ -1,21 +1,38 @@
-"""Fixed-shape inference programs.
+"""Fixed-shape inference programs, captured as CUDA graphs on the card.
 
 Counterpart of ``replay_tpu/nn/compiled.py::CompiledInference``. The JAX package
-compiles one XLA executable per batch bucket; PyTorch runs eagerly, so here a
-bucket is a fixed input shape: every call is padded up to its bucket (repeating
-row 0) and cut back, which keeps a row's scores independent of how full its
-batch was. Capturing each bucket as a CUDA graph is later work, as are
-``serialize``/``deserialize`` and ``roofline``.
+compiles one XLA executable per batch bucket; here a bucket is a fixed input
+shape: every call is padded up to its bucket (repeating row 0) and cut back,
+which keeps a row's scores independent of how full its batch was. On the card
+each bucket's program is one CUDA graph (:mod:`replay_tpu_torch.nn.graphs`),
+captured at ``compile`` after a warm-up run, replayed by every call and
+launched as one unit; on ``device="cpu"`` the bucket runs the bound program
+eagerly. A failed capture raises: nothing falls back to eager on the card.
 
 Params travel as an ARGUMENT of every call, a ``state_dict``-shaped mapping
 applied with ``torch.func.functional_call``, never folded into the model. That
 keeps :meth:`CompiledInference.swap_params` and the per-call ``params`` override
 the JAX engine's hot-swap seam: any mapping of the same keys, shapes and dtypes
-runs through the same program.
+runs through the same program, and through the same graphs (which read a
+static copy of the installed set, refreshed when another set is passed).
+
+:meth:`CompiledInference.serialize` / :meth:`CompiledInference.deserialize`
+round-trip the whole instance in the JAX package's layout: a magic, a JSON
+header (mode, ``max_sequence_length``, outputs, ``candidates_count``, buckets,
+and the device type the programs were traced on), the params as npz, and one
+blob per bucket: a ``torch.export`` program saved with ``torch.export.save``
+that takes the params as arguments (folding them in as constants would let the
+compiler reassociate and break bitwise parity with the live programs). Loading
+one needs neither the model code nor a checkpoint, only the operators that
+``replay_tpu_torch.ops`` registers (the attention kernels K4 and K5 are
+``replay_tpu_torch::`` operators, so a loaded program launches them).
 """
 
 from __future__ import annotations
 
+import io
+import json
+import struct
 from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -24,9 +41,12 @@ from torch import nn
 from torch.func import functional_call
 
 from replay_tpu_torch.device import DeviceLike, resolve_device
+from replay_tpu_torch.nn.graphs import CapturedProgram
 
 MODES = ("batch", "one_query", "dynamic_batch_size")
 OUTPUTS = ("logits", "hidden", "both")
+
+_MAGIC = b"RTCI\x01"
 
 Params = Mapping[str, torch.Tensor]
 
@@ -79,6 +99,18 @@ def pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
     return torch.cat([x, x[:1].expand(rows - x.shape[0], *x.shape[1:])])
 
 
+def _pad_input(x, dtype: torch.dtype, np_dtype, rows: int, device: torch.device):
+    """``x`` padded to ``rows`` rows by repeating row 0: a host array stays on
+    the host (one copy to the card later, into a graph's static buffer), a
+    tensor goes to ``device``."""
+    if isinstance(x, torch.Tensor):
+        return pad_rows(as_device_tensor(x, dtype, device), rows)
+    x = np.asarray(x, np_dtype)
+    if x.shape[0] < rows:
+        x = np.concatenate([x, np.repeat(x[:1], rows - x.shape[0], 0)])
+    return x
+
+
 class _Program(nn.Module):
     """``model`` behind one ``forward``, so ``functional_call`` can bind params
     to any of its methods (``functional_call`` only calls ``forward``)."""
@@ -93,7 +125,8 @@ class _Program(nn.Module):
 
 
 def bind(model: nn.Module, run: Callable[..., Any]) -> Callable[..., Any]:
-    """``(params, *args) -> run(model, *args)`` with ``model``'s weights taken from ``params``."""
+    """``(params, *args) -> run(model, *args)`` with ``model``'s weights taken
+    from ``params``: the eager program, which each CUDA graph captures."""
     program = _Program(model, run)
 
     def call(params: Params, *args):
@@ -106,11 +139,120 @@ def bind(model: nn.Module, run: Callable[..., Any]) -> Callable[..., Any]:
     return call
 
 
+def inference_program(outputs: str, feature_name: str = "item_id") -> Callable[..., Any]:
+    """``run(model, item_ids, padding_mask, candidates)`` for an ``outputs``
+    mode: ``forward_inference`` scores, the last-position hidden state, or
+    both. What :meth:`CompiledInference.compile` binds per bucket."""
+
+    def forward(model, item_ids, padding_mask, candidates):
+        if outputs == "logits":
+            return model.forward_inference(
+                {feature_name: item_ids}, padding_mask, candidates_to_score=candidates
+            )
+        # the same ops forward_inference runs, split so the last-position
+        # hidden state is an output (the serve cache's state)
+        last = model({feature_name: item_ids}, padding_mask)[:, -1, :]
+        if outputs == "hidden":
+            return last
+        return model.get_logits(last, candidates_to_score=candidates), last
+
+    return forward
+
+
+class _Exported(nn.Module):
+    """A parameter-free module around a program, for ``torch.export``: the
+    params are its first argument, so the exported graph takes them as inputs."""
+
+    def __init__(self, program: Callable[..., Any]) -> None:
+        super().__init__()
+        self._program = program
+
+    def forward(self, params, item_ids, padding_mask, *candidates):
+        return self._program(params, item_ids, padding_mask, candidates[0] if candidates else None)
+
+
+def _example_inputs(size: int, length: int, candidates_count: Optional[int], device: torch.device):
+    """Bucket-shaped inputs for a warm-up, a capture or an export: item 0 in
+    every full window, candidates 0 .. K-1."""
+    ids = torch.zeros((size, length), dtype=torch.int32, device=device)
+    mask = torch.ones((size, length), dtype=torch.bool, device=device)
+    cands = torch.arange(candidates_count, dtype=torch.int32, device=device) if candidates_count else None
+    return ids, mask, cands
+
+
+def _export_bucket(program, params: Params, size: int, length: int, candidates_count, device) -> bytes:
+    """One bucket's program as ``torch.export.save`` bytes, params as inputs."""
+    ids, mask, cands = _example_inputs(size, length, candidates_count, device)
+    args = (dict(params), ids, mask) + ((cands,) if cands is not None else ())
+    with torch.no_grad():
+        exported = torch.export.export(_Exported(program), args, strict=False)
+    buffer = io.BytesIO()
+    torch.export.save(exported, buffer)
+    return buffer.getvalue()
+
+
+def _load_bucket(blob: bytes) -> Callable[..., Any]:
+    """A program ``(params, item_ids, padding_mask, candidates_or_None)`` from
+    one bucket's blob."""
+    module = torch.export.load(io.BytesIO(blob)).module()
+
+    def call(params, item_ids, padding_mask, candidates):
+        args = (dict(params), item_ids, padding_mask) + ((candidates,) if candidates is not None else ())
+        with torch.no_grad():
+            return module(*args)
+
+    return call
+
+
+def _payload(header: Dict[str, Any], params: Params, blobs: Sequence[bytes]) -> bytes:
+    """The serialized layout: magic, header, params npz, one blob per bucket,
+    each section behind its little-endian u32 length."""
+    header_bytes = json.dumps(header).encode()
+    params_buffer = io.BytesIO()
+    np.savez(params_buffer, **{name: _to_numpy(value) for name, value in params.items()})
+    buffer = io.BytesIO()
+    buffer.write(_MAGIC)
+    for section in (header_bytes, params_buffer.getvalue(), *blobs):
+        buffer.write(struct.pack("<I", len(section)))
+        buffer.write(section)
+    return buffer.getvalue()
+
+
+def _to_numpy(value: torch.Tensor) -> np.ndarray:
+    """A tensor as numpy; bf16, which numpy lacks, as its raw uint16 bits."""
+    value = value.detach().cpu()
+    if value.dtype == torch.bfloat16:
+        return value.view(torch.int16).numpy().view(np.uint16)
+    return value.numpy()
+
+
+def _from_numpy(value: np.ndarray, dtype: str, device: torch.device) -> torch.Tensor:
+    tensor = torch.from_numpy(np.ascontiguousarray(value))
+    if dtype == "bfloat16":
+        tensor = tensor.view(torch.int16).view(torch.bfloat16)
+    return tensor.to(device)
+
+
+def _read_sections(payload: bytes):
+    view = memoryview(payload)
+    if bytes(view[: len(_MAGIC)]) != _MAGIC:
+        msg = "Not a CompiledInference payload (bad magic)"
+        raise ValueError(msg)
+    offset = len(_MAGIC)
+    while offset < len(view):
+        (size,) = struct.unpack_from("<I", view, offset)
+        offset += 4
+        yield bytes(view[offset : offset + size])
+        offset += size
+
+
 class CompiledInference:
     """Fixed-shape ``forward_inference`` programs for serving.
 
     ``_compiled`` maps batch-bucket size → a callable ``(params, item_ids,
-    padding_mask, candidates_or_None) -> outputs``.
+    padding_mask, candidates_or_None) -> outputs`` (the eager program; on the
+    card each bucket also has a captured graph of it). Values may be ``None``
+    for routing-only instances (bucket-selection tests).
     """
 
     def __init__(
@@ -130,11 +272,38 @@ class CompiledInference:
         self._candidates_count = candidates_count
         self._params = params
         self.device = resolve_device(device)
+        # live instances export a bucket on demand; deserialized ones keep
+        # their blobs, so that serialize() stays total
+        self._export_bucket: Optional[Callable[[int], bytes]] = None
+        self._raw_blobs: Optional[Dict[int, bytes]] = None
+        self._graphs: Optional[CapturedProgram] = None
 
     @property
     def buckets(self) -> Tuple[int, ...]:
         """The batch-bucket sizes, ascending."""
         return tuple(sorted(self._compiled))
+
+    @property
+    def graphs(self) -> Optional[CapturedProgram]:
+        """The buckets' captured graphs on the card (``None`` on the CPU)."""
+        return self._graphs
+
+    def roofline(self) -> Dict[int, Any]:
+        """Not ported: the JAX package reads XLA's cost analysis per executable."""
+        msg = (
+            "CompiledInference.roofline() is not ported yet: ROADMAP.md queue 1, "
+            "'The rest of Trainer.fit' (CompiledInference.roofline() with the H100 peak table)"
+        )
+        raise NotImplementedError(msg)
+
+    def _capture_buckets(self) -> None:
+        """One CUDA graph per bucket, each after a warm-up run (card only)."""
+        if self.device.type != "cuda":
+            return
+        self._graphs = CapturedProgram(self._compiled, self.device)
+        for size in self.buckets:
+            example = _example_inputs(size, self.max_sequence_length, self._candidates_count, self.device)
+            self._graphs.prepare(size, self._params, example)
 
     @classmethod
     def compile(
@@ -156,7 +325,8 @@ class CompiledInference:
         ``dynamic_batch_size``: one bucket per size of ``dynamic_buckets``.
         ``outputs`` selects what each call returns: ``"logits"``
         (forward_inference scores), ``"hidden"`` (last-position encoder state,
-        no scoring head), or ``"both"``.
+        no scoring head), or ``"both"``. On the card each bucket is captured
+        as a CUDA graph here.
         """
         device = resolve_device(device)
         if mode not in MODES:
@@ -178,20 +348,8 @@ class CompiledInference:
             msg = f"params do not fit the model: {mismatch}"
             raise ValueError(msg)
 
-        def forward(model, item_ids, padding_mask, candidates):
-            if outputs == "logits":
-                return model.forward_inference(
-                    {feature_name: item_ids}, padding_mask, candidates_to_score=candidates
-                )
-            # the same ops forward_inference runs, split so the last-position
-            # hidden state is an output (the serve cache's state)
-            last = model({feature_name: item_ids}, padding_mask)[:, -1, :]
-            if outputs == "hidden":
-                return last
-            return model.get_logits(last, candidates_to_score=candidates), last
-
-        program = bind(model, forward)
-        return cls(
+        program = bind(model, inference_program(outputs, feature_name))
+        out = cls(
             {size: program for size in sizes},
             max_sequence_length,
             mode,
@@ -200,6 +358,69 @@ class CompiledInference:
             params=to_device_params(params, device),
             device=device,
         )
+        out._export_bucket = lambda size: _export_bucket(
+            program, out._params, size, max_sequence_length, candidates_count, device
+        )
+        out._capture_buckets()
+        return out
+
+    # -- persistence -------------------------------------------------------- #
+    def serialize(self) -> bytes:
+        """The whole instance as bytes: a JSON header (mode, shapes, outputs,
+        candidate count, bucket list, device type), the bound params (npz),
+        and one ``torch.export`` program per bucket. :meth:`deserialize` needs
+        neither the model code nor the checkpoint; the params stay program
+        arguments, so the round-tripped scores are bit-identical."""
+        if self._export_bucket is None and self._raw_blobs is None:
+            msg = "This instance holds no executables to serialize (routing-only?)"
+            raise ValueError(msg)
+        header = {
+            "mode": self.mode,
+            "max_sequence_length": int(self.max_sequence_length),
+            "outputs": self.outputs,
+            "candidates_count": self._candidates_count,
+            "buckets": [int(b) for b in self.buckets],
+            "device": self.device.type,
+            "dtypes": {name: _dtype_name(value.dtype) for name, value in self._params.items()},
+        }
+        blobs = [
+            self._raw_blobs[size] if self._raw_blobs is not None else self._export_bucket(size)
+            for size in self.buckets
+        ]
+        return _payload(header, self._params, blobs)
+
+    @classmethod
+    def deserialize(cls, payload: bytes, device: DeviceLike = "cuda") -> "CompiledInference":
+        """Rebuild a fresh :class:`CompiledInference` from :meth:`serialize`
+        bytes, on ``device``, which must be of the type the programs were
+        traced on; on the card its buckets are captured as graphs, as
+        ``compile`` does. Scores are identical to the live instance's."""
+        device = resolve_device(device)
+        header_bytes, params_bytes, *blobs = _read_sections(payload)
+        header = json.loads(header_bytes)
+        if header["device"] != device.type:
+            msg = f"the payload's programs were traced on {header['device']}, not {device.type}"
+            raise ValueError(msg)
+        with np.load(io.BytesIO(params_bytes)) as archive:
+            params = {
+                name: _from_numpy(archive[name], header["dtypes"][name], device) for name in archive.files
+            }
+        buckets = header["buckets"]
+        if len(blobs) != len(buckets):
+            msg = f"payload holds {len(blobs)} programs for {len(buckets)} buckets"
+            raise ValueError(msg)
+        out = cls(
+            {size: _load_bucket(blob) for size, blob in zip(buckets, blobs)},
+            header["max_sequence_length"],
+            header["mode"],
+            outputs=header["outputs"],
+            candidates_count=header["candidates_count"],
+            params=params,
+            device=device,
+        )
+        out._raw_blobs = dict(zip(buckets, blobs))
+        out._capture_buckets()
+        return out
 
     # -- hot swap ----------------------------------------------------------- #
     def validate_params(self, params: Params) -> Optional[str]:
@@ -209,8 +430,9 @@ class CompiledInference:
         return params_mismatch(self._params, params)
 
     def swap_params(self, params: Params) -> None:
-        """Install ``params`` as the bound parameter set. A mismatch — e.g. a
-        grown item table — raises naming the offending leaf."""
+        """Install ``params`` as the bound parameter set — no recompile, no
+        recapture. A mismatch — e.g. a grown item table — raises naming the
+        offending leaf."""
         mismatch = self.validate_params(params)
         if mismatch is not None:
             msg = (
@@ -233,11 +455,12 @@ class CompiledInference:
         """Score [B, L] sequences; pads the batch up to its bucket.
 
         Returns logits, hidden, or ``(logits, hidden)`` per the ``outputs``
-        mode, on the device, cut back to the request's row count. ``params``
+        mode, on the device, cut back to the request's row count: tensors of
+        this call's own, which later calls do not overwrite. ``params``
         overrides the bound parameter set for THIS call (same keys, shapes and
         dtypes required; they must already be on the device)."""
-        item_ids = as_device_tensor(item_ids, torch.int32, self.device)
-        padding_mask = as_device_tensor(padding_mask, torch.bool, self.device)
+        if not isinstance(item_ids, torch.Tensor):
+            item_ids = np.asarray(item_ids, np.int32)
         batch = item_ids.shape[0]
         if item_ids.shape[1] != self.max_sequence_length:
             msg = (
@@ -246,7 +469,6 @@ class CompiledInference:
             )
             raise ValueError(msg)
         bucket = self._bucket_for(batch)
-        item_ids, padding_mask = pad_rows(item_ids, bucket), pad_rows(padding_mask, bucket)
         if candidates is not None and not self._candidates_count:
             msg = (
                 "Model was compiled without candidates_count; candidate scoring "
@@ -264,10 +486,52 @@ class CompiledInference:
                     f"({self._candidates_count},)"
                 )
                 raise ValueError(msg)
-        out = self._compiled[bucket](
-            self._params if params is None else params, item_ids, padding_mask, candidates
-        )
+        params = self._params if params is None else params
+        if self._graphs is not None:
+            ids = _pad_input(item_ids, torch.int32, np.int32, bucket, self.device)
+            mask = _pad_input(padding_mask, torch.bool, bool, bucket, self.device)
+            return self._graphs(bucket, params, (ids, mask, candidates), rows=batch)
+        item_ids = pad_rows(as_device_tensor(item_ids, torch.int32, self.device), bucket)
+        padding_mask = pad_rows(as_device_tensor(padding_mask, torch.bool, self.device), bucket)
+        out = self._compiled[bucket](params, item_ids, padding_mask, candidates)
         if self.outputs == "both":
             logits, hidden = out
             return logits[:batch], hidden[:batch]
         return out[:batch]
+
+    def close(self) -> None:
+        """Free the buckets' graphs and their memory pools (the card's
+        counterpart of dropping the executables); a later call captures anew."""
+        if self._graphs is not None:
+            self._graphs.close()
+
+
+def export_inference(
+    model, params: Params, max_sequence_length: int, batch_size: int, feature_name: str = "item_id",
+    device: DeviceLike = "cuda",
+) -> bytes:
+    """``forward_inference`` at one shape as bytes: logits only, the params as
+    program arguments, in :meth:`CompiledInference.serialize`'s layout (one
+    ``batch`` bucket of ``batch_size``), traced on ``device``."""
+    device = resolve_device(device)
+    mismatch = params_mismatch(model.state_dict(), params)
+    if mismatch is not None:
+        msg = f"params do not fit the model: {mismatch}"
+        raise ValueError(msg)
+    params = to_device_params(params, device)
+    program = bind(model, inference_program("logits", feature_name))
+    header = {
+        "mode": "batch", "max_sequence_length": int(max_sequence_length), "outputs": "logits",
+        "candidates_count": None, "buckets": [int(batch_size)], "device": device.type,
+        "dtypes": {name: _dtype_name(value.dtype) for name, value in params.items()},
+    }
+    blob = _export_bucket(program, params, batch_size, max_sequence_length, None, device)
+    return _payload(header, params, [blob])
+
+
+def import_inference(payload: bytes, device: DeviceLike = "cuda"):
+    """Load :func:`export_inference` bytes into a callable
+    ``(item_ids, padding_mask) -> logits`` on ``device`` (on the card, a
+    captured graph)."""
+    served = CompiledInference.deserialize(payload, device=device)
+    return lambda item_ids, padding_mask: served(item_ids, padding_mask)

@@ -1,10 +1,13 @@
 """Trainer: optimizer factories, the train step, fit, validate and predict.
 
 Counterpart of ``replay_tpu/nn/train.py`` on one device. The JAX trainer jits
-one SPMD program over a mesh; here PyTorch runs eagerly on one card, and the
-mesh, sharding, remat, scan and the production features of ``fit``
-(checkpoints, recovery, loggers, tracing, health) are later slices
-(``ROADMAP.md`` queue 1). ``precision="bf16"`` is the JAX trainer's: the model
+one SPMD program over a mesh; here :meth:`Trainer.train_step` runs eagerly on
+one card, and :meth:`Trainer.train_steps` (``fit(scan_chunk=K)``), the JAX
+``lax.scan`` of K steps, is one CUDA graph of K steps per chunk length,
+replayed with one launch (:mod:`replay_tpu_torch.nn.graphs`), fed by a
+device-prefetch stage (:mod:`replay_tpu_torch.data.nn.prefetch`). The mesh,
+sharding, remat and the production features of ``fit`` (checkpoints,
+recovery, loggers, tracing, health) are later slices (``ROADMAP.md`` queue 1). ``precision="bf16"`` is the JAX trainer's: the model
 computes in bf16 while the flat parameter buffer, the optimizer state and the
 sentinel stay f32 (:mod:`replay_tpu_torch.nn.precision`).
 
@@ -24,8 +27,9 @@ What carries over exactly:
 
 PyTorch idiom inside: the model's parameters are views into the state's flat
 buffer, so the model always computes with the state it was last bound to, and
-a step updates that buffer in place — the JAX step donates its state, so the
-old state is as dead there as here. The loss's callbacks are the model's own
+a step updates that buffer, the optimizer state and ``bad_steps`` in place —
+the JAX step donates its state, so the old state is as dead there as here, and
+a captured chunk keeps reading and writing the same tensors. The loss's callbacks are the model's own
 ``get_logits`` and ``get_item_weights``, and autograd adds every gradient of
 the tied item table (input embedding, K3's ``dW``, the label gather).
 """
@@ -33,6 +37,7 @@ the tied item table (input embedding, K3's ``dW``, the label gather).
 from __future__ import annotations
 
 import inspect
+import itertools
 import logging
 import math
 from dataclasses import dataclass, field
@@ -42,8 +47,10 @@ import numpy as np
 import torch
 from torch import nn
 
+from replay_tpu_torch.data.nn.prefetch import DevicePrefetcher, prefetch as prefetch_batches
 from replay_tpu_torch.device import DeviceLike, resolve_device, to_device
 from replay_tpu_torch.metrics.builder import MetricsBuilder
+from replay_tpu_torch.nn.graphs import Graph, capture
 from replay_tpu_torch.nn.precision import Precision
 
 logger = logging.getLogger("replay_tpu_torch")
@@ -309,12 +316,77 @@ class TrainState:
     rng: torch.Tensor
 
 
-def _where_tree(good: torch.Tensor, new: OptState, old: OptState) -> OptState:
-    return [{key: torch.where(good, link[key], before[key]) for key in link} for link, before in zip(new, old)]
+def _where_into(good: torch.Tensor, new: OptState, old: OptState) -> None:
+    """``old`` ← ``where(good, new, old)``, link by link, in place (one
+    select a tensor, written over its own input)."""
+    for link, before in zip(new, old):
+        for key, value in link.items():
+            if value is not before[key]:
+                torch.where(good, value, before[key], out=before[key])
+
+
+def _tree_map(fn: Callable[..., Any], *trees: Any) -> Any:
+    """``fn`` over the leaves of nested dicts of the same keys."""
+    if isinstance(trees[0], Mapping):
+        keys = list(trees[0])
+        if any(list(tree) != keys for tree in trees[1:]):
+            msg = f"batches differ in their keys: {[sorted(tree) for tree in trees]}"
+            raise ValueError(msg)
+        return {key: _tree_map(fn, *(tree[key] for tree in trees)) for key in keys}
+    return fn(*trees)
+
+
+def _leaves(tree: Any) -> List[Any]:
+    if isinstance(tree, Mapping):
+        return [leaf for value in tree.values() for leaf in _leaves(value)]
+    return [tree]
+
+
+def _host(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _chunk_schedule(batches: Iterable[Batch], chunk: int):
+    """Group a batch stream into ``("scan", [chunk batches])`` and, for the
+    short tail, ``("step", batch)`` items, in stream order: one chunk length
+    and the per-step program, never a zoo of chunk lengths. The JAX
+    ``_chunk_schedule`` also breaks chunks at health steps; health is not
+    ported (``ROADMAP.md`` queue 1, 'The rest of Trainer.fit')."""
+    buffered: List[Batch] = []
+    for batch in batches:
+        buffered.append(batch)
+        if len(buffered) == chunk:
+            yield ("scan", list(buffered))
+            buffered.clear()
+    for leftover in buffered:
+        yield ("step", leftover)
+
+
+@dataclass
+class _Placed:
+    """A stacked chunk on the device, and the event its copies recorded on
+    the feed stream (``None`` when it was placed on the consumer's stream)."""
+
+    batch: Batch
+    event: Optional[torch.cuda.Event] = None
+
+
+@dataclass
+class _ChunkGraph:
+    """K optimizer steps captured as one CUDA graph: it reads the static
+    ``[K, ...]`` batch, writes the state's own tensors in place and the
+    per-step ``[K]`` loss, sentinel flag and gradient norm."""
+
+    graph: Graph
+    batch: Batch
+    metrics: Dict[str, torch.Tensor]
+    state_tensors: List[torch.Tensor]
 
 
 # fit arguments of the JAX signature that the port does not have yet: passing
 # one with anything but its JAX default raises, naming the ROADMAP.md item
+# (the JAX scan branch lands checkpoints, recovery, health and preemption at
+# chunk boundaries; here they raise with or without scan_chunk)
 _UNPORTED_FIT_ARGS = {
     "checkpoint_manager": (None, "'The rest of Trainer.fit' (checkpoints)"),
     "checkpoint_every": (None, "'The rest of Trainer.fit' (checkpoints)"),
@@ -322,9 +394,6 @@ _UNPORTED_FIT_ARGS = {
     "monitor": (None, "'The rest of Trainer.fit' (best-state tracking, early stop)"),
     "patience": (None, "'The rest of Trainer.fit' (best-state tracking, early stop)"),
     "mode": ("max", "'The rest of Trainer.fit' (best-state tracking, early stop)"),
-    "prefetch": (0, "'The rest of Trainer.fit' (host prefetch, device feed)"),
-    "scan_chunk": (None, "'The rest of Trainer.fit' (train_steps/scan_chunk)"),
-    "device_feed": (True, "'The rest of Trainer.fit' (host prefetch, device feed)"),
     "loggers": (None, "'The rest of Trainer.fit' (loggers)"),
     "profile_steps": (None, "'The rest of Trainer.fit' (profiling)"),
     "profile_dir": (None, "'The rest of Trainer.fit' (profiling)"),
@@ -401,6 +470,12 @@ class Trainer:
         self._stochastic = any(getattr(m, "dropout_rate", 0.0) for m in self.model.modules())
         self._loss_checked = False
         self._bound: Optional[torch.Tensor] = None  # the flat buffer the model's parameters view
+        # K-step CUDA graphs by (K, batch layout), all tied to one state's tensors
+        self._chunk_graphs: Dict[Any, _ChunkGraph] = {}
+        self._feed_stream: Optional[torch.cuda.Stream] = None
+        # eager warm-up steps run before chunk captures, one a capture (each
+        # launches every kernel of one step once)
+        self.capture_warmups = 0
         self.last_step_metrics: Optional[Dict[str, Any]] = None
         self.history: List[Dict[str, float]] = []
 
@@ -445,7 +520,8 @@ class Trainer:
         return state
 
     def _bind(self, state: TrainState) -> None:
-        """Make the model's parameters views of ``state.flat_params``."""
+        """Make the model's parameters views of ``state.flat_params`` (host
+        work only: a captured step reads the buffer through these views)."""
         if self._bound is state.flat_params:
             return
         offset = 0
@@ -503,36 +579,18 @@ class Trainer:
             target_mask,
         )
 
-    def train_step(self, state: TrainState, batch: Batch) -> Tuple[TrainState, torch.Tensor]:
-        """One optimizer step. Returns ``(state, loss)``; the step metrics —
-        ``loss``, the sentinel's ``good`` flag and ``grad_norm``, all device
-        scalars — stay readable on :attr:`last_step_metrics` until the next step.
-
-        The state's tensors are updated in place and the same state returned
-        (the JAX step donates its state: the old one is not used again)."""
-        if not self._loss_checked:
-            self._check_loss_contract()
-        self._bind(state)
-        batch = to_device(batch, self.device)
+    def _update(self, state: TrainState, batch: Batch) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The device part of one step on a batch already on the device:
+        forward, loss, gradient, the sentinel and the optimizer update, all
+        written into the state's own tensors. Returns ``(loss, good,
+        grad_norm)``. Device ops only, so a CUDA graph can capture it."""
         # batch-padding rows (fixed-shape final batch) get zero loss weight
         target_mask = batch[self.target_mask_field]
         if "valid" in batch:
             target_mask = target_mask & batch["valid"][(slice(None),) + (None,) * (target_mask.dim() - 1)]
-
-        generator = torch.Generator()
-        generator.set_state(state.rng)
         params = list(state.params.values())
-        if self._stochastic:
-            step_seed = int(torch.randint(2**62, (1,), generator=generator))
-            devices = [self.device] if self.device.type == "cuda" else []
-            with torch.random.fork_rng(devices=devices):
-                torch.manual_seed(step_seed)
-                loss_value = self._loss_value(batch, target_mask)
-                grads = torch.autograd.grad(loss_value, params, allow_unused=True)
-        else:
-            loss_value = self._loss_value(batch, target_mask)
-            grads = torch.autograd.grad(loss_value, params, allow_unused=True)
-
+        loss_value = self._loss_value(batch, target_mask)
+        grads = torch.autograd.grad(loss_value, params, allow_unused=True)
         with torch.no_grad():
             flat_grad = torch.cat(
                 [(g if g is not None else torch.zeros_like(p)).reshape(-1) for g, p in zip(grads, params)]
@@ -544,12 +602,182 @@ class Trainer:
             good = torch.isfinite(loss_value) & torch.isfinite(grad_norm)
             updates, opt_state = self._tx.update(flat_grad, state.opt_state, state.flat_params)
             state.flat_params.copy_(torch.where(good, state.flat_params + updates, state.flat_params))
-            state.opt_state = _where_tree(good, opt_state, state.opt_state)
-            state.bad_steps = state.bad_steps + (~good).to(torch.int32)
+            _where_into(good, opt_state, state.opt_state)
+            state.bad_steps.add_((~good).to(torch.int32))
+        return loss_value, good, grad_norm
+
+    def _step(self, state: TrainState, batch: Batch) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """:meth:`_update`, its dropout seeded from the state's generator
+        where the model has a non-zero rate; advances ``step`` and ``rng``."""
+        generator = torch.Generator()
+        generator.set_state(state.rng)
+        if self._stochastic:
+            step_seed = int(torch.randint(2**62, (1,), generator=generator))
+            devices = [self.device] if self.device.type == "cuda" else []
+            with torch.random.fork_rng(devices=devices):
+                torch.manual_seed(step_seed)
+                metrics = self._update(state, batch)
+        else:
+            metrics = self._update(state, batch)
         state.step += 1
         state.rng = generator.get_state()
+        return metrics
+
+    def _prepare(self, state: TrainState) -> None:
+        if not self._loss_checked:
+            self._check_loss_contract()
+        self._bind(state)
+
+    def train_step(self, state: TrainState, batch: Batch) -> Tuple[TrainState, torch.Tensor]:
+        """One optimizer step. Returns ``(state, loss)``; the step metrics —
+        ``loss``, the sentinel's ``good`` flag and ``grad_norm``, all device
+        scalars — stay readable on :attr:`last_step_metrics` until the next step.
+
+        The state's tensors are updated in place and the same state returned
+        (the JAX step donates its state: the old one is not used again)."""
+        self._prepare(state)
+        loss_value, good, grad_norm = self._step(state, to_device(batch, self.device))
         self.last_step_metrics = {"loss": loss_value, "good": good, "grad_norm": grad_norm}
         return state, loss_value
+
+    # -- K steps a dispatch ------------------------------------------------ #
+    @staticmethod
+    def _stack_chunk(batches: Sequence[Batch]) -> Batch:
+        """K same-shape host batches stacked into one ``[K, ...]`` tree (the
+        chunk program's input), with a clear error when they cannot stack."""
+        try:
+            return _tree_map(lambda *xs: np.stack([_host(x) for x in xs]), *list(batches))
+        except ValueError as exc:
+            msg = (
+                "scan chunking stacks every batch of a chunk into one fixed "
+                f"[K, ...] program input, but stacking failed: {exc}. All "
+                "batches must share one shape and key structure — length-"
+                "bucketed batchers emit a SET of widths and cannot drive "
+                "fit(scan_chunk=...)."
+            )
+            raise ValueError(msg) from exc
+
+    def _place_chunk(self, stacked: Batch, stream: Optional[torch.cuda.Stream] = None) -> _Placed:
+        """A stacked chunk on the device. With a ``stream`` (the device feed,
+        on the feeder thread): each leaf through pinned host memory, copied
+        with ``non_blocking=True`` on that stream, and an event recorded after
+        the copies, which the consumer's stream waits on."""
+        if stream is None or self.device.type != "cuda":
+            return _Placed(to_device(stacked, self.device))
+        with torch.cuda.stream(stream):
+            batch = _tree_map(
+                lambda x: torch.from_numpy(np.ascontiguousarray(x)).pin_memory().to(self.device, non_blocking=True),
+                stacked,
+            )
+            event = torch.cuda.Event()
+            event.record(stream)
+        return _Placed(batch, event)
+
+    def _chunk_placer(self) -> Callable[[Any], Optional[_Placed]]:
+        """The device-feed ``place`` callable for ``fit(scan_chunk=...)``:
+        stack and place a chunk on the feeder thread, so that the next chunk's
+        copy to the card overlaps the running chunk; single steps pass
+        through unplaced (the per-step path places its own batch)."""
+        if self.device.type == "cuda" and self._feed_stream is None:
+            self._feed_stream = torch.cuda.Stream(device=self.device)
+
+        def place(item):
+            kind, payload = item
+            if kind != "scan":
+                return None
+            return self._place_chunk(self._stack_chunk(payload), self._feed_stream)
+
+        return place
+
+    def _chunk_graph(self, state: TrainState, batch: Batch, steps: int) -> _ChunkGraph:
+        """The K-step graph for this chunk length and batch layout, captured
+        on first use against ``state``'s own tensors; a new state (another
+        ``init_state``, another ``fit(state=...)``) drops the old graphs and
+        captures anew. One eager warm-up step runs first, on a copy of the
+        state, so that the state is untouched until the first replay."""
+        tensors = [state.flat_params, *(t for link in state.opt_state for t in link.values()), state.bad_steps]
+        key = (steps, tuple((tuple(t.shape), t.dtype) for t in _leaves(batch)))
+        cached = next(iter(self._chunk_graphs.values()), None)
+        if cached is not None and (
+            len(cached.state_tensors) != len(tensors) or any(a is not b for a, b in zip(cached.state_tensors, tensors))
+        ):
+            self._chunk_graphs.clear()
+        if key in self._chunk_graphs:
+            return self._chunk_graphs[key]
+        static = _tree_map(lambda x: x.clone(), batch)
+        metrics = {
+            "loss": torch.empty(steps, dtype=torch.float32, device=self.device),
+            "good": torch.empty(steps, dtype=torch.bool, device=self.device),
+            "grad_norm": torch.empty(steps, dtype=torch.float32, device=self.device),
+        }
+        scratch = TrainState(
+            step=state.step,
+            flat_params=state.flat_params.clone(),
+            params={},
+            opt_state=[{name: value.clone() for name, value in link.items()} for link in state.opt_state],
+            bad_steps=state.bad_steps.clone(),
+            rng=state.rng,
+        )
+
+        def warmup():
+            self._bind(scratch)
+            self._update(scratch, _tree_map(lambda x: x[0], static))
+            self._bind(state)
+
+        def run():
+            for index in range(steps):
+                values = self._update(state, _tree_map(lambda x: x[index], static))
+                for name, value in zip(("loss", "good", "grad_norm"), values):
+                    metrics[name][index].copy_(value)
+
+        graph, _ = capture(run, self.device, warmup=warmup)
+        self.capture_warmups += 1
+        chunk = _ChunkGraph(graph, static, metrics, tensors)
+        self._chunk_graphs[key] = chunk
+        return chunk
+
+    def _run_chunk(self, state: TrainState, placed: _Placed, steps: int) -> Tuple[TrainState, np.ndarray]:
+        """K steps on a placed ``[K, ...]`` chunk: on the card one replay of
+        the chunk's graph, on the CPU K eager steps. Sets
+        :attr:`last_step_metrics` to ``[K]`` tensors; returns the losses."""
+        self._prepare(state)
+        if self.device.type != "cuda":
+            values = [self._step(state, _tree_map(lambda x: x[index], placed.batch)) for index in range(steps)]
+            metrics = {
+                name: torch.stack([v[position] for v in values])
+                for position, name in enumerate(("loss", "good", "grad_norm"))
+            }
+        else:
+            if self._stochastic:
+                msg = (
+                    "train_steps / fit(scan_chunk=...) with dropout on the card is not ported yet: "
+                    "ROADMAP.md queue 1, 'The rest of Trainer.fit' (dropout inside a captured chunk)"
+                )
+                raise NotImplementedError(msg)
+            current = torch.cuda.current_stream(self.device)
+            if placed.event is not None:
+                current.wait_event(placed.event)
+                for leaf in _leaves(placed.batch):
+                    leaf.record_stream(current)
+            chunk = self._chunk_graph(state, placed.batch, steps)
+            _tree_map(lambda static, value: static.copy_(value), chunk.batch, placed.batch)
+            chunk.graph.replay()
+            metrics = {name: value.clone() for name, value in chunk.metrics.items()}
+            # at dropout 0 the per-step path draws nothing: rng stays as it is
+            state.step += steps
+        self.last_step_metrics = metrics
+        return state, metrics["loss"].cpu().numpy()
+
+    def train_steps(self, state: TrainState, batches: Sequence[Batch]) -> Tuple[TrainState, np.ndarray]:
+        """``len(batches)`` optimizer steps in ONE dispatch: the same math as
+        K :meth:`train_step` calls, bit for bit. On the card the K steps are
+        one CUDA graph (captured on the first chunk of this length, replayed
+        after), the JAX ``lax.scan``'s counterpart; on the CPU they run
+        eagerly. Returns ``(state, losses)`` with the ``[K]`` losses as numpy;
+        :attr:`last_step_metrics` holds the ``[K]`` ``loss``, ``good`` and
+        ``grad_norm`` tensors. Dropout > 0 raises on the card."""
+        batches = list(batches)
+        return self._run_chunk(state, self._place_chunk(self._stack_chunk(batches)), len(batches))
 
     def fit(
         self,
@@ -564,6 +792,9 @@ class Trainer:
         item_count: Optional[int] = None,
         postprocessors: Sequence[Callable] = (),
         log_every: int = 100,
+        prefetch: int = 0,
+        scan_chunk: Optional[int] = None,
+        device_feed: bool = True,
         **unported: Any,
     ) -> TrainState:
         """Train for ``epochs`` passes; validates after each epoch when
@@ -577,8 +808,18 @@ class Trainer:
         sentinel accepted (NaN when it accepted none). ``log_every`` logs the
         loss every that many steps, counted across epochs.
 
+        ``prefetch=n`` builds batches ``n`` ahead on a background thread.
+        ``scan_chunk=K`` runs each epoch's full groups of K batches through
+        :meth:`train_steps` (one CUDA graph replay a chunk on the card) and the
+        short tail through :meth:`train_step`; the ``[K]`` losses and sentinel
+        flags fan out into the epoch's accounting exactly as K steps would.
+        With ``device_feed=True`` a feeder thread stacks and copies the next
+        chunk to the card while the current one runs
+        (:class:`~replay_tpu_torch.data.nn.prefetch.DevicePrefetcher`); with
+        ``False`` each chunk is placed on the fit thread.
+
         The other arguments of the JAX ``fit`` (checkpoints, recovery, loggers,
-        scan chunks, ...) raise ``NotImplementedError`` naming their
+        tracing, ...) raise ``NotImplementedError`` naming their
         ``ROADMAP.md`` item when given anything but their JAX default.
         """
         for name, value in unported.items():
@@ -589,6 +830,11 @@ class Trainer:
             if value != default:
                 msg = f"fit({name}=...) is not ported yet: ROADMAP.md queue 1, {item}"
                 raise NotImplementedError(msg)
+        if scan_chunk is not None:
+            scan_chunk = int(scan_chunk)
+            if scan_chunk < 1:
+                msg = "scan_chunk must be >= 1 (optimizer steps per lax.scan dispatch)"
+                raise ValueError(msg)
         one_shot = None
         if not callable(train_batches) and iter(train_batches) is train_batches:
             # a generator: re-iteration is impossible, materialize once
@@ -604,20 +850,40 @@ class Trainer:
 
         executed = 0
         for epoch in range(epochs):
-            # accumulated on the device: reading the loss would sync every step.
-            # Sentinel-skipped steps contribute 0 (their loss is non-finite)
+            # the epoch's accepted-loss sum and count, in f32 and int32. The
+            # per-step loop adds on the device (reading the loss would sync
+            # every step); the chunked loop adds the fetched [K] values on the
+            # host, the same IEEE f32 adds in the same order. Sentinel-skipped
+            # steps contribute 0 (their loss is non-finite)
             epoch_loss, epoch_good = None, None
-            for batch in batches_for(epoch):
-                if state is None:
-                    state = self.init_state(batch)
-                state, loss_value = self.train_step(state, batch)
-                good = self.last_step_metrics["good"]
-                safe_loss = torch.where(good, loss_value, 0.0)
+
+            def account(loss_value, good, step: int) -> None:
+                nonlocal epoch_loss, epoch_good, executed
+                if isinstance(loss_value, torch.Tensor):
+                    safe_loss, flag = torch.where(good, loss_value, 0.0), good.to(torch.int32)
+                else:
+                    safe_loss, flag = np.float32(loss_value) if good else np.float32(0.0), np.int32(bool(good))
                 epoch_loss = safe_loss if epoch_loss is None else epoch_loss + safe_loss
-                epoch_good = good.to(torch.int32) if epoch_good is None else epoch_good + good.to(torch.int32)
+                epoch_good = flag if epoch_good is None else epoch_good + flag
                 executed += 1
                 if log_every and executed % log_every == 0:
-                    logger.info("step %d: loss %.6f", state.step, float(loss_value))
+                    logger.info("step %d: loss %.6f", step, float(loss_value))
+
+            stream = batches_for(epoch)
+            if prefetch:
+                stream = prefetch_batches(iter(stream), depth=prefetch)
+            try:
+                if scan_chunk:
+                    state = self._fit_chunked(stream, state, scan_chunk, device_feed, account)
+                else:
+                    for batch in stream:
+                        if state is None:
+                            state = self.init_state(batch)
+                        state, loss_value = self.train_step(state, batch)
+                        account(loss_value, self.last_step_metrics["good"], state.step)
+            finally:
+                if prefetch:
+                    stream.close()  # joins the prefetch thread, also when a step raised
             good_count = int(epoch_good) if epoch_good is not None else 0
             record = {
                 "epoch": epoch,
@@ -642,6 +908,36 @@ class Trainer:
         if state is None:
             msg = "fit() received no batches"
             raise ValueError(msg)
+        return state
+
+    def _fit_chunked(self, batches, state, chunk: int, device_feed: bool, account) -> Optional[TrainState]:
+        """One epoch of ``fit(scan_chunk=chunk)``: full chunks through
+        :meth:`_run_chunk`, the tail per step, each step's loss and flag to
+        ``account`` on the host, in stream order."""
+        batches = iter(batches)
+        first = next(batches, None)
+        if first is None:
+            return state
+        if state is None:
+            state = self.init_state(first)
+        items = _chunk_schedule(itertools.chain([first], batches), chunk)
+        feed = DevicePrefetcher(items, self._chunk_placer(), depth=1) if device_feed else ((i, None) for i in items)
+        try:
+            for (kind, payload), placed in feed:
+                if kind == "step":
+                    state, loss_value = self.train_step(state, payload)
+                    account(float(loss_value), bool(self.last_step_metrics["good"]), state.step)
+                    continue
+                if placed is None:  # device_feed=False: stacked and placed on this thread
+                    placed = self._place_chunk(self._stack_chunk(payload))
+                start = state.step
+                state, losses = self._run_chunk(state, placed, len(payload))
+                goods = self.last_step_metrics["good"].cpu().numpy()
+                for index in range(len(payload)):
+                    account(losses[index], goods[index], start + index + 1)
+        finally:
+            if isinstance(feed, DevicePrefetcher):
+                feed.close()
         return state
 
     # -- eval / predict ---------------------------------------------------- #

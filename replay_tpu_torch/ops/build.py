@@ -97,7 +97,8 @@ def build_all(names: Sequence[str]) -> Dict[str, Tuple[float, str]]:
 
 def aligned(t: "torch.Tensor") -> "torch.Tensor":
     """``t`` itself when its data starts on a 16-byte boundary, as the kernels'
-    16-byte loads need, else an aligned copy."""
+    16-byte loads need, else an aligned copy (made by the caching allocator, so
+    inside a CUDA graph capture it comes from the graph's pool)."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 

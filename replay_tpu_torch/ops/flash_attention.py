@@ -39,7 +39,7 @@ import math
 
 import torch
 
-from replay_tpu_torch.ops import build
+from replay_tpu_torch.ops import build, counts
 
 KERNEL = "flash_attention"
 MAX_HEAD_DIM = 256
@@ -96,24 +96,46 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tenso
     fn = lib.replay_flash_attention_forward
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            batch, heads, length, dim, bias.shape[1], int(q.dtype == torch.bfloat16),
-            torch.cuda.current_stream(q.device).cuda_stream,
+            batch, heads, length, dim, bias.shape[1], int(q.dtype == torch.bfloat16), stream,
         )
     if err != 0:
         msg = f"flash_attention kernel launch failed: CUDA error {err} at q{tuple(q.shape)} {q.dtype}"
         raise RuntimeError(msg)
-    flash_attention.launches += 1
+    counts.launched(flash_attention, stream)
     return out
 
 
-def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    """The plain version for tensors all on the CPU; otherwise the kernel, or raise."""
+@torch.library.custom_op("replay_tpu_torch::flash_attention_forward", mutates_args=())
+def _forward_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """The forward as a registered operator, so that ``torch.export`` keeps it
+    as one node of a serialized program (``nn/compiled.py``) and a loaded
+    program runs the kernel: the plain version for tensors all on the CPU,
+    otherwise the kernel, or raise."""
     if all(t.device.type == "cpu" for t in (q, k, v, bias)):
         return flash_attention_reference(q, k, v, bias)
     return _launch(q, k, v, bias)
+
+
+@_forward_op.register_fake
+def _(q, k, v, bias):
+    return torch.empty_like(q)
+
+
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """The plain version for tensors all on the CPU; otherwise the kernel, or
+    raise. CPU and CUDA tensors go through the operator; the checks run first,
+    and a tensor on any other device goes straight to the launch, never to the
+    operator's shape-only fake."""
+    tensors = (q, k, v, bias)
+    if not all(t.device.type == "cpu" for t in tensors):
+        _check(q, k, v, bias)
+        if not all(t.device.type == "cuda" for t in tensors):
+            return _launch(q, k, v, bias)
+    return _forward_op(q, k, v, bias)
 
 
 def flash_attention_backward(q, k, v, bias, grad_out):
@@ -164,9 +186,13 @@ def flash_attention(
 
     On CPU tensors the forward is the plain version; on CUDA tensors it
     launches the kernel or raises. The gradient is
-    :func:`flash_attention_backward` on either device.
-    ``flash_attention.launches`` counts kernel launches."""
-    return _FlashAttention.apply(q, k, v, bias)
+    :func:`flash_attention_backward` on either device; where no gradient is
+    needed the operator is called without the Function around it.
+    ``flash_attention.launches`` counts kernel launches
+    (:mod:`replay_tpu_torch.ops.counts`)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, bias)):
+        return _FlashAttention.apply(q, k, v, bias)
+    return _forward(q, k, v, bias)
 
 
 flash_attention.launches = 0

@@ -41,7 +41,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from replay_tpu_torch.ops import build
+from replay_tpu_torch.ops import build, counts
 
 KERNEL = "flash_tiled"
 NEG_INF = -1e30
@@ -155,21 +155,45 @@ def _launch(
         sizes += (int(q.dtype == torch.bfloat16),)
     fn.argtypes = [ctypes.c_void_p] * len(pointers) + [ctypes.c_int] * len(sizes) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        err = fn(*pointers, *sizes, torch.cuda.current_stream(q.device).cuda_stream)
+        err = fn(*pointers, *sizes, stream)
     if err != 0:
         msg = f"flash_attention_tiled kernel ({variant}) launch failed: CUDA error {err} at q{tuple(q.shape)} {q.dtype}"
         raise RuntimeError(msg)
-    flash_attention_tiled.launches += 1
-    flash_attention_tiled.launches_by_variant[variant] += 1
+    counts.launched(flash_attention_tiled, stream, variant)
     return out, lse
 
 
-def _forward(q, k, v, kv_bias, causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The plain version for tensors all on the CPU; otherwise the kernel, or raise."""
+@torch.library.custom_op("replay_tpu_torch::flash_attention_tiled_forward", mutates_args=())
+def _forward_op(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_bias: torch.Tensor, causal: bool
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward as a registered operator, so that ``torch.export`` keeps it
+    as one node of a serialized program (``nn/compiled.py``) and a loaded
+    program runs the kernel: ``(out, lse)`` from the plain version for tensors
+    all on the CPU, otherwise from the kernel, or raise."""
     if all(t.device.type == "cpu" for t in (q, k, v, kv_bias)):
         return flash_attention_tiled_reference(q, k, v, kv_bias, causal)
     return _launch(q, k, v, kv_bias, causal)
+
+
+@_forward_op.register_fake
+def _(q, k, v, kv_bias, causal):
+    return torch.empty_like(q), q.new_empty(q.shape[:3], dtype=torch.float32)
+
+
+def _forward(q, k, v, kv_bias, causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version for tensors all on the CPU; otherwise the kernel, or
+    raise. CPU and CUDA tensors go through the operator; the checks run first,
+    and a tensor on any other device goes straight to the launch, never to the
+    operator's shape-only fake."""
+    tensors = (q, k, v, kv_bias)
+    if not all(t.device.type == "cpu" for t in tensors):
+        _check(q, k, v, kv_bias)
+        if not all(t.device.type == "cuda" for t in tensors):
+            return _launch(q, k, v, kv_bias, causal)
+    return _forward_op(q, k, v, kv_bias, causal)
 
 
 def _backward_block(q_rows, kj, vj, g_rows, bias_j, lse_rows, delta_rows, causal: bool, rows, cols, bias_grad: bool):
@@ -255,12 +279,16 @@ def flash_attention_tiled(
     On CPU tensors the forward is the plain version; on CUDA tensors it
     launches the kernel or raises. ``block_q`` is the JAX signature's (the
     kernel picks its own tiles); ``block_k`` sets the backward's key blocks.
-    ``flash_attention_tiled.launches`` counts kernel launches, and
-    ``flash_attention_tiled.launches_by_variant`` splits them by variant."""
+    Where no gradient is needed the operator is called without the Function
+    around it. ``flash_attention_tiled.launches`` counts kernel launches, and
+    ``flash_attention_tiled.launches_by_variant`` splits them by variant
+    (:mod:`replay_tpu_torch.ops.counts`)."""
     if block_q < 1 or block_k < 1:
         msg = f"block_q and block_k must be positive, got {block_q}, {block_k}"
         raise ValueError(msg)
-    return _FlashAttentionTiled.apply(q, k, v, kv_bias, bool(causal), int(block_k))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, kv_bias)):
+        return _FlashAttentionTiled.apply(q, k, v, kv_bias, bool(causal), int(block_k))
+    return _forward(q, k, v, kv_bias, bool(causal))[0]
 
 
 flash_attention_tiled.launches = 0

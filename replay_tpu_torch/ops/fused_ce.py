@@ -50,7 +50,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from replay_tpu_torch.ops import build
+from replay_tpu_torch.ops import build, counts
 
 KERNEL = "fused_ce"
 _MASK = -1e30  # finite catalog-padding mask, as the Pallas kernels'
@@ -188,15 +188,15 @@ def fused_lse_forward(hidden: torch.Tensor, table: torch.Tensor, num_valid=None)
         table = build.aligned(table)
     fn = _library(_entry("forward", variant))
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    stream = torch.cuda.current_stream(hidden.device).cuda_stream
     with torch.cuda.device(hidden.device):
         err = fn(
             hidden.data_ptr(), table.data_ptr(), lse.data_ptr(), hidden.shape[0], table.shape[0],
             hidden.shape[1], _clamp(valid), *_types(hidden, table),
-            torch.cuda.current_stream(hidden.device).cuda_stream,
+            stream,
         )
     _raise_on(err, f"fused_lse_forward (K1, {variant})", hidden, table)
-    fused_lse_forward.launches += 1
-    fused_lse_forward.launches_by_variant[variant] += 1
+    counts.launched(fused_lse_forward, stream, variant)
     return lse
 
 
@@ -216,15 +216,15 @@ def fused_lse_dh(hidden, table, grad, lse, num_valid=None) -> torch.Tensor:
         table = build.aligned(table)
     fn = _library(_entry("grad_hidden", variant))
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    stream = torch.cuda.current_stream(hidden.device).cuda_stream
     with torch.cuda.device(hidden.device):
         err = fn(
             hidden.data_ptr(), table.data_ptr(), grad.data_ptr(), lse.data_ptr(), dh.data_ptr(),
             hidden.shape[0], table.shape[0], hidden.shape[1], _clamp(valid), *_types(hidden, table),
-            torch.cuda.current_stream(hidden.device).cuda_stream,
+            stream,
         )
     _raise_on(err, f"fused_lse_dh (K2, {variant})", hidden, table)
-    fused_lse_dh.launches += 1
-    fused_lse_dh.launches_by_variant[variant] += 1
+    counts.launched(fused_lse_dh, stream, variant)
     return dh
 
 
@@ -264,16 +264,16 @@ def fused_lse_dw(hidden, table, grad, lse, num_valid=None) -> torch.Tensor:
     )
     fn = _library(_entry("grad_table", variant))
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    stream = torch.cuda.current_stream(hidden.device).cuda_stream
     with torch.cuda.device(hidden.device):
         err = fn(
             hidden.data_ptr(), table.data_ptr(), grad.data_ptr(), lse.data_ptr(), dw.data_ptr(),
             partial.data_ptr() if partial is not None else None,
             hidden.shape[0], table.shape[0], hidden.shape[1], _clamp(valid), splits, rows_per_split,
-            *_types(hidden, table), torch.cuda.current_stream(hidden.device).cuda_stream,
+            *_types(hidden, table), stream,
         )
     _raise_on(err, f"fused_lse_dw (K3, {variant})", hidden, table)
-    fused_lse_dw.launches += 1
-    fused_lse_dw.launches_by_variant[variant] += 1
+    counts.launched(fused_lse_dw, stream, variant)
     return dw
 
 

@@ -13,8 +13,11 @@ families, both built at construction:
   which skips the transformer.
 
 ``outputs="hidden"`` (retrieval mode) drops the catalog logits from the encode
-programs. Results stay on the device; each call synchronises with it, so that
-a device fault surfaces inside the call and its accounting.
+programs. On the card every program is one CUDA graph per bucket, captured at
+construction (:mod:`replay_tpu_torch.nn.graphs`); on the CPU the programs run
+eagerly. Results stay on the device; each call synchronises with it, so that
+a device fault surfaces inside the call and its accounting. :meth:`close`
+frees the graphs and their memory.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import numpy as np
 import torch
 
 from replay_tpu_torch.device import DeviceLike, resolve_device
+from replay_tpu_torch.nn.graphs import CapturedProgram
 from replay_tpu_torch.nn.compiled import (
     CompiledInference,
     Params,
@@ -111,10 +115,18 @@ class ScoringEngine:
         # hidden scorers (skipped in retrieval mode: cached states go straight
         # to the retrieval index, no catalog-wide product exists to build)
         self._hidden_scorer: Optional[Any] = None
+        self._hidden_graphs: Optional[CapturedProgram] = None
         if outputs == "both":
             self._hidden_scorer = bind(
                 model, lambda model, hidden, cands: model.get_logits(hidden, candidates_to_score=cands)
             )
+            if self.device.type == "cuda":
+                self._hidden_graphs = CapturedProgram(
+                    dict.fromkeys(self.batch_buckets, self._hidden_scorer), self.device
+                )
+                for bucket in self.batch_buckets:
+                    example = torch.zeros((bucket, self.embedding_dim), dtype=torch.float32, device=self.device)
+                    self._hidden_graphs.prepare(bucket, self.params, (example, self._candidates_on_device))
 
         # accounting
         self.encode_calls = 0
@@ -195,12 +207,14 @@ class ScoringEngine:
         hidden = as_device_tensor(hidden, torch.float32, self.device)
         rows = hidden.shape[0]
         bucket = self.batch_bucket(rows)
+        params = self.params if params is None else params
         try:
-            logits = self._hidden_scorer(
-                self.params if params is None else params,
-                pad_rows(hidden, bucket),
-                self._candidates_on_device,
-            )
+            if self._hidden_graphs is not None:
+                logits = self._hidden_graphs(
+                    bucket, params, (pad_rows(hidden, bucket), self._candidates_on_device), rows=rows
+                )
+            else:
+                logits = self._hidden_scorer(params, pad_rows(hidden, bucket), self._candidates_on_device)[:rows]
             self._synchronize()
         except Exception:
             self.hit_failures += 1
@@ -208,13 +222,34 @@ class ScoringEngine:
         self.hit_calls += 1
         self.hit_rows += rows
         self.hit_slots += bucket
-        return logits[:rows]
+        return logits
 
     def record_ranked_batch(self, rows: int, bucket: int) -> None:
         """Account a retrieval-mode pure-hit batch that bypassed the scorers."""
         self.hit_calls += 1
         self.hit_rows += rows
         self.hit_slots += bucket
+
+    def graph_counts(self) -> Dict[str, Dict[str, int]]:
+        """By lane (``encode``, ``hit``), on the card: the captured graphs,
+        their replays, and the eager warm-up runs before the captures (each
+        launches every kernel of its program once); zeros on the CPU."""
+        lanes = {"encode": [e.graphs for e in self._encoders.values()], "hit": [self._hidden_graphs]}
+        return {
+            lane: {
+                "graphs": sum(len(g.keys) for g in sets if g is not None),
+                "replays": sum(g.replays for g in sets if g is not None),
+                "warmups": sum(g.warmups for g in sets if g is not None),
+            }
+            for lane, sets in lanes.items()
+        }
+
+    def close(self) -> None:
+        """Free every program's graphs and memory pools (a later call captures anew)."""
+        for encoder in self._encoders.values():
+            encoder.close()
+        if self._hidden_graphs is not None:
+            self._hidden_graphs.close()
 
     def stats(self) -> Dict[str, float]:
         slots = self.encode_slots + self.hit_slots

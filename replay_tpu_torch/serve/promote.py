@@ -255,6 +255,11 @@ class ParamStore:
                 del self._generations[number]
 
     # -- introspection ------------------------------------------------------ #
+    def engines(self) -> List[Any]:
+        """The engines of the resident generations that brought their own."""
+        with self._lock:
+            return [g.engine for g in self._generations.values() if g.engine is not None]
+
     @property
     def stable_generation(self) -> int:
         with self._lock:

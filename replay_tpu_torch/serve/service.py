@@ -278,7 +278,8 @@ class ScoringService:
     def close(self) -> None:
         """Stop the service. Every still-pending future is RESOLVED before
         this returns — flushed through the engine when the worker is healthy,
-        failed with a real exception when it is not (never left to hang)."""
+        failed with a real exception when it is not (never left to hang).
+        Then the engines free their CUDA graphs and memory pools."""
         if not self._started:
             return
         self.batcher.stop()
@@ -298,6 +299,9 @@ class ScoringService:
         self._emit("on_serve_end", payload)
         if self.trace_path and self.tracer.enabled:
             self.tracer.save(self.trace_path)
+        # the engines' CUDA graphs and pools: a restarted service captures anew
+        for engine in {id(e): e for e in (self.engine, *self.store.engines())}.values():
+            engine.close()
 
     def __enter__(self) -> "ScoringService":
         return self.start()

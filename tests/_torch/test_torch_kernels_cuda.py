@@ -828,3 +828,132 @@ def test_fused_lse_forward_carries_a_nan_logit_to_lse(cuda_device, dim):
     got = fused_ce.fused_lse_forward(hidden, table)
     assert torch.isnan(got[70]) and torch.isfinite(got[torch.arange(200, device=cuda_device) != 70]).all()
     assert torch.equal(got[:64], clean[:64]) and torch.equal(got[128:], clean[128:])
+
+
+# --------------------------------------------------------------------------- #
+# CUDA graphs: the kernels captured and replayed, counted per replay
+# --------------------------------------------------------------------------- #
+def _kernel_calls(device):
+    """(name, wrapper whose count moves, call) for K1-K5 at small shapes."""
+    gen = torch.Generator(device).manual_seed(41)
+    q, k, v = (torch.randn(8, 2, 50, 32, device=device, generator=gen) for _ in range(3))
+    bias = causal_attention_mask(torch.tensor(_left_padded(8, 50, 42), device=device), deterministic=True)
+    tq, tk, tv = (torch.randn(4, 2, 300, 64, device=device, generator=gen).to(torch.bfloat16) for _ in range(3))
+    kv_bias = padding_mask_bias(torch.tensor(_left_padded(4, 300, 43), device=device))
+    hidden = torch.randn(500, 64, device=device, generator=gen)
+    table = torch.randn(700, 64, device=device, generator=gen) / 8
+    grad = torch.randn(500, device=device, generator=gen)
+    lse = fused_ce.fused_lse_forward(hidden, table)
+    return [
+        ("K4", flash_attention, lambda: flash_attention(q, k, v, bias)),
+        ("K5", flash_attention_tiled, lambda: flash_attention_tiled(tq, tk, tv, kv_bias)),
+        ("K1", fused_ce.fused_lse_forward, lambda: fused_ce.fused_lse_forward(hidden, table)),
+        ("K2", fused_ce.fused_lse_dh, lambda: fused_ce.fused_lse_dh(hidden, table, grad, lse)),
+        ("K3", fused_ce.fused_lse_dw, lambda: fused_ce.fused_lse_dw(hidden, table, grad, lse)),
+    ]
+
+
+def test_each_kernel_replays_bitwise_and_counts_per_replay(cuda_device):
+    """K1-K5 captured in a graph: each replay writes the eager launch's bits,
+    the capture itself counts only its warm-up launch, and every replay counts one."""
+    from replay_tpu_torch.nn.graphs import capture
+
+    for name, wrapper, call in _kernel_calls(cuda_device):
+        eager = call()
+        before = wrapper.launches
+        graph, out = capture(call, cuda_device)
+        assert wrapper.launches == before + 1, name  # the warm-up ran eagerly
+        assert len(graph.launches) == 1 and graph.launches[0][0] is wrapper, name
+        out.zero_()
+        for replay in range(3):
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, eager), name
+            assert wrapper.launches == before + 2 + replay, name
+
+
+def test_a_kernel_error_inside_a_capture_raises(cuda_device):
+    """A launch the card refuses (grid.z = 70,000 > 65,535 batches) raises
+    through the capture; nothing runs eagerly instead, and capturing works after."""
+    from replay_tpu_torch.nn.graphs import capture
+
+    name, wrapper, call = _kernel_calls(cuda_device)[0]
+    call()  # built and loaded before the capture
+    q = torch.randn(70_000, 1, 1, 8, device=cuda_device)
+    bias = torch.zeros(70_000, 1, 1, 1, device=cuda_device)
+    before = flash_attention.launches
+    with pytest.raises(RuntimeError):
+        capture(lambda: flash_attention(q, q, q, bias), cuda_device, warmup=lambda: None)
+    assert flash_attention.launches == before
+    graph, out = capture(call, cuda_device)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, call())
+
+
+@pytest.mark.parametrize("use_flash", [True, "tiled"], ids=["K4", "K5"])
+def test_exported_programs_keep_the_kernel_operators(cuda_device, use_flash):
+    """CompiledInference on the card: replays bitwise equal to the eager
+    program, and the serialized form's programs hold K4 / K5 as
+    ``replay_tpu_torch::`` operators that launch the kernels when loaded."""
+    from replay_tpu_torch.nn.compiled import CompiledInference
+
+    model = SasRec(
+        _long_schema(), embedding_dim=32, num_blocks=2, num_heads=2, max_sequence_length=64,
+        use_flash=use_flash, device=cuda_device, generator=torch.Generator().manual_seed(44),
+    )
+    params = model.state_dict()
+    compiled = CompiledInference.compile(
+        model, params, 64, mode="dynamic_batch_size", dynamic_buckets=(1, 8), outputs="both", device=cuda_device,
+    )
+    payload = compiled.serialize()
+    op = b"flash_attention_forward" if use_flash is True else b"flash_attention_tiled_forward"
+    assert op in payload
+    served = CompiledInference.deserialize(payload, device=cuda_device)
+    wrapper = flash_attention if use_flash is True else flash_attention_tiled
+    rng = np.random.default_rng(45)
+    for rows in (1, 5, 8):
+        mask = _left_padded(rows, 64, rows)
+        mask[-1, -1] = True
+        ids = np.where(mask, rng.integers(0, 300, (rows, 64)), 0).astype(np.int32)
+        before = wrapper.launches
+        got = served(ids, mask)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 2  # one replay, two blocks
+        want = compiled(ids, mask)
+        bucket = 8 if rows > 1 else 1
+        padded = (torch.as_tensor(np.concatenate([x, np.repeat(x[:1], bucket - rows, 0)]), device=cuda_device) for x in (ids, mask))
+        eager = compiled._compiled[bucket](params, *padded, None)  # the eager bound program
+        for a, b, c in zip(got, want, eager):
+            assert torch.equal(a, b) and torch.equal(b, c[:rows])
+
+
+def test_train_steps_graph_equals_the_eager_steps(cuda_device):
+    """Trainer.train_steps on the card (one graph of K steps) against K
+    train_step calls from the same weights: the same losses and parameters, bit for bit."""
+    model = SasRec(
+        _long_schema(), embedding_dim=32, num_blocks=2, num_heads=2, max_sequence_length=50,
+        use_flash=True, dropout_rate=0.0, device=cuda_device, generator=torch.Generator().manual_seed(46),
+    )
+    initial = {name: value.detach().clone() for name, value in model.state_dict().items()}
+    rng = np.random.default_rng(47)
+    batches = []
+    for _ in range(4):
+        items = rng.integers(0, 300, (16, 51)).astype(np.int32)
+        mask = np.ones((16, 50), bool)
+        batches.append({
+            "feature_tensors": {"item_id": items[:, :-1]}, "padding_mask": mask,
+            "positive_labels": items[:, 1:, None], "target_padding_mask": mask[:, :, None],
+        })
+    trainer = Trainer(model, CEFused(), device=cuda_device)
+    eager = trainer.init_state(batches[0], params=initial)
+    want = [float(trainer.train_step(eager, batch)[1]) for batch in batches]
+    want_params = eager.flat_params.clone()
+    state = trainer.init_state(batches[0], params=initial)
+    before = {fn: fn.launches for fn in (flash_attention, fused_ce.fused_lse_forward)}
+    state, losses = trainer.train_steps(state, batches)
+    assert trainer.capture_warmups == 1
+    assert losses.tolist() == want and torch.equal(state.flat_params, want_params)
+    # the warm-up step and the four replayed steps
+    assert flash_attention.launches == before[flash_attention] + 2 * 5
+    assert fused_ce.fused_lse_forward.launches == before[fused_ce.fused_lse_forward] + 5

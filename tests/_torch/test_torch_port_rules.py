@@ -53,7 +53,8 @@ def test_importing_the_port_loads_no_jax():
     names = [m.name for m in pkgutil.walk_packages(replay_tpu_torch.__path__, "replay_tpu_torch.")]
     assert {
         "replay_tpu_torch.serve.engine", "replay_tpu_torch.nn.train", "replay_tpu_torch.ops.fused_ce",
-        "replay_tpu_torch.ops.flash_tiled", "replay_tpu_torch.nn.precision",
+        "replay_tpu_torch.ops.flash_tiled", "replay_tpu_torch.nn.precision", "replay_tpu_torch.nn.graphs",
+        "replay_tpu_torch.nn.compiled", "replay_tpu_torch.ops.counts", "replay_tpu_torch.data.nn.prefetch",
     } <= set(names)
     code = (
         "import importlib, sys\n"
@@ -91,7 +92,8 @@ def test_the_import_rule_scans_the_port_and_chip_smoke():
     assert (REPO / "chip_smoke.py").is_file() and "chip_smoke.py" in scanned
     assert {
         "replay_tpu_torch/__init__.py", "replay_tpu_torch/ops/fused_ce.py", "replay_tpu_torch/ops/build.py",
-        "replay_tpu_torch/nn/train.py", "replay_tpu_torch/serve/engine.py",
+        "replay_tpu_torch/nn/train.py", "replay_tpu_torch/serve/engine.py", "replay_tpu_torch/nn/graphs.py",
+        "replay_tpu_torch/nn/compiled.py", "replay_tpu_torch/ops/counts.py", "replay_tpu_torch/data/nn/prefetch.py",
     } <= scanned
     assert len(scanned) > 30
 

@@ -6,9 +6,11 @@
 Drives the port (``replay_tpu_torch``, never the JAX package) through its
 serving path and its scoring service at the ``bench_serve.py`` width and
 traffic, its serialized inference form, its training path at the
-``bench.py`` width and its long-sequence path (training and serving) at the
-``bench_suite.py`` ``sasrec_l1024_tiled`` width, and holds every kernel of those
-paths against its plain PyTorch version. Serving runs on CUDA graphs (one
+``bench.py`` width, its long-sequence path (training and serving) at the
+``bench_suite.py`` ``sasrec_l1024_tiled`` width, and BERT4Rec and TwoTower
+(training and serving) at ``bench_suite.py``'s ``bert4rec`` and ``twotower``
+widths, and holds every kernel of those paths against its plain PyTorch
+version. Serving runs on CUDA graphs (one
 captured graph per bucket, replayed by every encode) and is held bit for bit
 to the eager bound program; training runs per step and, through
 ``Trainer.train_steps`` / ``fit(scan_chunk=K)``, as one graph of K steps held
@@ -18,7 +20,8 @@ replays. Phases, one JSON line each:
 1. ``env``     — the card's name and power limit (``nvidia-smi``), torch and CUDA versions;
 2. ``build``   — compile the kernels from ``replay_tpu_torch/csrc/`` with nvcc for sm_90a,
                  one nvcc per source, all at once; each build's time and ``-Xptxas -v`` report;
-3. ``kernel``  — K4 against ``flash_attention_reference`` at three shapes, f32 and bf16,
+3. ``kernel``  — K4 against ``flash_attention_reference`` at six shapes (among them
+                 BERT4Rec's D=75 bidirectional and TwoTower's D=32 causal), f32 and bf16,
                  with the kernel's, the plain version's and ``scaled_dot_product_attention``'s
                  times and the card's bound for the same work; K1, K2, K3 against their
                  plain versions at the training width (f32, and bf16 hidden states), a
@@ -30,7 +33,8 @@ replays. Phases, one JSON line each:
                  ``flash_attention_tiled_reference`` at the long-sequence shape
                  (causal, f32 and bf16, full windows; bf16 with the serving windows'
                  padding; non-causal; bf16 at D=128 and D=32), the ``attention_long``
-                 shape, a ragged case with a fully padded row and f32 at D=256, each
+                 shape, a ragged case with a fully padded row, f32 at D=256 and
+                 BERT4Rec's tiled route (L=100, non-causal, bf16 and f32), each
                  bf16 row on K5's ``mma`` variant, each f32 row up to D=128 on its
                  ``tf32x3`` variant and D=256 on its ``simt`` variant, and its
                  gradient at the long-sequence shape;
@@ -72,7 +76,23 @@ replays. Phases, one JSON line each:
                  ``train``; ``ScoringEngine`` on the tiled bf16 model, held to the same
                  comparisons and controls (the K5 swaps reach the eager program) and to
                  the graph checks of ``serve``, then encode latency per bucket;
-7. ``kernels`` — every ported kernel with its launches on the paths driven.
+7. ``bert4rec`` — ``Bert4Rec(use_flash=True)`` at bench_suite.py's width (27,278 items,
+                 E=300, 4 heads, 2 blocks, L=100, batch 512) on masked-LM batches from
+                 the port's transforms: ``Trainer(CE())`` in f32 (against the unfused
+                 route from the same weights) and in bf16 compute, step times, device
+                 time and memory, ``train_steps`` at K=16 and ``fit(scan_chunk=16)``
+                 bitwise against the per-step path; ``CompiledInference`` in the
+                 ``"logits"`` mode on graphs (the left shift inside the graph), buckets
+                 1/8/64, bitwise against the eager program, against the unfused
+                 route, serialized, and ``ScoringEngine`` under ``graph_contract``; the
+                 tiled route (K5, non-causal) at a smaller depth;
+   ``twotower`` — ``TwoTower(use_flash=True)`` at bench_suite.py's width (E=64, 2 heads,
+                 2 blocks, L=50, batch 512) with ``CESampled`` over the in-batch pool:
+                 the same trainer checks, one step with the pool's literal form (its
+                 memory, or the OOM that is the finding), ``predict_top_k`` through the
+                 catalog cache against ``forward_inference``'s top-k, the same serving
+                 checks;
+8. ``kernels`` — every ported kernel with its launches on the paths driven.
 
 Every trainer's device time per step comes from a profiler trace that agrees
 with a second trace of the same steps (``device_time_per_step``). Then the
@@ -231,6 +251,9 @@ TILED_SHAPES = (
     ("longseq_d32", LONG_BATCH, 4, LONG_LEN, LONG_DIM // 4, True, torch.bfloat16, "none"),
     ("ragged", 8, 2, 1000, 64, True, torch.float32, "dead"),
     ("simt_d256", 8, 2, 1000, 256, True, torch.float32, "none"),
+    # BERT4Rec's tiled route (bf16 training: mma; f32 forward: tf32x3), non-causal
+    ("bert4rec_tiled", 512, 2, 100, 64, False, torch.bfloat16, "none"),
+    ("bert4rec_tiled", 512, 2, 100, 64, False, torch.float32, "none"),
 )
 
 # (name, B, H, L, D, bias heads, mask): the serving width (bench_serve.py), the
@@ -241,7 +264,28 @@ KERNEL_SHAPES = (
     ("from_params", 8, 4, 200, 48, 4, "per_head"),
     ("long", 2, 2, 1024, 64, 1, "train"),
     ("serve_b1", 1, 1, 50, 64, 1, "eval"),
+    # bench_suite.py's bert4rec (E=300, 4 heads: D=75, no multiple of 4, so
+    # Q, K and V stage through the kernel's scalar loads; L=100, one bias head
+    # for four) with its bidirectional training mask, and its twotower (E=64,
+    # 2 heads: D=32) with the causal one
+    ("bert4rec", 512, 4, 100, 75, 1, "bidirectional_train"),
+    ("twotower", 512, 2, 50, 32, 1, "train"),
 )
+
+# bench_suite.py's bert4rec and twotower rows (:333-379, :828-829): the
+# MovieLens-20M catalog of 27,278 items, batch 512, dropout 0, Adam at 1e-3;
+# BERT4Rec: E=300, 4 heads, 2 blocks, L=100, masked-LM batches (mask_prob
+# 0.2), CE; TwoTower: E=64, 2 heads, 2 blocks, L=50, in-batch negatives
+# (a pool of 512), CESampled
+MODEL_ITEMS, MODEL_BATCH = 27278, 512
+B4R_DIM, B4R_HEADS, B4R_BLOCKS, B4R_LEN, B4R_MASK_PROB = 300, 4, 2, 100, 0.2
+TT_DIM, TT_HEADS, TT_BLOCKS, TT_LEN = 64, 2, 2, 50
+# bench_suite.py::measure's scan_k (:90); a fit over one chunk and a tail of 3
+MODEL_SCAN_K, MODEL_SCAN_BATCHES = 16, 19
+MODEL_STEPS, MODEL_WARMUP_STEPS, MODEL_TIMED_STEPS, MODEL_PROFILED_STEPS = 5, 3, 20, 5
+# BERT4Rec on the tiled route (K5, non-causal) at a smaller depth: one block,
+# E=128 and 2 heads (D=64, a multiple of 8, so bf16 runs K5's mma variant)
+B4R_TILED_DIM, B4R_TILED_HEADS, B4R_TILED_BLOCKS = 128, 2, 1
 
 
 def emit(phase: str, **fields) -> None:
@@ -311,8 +355,10 @@ def eager_ms(fn, launches: int = 50, reps: int = 7) -> float:
 
 
 def attention_case(batch, heads, length, dim, bias_heads, mask, dtype, device, seed):
-    """q, k, v from a seeded normal; bias as the serving path builds it."""
-    from replay_tpu_torch.nn.mask import causal_attention_mask
+    """q, k, v from a seeded normal; bias as the serving (or, for the
+    ``*train`` masks, the training) path builds it; ``bidirectional_*``: the
+    padding-only mask of BERT4Rec."""
+    from replay_tpu_torch.nn.mask import bidirectional_attention_mask, causal_attention_mask
 
     rng = np.random.default_rng(seed)
     q, k, v = (
@@ -324,7 +370,8 @@ def attention_case(batch, heads, length, dim, bias_heads, mask, dtype, device, s
     if batch > 1:
         lengths[-1] = 0  # one all-padding row
     padding = torch.tensor(np.arange(length)[None, :] >= length - lengths[:, None], device=device)
-    bias = causal_attention_mask(padding, deterministic=mask != "train")
+    make_mask = bidirectional_attention_mask if mask.startswith("bidirectional") else causal_attention_mask
+    bias = make_mask(padding, deterministic=not mask.endswith("train"))
     if mask == "per_head":
         noise = rng.standard_normal((batch, bias_heads, length, length), dtype=np.float32)
         bias = bias + torch.tensor(noise, device=device)
@@ -371,12 +418,12 @@ def bound(q: torch.Tensor, bias: torch.Tensor):
 
 
 def kernel_phase(device) -> dict:
-    """K4 vs its plain version at every shape; returns the serving-shape f32 record."""
+    """K4 vs its plain version at every shape; returns the records by (shape, dtype)."""
     import torch.nn.functional as F
 
     from replay_tpu_torch.ops.flash_attention import flash_attention, flash_attention_reference
 
-    serve_record = None
+    records = {}
     for index, (name, batch, heads, length, dim, bias_heads, mask) in enumerate(KERNEL_SHAPES):
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, bias = attention_case(batch, heads, length, dim, bias_heads, mask, dtype, device, index)
@@ -407,9 +454,8 @@ def kernel_phase(device) -> dict:
             emit("kernel", **record)
             if err > KERNEL_TOL[dtype]:
                 raise AssertionError(f"K4 {name} {dtype}: max abs err {err} > {KERNEL_TOL[dtype]}")
-            if name == "serve" and dtype == torch.float32:
-                serve_record = record
-    return serve_record
+            records[(name, dtype)] = record
+    return records
 
 
 def history_lengths(rng, count: int, length: int) -> np.ndarray:
@@ -2465,6 +2511,437 @@ def longseq_phase(device) -> dict:
     }
 
 
+def model_schema(dim: int):
+    """The item-id schema of bench_suite.py's ``item_schema`` at ``dim``."""
+    from replay_tpu_torch.data import FeatureHint, FeatureType
+    from replay_tpu_torch.data.nn import TensorFeatureInfo, TensorSchema
+
+    return TensorSchema(
+        TensorFeatureInfo(
+            "item_id", FeatureType.CATEGORICAL, is_seq=True, feature_hint=FeatureHint.ITEM_ID,
+            cardinality=MODEL_ITEMS, embedding_dim=dim,
+        )
+    )
+
+
+def mlm_batches(schema, count: int) -> list:
+    """Masked-LM batches as bench_suite.py's ``run_bert4rec`` builds them
+    (full windows of L=100 from default_rng(seed), the port's
+    ``make_default_bert4rec_transforms(mask_prob=0.2)``), seeds 0 .. count-1."""
+    from replay_tpu_torch.nn.transform import Compose, make_default_bert4rec_transforms
+
+    pipeline = Compose(make_default_bert4rec_transforms(schema, mask_prob=B4R_MASK_PROB)["train"])
+    batches = []
+    for seed in range(count):
+        items = np.random.default_rng(seed).integers(0, MODEL_ITEMS, (MODEL_BATCH, B4R_LEN)).astype(np.int32)
+        raw = {"item_id": items, "item_id_mask": np.ones_like(items, bool)}
+        batches.append(pipeline(raw, torch.Generator().manual_seed(seed)))
+    return batches
+
+
+def in_batch_batches(schema, count: int) -> list:
+    """In-batch-negative batches as bench_suite.py's ``run_twotower`` builds
+    them (full windows of L+1 from default_rng(seed), the port's
+    ``make_default_twotower_transforms``: a pool of 512 negatives a batch)."""
+    from replay_tpu_torch.nn.transform import Compose, make_default_twotower_transforms
+
+    pipeline = Compose(make_default_twotower_transforms(schema)["train"])
+    batches = []
+    for seed in range(count):
+        items = np.random.default_rng(seed).integers(0, MODEL_ITEMS, (MODEL_BATCH, TT_LEN + 1)).astype(np.int32)
+        batches.append(pipeline({"item_id": items, "item_id_mask": np.ones_like(items, bool)}))
+    return batches
+
+
+def model_histories(rng, count: int):
+    """Users' histories of 1–100 items of the 27,278-item catalog."""
+    return [list(rng.integers(0, MODEL_ITEMS, int(rng.integers(1, 101)))) for _ in range(count)]
+
+
+def release() -> None:
+    """Return to the card what the parts before dropped (their graphs' pools
+    too), so that the next part's memory readings are its own."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def model_training(label, make_model, make_loss, batches, blocks, length, dtype, device) -> dict:
+    """One trainer at ``dtype`` compute on K4 (``make_model(use_flash=True)``):
+    ``MODEL_STEPS`` steps from the model's initial weights (the main path: K4's
+    count starts at 0 there and is read right after, once a block a step);
+    in f32, the same steps on the unfused route from the same weights, losses
+    within ``TRAIN_LOSS_RTOL``; step times, device time and memory
+    (``trainer_perf``); then ``train_steps`` at K = ``MODEL_SCAN_K`` and
+    ``fit(scan_chunk=K)`` bitwise against the per-step path (``chunk_checks``)."""
+    from replay_tpu_torch.nn.train import OptimizerFactory, Trainer
+    from replay_tpu_torch.ops.flash_attention import flash_attention
+
+    optimizer = OptimizerFactory(name="adam", learning_rate=1e-3)
+    precision = "bf16" if dtype == torch.bfloat16 else None
+    model = make_model(use_flash=True)
+    initial = {name: value.detach().clone() for name, value in model.state_dict().items()}
+    trainer = Trainer(model, make_loss(), optimizer=optimizer, precision=precision, device=device)
+    if trainer.model.dtype != dtype:
+        raise AssertionError(f"{label}: the trainer's model computes in {trainer.model.dtype}, not {dtype}")
+    tokens = MODEL_BATCH * length
+
+    reset_counts(flash_attention)
+    state = trainer.init_state(batches[0], params=initial)
+    losses = [trainer.train_step(state, batch)[1] for batch in batches[:MODEL_STEPS]]
+    torch.cuda.synchronize()
+    launches = flash_attention.launches
+    losses = [float(x) for x in losses]
+    if launches != blocks * MODEL_STEPS or not all(math.isfinite(x) for x in losses) or int(state.bad_steps):
+        raise AssertionError(f"{label}: K4 launches {launches} (expected {blocks * MODEL_STEPS}), losses {losses}")
+    record = {"dtype": str(dtype).removeprefix("torch."), "losses": losses, "k4_launches": launches,
+              "k4_launches_per_step": launches / MODEL_STEPS}
+    if dtype == torch.float32:
+        plain = Trainer(make_model(use_flash=False), make_loss(), optimizer=optimizer, device=device)
+        plain_state = plain.init_state(batches[0], params=initial)
+        plain_losses = [float(plain.train_step(plain_state, batch)[1]) for batch in batches[:MODEL_STEPS]]
+        if flash_attention.launches != launches:
+            raise AssertionError(f"{label}: the unfused trainer launched K4 {flash_attention.launches - launches} times")
+        err = max(abs(a - b) / abs(b) for a, b in zip(losses, plain_losses))
+        record.update(unfused_losses=plain_losses, loss_max_rtol_vs_unfused=err, loss_tol=TRAIN_LOSS_RTOL)
+        del plain, plain_state
+        release()
+        if err > TRAIN_LOSS_RTOL:
+            raise AssertionError(f"{label}: K4 route vs unfused losses differ by rtol {err}: {losses} vs {plain_losses}")
+    _, record["perf"] = trainer_perf(
+        trainer, state, batches[0], MODEL_TIMED_STEPS, MODEL_WARMUP_STEPS, MODEL_PROFILED_STEPS, tokens
+    )
+    record["chunked"] = chunk_checks(
+        trainer, initial, batches, MODEL_SCAN_K, (flash_attention,), {"flash_attention": blocks}, tokens
+    )
+    del trainer, state, model
+    release()
+    return record
+
+
+def traced_calls(call, calls: int, wrapper) -> dict:
+    """``calls`` calls of ``call()`` (each synchronising) in a profiler trace:
+    device time per call, and the wrapper's kernels in the trace against its
+    launches counted over the calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    before = wrapper.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    return {
+        "device_ms": sum(e.self_device_time_total for e in kernels) / calls / 1e3,
+        "launched": wrapper.launches - before,
+        "traced": traced_kernels(kernels, [wrapper])[wrapper.__name__],
+    }
+
+
+def model_serving(label, model, other_params, blocks, length, device) -> dict:
+    """``CompiledInference`` in the ``"logits"`` mode (``forward_inference``:
+    BERT4Rec's left shift and mask slot run inside the captured program), batch
+    buckets ``BATCH_BUCKETS``, one CUDA graph each. The main path: encodes at a
+    full and a partial fill of every bucket, with the installed and with
+    per-call params, their latency and a profiled window; K4's count starts at
+    0 and must equal the blocks times the replays, and the trace's K4 kernels
+    the count. Then, as comparisons: every output bitwise equal to the eager
+    bound program, across a ``swap_params``; within ``SERVE_TOL`` of the
+    unfused route's ``forward_inference``; ``serialize`` → ``deserialize``
+    bitwise equal to the live instance with K4 in the loaded program's trace;
+    and ``ScoringEngine`` (the ``"both"`` definition: the model's forward at
+    the last position) under ``graph_contract``."""
+    from replay_tpu_torch.nn.compiled import CompiledInference, as_device_tensor, pad_rows
+    from replay_tpu_torch.ops.flash_attention import flash_attention
+    from replay_tpu_torch.serve import ScoringEngine, make_window
+
+    params = {name: value.detach().clone() for name, value in model.state_dict().items()}
+    requests = model_histories(np.random.default_rng(SEED + 5), 80)
+
+    def windows(rows, offset=0):
+        made = [make_window(requests[(offset + i) % len(requests)], length) for i in range(rows)]
+        return np.stack([w[0] for w in made]), np.stack([w[1] for w in made])
+
+    compiled = CompiledInference.compile(
+        model, params, length, mode="dynamic_batch_size", dynamic_buckets=BATCH_BUCKETS, outputs="logits",
+        device=device,
+    )
+
+    def eager(ids, mask, call_params=None):
+        bucket = compiled._bucket_for(len(ids))
+        out = compiled._compiled[bucket](
+            compiled._params if call_params is None else call_params,
+            pad_rows(as_device_tensor(ids, torch.int32, device), bucket),
+            pad_rows(as_device_tensor(mask, torch.bool, device), bucket), None,
+        )
+        return out[: len(ids)]
+
+    # the main path
+    reset_counts(flash_attention)
+    replays_before = compiled.graphs.replays
+    outputs, latency = [], {}
+    for bucket in BATCH_BUCKETS:
+        for fill in sorted({bucket, max(1, bucket - 3)}):
+            ids, mask = windows(fill, bucket)
+            outputs.append((ids, mask, None, compiled(ids, mask)))
+            outputs.append((ids, mask, other_params, compiled(ids, mask, params=other_params)))
+        ids, mask = windows(bucket, 3)
+
+        def encode():
+            compiled(ids, mask)
+            torch.cuda.synchronize()
+
+        latency[f"B={bucket}"] = {**encode_latency(encode, 50, 5), **traced_calls(encode, 10, flash_attention)}
+        latency[f"B={bucket}"]["device_busy_share"] = latency[f"B={bucket}"]["device_ms"] / latency[f"B={bucket}"]["p50_ms"]
+    torch.cuda.synchronize()
+    launches = flash_attention.launches
+    replays = compiled.graphs.replays - replays_before
+    if launches != blocks * replays or any(r["traced"] != r["launched"] for r in latency.values()):
+        raise AssertionError(f"{label} serve: K4 launches {launches} for {replays} replays; traces {latency}")
+
+    # comparisons: the eager bound program, the unfused route, the serialized form
+    compared = 0
+    for ids, mask, call_params, got in outputs:
+        if got.shape != (len(ids), MODEL_ITEMS) or not torch.isfinite(got).all():
+            raise AssertionError(f"{label} serve: {tuple(got.shape)} scores, finite={bool(torch.isfinite(got).all())}")
+        if not bitwise_equal(got, eager(ids, mask, call_params)):
+            raise AssertionError(f"{label} serve: a replay differs from the eager program at {len(ids)} rows")
+        compared += 1
+    compiled.swap_params(other_params)
+    for ids, mask, call_params, got in outputs[1::2]:
+        if not bitwise_equal(compiled(ids, mask), got):
+            raise AssertionError(f"{label} serve: after swap_params a replay differs from the per-call params")
+        compared += 1
+    compiled.swap_params(params)
+    plain = model.clone(use_flash=False)
+    with torch.no_grad():
+        unfused_err = max(
+            (got - plain.forward_inference(
+                {"item_id": as_device_tensor(ids, torch.int32, device)}, as_device_tensor(mask, torch.bool, device)
+            )).abs().max().item()
+            for ids, mask, call_params, got in outputs if call_params is None
+        )
+    if unfused_err > SERVE_TOL:
+        raise AssertionError(f"{label} serve: K4 route vs unfused route differ by {unfused_err}")
+    payload = compiled.serialize()
+    served = CompiledInference.deserialize(payload, device=device)
+    if b"replay_tpu_torch.flash_attention_forward" not in payload:
+        raise AssertionError(f"{label} serialize: the payload's programs do not hold K4's operator")
+    for ids, mask, call_params, got in outputs[::2]:
+        if not bitwise_equal(served(ids, mask), got):
+            raise AssertionError(f"{label} serialize: the loaded program differs from the live instance")
+    ids, mask = windows(max(BATCH_BUCKETS))
+    serialized = traced_calls(lambda: served(ids, mask), 1, flash_attention)
+    if serialized["launched"] != blocks or serialized["traced"] != blocks:
+        raise AssertionError(f"{label} serialize: one call counted {serialized} K4 launches")
+    engine = ScoringEngine(model, params, length_buckets=(length,), batch_buckets=BATCH_BUCKETS, device=device)
+    contract = graph_contract(engine, other_params, requests, length)
+    record = {
+        "k4_launches": launches, "replays": replays, "bitwise_compared": compared,
+        "max_abs_err_vs_unfused": unfused_err, "tol": SERVE_TOL, "latency_ms": latency,
+        "serialized_bytes": len(payload), "engine_graph_contract": contract,
+    }
+    for item in (engine, compiled, served):
+        item.close()
+    del engine, compiled, served, plain
+    release()
+    return record
+
+
+def bert4rec_tiled(device) -> dict:
+    """``Bert4Rec(use_flash="tiled")`` (K5, non-causal) at a smaller depth:
+    in f32 compute, the hidden states of a masked-LM batch against the unfused
+    route's within ``LONGSEQ_F32_TOL`` (K5's ``tf32x3``); a bf16 trainer
+    (K5's ``mma``) taking ``MODEL_STEPS`` steps, K5 launched once a block a
+    step, its losses beside the unfused bf16 trainer's from the same weights."""
+    from replay_tpu_torch.nn.loss import CE
+    from replay_tpu_torch.nn.sequential.bert4rec import Bert4Rec
+    from replay_tpu_torch.nn.train import OptimizerFactory, Trainer
+    from replay_tpu_torch.ops.flash_tiled import flash_attention_tiled
+
+    schema = model_schema(B4R_TILED_DIM)
+    width = dict(
+        embedding_dim=B4R_TILED_DIM, num_blocks=B4R_TILED_BLOCKS, num_heads=B4R_TILED_HEADS,
+        max_sequence_length=B4R_LEN, dropout_rate=0.0, device=device,
+    )
+    model = Bert4Rec(schema, use_flash="tiled", generator=torch.Generator().manual_seed(SEED), **width)
+    plain = model.clone(use_flash=False)
+    initial = {name: value.detach().clone() for name, value in model.state_dict().items()}
+    batches = mlm_batches(schema, MODEL_STEPS)
+    batch = {key: value.to(device) if isinstance(value, torch.Tensor) else value for key, value in batches[0].items()}
+    ids = batch["feature_tensors"]["item_id"].to(device)
+    reset_counts(flash_attention_tiled)
+    with torch.no_grad():
+        hidden = model({"item_id": ids}, batch["padding_mask"], token_mask=batch["token_mask"])
+        torch.cuda.synchronize()
+        f32_launches = variant_counts(flash_attention_tiled)
+        want = plain({"item_id": ids}, batch["padding_mask"], token_mask=batch["token_mask"])
+    f32_err = (hidden - want).abs().max().item()
+    if f32_launches != {"mma": 0, "tf32x3": B4R_TILED_BLOCKS, "simt": 0} or f32_err > LONGSEQ_F32_TOL:
+        raise AssertionError(f"bert4rec tiled f32: K5 {f32_launches}, hidden states vs unfused {f32_err}")
+
+    optimizer = OptimizerFactory(name="adam", learning_rate=1e-3)
+    tiled = Trainer(model, CE(), optimizer=optimizer, precision="bf16", device=device)
+    reset_counts(flash_attention_tiled)
+    state = tiled.init_state(batches[0], params=initial)
+    losses = [tiled.train_step(state, b)[1] for b in batches]
+    torch.cuda.synchronize()
+    launches = variant_counts(flash_attention_tiled)
+    losses = [float(x) for x in losses]
+    unfused = Trainer(plain, CE(), optimizer=optimizer, precision="bf16", device=device)
+    plain_state = unfused.init_state(batches[0], params=initial)
+    plain_losses = [float(unfused.train_step(plain_state, b)[1]) for b in batches]
+    if launches != {"mma": B4R_TILED_BLOCKS * MODEL_STEPS, "tf32x3": 0, "simt": 0} or not all(
+        math.isfinite(x) for x in losses
+    ) or int(state.bad_steps):
+        raise AssertionError(f"bert4rec tiled bf16 trainer: K5 {launches}, losses {losses}")
+    record = {
+        "f32_hidden_max_abs_err_vs_unfused": f32_err, "f32_limit": LONGSEQ_F32_TOL, "f32_k5": f32_launches,
+        "bf16_k5": launches, "bf16_losses": losses, "bf16_unfused_losses": plain_losses,
+        "bf16_loss_max_rtol_vs_unfused": max(abs(a - b) / abs(b) for a, b in zip(losses, plain_losses)),
+    }
+    del model, plain, tiled, unfused, state, plain_state
+    release()
+    return record
+
+
+def bert4rec_phase(device) -> dict:
+    """bench_suite.py's bert4rec row on K4 (D=75, bidirectional): the trainer
+    in f32 and bf16 compute (``model_training``), the serving programs
+    (``model_serving``), then the tiled route at a smaller depth
+    (``bert4rec_tiled``)."""
+    from replay_tpu_torch.nn.loss import CE
+    from replay_tpu_torch.nn.sequential.bert4rec import Bert4Rec
+
+    schema = model_schema(B4R_DIM)
+    width = dict(
+        embedding_dim=B4R_DIM, num_blocks=B4R_BLOCKS, num_heads=B4R_HEADS, max_sequence_length=B4R_LEN,
+        dropout_rate=0.0, device=device,
+    )
+
+    def make_model(use_flash, seed=SEED):
+        return Bert4Rec(schema, use_flash=use_flash, generator=torch.Generator().manual_seed(seed), **width)
+
+    batches = mlm_batches(schema, MODEL_SCAN_BATCHES)
+    training = {
+        name: model_training(f"bert4rec {name}", make_model, CE, batches, B4R_BLOCKS, B4R_LEN, dtype, device)
+        for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16))
+    }
+    serving = model_serving(
+        "bert4rec", make_model(True), make_model(True, SEED + 1).state_dict(), B4R_BLOCKS, B4R_LEN, device
+    )
+    tiled = bert4rec_tiled(device)
+    emit(
+        "bert4rec", items=MODEL_ITEMS, embedding_dim=B4R_DIM, heads=B4R_HEADS, blocks=B4R_BLOCKS, seq_len=B4R_LEN,
+        batch=MODEL_BATCH, mask_prob=B4R_MASK_PROB, train=training, serve=serving, tiled=tiled,
+    )
+    return {"train": training, "serve": serving, "tiled": tiled}
+
+
+def literal_pool_step(make_model, batch, initial, dtype, device) -> dict:
+    """One TwoTower step with the in-batch pool scored in its literal form
+    (every [B, L, N] candidate row through the item tower): its peak memory,
+    loss and host time (a first step, so it includes the allocator's growth),
+    or the out-of-memory error that is the finding."""
+    from replay_tpu_torch.nn.loss import CESampled
+    from replay_tpu_torch.nn.train import OptimizerFactory, Trainer
+
+    release()
+    trainer = Trainer(
+        make_model(use_flash=True), CESampled(), optimizer=OptimizerFactory(name="adam", learning_rate=1e-3),
+        precision="bf16" if dtype == torch.bfloat16 else None, device=device,
+    )
+    trainer.model.dedup_candidates = False
+    torch.cuda.reset_peak_memory_stats(device)
+    state = None
+    try:
+        state = trainer.init_state(batch, params=initial)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, loss = trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        record = {"fits": True, "loss": float(loss), "step_ms": (time.perf_counter() - t0) * 1e3}
+    except torch.cuda.OutOfMemoryError as exc:
+        record = {"fits": False, "error": str(exc).splitlines()[0][:240]}
+    record["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated(device)
+    del trainer, state
+    release()
+    return record
+
+
+def twotower_phase(device) -> dict:
+    """bench_suite.py's twotower row on K4 (D=32, causal): the trainer in f32
+    and bf16 compute with ``CESampled`` over the in-batch pool
+    (``model_training``), the pool scored once a batch; one step with the
+    pool's literal form, its memory or its OOM; ``predict_top_k`` through the
+    catalog cache against ``forward_inference``'s top-k; the serving programs
+    (``model_serving``)."""
+    from replay_tpu_torch.nn.loss import CESampled
+    from replay_tpu_torch.nn.sequential.twotower import TwoTower
+    from replay_tpu_torch.nn.train import Trainer
+
+    schema = model_schema(TT_DIM)
+    width = dict(
+        embedding_dim=TT_DIM, num_blocks=TT_BLOCKS, num_heads=TT_HEADS, max_sequence_length=TT_LEN,
+        dropout_rate=0.0, device=device,
+    )
+
+    def make_model(use_flash, seed=SEED):
+        return TwoTower(schema, use_flash=use_flash, generator=torch.Generator().manual_seed(seed), **width)
+
+    batches = in_batch_batches(schema, MODEL_SCAN_BATCHES)
+    if tuple(batches[0]["negative_labels"].shape) != (MODEL_BATCH,):
+        raise AssertionError(f"in-batch pool of shape {tuple(batches[0]['negative_labels'].shape)}")
+    training = {
+        name: model_training(f"twotower {name}", make_model, CESampled, batches, TT_BLOCKS, TT_LEN, dtype, device)
+        for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16))
+    }
+    initial = make_model(True).state_dict()
+    literal = {}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        literal[name] = literal_pool_step(make_model, batches[0], initial, dtype, device)
+        if literal[name]["fits"]:
+            first = training[name]["losses"][0]
+            literal[name]["loss_rtol_vs_deduplicated"] = abs(literal[name]["loss"] - first) / abs(first)
+    if literal["f32"]["fits"] and literal["f32"]["loss_rtol_vs_deduplicated"] > TRAIN_LOSS_RTOL:
+        raise AssertionError(f"twotower: the literal pool's loss differs from the deduplicated one: {literal}")
+
+    # predict_top_k through the catalog cache against forward_inference's top-k
+    trainer = Trainer(make_model(True), CESampled(), device=device)
+    state = trainer.init_state(batches[0])
+    for batch in batches[:MODEL_STEPS]:
+        state, _ = trainer.train_step(state, batch)
+    rng = np.random.default_rng(SEED + 7)
+    lengths = rng.integers(1, TT_LEN + 1, 256)
+    mask = np.arange(TT_LEN)[None, :] >= TT_LEN - lengths[:, None]
+    ids = np.where(mask, rng.integers(0, MODEL_ITEMS, (256, TT_LEN)), MODEL_ITEMS).astype(np.int32)
+    held = {"feature_tensors": {"item_id": ids}, "padding_mask": mask}
+    _, items, scores = trainer.predict_top_k(state, [held], 10)
+    want = trainer.predict_logits(state, held)
+    want_scores, want_items = torch.topk(want, 11, dim=-1)
+    want_scores, want_items = want_scores.cpu().numpy(), want_items.cpu().numpy()
+    score_err = float(np.abs(scores - want_scores[:, :10]).max())
+    gaps = -np.diff(want_scores, axis=1)
+    previous = np.concatenate([np.full((len(gaps), 1), np.inf), gaps[:, :9]], axis=1)
+    pinned = np.minimum(previous, gaps) > 2 * score_err
+    if score_err > 1e-5 or not np.array_equal(items[pinned], want_items[:, :10][pinned]):
+        raise AssertionError(f"twotower predict_top_k: scores differ by {score_err}, or a pinned rank differs")
+    del trainer, state
+    release()
+    serving = model_serving(
+        "twotower", make_model(True), make_model(True, SEED + 1).state_dict(), TT_BLOCKS, TT_LEN, device
+    )
+    emit(
+        "twotower", items=MODEL_ITEMS, embedding_dim=TT_DIM, heads=TT_HEADS, blocks=TT_BLOCKS, seq_len=TT_LEN,
+        batch=MODEL_BATCH, pool=MODEL_BATCH, train=training, literal_pool=literal,
+        predict_top_k={"score_max_abs_err": score_err, "ranks_pinned": int(pinned.sum())}, serve=serving,
+    )
+    return {"train": training, "serve": serving}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this script runs only on the GPU", file=sys.stderr)
@@ -2493,8 +2970,12 @@ def main() -> int:
     serialized = serialize_phase(device)
     trained = train_phase(device)
     longseq = longseq_phase(device)
+    bert4rec = bert4rec_phase(device)
+    twotower = twotower_phase(device)
 
-    kernels = kernel_records(k4, fused, tiled_records, served, serviced, serialized, trained, longseq)
+    kernels = kernel_records(
+        k4, fused, tiled_records, served, serviced, serialized, trained, longseq, bert4rec, twotower
+    )
     emit("kernels", kernels=[{k: r[k] for k in ("name", "launches", "passed")} for r in kernels])
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -2503,7 +2984,29 @@ def main() -> int:
     return 0
 
 
-def kernel_records(k4, fused, tiled_records, served, serviced, serialized, trained, longseq) -> list:
+def k4_entry(name: str, record: dict, by_path: dict) -> dict:
+    """A kernels-line entry of K4 at one instantiation (a kernel-phase record)."""
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": "replay_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "replay_tpu/ops/flash_attention.py:32",
+        "launches": sum(by_path.values()),
+        "launches_by_path": by_path,
+        "max_abs_err": record["max_abs_err"],
+        "ms": record["ms"],
+        "plain_ms": record["plain_ms"],
+        "bound_ms": record["bound_ms"],
+        "bound_by": record["bound_by"],
+        "library_ms": record["library_ms"],
+        "passed": True,
+        "shape": f"B={record['B']} H={record['H']} L={record['L']} D={record['D']} {record['mask']} {record['dtype']}",
+    }
+
+
+def kernel_records(
+    k4, fused, tiled_records, served, serviced, serialized, trained, longseq, bert4rec, twotower
+) -> list:
     """The kernels line: every kernel of the paths driven, one entry per
     instantiation a path runs, with its launches there (counted through graph
     replays: the serving paths and ``*_graph`` run on captured graphs); raises
@@ -2512,24 +3015,20 @@ def kernel_records(k4, fused, tiled_records, served, serviced, serialized, train
         "serve": served["launches"], "service": serviced["launches"], "serialize": serialized["launches"],
         "train": trained["flash_attention"], "train_graph": trained["graph"]["flash_attention"],
     }
-    kernels = [
-        {
-            "name": "flash_attention",
-            "route": "cuda",
-            "source": "replay_tpu_torch/csrc/flash_attention.cu",
-            "replaces": "replay_tpu/ops/flash_attention.py:32",
-            "launches": sum(k4_paths.values()),
-            "launches_by_path": k4_paths,
-            "max_abs_err": k4["max_abs_err"],
-            "ms": k4["ms"],
-            "plain_ms": k4["plain_ms"],
-            "bound_ms": k4["bound_ms"],
-            "bound_by": k4["bound_by"],
-            "library_ms": k4["library_ms"],
-            "passed": True,
-            "shape": f"B={k4['B']} H={k4['H']} L={k4['L']} D={k4['D']} {k4['dtype']}",
-        }
-    ]
+    kernels = [k4_entry("flash_attention", k4[("serve", torch.float32)], k4_paths)]
+    # K4 on the BERT4Rec (D=75, bidirectional) and TwoTower (D=32, causal)
+    # paths: the trainers in f32 and bf16 (eager and on graphs), the serving
+    # programs in f32
+    for model, result in (("bert4rec", bert4rec), ("twotower", twotower)):
+        for dtype, suffix in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+            train = result["train"]["f32" if dtype == torch.float32 else "bf16"]
+            by_path = {
+                f"{model}_train": train["k4_launches"],
+                f"{model}_train_graph": train["chunked"]["launches"]["flash_attention"],
+            }
+            if dtype == torch.float32:
+                by_path[f"{model}_serve"] = result["serve"]["k4_launches"]
+            kernels.append(k4_entry(f"flash_attention_{model}{suffix}", k4[(model, dtype)], by_path))
     # K1–K3, one entry per kernel and instantiation on the paths: f32 at the
     # bench.py width (train), bf16 hidden states at the long-sequence width
     # (the bf16 trainer), f32 there (the f32 trainer)
@@ -2566,15 +3065,21 @@ def kernel_records(k4, fused, tiled_records, served, serviced, serialized, train
             kernels.append(entry)
     # K5, one entry per variant: bf16 (mma) on the long-sequence training and
     # serving paths, f32 (tf32x3) on the f32-compute forward and the f32 trainer
+    tiled = bert4rec["tiled"]
     k5_paths = (
-        ("flash_attention_tiled", "mma", torch.bfloat16,
+        ("flash_attention_tiled", "longseq", "mma", torch.bfloat16,
          {"longseq_train": longseq["train"]["flash_attention_tiled"], "longseq_serve": longseq["serve"],
           "longseq_train_graph": longseq["graph"]["flash_attention_tiled"]}),
-        ("flash_attention_tiled_f32", "tf32x3", torch.float32,
+        ("flash_attention_tiled_f32", "longseq", "tf32x3", torch.float32,
          {"longseq_f32_forward": longseq["f32"], "longseq_f32_train": longseq["f32_train"]["flash_attention_tiled"]}),
+        # BERT4Rec's tiled route, non-causal at L=100: the bf16 trainer, the f32 forward
+        ("flash_attention_tiled_bert4rec", "bert4rec_tiled", "mma", torch.bfloat16,
+         {"bert4rec_tiled_train": tiled["bf16_k5"]["mma"]}),
+        ("flash_attention_tiled_bert4rec_f32", "bert4rec_tiled", "tf32x3", torch.float32,
+         {"bert4rec_tiled_f32_forward": tiled["f32_k5"]["tf32x3"]}),
     )
-    for name, variant, dtype, by_path in k5_paths:
-        k5 = tiled_records[("longseq", dtype)]
+    for name, shape, variant, dtype, by_path in k5_paths:
+        k5 = tiled_records[(shape, dtype)]
         if k5["variant"] != variant:
             raise AssertionError(f"{name}: the kernel phase timed {k5['variant']}, the paths ran {variant}")
         kernels.append(
@@ -2593,7 +3098,8 @@ def kernel_records(k4, fused, tiled_records, served, serviced, serialized, train
                 "bound_by": k5["bound_by"],
                 "library_ms": k5["library_ms"],
                 "passed": True,
-                "shape": f"B={k5['B']} H={k5['H']} L={k5['L']} D={k5['D']} causal {k5['dtype']}",
+                "shape": f"B={k5['B']} H={k5['H']} L={k5['L']} D={k5['D']} "
+                f"{'causal' if k5['causal'] else 'non-causal'} {k5['dtype']}",
             }
         )
     idle = [r["name"] for r in kernels if r["launches"] < 1]

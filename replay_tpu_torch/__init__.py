@@ -14,9 +14,13 @@ versions.
 Ported so far: SASRec serving through ``ScoringEngine`` on kernel K4 (fused
 attention); SASRec training through ``nn.Trainer`` with ``CE`` or ``CEFused``
 on kernels K1–K3 (the fused catalog log-sum-exp and its gradients) and K4 with
-its gradient; and the long-sequence route, ``SasRec(use_flash="tiled")`` on
+its gradient; the long-sequence route, ``SasRec(use_flash="tiled")`` on
 kernel K5 (length-tiled attention, no ``[B, 1, L, L]`` mask), for training and
-serving, with bf16 compute (``Trainer(precision="bf16")``, ``SasRec(dtype=...)``).
-Still to come, in ``ROADMAP.md``'s order: the service, retrieval and the other
-models.
+serving, with bf16 compute (``Trainer(precision="bf16")``, ``SasRec(dtype=...)``);
+``ScoringService`` with brute-force retrieval; the compiled programs as CUDA
+graphs; and BERT4Rec (masked-LM) and TwoTower (in-batch negatives) on the same
+kernels, with the batch transforms (``nn.transform``) and the sampled and
+weighted cross-entropy losses. Still to come, in ``ROADMAP.md``'s order:
+quantized and IVF retrieval, the rest of ``Trainer.fit``, the vocabulary, the
+other losses and models, distributed training and the serving fleet.
 """

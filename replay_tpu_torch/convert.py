@@ -1,15 +1,17 @@
 """Weights carried across between the JAX package and the port.
 
-``flax_to_torch`` maps a JAX ``SasRec`` param tree (nested dicts of arrays, with
-or without the outer ``"params"`` key) onto the port's ``state_dict``;
-``torch_to_flax`` is its inverse, and a round trip is exact. The port's modules
-carry the flax names, so a path maps by swapping ``/`` for ``.`` and renaming
-the leaf:
+``flax_to_torch`` maps a JAX model's param tree (``SasRec``, ``Bert4Rec``,
+``TwoTower``: nested dicts of arrays, with or without the outer ``"params"``
+key) onto the port's ``state_dict``; ``torch_to_flax`` is its inverse, and a
+round trip is exact. The port's modules carry the flax names, so a path maps
+by swapping ``/`` for ``.`` and renaming the leaf:
 
-* ``Dense.kernel`` ``[in, out]`` → ``Linear.weight`` ``[out, in]`` (transposed);
+* ``Dense.kernel`` ``[in, out]`` → ``Linear.weight`` ``[out, in]`` (transposed;
+  a bias-free ``Dense`` has no ``bias`` on either side);
 * ``LayerNorm.scale`` → ``weight``;
 * ``Embed.embedding`` → ``weight``;
-* ``bias`` and ``positional_embedding`` carry over as they are.
+* ``bias`` and raw params (``positional_embedding``, Bert4Rec's
+  ``mask_embedding``) carry over as they are.
 """
 
 from __future__ import annotations
@@ -48,7 +50,7 @@ def flax_to_torch(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 
 def torch_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     """The flax param tree (numpy leaves, no outer ``"params"`` key) for a
-    ``state_dict`` of the port's ``SasRec``."""
+    ``state_dict`` of one of the port's models."""
     tree: Dict[str, Any] = {}
     for name, tensor in state_dict.items():
         *parents, leaf = name.split(".")

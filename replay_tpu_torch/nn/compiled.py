@@ -186,6 +186,9 @@ def _export_bucket(program, params: Params, size: int, length: int, candidates_c
     args = (dict(params), ids, mask) + ((cands,) if cands is not None else ())
     with torch.no_grad():
         exported = torch.export.export(_Exported(program), args, strict=False)
+    # torch.export.save would store the example inputs, a copy of the params
+    # in every bucket's blob; the params travel once, in the payload's npz
+    exported.example_inputs = None
     buffer = io.BytesIO()
     torch.export.save(exported, buffer)
     return buffer.getvalue()

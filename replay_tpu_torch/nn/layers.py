@@ -25,14 +25,18 @@ LAYER_NORM_EPS = 1e-6  # flax nn.LayerNorm's default
 
 
 class Dense(nn.Linear):
-    """``nn.Linear`` computing in ``dtype`` (f32 parameters)."""
+    """``nn.Linear`` computing in ``dtype`` (f32 parameters); ``bias=False`` is
+    flax's ``use_bias=False``."""
 
-    def __init__(self, in_features: int, out_features: int, dtype: torch.dtype = torch.float32) -> None:
-        super().__init__(in_features, out_features)
+    def __init__(
+        self, in_features: int, out_features: int, dtype: torch.dtype = torch.float32, bias: bool = True
+    ) -> None:
+        super().__init__(in_features, out_features, bias=bias)
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), self.bias.to(self.dtype))
+        bias = self.bias.to(self.dtype) if self.bias is not None else None
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), bias)
 
 
 class LayerNorm(nn.LayerNorm):

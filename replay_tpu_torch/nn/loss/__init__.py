@@ -1,5 +1,5 @@
 from .base import LossBase, broadcast_negatives, mask_negative_logits, masked_mean
-from .ce import CE, CEFused
+from .ce import CE, CEFused, CESampled, CESampledWeighted, CEWeighted
 
 # protocol name used by the reference's typing surface
 LossProto = LossBase
@@ -7,6 +7,9 @@ LossProto = LossBase
 __all__ = [
     "CE",
     "CEFused",
+    "CESampled",
+    "CESampledWeighted",
+    "CEWeighted",
     "LossBase",
     "LossProto",
     "broadcast_negatives",

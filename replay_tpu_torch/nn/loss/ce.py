@@ -1,18 +1,22 @@
 """Full-catalog cross-entropy: the plain head and the fused one.
 
-Counterpart of ``replay_tpu/nn/loss/ce.py``'s ``CE`` and ``CEFused``. ``CEFused``
-runs on kernels K1–K3 (:mod:`replay_tpu_torch.ops.fused_ce`). ``CEFusedTP``,
-``CEWeighted`` and the sampled losses are later slices (``ROADMAP.md`` queue 1).
+Counterpart of ``replay_tpu/nn/loss/ce.py``: ``CE``, ``CEFused`` (kernels
+K1–K3, :mod:`replay_tpu_torch.ops.fused_ce`), ``CEWeighted``, and the sampled
+losses ``CESampled`` and ``CESampledWeighted``, which score each positive
+against a pool of negatives (``[N]``, ``[B, N]`` or ``[B, L, N]``) instead of
+the catalog. ``CEFusedTP`` comes with distributed training (``ROADMAP.md``
+queue 1, 'Distributed training').
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .base import LossBase
+from .base import LossBase, broadcast_negatives, mask_negative_logits
 
 
 class CE(LossBase):
@@ -144,3 +148,89 @@ class CEFused(CE):
         weights = self._label_weights(labels, nll.dtype)
         mask = target_padding_mask[..., 0].to(nll.dtype) * weights
         return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+class _PerItemWeights:
+    """A ``[num_items]`` weight vector, kept on each device it is read on
+    (copied there at the first call, so a CUDA graph of a later step reads
+    the device copy and makes no host copy)."""
+
+    def __init__(self, weight) -> None:
+        if isinstance(weight, torch.Tensor):
+            weight = weight.detach().cpu()
+        else:
+            weight = torch.as_tensor(np.asarray(weight))
+        self.weight = weight
+        self._by_device: Dict[torch.device, torch.Tensor] = {}
+
+    def on(self, device: torch.device) -> torch.Tensor:
+        if device not in self._by_device:
+            self._by_device[device] = self.weight.to(device)
+        return self._by_device[device]
+
+
+class CEWeighted(CE):
+    """CE with per-class weights (reference: torch CrossEntropyLoss(weight=...))."""
+
+    def __init__(self, weight) -> None:
+        super().__init__()
+        self._weights = _PerItemWeights(weight)
+        self.weight = self._weights.weight
+
+    def _label_weights(self, labels: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        return self._weights.on(labels.device)[labels].to(dtype)
+
+
+class CESampled(LossBase):
+    """Softmax CE between each positive and K sampled negatives.
+
+    Supports multi-positive labels and all three negative shapes; negatives equal to
+    ``negative_labels_ignore_index`` are excluded from the softmax.
+    """
+
+    def __init__(self, negative_labels_ignore_index: int = -100) -> None:
+        super().__init__()
+        self.negative_labels_ignore_index = negative_labels_ignore_index
+
+    def __call__(
+        self,
+        model_embeddings,
+        feature_tensors,
+        positive_labels,
+        negative_labels,
+        padding_mask,
+        target_padding_mask,
+    ) -> torch.Tensor:
+        batch, length, _ = positive_labels.shape
+        negatives = broadcast_negatives(negative_labels, batch, length)  # [B, L, N]
+        # the ignored ids replaced before the broadcast: the same values, and
+        # a broadcast view, whose pool a model may score once (TwoTower)
+        ignored = negative_labels == self.negative_labels_ignore_index
+        safe_neg = broadcast_negatives(torch.where(ignored, 0, negative_labels), batch, length)
+        negative_logits = self.logits_callback(model_embeddings, safe_neg)  # [B, L, N]
+        negative_logits = mask_negative_logits(negative_logits, negatives, self.negative_labels_ignore_index)
+        positive_logits = self.logits_callback(model_embeddings, positive_labels)  # [B, L, P]
+
+        # per-positive softmax over [positive, negatives]
+        neg_lse = torch.logsumexp(negative_logits, dim=-1, keepdim=True)  # [B, L, 1]
+        denom = torch.logaddexp(positive_logits, neg_lse)  # [B, L, P]
+        nll = denom - positive_logits
+        weights = self._label_weights(positive_labels, nll.dtype)
+        mask = target_padding_mask.to(nll.dtype) * weights
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+    def _label_weights(self, labels: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        return torch.ones_like(labels, dtype=dtype)
+
+
+class CESampledWeighted(CESampled):
+    """CESampled with per-item weights applied to the positive terms."""
+
+    def __init__(self, weight, negative_labels_ignore_index: int = -100) -> None:
+        super().__init__(negative_labels_ignore_index)
+        self._weights = _PerItemWeights(weight)
+        self.weight = self._weights.weight
+
+    def _label_weights(self, labels: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        weight = self._weights.on(labels.device)
+        return weight[torch.clamp(labels.long(), 0, weight.shape[0] - 1)].to(dtype)

@@ -36,6 +36,7 @@ the tied item table (input embedding, K3's ``dW``, the label gather).
 
 from __future__ import annotations
 
+import functools
 import inspect
 import itertools
 import logging
@@ -436,6 +437,7 @@ class Trainer:
     loss: Any
     optimizer: OptimizerFactory = field(default_factory=OptimizerFactory)
     seed: int = 0
+    feature_field: str = "feature_tensors"
     padding_mask_field: str = "padding_mask"
     label_field: str = "positive_labels"
     target_mask_field: str = "target_padding_mask"
@@ -465,6 +467,13 @@ class Trainer:
         self._tx = self.optimizer.create()
         self._forward_params = _signature_names(type(self.model).forward)
         self._inference_params = _signature_names(type(self.model).forward_inference)
+        # batch-supplied get_logits keyword arguments (TwoTower's
+        # item_feature_tensors, the catalog's feature arrays)
+        self._logits_extra_params = [
+            name
+            for name in _signature_names(getattr(type(self.model), "get_logits", None))
+            if name not in ("hidden", "candidates_to_score")
+        ]
         # dropout draws from torch's global generator: seed it per step from
         # the state's own generator, only where a rate is non-zero
         self._stochastic = any(getattr(m, "dropout_rate", 0.0) for m in self.model.modules())
@@ -562,17 +571,19 @@ class Trainer:
         if "deterministic" in self._forward_params:
             kwargs["deterministic"] = False
         hidden = model(**kwargs)
-        loss.logits_callback = model.get_logits
+        logits_extra = {name: batch[name] for name in self._logits_extra_params if name in batch}
+        logits_callback = functools.partial(model.get_logits, **logits_extra) if logits_extra else model.get_logits
         if self.precision is not None and self.precision.casts_logits:
             # f32 loss accumulation under a narrow compute dtype: candidate-
             # shaped logits are a bf16 x bf16 product (full-catalog logits
             # already promote through the f32 item table)
-            loss.logits_callback = self.precision.wrap_logits_callback(model.get_logits)
+            logits_callback = self.precision.wrap_logits_callback(logits_callback)
+        loss.logits_callback = logits_callback
         if getattr(loss, "needs_item_embeddings", False):
             loss.item_embeddings_callback = model.get_item_weights
         return loss(
             hidden,
-            batch.get("feature_tensors", {}),
+            batch.get(self.feature_field, {}),
             batch[self.label_field],
             batch.get(self.negative_field),
             batch[self.padding_mask_field],
@@ -953,6 +964,67 @@ class Trainer:
         with torch.no_grad():
             return self.model.forward_inference(**kwargs, candidates_to_score=candidates)
 
+    # -- vocabulary ------------------------------------------------------- #
+    def resize_vocabulary(
+        self, state: TrainState, new_cardinality: int, init_tensor=None, carry_opt_state: bool = True,
+        init: str = "mean", rng=None,
+    ) -> TrainState:
+        """Not ported: item-table surgery with the optimizer moments resized."""
+        msg = (
+            "Trainer.resize_vocabulary is not ported yet: ROADMAP.md queue 1, "
+            "'BERT4Rec, TwoTower and the vocabulary' (nn/vocabulary.py)"
+        )
+        raise NotImplementedError(msg)
+
+    def finetune(
+        self, state: TrainState, train_batches, new_cardinality: Optional[int] = None, init: str = "xavier",
+        epochs: int = 1, **fit_kwargs,
+    ) -> TrainState:
+        """Not ported: the continual-training entry (a catalog resize, then fit)."""
+        msg = (
+            "Trainer.finetune is not ported yet: ROADMAP.md queue 1, "
+            "'BERT4Rec, TwoTower and the vocabulary' (nn/vocabulary.py)"
+        )
+        raise NotImplementedError(msg)
+
+    # -- eval-time catalog cache (item towers) ------------------------------ #
+    def _precompute_catalog(self, state: TrainState, batch: Batch) -> Optional[torch.Tensor]:
+        """The catalog through the model's item tower, ``[num_items, E]``,
+        encoded once per evaluation pass (``None`` for models without
+        ``encode_items``): each validate / predict_top_k call encodes it anew
+        with the state's current weights."""
+        if not hasattr(type(self.model), "encode_items"):
+            return None
+        self._bind(state)
+        features = batch.get("item_feature_tensors")
+        with torch.no_grad():
+            return self.model.encode_items(
+                item_feature_tensors=None if features is None else to_device(features, self.device)
+            )
+
+    def _catalog_logits(self, state: TrainState, batch: Batch, catalog: torch.Tensor) -> torch.Tensor:
+        """Query embeddings scored against the precomputed catalog."""
+        self._bind(state)
+        batch = to_device(batch, self.device)
+        with torch.no_grad():
+            queries = self.model.get_query_embeddings(batch[self.feature_field], batch[self.padding_mask_field])
+            return queries @ catalog.T
+
+    def _scored(self, state: TrainState, batches: Iterable[Batch], candidates: Optional[Any] = None):
+        """Each batch with its next-item logits: against the catalog encoded
+        once for the whole pass where the model has an item tower and no
+        candidates are given, else through ``predict_logits``."""
+        iterator = iter(batches)
+        first = next(iterator, None)
+        if first is None:
+            return
+        catalog = self._precompute_catalog(state, first) if candidates is None else None
+        for batch in itertools.chain([first], iterator):
+            if catalog is not None:
+                yield batch, self._catalog_logits(state, batch, catalog)
+            else:
+                yield batch, self.predict_logits(state, batch, candidates)
+
     def validate(
         self,
         state: TrainState,
@@ -965,8 +1037,7 @@ class Trainer:
         """Top-k metrics over validation batches (ground_truth/train padded with
         −1, as MetricsBuilder takes them)."""
         builder = MetricsBuilder(metrics=metrics, top_k=top_k, item_count=item_count)
-        for batch in batches:
-            logits = self.predict_logits(state, batch)
+        for batch, logits in self._scored(state, batches):
             batch = to_device(batch, self.device)
             for post in postprocessors:
                 logits = post(logits, batch)
@@ -989,8 +1060,7 @@ class Trainer:
         if isinstance(batches, Mapping):  # a single batch: iterating it would
             batches = [batches]  # yield its string keys
         all_queries, all_items, all_scores = [], [], []
-        for batch in batches:
-            logits = self.predict_logits(state, batch, candidates)
+        for batch, logits in self._scored(state, batches, candidates):
             batch = to_device(batch, self.device)
             if candidates is not None:
                 # visible to postprocessors (SeenItemsFilter's candidate matching)

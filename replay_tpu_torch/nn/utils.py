@@ -43,4 +43,5 @@ def init_dense(dense: nn.Linear, generator: torch.Generator) -> None:
     """flax ``Dense`` defaults: lecun-normal kernel truncated at ±2σ, zero bias."""
     std = math.sqrt(1.0 / dense.in_features) / _TRUNCATED_STD
     nn.init.trunc_normal_(dense.weight, std=std, a=-2 * std, b=2 * std, generator=generator)
-    nn.init.zeros_(dense.bias)
+    if dense.bias is not None:
+        nn.init.zeros_(dense.bias)

@@ -957,3 +957,134 @@ def test_train_steps_graph_equals_the_eager_steps(cuda_device):
     # the warm-up step and the four replayed steps
     assert flash_attention.launches == before[flash_attention] + 2 * 5
     assert fused_ce.fused_lse_forward.launches == before[fused_ce.fused_lse_forward] + 5
+
+
+# --------------------------------------------------------------------------- #
+# K4 on the BERT4Rec and TwoTower paths; their trainers and serving on graphs
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize(
+    "batch,heads,length,dim,bidirectional",
+    [(512, 4, 100, 75, True), (512, 2, 50, 32, False), (3, 4, 37, 75, True), (2, 3, 100, 75, False)],
+    ids=["bert4rec", "twotower", "d75_short", "d75_causal"],
+)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("deterministic", [True, False], ids=["eval_mask", "train_mask"])
+def test_flash_attention_at_the_model_widths(cuda_device, batch, heads, length, dim, bidirectional, dtype, deterministic):
+    """BERT4Rec's D=75 (no multiple of 4: Q, K and V staged by scalar loads,
+    rows at a 300-byte stride; in bf16 at 150 bytes) with its padding-only
+    mask, one bias head for all heads, and TwoTower's D=32 causal."""
+    from replay_tpu_torch.nn.mask import bidirectional_attention_mask
+
+    rng = np.random.default_rng(dim + length)
+    q, k, v = (
+        torch.tensor(rng.normal(size=(batch, heads, length, dim)).astype(np.float32)).to(cuda_device, dtype)
+        for _ in range(3)
+    )
+    padding = torch.tensor(_left_padded(batch, length, 5), device=cuda_device)
+    make_mask = bidirectional_attention_mask if bidirectional else causal_attention_mask
+    bias = make_mask(padding, deterministic=deterministic)
+    got = flash_attention(q, k, v, bias)
+    want = flash_attention_reference(q.float(), k.float(), v.float(), bias)
+    assert got.dtype == dtype and torch.isfinite(got.float()).all()
+    assert (got.float() - want).abs().max().item() <= TOL[dtype]
+
+
+def _model_schema(kind):
+    return TensorSchema(
+        TensorFeatureInfo(
+            "item_id", FeatureType.CATEGORICAL, is_seq=True, feature_hint=FeatureHint.ITEM_ID,
+            cardinality=300, embedding_dim=60 if kind == "bert4rec" else 32,
+        )
+    )
+
+
+def _model(kind, device, use_flash=True, seed=0):
+    """BERT4Rec at D=15 (4 heads of E=60) or TwoTower at D=16, 2 blocks, L=20."""
+    from replay_tpu_torch.nn.sequential import Bert4Rec, TwoTower
+
+    schema = _model_schema(kind)
+    width = dict(num_blocks=2, max_sequence_length=20, device=device, generator=torch.Generator().manual_seed(seed))
+    if kind == "bert4rec":
+        return Bert4Rec(schema, embedding_dim=60, num_heads=4, use_flash=use_flash, **width)
+    return TwoTower(schema, embedding_dim=32, num_heads=2, use_flash=use_flash, **width)
+
+
+def _model_batches(kind, count):
+    from replay_tpu_torch.nn.transform import Compose, make_default_bert4rec_transforms, make_default_twotower_transforms
+
+    schema = _model_schema(kind)
+    batches = []
+    for seed in range(count):
+        rng = np.random.default_rng(seed)
+        if kind == "bert4rec":
+            items = rng.integers(0, 300, (16, 20)).astype(np.int32)
+            pipeline = Compose(make_default_bert4rec_transforms(schema, mask_prob=0.2)["train"])
+            batches.append(pipeline({"item_id": items, "item_id_mask": np.ones_like(items, bool)},
+                                    torch.Generator().manual_seed(seed)))
+        else:
+            items = rng.integers(0, 300, (16, 21)).astype(np.int32)
+            pipeline = Compose(make_default_twotower_transforms(schema)["train"])
+            batches.append(pipeline({"item_id": items, "item_id_mask": np.ones_like(items, bool)}))
+    return batches
+
+
+@pytest.mark.parametrize("kind", ["bert4rec", "twotower"])
+def test_model_train_steps_on_a_graph_match_the_per_step_path(cuda_device, kind):
+    """K masked-LM (BERT4Rec, ``CE``) or in-batch (TwoTower, ``CESampled``)
+    steps as one CUDA graph, bitwise equal to K ``train_step``s where two
+    per-step runs are; K4 launched once a block a step, the capture's warm-up
+    step included."""
+    from replay_tpu_torch.nn.loss import CE, CESampled
+
+    batches = _model_batches(kind, 4)
+    initial = {name: value.detach().clone() for name, value in _model(kind, cuda_device).state_dict().items()}
+    runs = []
+    for _ in range(2):
+        trainer = Trainer(_model(kind, cuda_device), CE() if kind == "bert4rec" else CESampled(), device=cuda_device)
+        state = trainer.init_state(batches[0], params=initial)
+        losses = torch.stack([trainer.train_step(state, batch)[1] for batch in batches])
+        runs.append((losses, state.flat_params.clone()))
+    deterministic = torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+    trainer = Trainer(_model(kind, cuda_device), CE() if kind == "bert4rec" else CESampled(), device=cuda_device)
+    state = trainer.init_state(batches[0], params=initial)
+    flash_attention.launches = 0
+    state, losses = trainer.train_steps(state, batches)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == 2 * (len(batches) + 1) and trainer.capture_warmups == 1
+    state, again = trainer.train_steps(state, batches)  # a replay
+    assert flash_attention.launches == 2 * (2 * len(batches) + 1) and np.isfinite(again).all()
+    if deterministic:
+        fresh = Trainer(_model(kind, cuda_device), CE() if kind == "bert4rec" else CESampled(), device=cuda_device)
+        fresh_state = fresh.init_state(batches[0], params=initial)
+        _, graph_losses = fresh.train_steps(fresh_state, batches)
+        assert np.array_equal(graph_losses, runs[0][0].cpu().numpy())
+        assert torch.equal(fresh_state.flat_params, runs[0][1])
+
+
+@pytest.mark.parametrize("kind", ["bert4rec", "twotower"])
+def test_model_serving_buckets_on_graphs(cuda_device, kind):
+    """``CompiledInference`` in the ``"logits"`` mode: each bucket's replay
+    bitwise equal to the eager bound program (BERT4Rec's shift inside the
+    graph), K4 once a block a replay."""
+    from replay_tpu_torch.nn.compiled import CompiledInference, as_device_tensor, pad_rows
+
+    model = _model(kind, cuda_device)
+    params = model.state_dict()
+    compiled = CompiledInference.compile(
+        model, params, 20, mode="dynamic_batch_size", dynamic_buckets=(1, 8, 64), device=cuda_device
+    )
+    rng = np.random.default_rng(1)
+    for bucket in (1, 8, 64):
+        for rows in sorted({bucket, max(1, bucket - 3)}):
+            windows = [make_window(list(rng.integers(0, 300, int(rng.integers(1, 30)))), 20) for _ in range(rows)]
+            ids, mask = np.stack([w[0] for w in windows]), np.stack([w[1] for w in windows])
+            before = flash_attention.launches
+            got = compiled(ids, mask)
+            torch.cuda.synchronize()
+            assert flash_attention.launches - before == 2
+            want = compiled._compiled[bucket](
+                params, pad_rows(as_device_tensor(ids, torch.int32, cuda_device), bucket),
+                pad_rows(as_device_tensor(mask, torch.bool, cuda_device), bucket), None,
+            )[:rows]
+            assert torch.equal(got, want) and got.shape == (rows, 300)
+    compiled.close()

@@ -25,6 +25,7 @@ import replay_tpu_torch
 from replay_tpu_torch.data import FeatureHint, FeatureType
 from replay_tpu_torch.data.nn import TensorFeatureInfo, TensorSchema
 from replay_tpu_torch.nn.compiled import CompiledInference
+from replay_tpu_torch.nn.sequential import Bert4Rec, TwoTower
 from replay_tpu_torch.nn.sequential.sasrec import SasRec
 from replay_tpu_torch.ops import build
 from replay_tpu_torch.nn.loss import CE
@@ -72,17 +73,23 @@ def test_importing_the_port_loads_no_jax():
 
 @pytest.mark.parametrize(
     "subpackage, modules",
-    [("obs", ("events", "trace")), ("models", ("ann",)), ("serve", ("service", "batcher", "pipeline", "promote"))],
+    [
+        ("obs", ("events", "trace")), ("models", ("ann",)), ("serve", ("service", "batcher", "pipeline", "promote")),
+        ("nn.transform", ("transforms", "template")), ("nn.sequential.bert4rec", ("model",)),
+        ("nn.sequential.twotower", ("model", "reader")),
+    ],
 )
 def test_the_rules_reach_every_subpackage(subpackage, modules):
     """The walk above and the source scan below cover the service slice's
-    subpackages by name, so that a move cannot drop them silently."""
+    and the model slice's subpackages by name, so that a move cannot drop
+    them silently."""
     walked = {m.name for m in pkgutil.walk_packages(replay_tpu_torch.__path__, "replay_tpu_torch.")}
     scanned = {str(p.relative_to(REPO)) for p in _sources()}
+    folder = subpackage.replace(".", "/")
     for module in modules:
         assert f"replay_tpu_torch.{subpackage}.{module}" in walked
-        assert f"replay_tpu_torch/{subpackage}/{module}.py" in scanned
-    assert f"replay_tpu_torch/{subpackage}/__init__.py" in scanned
+        assert f"replay_tpu_torch/{folder}/{module}.py" in scanned
+    assert f"replay_tpu_torch/{folder}/__init__.py" in scanned
 
 
 def test_the_import_rule_scans_the_port_and_chip_smoke():
@@ -130,6 +137,8 @@ def test_entry_points_need_cuda_unless_asked_for_the_cpu(monkeypatch):
         "ScoringService": lambda **kw: ScoringService(model, params, **kw),
         "MIPSIndex": lambda **kw: MIPSIndex(np.zeros((20, 8), np.float32), **kw),
         "Trainer": lambda **kw: Trainer(model, CE(), **kw),
+        "Bert4Rec": lambda **kw: Bert4Rec(_schema(), embedding_dim=8, num_blocks=1, max_sequence_length=4, **kw),
+        "TwoTower": lambda **kw: TwoTower(_schema(), embedding_dim=8, num_blocks=1, max_sequence_length=4, **kw),
     }
     for name, call in calls.items():
         for kwargs in ({}, {"device": "cuda"}):

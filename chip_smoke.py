@@ -7,9 +7,10 @@ Drives the port (``replay_tpu_torch``, never the JAX package) through its
 serving path and its scoring service at the ``bench_serve.py`` width and
 traffic, its serialized inference form, its training path at the
 ``bench.py`` width, its long-sequence path (training and serving) at the
-``bench_suite.py`` ``sasrec_l1024_tiled`` width, and BERT4Rec and TwoTower
+``bench_suite.py`` ``sasrec_l1024_tiled`` width, BERT4Rec and TwoTower
 (training and serving) at ``bench_suite.py``'s ``bert4rec`` and ``twotower``
-widths, and holds every kernel of those paths against its plain PyTorch
+widths, and notebook 09's training lifecycle (checkpoints, preemption and
+resume, recovery, dropout in captured chunks), and holds every kernel of those paths against its plain PyTorch
 version. Serving runs on CUDA graphs (one
 captured graph per bucket, replayed by every encode) and is held bit for bit
 to the eager bound program; training runs per step and, through
@@ -92,7 +93,18 @@ replays. Phases, one JSON line each:
                  memory, or the OOM that is the finding), ``predict_top_k`` through the
                  catalog cache against ``forward_inference``'s top-k, the same serving
                  checks;
-8. ``kernels`` — every ported kernel with its launches on the paths driven.
+8. ``lifecycle`` — notebook 09's training run at ``examples/ml1m_parity.py``'s settings
+                 (SASRec E=64, 2 heads, 2 blocks, dropout 0.3, L=50, batch 32, CE, 5
+                 epochs, monitor recall@10) on a synthetic MovieLens-1M-shaped log (6,040
+                 users, 3,706 items, 1,000,209 events), through ``SequenceBatcher``,
+                 ``TransformedBatches`` and ``validation_batches``, on K4 (D=32):
+                 the dropout chunk contract (a K=32 graph bitwise K ``train_step``s,
+                 replays drawing new masks, a fixed-mask control caught); one eager
+                 epoch; the notebook run ``fit(scan_chunk=32, prefetch, device_feed,
+                 checkpoints, monitor, JsonlLogger)``; the same run preempted by SIGTERM
+                 mid-epoch 2 and resumed, bitwise the uninterrupted one; a recovery run
+                 (NaN batches, rollback, LR backoff); one line each;
+9. ``kernels`` — every ported kernel with its launches on the paths driven.
 
 Every trainer's device time per step comes from a profiler trace that agrees
 with a second trace of the same steps (``device_time_per_step``). Then the
@@ -191,6 +203,9 @@ FUSED_CASES = (
     ("longseq_bf16_hidden", 32 * 1024, NUM_ITEMS, None, torch.bfloat16, 128),
     ("longseq_f32", 32 * 1024, NUM_ITEMS, None, torch.float32, 128),
     ("dim_100", TRAIN_BATCH * SEQ_LEN, NUM_ITEMS, None, torch.float32, 100),
+    # notebook 09's batch (32 windows of L=50) over the same catalog, E=64:
+    # the lifecycle phase's CEFused epoch
+    ("notebook", 32 * SEQ_LEN, NUM_ITEMS, None, torch.float32, EMBEDDING_DIM),
 )
 
 # bench_suite.py's sasrec_l1024_tiled: the same catalog, E=128, 2 blocks, 2
@@ -270,6 +285,9 @@ KERNEL_SHAPES = (
     # 2 heads: D=32) with the causal one
     ("bert4rec", 512, 4, 100, 75, 1, "bidirectional_train"),
     ("twotower", 512, 2, 50, 32, 1, "train"),
+    # notebook 09's SASRec (examples/ml1m_parity.py): batch 32, 2 heads of
+    # E=64 (D=32), L=50, causal
+    ("notebook", 32, 2, 50, 32, 1, "train"),
 )
 
 # bench_suite.py's bert4rec and twotower rows (:333-379, :828-829): the
@@ -286,6 +304,26 @@ MODEL_STEPS, MODEL_WARMUP_STEPS, MODEL_TIMED_STEPS, MODEL_PROFILED_STEPS = 5, 3,
 # BERT4Rec on the tiled route (K5, non-causal) at a smaller depth: one block,
 # E=128 and 2 heads (D=64, a multiple of 8, so bf16 runs K5's mma variant)
 B4R_TILED_DIM, B4R_TILED_HEADS, B4R_TILED_BLOCKS = 128, 2, 1
+
+
+# examples/ml1m_parity.py's notebook-09 run (:47-53, :120-148): SASRec with
+# E=64, 2 blocks, 2 heads, dropout 0.3, L=50, CE, Adam 1e-3; train batches of
+# 32 windows of 51 (shuffled, seed 0), 5 epochs, validation top-k (1, 5, 10,
+# 20), monitor recall@10. Its data is MovieLens-1M: 6,040 users with at least
+# 20 ratings each, 3,706 items, 1,000,209 ratings; here a synthetic log of
+# that shape (Zipf-skewed item popularity and a sequential signal,
+# ``notebook_log``), made from the seed. K steps a
+# chunk (bench.py's REPLAY_TPU_BENCH_SCAN_K default), a mid-epoch checkpoint
+# every 256 steps; the recovery run poisons 10 steps in a row from step 300
+# and rolls back after 8
+NB_USERS, NB_ITEMS, NB_EVENTS, NB_MIN_EVENTS = 6040, 3706, 1_000_209, 20
+NB_DIM, NB_BLOCKS, NB_HEADS, NB_DROPOUT, NB_LEN, NB_BATCH, NB_EPOCHS = 64, 2, 2, 0.3, 50, 32, 5
+NB_TOP_K = (1, 5, 10, 20)
+NB_SCAN_K, NB_CHECKPOINT_EVERY, NB_PROFILED_STEPS = 32, 256, 10
+NB_BAD_FROM, NB_BAD_STEPS, NB_MAX_BAD = 300, 10, 8
+# the synthetic log's sequential signal: the share of events that follow
+# their predecessor's successor item
+NB_FOLLOW = 0.5
 
 
 def emit(phase: str, **fields) -> None:
@@ -659,10 +697,9 @@ def device_time_per_encode(engine, length_bucket, ids, mask, wrapper, blocks: in
     equal its kernels in the trace. The profiler's own cost inflates the wall
     time, so the busy share divides by the unprofiled p50 instead."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    before = wrapper.launches
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiled_window(lambda: engine.encode(length_bucket, ids, mask)) as prof:
+        before = wrapper.launches
         for _ in range(calls):
             engine.encode(length_bucket, ids, mask)
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
@@ -1173,12 +1210,13 @@ def profiled_open_second(client, rng) -> dict:
     kernels in the trace, which must equal its launches in the same window
     (a trace that lost events fails the run)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from replay_tpu_torch.ops.flash_attention import flash_attention
 
-    before = flash_attention.launches
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # the warm-up cycle runs one small kernel of its own: a service request
+    # there would add to the counts the phase checks
+    with profiled_window(lambda: torch.ones(1, device="cuda").add_(1)) as prof:
+        before = flash_attention.launches
         t0 = time.perf_counter()
         second = open_loop(client, 1.0, rng)
         wall = time.perf_counter() - t0
@@ -1395,7 +1433,6 @@ def serialize_phase(device) -> dict:
     counted; then ``export_inference`` → ``import_inference`` against the live
     one-bucket instance. Returns K4's launches in the phase."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from replay_tpu_torch.data import FeatureHint, FeatureType
     from replay_tpu_torch.data.nn import TensorFeatureInfo, TensorSchema
@@ -1425,10 +1462,9 @@ def serialize_phase(device) -> dict:
 
     def traced(call):
         """K4 launches counted and K4 kernels in a trace, over one ``call()``."""
-        before = flash_attention.launches
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profiled_window(call) as prof:
+            before = flash_attention.launches
             call()
-            torch.cuda.synchronize()
         events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
         return flash_attention.launches - before, traced_kernels(events, [flash_attention])["flash_attention"]
 
@@ -2626,13 +2662,11 @@ def traced_calls(call, calls: int, wrapper) -> dict:
     device time per call, and the wrapper's kernels in the trace against its
     launches counted over the calls."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    before = wrapper.launches
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiled_window(call) as prof:
+        before = wrapper.launches
         for _ in range(calls):
             call()
-        torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     return {
         "device_ms": sum(e.self_device_time_total for e in kernels) / calls / 1e3,
@@ -2942,6 +2976,461 @@ def twotower_phase(device) -> dict:
     return {"train": training, "serve": serving}
 
 
+def notebook_log(seed: int):
+    """A synthetic log shaped like MovieLens-1M, from default_rng(seed):
+    ``NB_USERS`` users with at least ``NB_MIN_EVENTS`` events each,
+    ``NB_EVENTS`` events in all (lengths geometric above the minimum), over
+    ``NB_ITEMS`` items. Each event follows its predecessor's successor item (a
+    fixed random map) with probability ``NB_FOLLOW``, else it is a draw from a
+    Zipf law (exponent 1, ids in a shuffled order): item popularity is
+    skewed, and there is a sequential signal for the model to learn. Split
+    last-one-out twice, as examples/ml1m_parity.py does: each user's last
+    event is the test target, the one before it the validation target, the
+    rest the train history (the test's input history is the train history
+    and the validation target). Returns the four splits (train, validation
+    target, test history, test target) as numpy columns (a query id, an
+    object array of item arrays) and the event count."""
+    rng = np.random.default_rng(seed)
+    extra = rng.geometric(1.0 / (NB_EVENTS / NB_USERS - NB_MIN_EVENTS + 1), NB_USERS) - 1
+    extra = np.floor(extra * ((NB_EVENTS - NB_USERS * NB_MIN_EVENTS) / extra.sum())).astype(np.int64)
+    extra[: NB_EVENTS - NB_USERS * NB_MIN_EVENTS - extra.sum()] += 1
+    lengths = NB_MIN_EVENTS + extra
+    popularity = 1.0 / np.arange(1, NB_ITEMS + 1)
+    order = rng.permutation(NB_ITEMS)
+    successor = rng.permutation(NB_ITEMS)
+    width = int(lengths.max())
+    draws = order[rng.choice(NB_ITEMS, size=(NB_USERS, width), p=popularity / popularity.sum())]
+    follow = rng.random((NB_USERS, width)) < NB_FOLLOW
+    log = np.empty((NB_USERS, width), dtype=np.int64)
+    log[:, 0] = draws[:, 0]
+    for t in range(1, width):  # one step of every user's chain at a time
+        log[:, t] = np.where(follow[:, t], successor[log[:, t - 1]], draws[:, t])
+    users = np.arange(NB_USERS, dtype=np.int64)
+
+    def split(part):
+        column = np.empty(NB_USERS, dtype=object)
+        for index in range(NB_USERS):
+            column[index] = part(log[index, : lengths[index]])
+        return {"user_id": users, "item_id": column}
+
+    splits = (split(lambda s: s[:-2]), split(lambda s: s[-2:-1]), split(lambda s: s[:-1]), split(lambda s: s[-1:]))
+    return (*splits, int(lengths.sum()))
+
+
+class FitEvents:
+    """An event sink that keeps every event (``fit``'s loggers)."""
+
+    def __init__(self) -> None:
+        self.events = []
+
+    def log_event(self, event) -> None:
+        self.events.append(event)
+
+    def named(self, name: str) -> list:
+        return [e for e in self.events if e.event == name]
+
+
+def timed_method(obj, name: str, times: list) -> None:
+    """Make ``obj.name`` record the host ms of each call into ``times``."""
+    method = getattr(obj, name)
+
+    @functools.wraps(method)
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = method(*args, **kwargs)
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    setattr(obj, name, timed)
+
+
+def state_equal(a, b) -> bool:
+    tensors = lambda s: [s.flat_params, *(t for link in s.opt_state for t in link.values()), s.bad_steps]  # noqa: E731
+    return a.step == b.step and torch.equal(a.rng, b.rng) and all(
+        torch.equal(x, y) for x, y in zip(tensors(a), tensors(b))
+    )
+
+
+def checkpoint_leaves_equal(path_a, path_b) -> bool:
+    with np.load(str(path_a)) as a, np.load(str(path_b)) as b:
+        return sorted(a.files) == sorted(b.files) and all(np.array_equal(a[k], b[k]) for k in a.files)
+
+
+def dropout_contract(make_trainer, initial, batches) -> dict:
+    """Dropout inside a captured chunk, at the notebook width: one replay of
+    the K-step graph equals K ``train_step``s bit for bit (losses, params,
+    optimizer state, ``rng``); replays from the same params draw other masks
+    as the stream advances; a control replaying one fixed mask (the stream
+    reset before each replay) must fail that check."""
+    from replay_tpu_torch.nn.train import _clone_state
+
+    def tensors(state):
+        return [state.flat_params, *(t for link in state.opt_state for t in link.values()), state.bad_steps]
+
+    runs = []
+    for _ in range(2):
+        trainer = make_trainer()
+        state = trainer.init_state(None, params=initial)
+        losses = torch.stack([trainer.train_step(state, b)[1] for b in batches]).cpu().numpy()
+        runs.append((losses, _clone_state(state)))
+        del trainer
+    repeatable = np.array_equal(runs[0][0], runs[1][0]) and state_equal(runs[0][1], runs[1][1])
+    trainer = make_trainer()
+    state = trainer.init_state(None, params=initial)
+    start = _clone_state(state)
+    _, graph_losses = trainer.train_steps(state, batches)
+    torch.cuda.synchronize()
+    equal = np.array_equal(graph_losses, runs[0][0]) and state_equal(state, runs[0][1])
+
+    def replay_from(stream):
+        for dst, src in zip(tensors(state), tensors(start)):
+            dst.copy_(src)
+        state.rng = stream.clone()
+        _, losses = trainer.train_steps(state, batches)
+        return losses, state.rng.clone()
+
+    first, advanced = replay_from(start.rng)
+    second, _ = replay_from(advanced)
+    fixed, _ = replay_from(start.rng)
+    record = {
+        "K": len(batches), "per_step_repeatable": repeatable, "graph_equals_steps": equal,
+        "graph_vs_steps_max_loss_diff": float(np.abs(graph_losses - runs[0][0]).max()),
+        "replay_equals_first": bool(np.array_equal(first, graph_losses)),
+        "masks_advance": not np.array_equal(second, first),
+        "replays_loss_max_diff": float(np.abs(second - first).max()),
+        "fixed_mask_control_caught": bool(np.array_equal(fixed, first)),
+        "capture_warmups": trainer.capture_warmups,
+    }
+    captures = 1 if trainer.device.type == "cuda" else 0  # the CPU runs chunks eagerly
+    del trainer, state
+    release()
+    if not (repeatable and equal and record["replay_equals_first"] and record["masks_advance"]
+            and record["fixed_mask_control_caught"] and record["capture_warmups"] == captures):
+        raise AssertionError(f"lifecycle: the dropout chunk contract failed: {record}")
+    return record
+
+
+def float_target(batch):
+    """The ``valid`` rows folded into an f32 target mask: the float leaf that
+    ``inject_nan`` poisons (a NaN weight makes the step's loss non-finite)."""
+    batch = dict(batch)
+    valid = torch.as_tensor(batch.pop("valid"))
+    target = torch.as_tensor(batch["target_padding_mask"])
+    batch["target_padding_mask"] = (target & valid[:, None, None]).to(torch.float32)
+    return batch
+
+
+def lifecycle_phase(device) -> dict:
+    """Notebook 09's training run (examples/ml1m_parity.py's settings) on the
+    port: ``SequentialDataset`` from numpy columns of a MovieLens-1M-shaped
+    log, ``SequenceBatcher(windows, shuffle, seed 0)`` with the SASRec
+    templates through ``TransformedBatches``, ``validation_batches``,
+    ``SasRec(use_flash=True, dropout 0.3)`` with ``CE`` and Adam 1e-3, and
+    ``Trainer.fit``'s lifecycle:
+
+    (e) the dropout chunk contract (``dropout_contract``);
+    (a) one eager epoch, per step, with per-step events: step p50/p99,
+        steps/s, device busy; the host's ms per batch (assembly, transforms);
+    (b) the notebook run: ``fit(epochs=5, scan_chunk=K, prefetch, device_feed,
+        checkpoint_manager, checkpoint_every, monitor="recall@10",
+        loggers=JsonlLogger)``: chunk step p50, steps/s, epoch and
+        validation seconds, busy share, checkpoint ms and bytes, peak memory,
+        K4 launches counted through the replays (the main path: the count
+        starts at 0 with the run and is read at its end), the history, the
+        best epoch's state returned; then the best state on the test split;
+    (c) the same run preempted mid-epoch 2 by ``SignalAtStep(SIGTERM)``, then
+        ``fit(resume=True)``: returned state, history, best step and final
+        checkpoint bitwise (b)'s;
+    (d) one epoch with ``NaNInjector`` on ``NB_BAD_STEPS`` steps in a row and
+        ``RecoveryPolicy(max_consecutive_bad=...)``: the rollback and the LR
+        backoff in the events, a finite end;
+    (f) one epoch of the notebook run with ``CEFused`` for ``CE``: K1–K3 at
+        1,600 rows over the 3,706 items, their ``tf32`` variant once a step.
+    """
+    import signal
+    import tempfile
+    from pathlib import Path
+
+    from replay_tpu_torch.data.nn import (
+        SequenceBatcher,
+        SequentialDataset,
+        TensorFeatureInfo,
+        TensorSchema,
+        TransformedBatches,
+        validation_batches,
+    )
+    from replay_tpu_torch.data import FeatureHint, FeatureType
+    from replay_tpu_torch.nn.loss import CE, CEFused
+    from replay_tpu_torch.nn.sequential.sasrec import SasRec
+    from replay_tpu_torch.nn.train import OptimizerFactory, RecoveryPolicy, Trainer
+    from replay_tpu_torch.ops import fused_ce as fc
+    from replay_tpu_torch.nn.transform import Compose, make_default_sasrec_transforms
+    from replay_tpu_torch.obs import JsonlLogger
+    from replay_tpu_torch.ops.flash_attention import flash_attention
+    from replay_tpu_torch.utils import CheckpointManager, NaNInjector, SignalAtStep
+
+    t0 = time.perf_counter()
+    train_cols, val_cols, test_history_cols, test_cols, events = notebook_log(SEED)
+    schema = TensorSchema(
+        TensorFeatureInfo(
+            "item_id", FeatureType.CATEGORICAL, is_seq=True, feature_hint=FeatureHint.ITEM_ID,
+            cardinality=NB_ITEMS, embedding_dim=NB_DIM,
+        )
+    )
+    train, val_gt, test_history, test_gt = (
+        SequentialDataset(schema, "user_id", "item_id", c) for c in (train_cols, val_cols, test_history_cols, test_cols)
+    )
+    pipes = {split: Compose(p) for split, p in make_default_sasrec_transforms(schema).items()}
+    batcher = SequenceBatcher(
+        train, batch_size=NB_BATCH, max_sequence_length=NB_LEN + 1, windows=True, shuffle=True, seed=0
+    )
+    source = TransformedBatches(batcher, pipes["train"])
+    setup_s = time.perf_counter() - t0
+
+    def val_batches():
+        return (pipes["validate"](b) for b in validation_batches(train, val_gt, NB_BATCH, NB_LEN))
+
+    # the host's work per batch, alone: assembly (the batcher) and transforms
+    t0 = time.perf_counter()
+    raw = list(batcher)
+    assembly_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    transformed = [pipes["train"](b) for b in raw]
+    transform_s = time.perf_counter() - t0
+    steps_per_epoch = len(raw)
+    host = {
+        "batches_per_epoch": steps_per_epoch, "assembly_ms_per_batch": assembly_s * 1e3 / steps_per_epoch,
+        "transform_ms_per_batch": transform_s * 1e3 / steps_per_epoch,
+    }
+    host["host_ms_per_batch"] = host["assembly_ms_per_batch"] + host["transform_ms_per_batch"]
+    t0 = time.perf_counter()
+    val_count = sum(1 for _ in val_batches())
+    host["validation_batches"] = val_count
+    host["validation_host_ms_per_batch"] = (time.perf_counter() - t0) * 1e3 / val_count
+    del raw
+
+    def make_trainer(loss=CE):
+        model = SasRec(
+            schema, use_flash=True, embedding_dim=NB_DIM, num_blocks=NB_BLOCKS, num_heads=NB_HEADS,
+            dropout_rate=NB_DROPOUT, max_sequence_length=NB_LEN, device=device,
+            generator=torch.Generator().manual_seed(SEED),
+        )
+        return Trainer(model, loss(), optimizer=OptimizerFactory(name="adam", learning_rate=1e-3), seed=SEED, device=device)
+
+    initial = {name: value.detach().clone() for name, value in make_trainer().model.state_dict().items()}
+    params = sum(value.numel() for value in initial.values())
+    fit_kwargs = dict(
+        val_batches=val_batches, metrics=("ndcg", "recall", "map"), top_k=NB_TOP_K, item_count=NB_ITEMS,
+        monitor="recall@10", log_every=0,
+    )
+    import gc
+
+    record = {
+        "users": NB_USERS, "items": NB_ITEMS, "events": events, "train_events": int(sum(map(len, train_cols["item_id"]))),
+        "params": params, "setup_s": setup_s, "host": host,
+        # what the process carries into the phase (host times rise late in the script)
+        "threads_alive": threading.active_count(), "gc_tracked_objects": len(gc.get_objects()),
+    }
+    emit("lifecycle", run="setup", **record)
+
+    # (e) the dropout contract on the first K batches of epoch 0
+    record["dropout_contract"] = dropout_contract(make_trainer, initial, transformed[:NB_SCAN_K])
+    emit("lifecycle", run="dropout_contract", **record["dropout_contract"])
+
+    with tempfile.TemporaryDirectory(prefix="lifecycle_") as scratch:
+        root = Path(scratch)
+
+        # (a) one eager epoch, per step, every step an event
+        trainer = make_trainer()
+        recorder = FitEvents()
+        state = trainer.init_state(None, params=initial)
+        t0 = time.perf_counter()
+        trainer.fit(source, epochs=1, state=state, loggers=recorder, **fit_kwargs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        step_ms = sorted(1e3 * e.payload["step_seconds"] for e in recorder.named("on_train_step")[1:])
+        _, device_record = device_time_per_step(trainer, state, transformed[0], NB_PROFILED_STEPS)
+        p50 = step_ms[len(step_ms) // 2]
+        eager = {
+            "steps": len(step_ms) + 1, "p50_ms": p50, "p99_ms": step_ms[min(len(step_ms) - 1, math.ceil(0.99 * len(step_ms)) - 1)],
+            "steps_per_s": recorder.named("on_fit_end")[0].payload["telemetry"]["steps_per_sec"],
+            "epoch_s": wall, "device_ms_per_step": device_record["device_ms"],
+            "device_busy_share": device_record["device_ms"] / p50, "kernels_per_step": device_record["kernels_per_step"],
+            "history": list(trainer.history),
+        }
+        record["eager"] = eager
+        emit("lifecycle", run="eager_epoch", **eager)
+        del trainer, state, recorder
+        release()
+
+        # (b) the notebook run, the main path
+        def notebook_run(directory, stream, resume=False):
+            trainer = make_trainer()
+            chunk_ms, val_ms, save_ms = [], [], []
+            timed_method(trainer, "_run_chunk", chunk_ms)
+            timed_method(trainer, "validate", val_ms)
+            manager = CheckpointManager(str(directory), max_to_keep=3)
+            timed_method(manager, "save", save_ms)
+            recorder = FitEvents()
+            sinks = [JsonlLogger(str(directory / "events")), recorder]
+            t0 = time.perf_counter()
+            state = trainer.fit(
+                stream, epochs=NB_EPOCHS, scan_chunk=NB_SCAN_K, prefetch=2, device_feed=True,
+                checkpoint_manager=manager, checkpoint_every=NB_CHECKPOINT_EVERY, loggers=sinks, resume=resume,
+                **fit_kwargs,
+            )
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            sinks[0].close()
+            return trainer, state, manager, recorder, wall, chunk_ms, val_ms, save_ms
+
+        torch.cuda.reset_peak_memory_stats(device)
+        reset_counts(flash_attention)
+        trainer, best, manager, recorder, wall, chunk_ms, val_ms, save_ms = notebook_run(root / "b", source)
+        k4_launches = flash_attention.launches
+        captures = trainer.capture_warmups
+        peak = torch.cuda.max_memory_allocated(device)
+        steps = NB_EPOCHS * steps_per_epoch
+        expected = NB_BLOCKS * (steps + captures + NB_EPOCHS * val_count)
+        if k4_launches != expected:
+            raise AssertionError(f"lifecycle: K4 ran {k4_launches} times in the notebook run, not {expected}")
+        history = [dict(r) for r in trainer.history]
+        best_step = manager.best_step()
+        best_epoch = int(np.argmax([r["recall@10"] for r in history]))
+        best_checkpoint = manager.restore(best, step=best_step)
+        returned_best = state_equal(best, best_checkpoint) and best.step == (best_epoch + 1) * steps_per_epoch
+        if not returned_best or manager.metadata(best_step)["epoch"] != best_epoch:
+            raise AssertionError(f"lifecycle: the returned state is not the best epoch's ({best_epoch}, step {best_step})")
+        final_step = manager.latest_step()
+        final_files = root / "b" / f"step_{final_step}.npz"
+        ends = [e.time for e in recorder.named("on_epoch_end")]
+        starts = [recorder.named("on_fit_start")[0].time] + ends[:-1]
+        epoch_s = [b - a for a, b in zip(starts, ends)]
+        per_chunk = sorted(ms / NB_SCAN_K for ms in chunk_ms[1:])
+        chunk_p50 = per_chunk[len(per_chunk) // 2]
+        # device time a step on the graph, from traces of replays (K4 in the
+        # trace = K4 counted), on the run's trainer and its best state
+        trace_state = trainer.init_state(None, params=initial)
+        traces = []
+        for _ in range(TRACES_AT_MOST):
+            trace_state, trace = traced_chunks(trainer, trace_state, transformed[:NB_SCAN_K], 2, (flash_attention,))
+            traces.append(trace)
+            sound = trace["traced"] == trace["launched"] and trace["device_ms"] <= trace["event_ms"]
+            if sound and len(traces) > 1 and traces[-2]["kernels"] == trace["kernels"]:
+                break
+        else:
+            raise AssertionError(f"lifecycle: no two traces of replays agree with the counts: {traces}")
+        device_ms = trace["device_ms"] / (2 * NB_SCAN_K)
+        validation_s = [ms / 1e3 for ms in val_ms]
+        test_metrics = trainer.validate(
+            best, (pipes["validate"](b) for b in validation_batches(test_history, test_gt, NB_BATCH, NB_LEN)),
+            metrics=("ndcg", "recall", "map"), top_k=NB_TOP_K, item_count=NB_ITEMS,
+        )
+        ckpt_bytes = sum(p.stat().st_size for p in (root / "b").glob(f"step_{final_step}.*"))
+        notebook = {
+            "epochs": NB_EPOCHS, "K": NB_SCAN_K, "steps": steps, "wall_s": wall,
+            "chunk_step_p50_ms": chunk_p50, "chunk_step_p99_ms": per_chunk[min(len(per_chunk) - 1, math.ceil(0.99 * len(per_chunk)) - 1)],
+            "steps_per_s": steps / (wall - sum(val_ms) / 1e3 - sum(save_ms) / 1e3),
+            "epoch_s": epoch_s, "validation_s": validation_s,
+            "device_ms_per_step": device_ms, "kernels_per_step": trace["kernels"] / (2 * NB_SCAN_K),
+            "device_busy_share_epoch": [device_ms * steps_per_epoch / 1e3 / s for s in epoch_s],
+            "checkpoint_ms": save_ms, "checkpoint_bytes": ckpt_bytes, "checkpoints_saved": len(save_ms),
+            "peak_memory_bytes": peak, "k4_launches": k4_launches, "capture_warmups": captures,
+            "history": history, "best_epoch": best_epoch, "best_step": best_step, "returned_best": returned_best,
+            "test": dict(test_metrics),
+        }
+        record["notebook"] = notebook
+        emit("lifecycle", run="notebook", **notebook)
+        del trainer, trace_state
+        release()
+
+        # (c) preempted mid-epoch 2, then resumed
+        at = 2 * steps_per_epoch + steps_per_epoch // 2
+        signal_at = SignalAtStep(at, sig=signal.SIGTERM)
+
+        def preempted(epoch):
+            source.set_epoch(epoch)
+            return signal_at.wrap(source)
+
+        trainer_c, mid, manager_c, recorder_c, _, _, _, _ = notebook_run(root / "c", preempted)
+        preempt = recorder_c.named("on_preemption")
+        if not signal_at.raised or len(preempt) != 1 or mid.step >= steps:
+            raise AssertionError(f"lifecycle: the preemption did not stop the run (step {mid.step})")
+        stopped_at = mid.step
+        del trainer_c, mid
+        trainer_r, resumed, manager_r, _, resume_wall, _, _, _ = notebook_run(root / "c", source, resume=True)
+        resumed_final = root / "c" / f"step_{manager_r.latest_step()}.npz"
+        resume = {
+            "signal_at_batch": at, "stopped_at_step": stopped_at, "resume_wall_s": resume_wall,
+            "state_equal": state_equal(resumed, best), "history_equal": trainer_r.history == history,
+            "best_step_equal": manager_r.best_step() == best_step,
+            "final_checkpoint_equal": manager_r.latest_step() == final_step and checkpoint_leaves_equal(resumed_final, final_files),
+        }
+        record["preempt_resume"] = resume
+        emit("lifecycle", run="preempt_resume", **resume)
+        del trainer_r, resumed
+        release()
+        if not all(resume[k] for k in ("state_equal", "history_equal", "best_step_equal", "final_checkpoint_equal")):
+            raise AssertionError(f"lifecycle: the resumed run differs from the uninterrupted one: {resume}")
+
+        # (d) recovery: a run of NaN batches trips the policy, one epoch
+        source.set_epoch(0)
+        injector = NaNInjector(at_steps=range(NB_BAD_FROM, NB_BAD_FROM + NB_BAD_STEPS))
+        trainer = make_trainer()
+        recorder = FitEvents()
+        recovered = trainer.fit(
+            lambda: injector.wrap(float_target(b) for b in source), epochs=1,
+            state=trainer.init_state(None, params=initial), scan_chunk=NB_SCAN_K, device_feed=True,
+            checkpoint_manager=CheckpointManager(str(root / "d"), max_to_keep=3), checkpoint_every=NB_CHECKPOINT_EVERY,
+            recovery=RecoveryPolicy(max_consecutive_bad=NB_MAX_BAD, max_restarts=2, lr_backoff=0.5),
+            loggers=recorder, **fit_kwargs,
+        )
+        recoveries = recorder.named("on_recovery")
+        anomalies = recorder.named("on_anomaly")
+        recovery = {
+            "injected_at": [injector.injected_at[0], injector.injected_at[-1]], "anomalies": len(anomalies),
+            "first_anomaly_step": anomalies[0].step if anomalies else None,
+            "recoveries": [e.payload for e in recoveries], "lr_scale": trainer._lr_scale,
+            "train_loss": trainer.history[-1]["train_loss"], "finite": bool(torch.isfinite(recovered.flat_params).all()),
+            "bad_steps": int(recovered.bad_steps),
+        }
+        record["recovery"] = recovery
+        emit("lifecycle", run="recovery", **recovery)
+        del trainer, recovered
+        release()
+        if (
+            len(recoveries) != 1 or recoveries[0].payload["reason"] != "consecutive_bad_steps"
+            or recoveries[0].payload["lr_scale"] != 0.5 or len(anomalies) < NB_MAX_BAD
+            or recoveries[0].payload["restored_step"] != NB_CHECKPOINT_EVERY
+            or not recovery["finite"] or not math.isfinite(recovery["train_loss"])
+        ):
+            raise AssertionError(f"lifecycle: the recovery run did not roll back as it should: {recovery}")
+
+    # (f) one epoch on K1–K3: CEFused for CE
+    wrappers = (fc.fused_lse_forward, fc.fused_lse_dh, fc.fused_lse_dw)
+    reset_counts(*wrappers)
+    trainer = make_trainer(CEFused)
+    fused_state = trainer.fit(
+        source, epochs=1, state=trainer.init_state(None, params=initial), scan_chunk=NB_SCAN_K, device_feed=True,
+        **fit_kwargs,
+    )
+    torch.cuda.synchronize()
+    steps = steps_per_epoch + trainer.capture_warmups
+    fused = {fn.__name__: fn.launches for fn in wrappers}
+    cefused = {
+        "launches": fused, "variants": fused_variant_counts(fc), "capture_warmups": trainer.capture_warmups,
+        "history": list(trainer.history), "finite": bool(torch.isfinite(fused_state.flat_params).all()),
+    }
+    record["cefused"] = cefused
+    emit("lifecycle", run="cefused_epoch", **cefused)
+    del trainer, fused_state
+    release()
+    if any(n != steps for n in fused.values()) or not cefused["finite"]:
+        raise AssertionError(f"lifecycle: the CEFused epoch launched K1-K3 {fused} times, not {steps} each")
+    check_fused_variants("the lifecycle's CEFused epoch", cefused["variants"], steps)
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this script runs only on the GPU", file=sys.stderr)
@@ -2972,9 +3461,10 @@ def main() -> int:
     longseq = longseq_phase(device)
     bert4rec = bert4rec_phase(device)
     twotower = twotower_phase(device)
+    lifecycle = lifecycle_phase(device)
 
     kernels = kernel_records(
-        k4, fused, tiled_records, served, serviced, serialized, trained, longseq, bert4rec, twotower
+        k4, fused, tiled_records, served, serviced, serialized, trained, longseq, bert4rec, twotower, lifecycle
     )
     emit("kernels", kernels=[{k: r[k] for k in ("name", "launches", "passed")} for r in kernels])
     print(card, flush=True)
@@ -3005,7 +3495,7 @@ def k4_entry(name: str, record: dict, by_path: dict) -> dict:
 
 
 def kernel_records(
-    k4, fused, tiled_records, served, serviced, serialized, trained, longseq, bert4rec, twotower
+    k4, fused, tiled_records, served, serviced, serialized, trained, longseq, bert4rec, twotower, lifecycle
 ) -> list:
     """The kernels line: every kernel of the paths driven, one entry per
     instantiation a path runs, with its launches there (counted through graph
@@ -3029,6 +3519,12 @@ def kernel_records(
             if dtype == torch.float32:
                 by_path[f"{model}_serve"] = result["serve"]["k4_launches"]
             kernels.append(k4_entry(f"flash_attention_{model}{suffix}", k4[(model, dtype)], by_path))
+    # K4 at notebook 09's width (D=32, batch 32, f32): the lifecycle's
+    # notebook run, its training graphs, tails and validation
+    kernels.append(
+        k4_entry("flash_attention_notebook", k4[("notebook", torch.float32)],
+                 {"lifecycle": lifecycle["notebook"]["k4_launches"]})
+    )
     # K1–K3, one entry per kernel and instantiation on the paths: f32 at the
     # bench.py width (train), bf16 hidden states at the long-sequence width
     # (the bf16 trainer), f32 there (the f32 trainer)
@@ -3040,6 +3536,7 @@ def kernel_records(
         ("_longseq_bf16_hidden", "longseq_bf16_hidden", {"longseq_train": longseq["train"], "longseq_train_graph": longseq["graph"]}),
         ("_longseq_f32", "longseq_f32", {"longseq_f32_train": longseq["f32_train"]}),
     )
+    fused_paths += (("_notebook", "notebook", {"lifecycle_cefused": lifecycle["cefused"]["launches"]}),)
     for suffix, case, paths in fused_paths:
         for name, kernel, line in fused_kernels:
             record = fused[case][kernel]

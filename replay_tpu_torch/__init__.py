@@ -18,9 +18,15 @@ its gradient; the long-sequence route, ``SasRec(use_flash="tiled")`` on
 kernel K5 (length-tiled attention, no ``[B, 1, L, L]`` mask), for training and
 serving, with bf16 compute (``Trainer(precision="bf16")``, ``SasRec(dtype=...)``);
 ``ScoringService`` with brute-force retrieval; the compiled programs as CUDA
-graphs; and BERT4Rec (masked-LM) and TwoTower (in-batch negatives) on the same
+graphs; BERT4Rec (masked-LM) and TwoTower (in-batch negatives) on the same
 kernels, with the batch transforms (``nn.transform``) and the sampled and
-weighted cross-entropy losses. Still to come, in ``ROADMAP.md``'s order:
-quantized and IVF retrieval, the rest of ``Trainer.fit``, the vocabulary, the
-other losses and models, distributed training and the serving fleet.
+weighted cross-entropy losses; and notebook 09's training lifecycle: the
+pandas-free ``SequentialDataset``, ``SequenceBatcher`` and
+``validation_batches`` (``data.nn``), checkpoints (``utils.checkpoint``),
+resume, best-state tracking and early stop, recovery and preemption in
+``Trainer.fit``, the event sinks, and dropout inside captured chunks. Still to
+come, in ``ROADMAP.md``'s order: quantized and IVF retrieval, the tokenizer
+and label encoders (pandas), the parquet and packed batchers, profiling,
+tracing and health in ``fit``, the vocabulary, the other losses and models,
+distributed training and the serving fleet.
 """

@@ -2,7 +2,7 @@ from . import loss
 from .compiled import CompiledInference, params_mismatch
 from .postprocess import SeenItemsFilter
 from .precision import PARITY_REL_TOL, Precision, fit_parity_record
-from .train import LRSchedulerFactory, OptimizerFactory, Trainer, TrainState
+from .train import LRSchedulerFactory, OptimizerFactory, PreemptionHandler, RecoveryPolicy, Trainer, TrainState
 
 __all__ = [
     "CompiledInference",
@@ -10,6 +10,8 @@ __all__ = [
     "OptimizerFactory",
     "PARITY_REL_TOL",
     "Precision",
+    "PreemptionHandler",
+    "RecoveryPolicy",
     "SeenItemsFilter",
     "TrainState",
     "Trainer",

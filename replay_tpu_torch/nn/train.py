@@ -5,11 +5,15 @@ one SPMD program over a mesh; here :meth:`Trainer.train_step` runs eagerly on
 one card, and :meth:`Trainer.train_steps` (``fit(scan_chunk=K)``), the JAX
 ``lax.scan`` of K steps, is one CUDA graph of K steps per chunk length,
 replayed with one launch (:mod:`replay_tpu_torch.nn.graphs`), fed by a
-device-prefetch stage (:mod:`replay_tpu_torch.data.nn.prefetch`). The mesh,
-sharding, remat and the production features of ``fit`` (checkpoints,
-recovery, loggers, tracing, health) are later slices (``ROADMAP.md`` queue 1). ``precision="bf16"`` is the JAX trainer's: the model
-computes in bf16 while the flat parameter buffer, the optimizer state and the
-sentinel stay f32 (:mod:`replay_tpu_torch.nn.precision`).
+device-prefetch stage (:mod:`replay_tpu_torch.data.nn.prefetch`). ``fit`` has
+the JAX training lifecycle: checkpoints and ``resume``
+(:mod:`replay_tpu_torch.utils.checkpoint`), best-state tracking and early
+stop, :class:`RecoveryPolicy` rollbacks, :class:`PreemptionHandler` and the
+event sinks (:mod:`replay_tpu_torch.obs.events`). The mesh, sharding, remat,
+profiling, tracing and health arguments are later slices (``ROADMAP.md``
+queue 1). ``precision="bf16"`` is the JAX trainer's: the model computes in
+bf16 while the flat parameter buffer, the optimizer state and the sentinel
+stay f32 (:mod:`replay_tpu_torch.nn.precision`).
 
 What carries over exactly:
 
@@ -32,15 +36,30 @@ the JAX step donates its state, so the old state is as dead there as here, and
 a captured chunk keeps reading and writing the same tensors. The loss's callbacks are the model's own
 ``get_logits`` and ``get_item_weights``, and autograd adds every gradient of
 the tied item table (input embedding, K3's ``dW``, the label gather).
+
+Dropout: the model's ``F.dropout`` draws from the default generator of the
+trainer's device (Philox on the card, its seed and offset; the CPU's
+Mersenne twister on the CPU). ``TrainState.rng`` holds that generator's
+state for the run: every step, eager or captured, runs with the generator
+set to it and writes back what the step advanced it to, then gives the
+caller's generator state back. A CUDA graph replays its dropout with the
+generator's seed and offset at replay time and advances the offset by what
+its K steps draw, so one replay equals K eager steps bit for bit, two
+replays draw different masks, and a checkpoint of ``rng`` restores the
+stream of masks. The masks are torch's, not JAX's: parity with the JAX
+package holds at dropout 0 only.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import functools
 import inspect
 import itertools
 import logging
 import math
+import signal as _signal
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Iterable, List, Mapping, Optional, Sequence, Tuple
 
@@ -53,6 +72,8 @@ from replay_tpu_torch.device import DeviceLike, resolve_device, to_device
 from replay_tpu_torch.metrics.builder import MetricsBuilder
 from replay_tpu_torch.nn.graphs import Graph, capture
 from replay_tpu_torch.nn.precision import Precision
+from replay_tpu_torch.obs.collectors import StepTelemetry
+from replay_tpu_torch.obs.events import ConsoleLogger, MultiLogger, RunLogger, TrainerEvent
 
 logger = logging.getLogger("replay_tpu_torch")
 
@@ -305,8 +326,15 @@ class TrainState:
     it (the model's own ``nn.Parameter`` objects once the state is bound).
     ``bad_steps`` counts optimizer updates the non-finite sentinel discarded: on
     such steps ``step`` and ``rng`` still advance, but ``params`` and
-    ``opt_state`` keep their values. ``rng`` is the state of the CPU
-    ``torch.Generator`` that seeds each step's dropout.
+    ``opt_state`` keep their values. ``rng`` is the state of the generator
+    the model's dropout draws from (the default generator of the trainer's
+    device: 16 bytes of Philox seed and offset on the card), a CPU ``uint8``
+    tensor. A step sets that generator to ``rng`` and puts the caller's state
+    back after it, without a lock: while a trainer runs (``fit``,
+    ``train_step``, ``train_steps``) it owns the device's default generator,
+    and no other thread may draw from it (another trainer on the same device
+    included), or the resumed and the uninterrupted runs part without an
+    error.
     """
 
     step: int
@@ -315,6 +343,117 @@ class TrainState:
     opt_state: OptState
     bad_steps: torch.Tensor
     rng: torch.Tensor
+
+
+def _clone_state(state: TrainState) -> TrainState:
+    """A copy of ``state`` that no step writes into."""
+    return TrainState(
+        step=state.step,
+        flat_params=state.flat_params.clone(),
+        params={},
+        opt_state=[{key: value.clone() for key, value in link.items()} for link in state.opt_state],
+        bad_steps=state.bad_steps.clone(),
+        rng=state.rng.clone(),
+    )
+
+
+# --------------------------------------------------------------------------- #
+# Resilience: recovery policy + preemption handling (docs/robustness.md)
+# --------------------------------------------------------------------------- #
+@dataclass
+class RecoveryPolicy:
+    """When and how ``Trainer.fit`` rolls back a diverging run.
+
+    Two triggers share one response (restore the last checkpoint — always
+    finite, because the sentinel never lets a non-finite update into the
+    state — and back the learning rate off by ``lr_backoff``):
+
+    * ``max_consecutive_bad`` sentinel-skipped steps in a row;
+    * a monitored-metric blowup at epoch end: the monitored value went
+      non-finite, or worsened past ``blowup_factor`` × the best seen (``mode=
+      "min"``: value > best × factor; ``mode="max"``: value < best / factor).
+      ``blowup_factor=None`` keeps only the non-finite check.
+
+    ``max_restarts`` bounds the rollbacks of one fit call; exhausting it
+    raises ``RuntimeError``. A rollback restores the state only: the batch
+    stream keeps moving forward, so the poisoned window is not replayed.
+    """
+
+    max_consecutive_bad: int = 5
+    max_restarts: int = 3
+    lr_backoff: float = 0.5
+    blowup_factor: Optional[float] = None
+
+    def __post_init__(self) -> None:
+        if self.max_consecutive_bad < 1:
+            msg = "max_consecutive_bad must be >= 1"
+            raise ValueError(msg)
+        if self.max_restarts < 0:
+            msg = "max_restarts must be >= 0"
+            raise ValueError(msg)
+        if not 0.0 < self.lr_backoff <= 1.0:
+            msg = "lr_backoff must be in (0, 1]"
+            raise ValueError(msg)
+        if self.blowup_factor is not None and self.blowup_factor <= 1.0:
+            msg = "blowup_factor must be > 1"
+            raise ValueError(msg)
+
+
+class PreemptionHandler:
+    """SIGTERM/SIGINT → request a checkpoint at the next step boundary.
+
+    ``fit`` installs one around its training loop (when a checkpoint manager
+    is attached): the first signal only sets a flag, the loop saves a
+    position-stamped mid-epoch checkpoint at the current step boundary (the
+    next chunk boundary under ``scan_chunk``) and returns cleanly, and
+    ``fit(resume=True)`` continues from that batch. A second signal falls
+    through to the previously installed handler, so a double Ctrl-C still
+    exits. Off the main thread ``signal.signal`` is unavailable: installation
+    is then a no-op and only :meth:`request` sets the flag.
+    """
+
+    def __init__(self, signals: Sequence[int] = (_signal.SIGTERM, _signal.SIGINT)) -> None:
+        self.signals = tuple(signals)
+        self.requested = False
+        self.signal_name: Optional[str] = None
+        self._previous: Dict[int, Any] = {}
+        self._installed = False
+
+    def request(self, signum: Optional[int] = None) -> None:
+        self.requested = True
+        if signum is not None:
+            self.signal_name = _signal.Signals(signum).name
+
+    def _handle(self, signum, frame) -> None:
+        if self.requested:  # second signal: defer to the original behaviour
+            previous = self._previous.get(signum)
+            if callable(previous):
+                previous(signum, frame)
+                return
+            raise KeyboardInterrupt
+        logger.warning(
+            "received %s: checkpointing at the next step boundary, then exiting", _signal.Signals(signum).name
+        )
+        self.request(signum)
+
+    def __enter__(self) -> "PreemptionHandler":
+        try:
+            for sig in self.signals:
+                self._previous[sig] = _signal.signal(sig, self._handle)
+            self._installed = True
+        except ValueError:  # not the main thread: restore what was installed
+            for sig, previous in self._previous.items():
+                _signal.signal(sig, previous)
+            self._previous.clear()
+            self._installed = False
+        return self
+
+    def __exit__(self, *exc_info) -> None:
+        if self._installed:
+            for sig, previous in self._previous.items():
+                _signal.signal(sig, previous)
+            self._previous.clear()
+            self._installed = False
 
 
 def _where_into(good: torch.Tensor, new: OptState, old: OptState) -> None:
@@ -386,26 +525,14 @@ class _ChunkGraph:
 
 # fit arguments of the JAX signature that the port does not have yet: passing
 # one with anything but its JAX default raises, naming the ROADMAP.md item
-# (the JAX scan branch lands checkpoints, recovery, health and preemption at
-# chunk boundaries; here they raise with or without scan_chunk)
 _UNPORTED_FIT_ARGS = {
-    "checkpoint_manager": (None, "'The rest of Trainer.fit' (checkpoints)"),
-    "checkpoint_every": (None, "'The rest of Trainer.fit' (checkpoints)"),
-    "resume": (False, "'The rest of Trainer.fit' (checkpoints)"),
-    "monitor": (None, "'The rest of Trainer.fit' (best-state tracking, early stop)"),
-    "patience": (None, "'The rest of Trainer.fit' (best-state tracking, early stop)"),
-    "mode": ("max", "'The rest of Trainer.fit' (best-state tracking, early stop)"),
-    "loggers": (None, "'The rest of Trainer.fit' (loggers)"),
     "profile_steps": (None, "'The rest of Trainer.fit' (profiling)"),
     "profile_dir": (None, "'The rest of Trainer.fit' (profiling)"),
-    "recovery": (None, "'The rest of Trainer.fit' (recovery)"),
-    "detect_anomalies": (None, "'The rest of Trainer.fit' (recovery)"),
-    "handle_preemption": (None, "'The rest of Trainer.fit' (recovery)"),
     "tracer": (None, "'The rest of Trainer.fit' (tracing)"),
     "trace_path": (None, "'The rest of Trainer.fit' (tracing)"),
-    "metrics_port": (None, "'The rest of Trainer.fit' (loggers)"),
-    "slo_rules": (None, "'The rest of Trainer.fit' (loggers)"),
-    "flight_path": (None, "'The rest of Trainer.fit' (loggers)"),
+    "metrics_port": (None, "'The rest of Trainer.fit' (metrics plane)"),
+    "slo_rules": (None, "'The rest of Trainer.fit' (metrics plane)"),
+    "flight_path": (None, "'The rest of Trainer.fit' (flight recorder)"),
 }
 
 
@@ -421,7 +548,10 @@ class Trainer:
     :param loss: a :mod:`replay_tpu_torch.nn.loss` callable (or ``"ce"``); its
         ``logits_callback`` is bound per step to the model's ``get_logits``.
     :param optimizer: optimizer factory (default Adam 1e-3).
-    :param seed: seeds the CPU generator that seeds each step's dropout.
+    :param seed: seeds ``TrainState.rng``, the stream the dropout masks come from.
+        The trainer owns its device's default generator while it steps (see
+        :class:`TrainState`): one stepping trainer per device, and no other
+        thread drawing from that generator meanwhile.
     :param precision: mixed-precision rung, ``"bf16"`` / ``"f32"`` / a
         :class:`~replay_tpu_torch.nn.precision.Precision`. Applied at
         construction: the model is cloned with its compute ``dtype`` set to the
@@ -474,9 +604,10 @@ class Trainer:
             for name in _signature_names(getattr(type(self.model), "get_logits", None))
             if name not in ("hidden", "candidates_to_score")
         ]
-        # dropout draws from torch's global generator: seed it per step from
-        # the state's own generator, only where a rate is non-zero
+        # dropout draws from the device's default generator, set to the
+        # state's stream for each step, only where a rate is non-zero
         self._stochastic = any(getattr(m, "dropout_rate", 0.0) for m in self.model.modules())
+        self._lr_scale = 1.0  # RecoveryPolicy backoff multiplier (1.0 = none)
         self._loss_checked = False
         self._bound: Optional[torch.Tensor] = None  # the flat buffer the model's parameters view
         # K-step CUDA graphs by (K, batch layout), all tied to one state's tensors
@@ -523,7 +654,7 @@ class Trainer:
             params={},
             opt_state=self._tx.init(flat),
             bad_steps=torch.zeros((), dtype=torch.int32, device=self.device),
-            rng=torch.Generator().manual_seed(self.seed).get_state(),
+            rng=torch.Generator(device=self.device).manual_seed(self.seed).get_state(),
         )
         self._bind(state)
         return state
@@ -617,21 +748,43 @@ class Trainer:
             state.bad_steps.add_((~good).to(torch.int32))
         return loss_value, good, grad_norm
 
+    def _generator(self) -> torch.Generator:
+        """The generator the model's dropout draws from: the default one of
+        the trainer's device."""
+        if self.device.type != "cuda":
+            return torch.default_generator
+        torch.cuda.init()
+        index = self.device.index if self.device.index is not None else torch.cuda.current_device()
+        return torch.cuda.default_generators[index]
+
+    @contextlib.contextmanager
+    def _generator_kept(self):
+        """Give the caller's generator state back on the way out."""
+        generator = self._generator()
+        saved = generator.get_state()
+        try:
+            yield generator
+        finally:
+            generator.set_state(saved)
+
+    @contextlib.contextmanager
+    def _dropout_stream(self, state: TrainState):
+        """The dropout generator set to ``state.rng`` for the body, and
+        ``state.rng`` set to what the body advanced it to (host work only)."""
+        with self._generator_kept() as generator:
+            generator.set_state(state.rng)
+            yield
+            state.rng = generator.get_state()
+
     def _step(self, state: TrainState, batch: Batch) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """:meth:`_update`, its dropout seeded from the state's generator
+        """:meth:`_update` with the dropout masks drawn from ``state.rng``
         where the model has a non-zero rate; advances ``step`` and ``rng``."""
-        generator = torch.Generator()
-        generator.set_state(state.rng)
         if self._stochastic:
-            step_seed = int(torch.randint(2**62, (1,), generator=generator))
-            devices = [self.device] if self.device.type == "cuda" else []
-            with torch.random.fork_rng(devices=devices):
-                torch.manual_seed(step_seed)
+            with self._dropout_stream(state):
                 metrics = self._update(state, batch)
         else:
             metrics = self._update(state, batch)
         state.step += 1
-        state.rng = generator.get_state()
         return metrics
 
     def _prepare(self, state: TrainState) -> None:
@@ -741,7 +894,10 @@ class Trainer:
                 for name, value in zip(("loss", "good", "grad_norm"), values):
                     metrics[name][index].copy_(value)
 
-        graph, _ = capture(run, self.device, warmup=warmup)
+        # the warm-up draws from the dropout generator; the capture records
+        # its draws as offsets from the generator's state at each replay
+        with self._generator_kept():
+            graph, _ = capture(run, self.device, warmup=warmup)
         self.capture_warmups += 1
         chunk = _ChunkGraph(graph, static, metrics, tensors)
         self._chunk_graphs[key] = chunk
@@ -759,12 +915,6 @@ class Trainer:
                 for position, name in enumerate(("loss", "good", "grad_norm"))
             }
         else:
-            if self._stochastic:
-                msg = (
-                    "train_steps / fit(scan_chunk=...) with dropout on the card is not ported yet: "
-                    "ROADMAP.md queue 1, 'The rest of Trainer.fit' (dropout inside a captured chunk)"
-                )
-                raise NotImplementedError(msg)
             current = torch.cuda.current_stream(self.device)
             if placed.event is not None:
                 current.wait_event(placed.event)
@@ -772,9 +922,10 @@ class Trainer:
                     leaf.record_stream(current)
             chunk = self._chunk_graph(state, placed.batch, steps)
             _tree_map(lambda static, value: static.copy_(value), chunk.batch, placed.batch)
-            chunk.graph.replay()
+            # the replay's masks continue state.rng's stream, as K steps would
+            with self._dropout_stream(state) if self._stochastic else contextlib.nullcontext():
+                chunk.graph.replay()
             metrics = {name: value.clone() for name, value in chunk.metrics.items()}
-            # at dropout 0 the per-step path draws nothing: rng stays as it is
             state.step += steps
         self.last_step_metrics = metrics
         return state, metrics["loss"].cpu().numpy()
@@ -786,7 +937,7 @@ class Trainer:
         after), the JAX ``lax.scan``'s counterpart; on the CPU they run
         eagerly. Returns ``(state, losses)`` with the ``[K]`` losses as numpy;
         :attr:`last_step_metrics` holds the ``[K]`` ``loss``, ``good`` and
-        ``grad_norm`` tensors. Dropout > 0 raises on the card."""
+        ``grad_norm`` tensors."""
         batches = list(batches)
         return self._run_chunk(state, self._place_chunk(self._stack_chunk(batches)), len(batches))
 
@@ -803,21 +954,48 @@ class Trainer:
         item_count: Optional[int] = None,
         postprocessors: Sequence[Callable] = (),
         log_every: int = 100,
+        checkpoint_manager=None,
+        checkpoint_every: Optional[int] = None,
+        resume: bool = False,
+        monitor: Optional[str] = None,
+        patience: Optional[int] = None,
+        mode: str = "max",
         prefetch: int = 0,
         scan_chunk: Optional[int] = None,
         device_feed: bool = True,
+        loggers: Optional[RunLogger | Sequence[RunLogger]] = None,
+        recovery: Optional[RecoveryPolicy] = None,
+        detect_anomalies: Optional[bool] = None,
+        handle_preemption: Optional[bool] = None,
         **unported: Any,
     ) -> TrainState:
         """Train for ``epochs`` passes; validates after each epoch when
         ``val_batches`` is given, appending one record per epoch to
         :attr:`history`. A dict of validation factories runs each stream in
-        turn, prefixing its metric keys with the stream's name.
+        turn, prefixing its metric keys with the stream's name. The JAX
+        ``fit``'s semantics, argument by argument:
 
-        ``train_batches`` may be a re-iterable, a zero- or one-arg callable
-        returning an iterable (the arg is the epoch), or a one-shot iterator
-        (materialized once if several epochs are requested). An epoch's ``train_loss`` averages the steps the
-        sentinel accepted (NaN when it accepted none). ``log_every`` logs the
-        loss every that many steps, counted across epochs.
+        ``train_batches`` may be a re-iterable (a ``SequenceBatcher`` or
+        ``TransformedBatches``: its ``set_epoch`` is called, so shuffling
+        advances per epoch), a zero- or one-arg callable returning an
+        iterable (the arg is the epoch), or a one-shot iterator (materialized
+        once if several epochs are requested). An epoch's ``train_loss``
+        averages the steps the sentinel accepted (NaN when it accepted none).
+
+        ``monitor`` (a history key, e.g. ``"recall@10"`` or ``"train_loss"``)
+        turns on best-state tracking: fit returns the best state seen, marks
+        the winning checkpoint, and with ``patience`` stops after that many
+        epochs without improvement (Lightning's ModelCheckpoint + EarlyStopping).
+
+        ``checkpoint_manager`` saves at every epoch end; ``checkpoint_every``
+        also mid-epoch every that many steps, with the stream position
+        (``epoch``, ``step_in_epoch``), the LR scale and the epoch's running
+        loss sum in the metadata. ``resume=True`` restores the manager's
+        latest valid checkpoint, its history, the monitored best and the LR
+        scale, then fast-forwards the (deterministic, epoch-seeded) stream to
+        the saved position, or seeks through a batcher's cursor, so a killed
+        run continues as the uninterrupted one would, bit for bit; a run that
+        was already complete returns its (best) checkpoint.
 
         ``prefetch=n`` builds batches ``n`` ahead on a background thread.
         ``scan_chunk=K`` runs each epoch's full groups of K batches through
@@ -826,12 +1004,37 @@ class Trainer:
         flags fan out into the epoch's accounting exactly as K steps would.
         With ``device_feed=True`` a feeder thread stacks and copies the next
         chunk to the card while the current one runs
-        (:class:`~replay_tpu_torch.data.nn.prefetch.DevicePrefetcher`); with
-        ``False`` each chunk is placed on the fit thread.
+        (:class:`~replay_tpu_torch.data.nn.prefetch.DevicePrefetcher`). Under
+        ``scan_chunk`` a ``checkpoint_every`` boundary crossed inside a chunk
+        saves at the chunk end, a preemption exits at the next chunk boundary,
+        and a rollback triggered mid-chunk drops the rest of that chunk's
+        accounting while the stream position advances.
 
-        The other arguments of the JAX ``fit`` (checkpoints, recovery, loggers,
-        tracing, ...) raise ``NotImplementedError`` naming their
-        ``ROADMAP.md`` item when given anything but their JAX default.
+        ``loggers`` attaches event sinks (:mod:`replay_tpu_torch.obs.events`):
+        ``on_fit_start``, ``on_train_step`` every step (one host read of the
+        loss a step), ``on_anomaly``, ``on_recovery``, ``on_checkpoint``,
+        ``on_preemption``, ``on_validation_end``, ``on_epoch_end`` and
+        ``on_fit_end``. ``log_every`` is itself a sink, a ``ConsoleLogger``:
+        alone, it sees every ``log_every``-th executed step, counted across
+        epochs.
+
+        ``detect_anomalies`` checks the sentinel on the host every step and
+        emits ``on_anomaly`` per skipped step (default: on with ``recovery``
+        or explicit ``loggers``). ``recovery`` attaches a
+        :class:`RecoveryPolicy`: after ``max_consecutive_bad`` skipped steps
+        (counted even with ``detect_anomalies=False``) or an epoch-end blowup
+        of the monitored metric, fit restores the manager's latest checkpoint
+        (before any save, a snapshot of the initial state), backs the LR off,
+        emits ``on_recovery`` and goes on forward in the stream, at most
+        ``max_restarts`` times, then raises ``RuntimeError``.
+        ``handle_preemption`` (default: on with a ``checkpoint_manager``)
+        installs SIGTERM/SIGINT handlers for the loop (:class:`PreemptionHandler`).
+
+        The rest of the JAX ``fit``'s arguments (profiling, tracing, the
+        metrics plane, the flight recorder) raise ``NotImplementedError``
+        naming their ``ROADMAP.md`` item when given anything but their JAX
+        default. One deviation: a resumed epoch's ``train_loss`` covers the
+        whole epoch (the JAX fit averages only the steps after the resume).
         """
         for name, value in unported.items():
             if name not in _UNPORTED_FIT_ARGS:
@@ -841,11 +1044,9 @@ class Trainer:
             if value != default:
                 msg = f"fit({name}=...) is not ported yet: ROADMAP.md queue 1, {item}"
                 raise NotImplementedError(msg)
-        if scan_chunk is not None:
-            scan_chunk = int(scan_chunk)
-            if scan_chunk < 1:
-                msg = "scan_chunk must be >= 1 (optimizer steps per lax.scan dispatch)"
-                raise ValueError(msg)
+        if checkpoint_manager is not None and not self.history:
+            # resume: earlier epochs' records survive the restart
+            self.history = list(checkpoint_manager.history())
         one_shot = None
         if not callable(train_batches) and iter(train_batches) is train_batches:
             # a generator: re-iteration is impossible, materialize once
@@ -857,98 +1058,601 @@ class Trainer:
             if callable(train_batches):
                 takes_epoch = len(_signature_names(train_batches)) >= 1
                 return train_batches(epoch) if takes_epoch else train_batches()
+            if hasattr(train_batches, "set_epoch"):
+                train_batches.set_epoch(epoch)
             return train_batches
 
-        executed = 0
-        for epoch in range(epochs):
-            # the epoch's accepted-loss sum and count, in f32 and int32. The
-            # per-step loop adds on the device (reading the loss would sync
-            # every step); the chunked loop adds the fetched [K] values on the
-            # host, the same IEEE f32 adds in the same order. Sentinel-skipped
-            # steps contribute 0 (their loss is non-finite)
-            epoch_loss, epoch_good = None, None
+        if mode not in ("max", "min"):
+            msg = "mode must be 'max' or 'min'"
+            raise ValueError(msg)
+        if patience is not None and patience < 1:
+            msg = "patience must be >= 1 (it counts consecutive non-improving epochs)"
+            raise ValueError(msg)
 
-            def account(loss_value, good, step: int) -> None:
-                nonlocal epoch_loss, epoch_good, executed
-                if isinstance(loss_value, torch.Tensor):
-                    safe_loss, flag = torch.where(good, loss_value, 0.0), good.to(torch.int32)
-                else:
-                    safe_loss, flag = np.float32(loss_value) if good else np.float32(0.0), np.int32(bool(good))
-                epoch_loss = safe_loss if epoch_loss is None else epoch_loss + safe_loss
-                epoch_good = flag if epoch_good is None else epoch_good + flag
-                executed += 1
-                if log_every and executed % log_every == 0:
-                    logger.info("step %d: loss %.6f", step, float(loss_value))
+        def reject_bucketed(source) -> None:
+            """A bucketed batcher cannot feed the chunks: fail up front, on the
+            fit argument and on what a factory returns."""
+            if getattr(source, "bucket_boundaries", None) or (
+                hasattr(source, "scan_compatible") and not source.scan_compatible
+            ):
+                msg = (
+                    "fit(scan_chunk=...) stacks K batches into one [K, B, L] chunk, which "
+                    f"requires ONE fixed batch shape; {type(source).__name__}(bucket_boundaries=...) "
+                    "emits a set of widths. Drop the bucketing or the scan_chunk."
+                )
+                raise ValueError(msg)
 
-            stream = batches_for(epoch)
-            if prefetch:
-                stream = prefetch_batches(iter(stream), depth=prefetch)
-            try:
-                if scan_chunk:
-                    state = self._fit_chunked(stream, state, scan_chunk, device_feed, account)
+        if scan_chunk is not None:
+            scan_chunk = int(scan_chunk)
+            if scan_chunk < 1:
+                msg = "scan_chunk must be >= 1 (optimizer steps per lax.scan dispatch)"
+                raise ValueError(msg)
+            reject_bucketed(train_batches)
+
+        start_epoch, skip_steps, pending_restore_step = 0, 0, None
+        resumed_best_step, pending_stream_cursor, resumed_sums = None, None, None
+        if resume:
+            if checkpoint_manager is None:
+                msg = "resume=True needs a checkpoint_manager"
+                raise ValueError(msg)
+            if state is not None:
+                msg = (
+                    "resume=True restores the manager's latest checkpoint; "
+                    "passing state= as well is ambiguous (the explicit state "
+                    "would silently win). Drop one of the two."
+                )
+                raise ValueError(msg)
+            latest = checkpoint_manager.latest_step()
+            if latest is not None:
+                meta = checkpoint_manager.metadata(latest)
+                if meta.get("mid_epoch"):
+                    start_epoch = int(meta["epoch"])
+                    skip_steps = int(meta["step_in_epoch"])
+                    pending_stream_cursor = checkpoint_manager.process_metadata(latest).get(
+                        "stream_cursor"
+                    ) or meta.get("stream_cursor")
+                    if meta.get("epoch_good") is not None:
+                        resumed_sums = (np.float32(meta["epoch_loss"]), np.int32(meta["epoch_good"]))
+                elif "epoch" in meta:
+                    start_epoch = int(meta["epoch"]) + 1
                 else:
-                    for batch in stream:
-                        if state is None:
-                            state = self.init_state(batch)
-                        state, loss_value = self.train_step(state, batch)
-                        account(loss_value, self.last_step_metrics["good"], state.step)
-            finally:
-                if prefetch:
-                    stream.close()  # joins the prefetch thread, also when a step raised
-            good_count = int(epoch_good) if epoch_good is not None else 0
-            record = {
-                "epoch": epoch,
-                "train_loss": float(epoch_loss) / good_count if good_count else float("nan"),
-            }
-            if val_batches is not None and state is not None:
-                streams = val_batches if isinstance(val_batches, dict) else {"": val_batches}
-                for stream_name, factory in streams.items():
-                    stream_metrics = self.validate(
-                        state,
-                        factory(),
-                        metrics=metrics,
-                        top_k=top_k,
-                        item_count=item_count,
-                        postprocessors=postprocessors,
+                    msg = (
+                        f"Checkpoint step {latest} carries no data-iterator "
+                        "position ('epoch' missing from its metadata — saved by "
+                        "a manual save_checkpoint); resuming would silently "
+                        "retrain from epoch 0 on top of the restored weights. "
+                        "Restore explicitly via restore_checkpoint and pass state= instead."
                     )
-                    prefix = f"{stream_name}/" if stream_name else ""
-                    record.update({f"{prefix}{k}": v for k, v in stream_metrics.items()})
-            self.history.append(record)
-            if not log_every:
-                logger.info("epoch %d: %s", epoch, record)
+                    raise ValueError(msg)
+                if meta.get("lr_scale"):
+                    # the killed run had backed its LR off; resuming at the
+                    # full rate would rerun the divergence
+                    self._set_lr_scale(float(meta["lr_scale"]))
+                pending_restore_step = latest
+                resumed_best_step = checkpoint_manager.best_step()
+                logger.info(
+                    "resuming from step %d (epoch %d, fast-forward %d batches)", latest, start_epoch, skip_steps
+                )
+
+        best_value, best_state, stale_epochs = None, None, 0
+        if resume and monitor is not None:
+            # seed the monitored best from the restored history (and the
+            # winning checkpoint's sidecar, which survives a lost history)
+            seen_values = [r[monitor] for r in self.history if monitor in r and math.isfinite(r[monitor])]
+            if seen_values:
+                best_value = max(seen_values) if mode == "max" else min(seen_values)
+            if resumed_best_step is not None:
+                try:
+                    sidecar_value = checkpoint_manager.metadata(resumed_best_step).get(monitor)
+                except (OSError, ValueError):
+                    sidecar_value = None
+                if (
+                    isinstance(sidecar_value, (int, float))
+                    and not isinstance(sidecar_value, bool)
+                    and math.isfinite(sidecar_value)
+                    and (
+                        best_value is None
+                        or (mode == "max" and sidecar_value > best_value)
+                        or (mode == "min" and sidecar_value < best_value)
+                    )
+                ):
+                    best_value = float(sidecar_value)
+
+        # -- event sinks -------------------------------------------------- #
+        explicit_loggers: List[RunLogger] = []
+        if loggers is not None:
+            # duck-typed: a single sink is anything with log_event
+            explicit_loggers = [loggers] if hasattr(loggers, "log_event") else list(loggers)
+        sinks: List[RunLogger] = list(explicit_loggers)
+        if log_every:
+            # alone, the console receives events at log_every cadence already
+            sinks.append(ConsoleLogger(every=log_every if explicit_loggers else 1))
+        run_logger: Optional[RunLogger] = MultiLogger(sinks) if len(sinks) > 1 else (sinks[0] if sinks else None)
+        event_every = 1 if explicit_loggers else (log_every or 0)
+
+        def emit(name: str, step=None, epoch=None, **payload) -> None:
+            if run_logger is not None:
+                run_logger.log_event(TrainerEvent(event=name, step=step, epoch=epoch, payload=payload))
+
+        # -- resilience ----------------------------------------------------- #
+        # host-side anomaly checks cost one device sync per step, so they
+        # default on only where that sync already happens or is required
+        check_anomalies = (
+            detect_anomalies if detect_anomalies is not None else (recovery is not None or bool(explicit_loggers))
+        )
+        consecutive_bad, restarts = 0, 0
+        initial_snapshot: Optional[TrainState] = None  # rollback target before any checkpoint
+        last_grad_norm = None
+
+        def do_recovery(reason: str, epoch: int) -> TrainState:
+            """Roll back to the last checkpoint (else the initial snapshot),
+            back the LR off, and return the state to continue from. The
+            stream is not rewound: recovery moves forward through the data."""
+            nonlocal restarts, consecutive_bad, last_grad_norm
+            restarts += 1
+            consecutive_bad = 0
+            last_grad_norm = None
+            if restarts > recovery.max_restarts:
+                emit("on_recovery", epoch=epoch, reason=reason, restarts=restarts, exhausted=True)
+                msg = (
+                    f"RecoveryPolicy budget exhausted: {restarts - 1} restarts "
+                    f"(max_restarts={recovery.max_restarts}) did not stabilize "
+                    f"the run (last trigger: {reason})"
+                )
+                raise RuntimeError(msg)
+            target = checkpoint_manager.latest_step() if checkpoint_manager is not None else None
+            if target is not None:
+                new_state = checkpoint_manager.restore(state, step=target)
+            else:
+                new_state = _clone_state(initial_snapshot)
+            self._set_lr_scale(self._lr_scale * recovery.lr_backoff)
+            logger.warning(
+                "recovery %d/%d (%s): rolled back to %s, lr scale now %.3g",
+                restarts, recovery.max_restarts, reason,
+                f"checkpoint step {target}" if target is not None else "initial state", self._lr_scale,
+            )
+            emit("on_recovery", step=new_state.step, epoch=epoch, reason=reason,
+                 restarts=restarts, restored_step=target, lr_scale=self._lr_scale)
+            self._bind(new_state)
+            return new_state
+
+        def save_mid_epoch(preempted: bool = False) -> None:
+            # one position-stamping path for periodic and preemption saves
+            extra: Dict[str, Any] = {"preempted": True} if preempted else {}
+            if self._lr_scale != 1.0:  # recovery backoff survives the resume
+                extra["lr_scale"] = self._lr_scale
+            process_extra = None
+            if cursor_source is not None:
+                try:
+                    cursor_meta = cursor_source.cursor_for(n_steps).to_metadata()
+                except KeyError as exc:
+                    logger.warning(
+                        "stream cursor unavailable at step %d (%s); resume will fall back to fast-forwarding",
+                        n_steps, exc,
+                    )
+                else:
+                    extra["stream_cursor"] = cursor_meta
+                    process_extra = {"stream_cursor": cursor_meta}
+            # the epoch's running loss sum and count: a resume continues them
+            sums = {
+                "epoch_loss": float(epoch_loss) if epoch_loss is not None else 0.0,
+                "epoch_good": int(epoch_good) if epoch_good is not None else 0,
+            }
+            checkpoint_manager.save(
+                state.step, state, history=self.history,
+                metadata={"mid_epoch": True, "epoch": epoch, "step_in_epoch": n_steps, **sums, **extra},
+                process_metadata=process_extra,
+            )
+            emit("on_checkpoint", step=state.step, epoch=epoch, mid_epoch=True, step_in_epoch=n_steps, **extra)
+
+        install_preemption = handle_preemption if handle_preemption is not None else checkpoint_manager is not None
+        preemption = PreemptionHandler() if install_preemption else None
+
+        telemetry = StepTelemetry(warmup_steps=1)
+        lr_schedule = (
+            self.optimizer.scheduler.create(self.optimizer.learning_rate) if self.optimizer.scheduler else None
+        )
+
+        def current_lr(step: int) -> float:
+            # every schedule kind is linear in its peak rate: scaling its
+            # value equals rebuilding it from the scaled rate
+            if lr_schedule is None:
+                return float(self.optimizer.learning_rate) * self._lr_scale
+            return float(lr_schedule(torch.tensor(max(step, 0), dtype=torch.int32))) * self._lr_scale
+
+        def fit_end_payload() -> Dict[str, Any]:
+            payload: Dict[str, Any] = {
+                "telemetry": telemetry.summary(),
+                "peak_memory_bytes": (
+                    torch.cuda.max_memory_allocated(self.device) if self.device.type == "cuda" else None
+                ),
+                "history_len": len(self.history),
+            }
+            if state is not None:
+                payload["bad_steps"] = int(state.bad_steps)
+            input_record = input_summary()
+            if input_record is not None:
+                payload["input"] = input_record
+            return payload
+
+        measured_total = 0  # steps executed by this fit call
+        last_emitted_at = 0
+        tokens_real_total = tokens_grid_total = tick_tokens_real = tick_tokens_grid = 0
+
+        def count_tokens(batch: Batch) -> None:
+            nonlocal tokens_real_total, tokens_grid_total
+            mask = batch.get(self.padding_mask_field)
+            if mask is None or getattr(mask, "ndim", 0) != 2:
+                return
+            mask = _host(mask)
+            valid = batch.get("valid")
+            tokens_real_total += int(mask[_host(valid)].sum()) if valid is not None else int(mask.sum())
+            tokens_grid_total += mask.size
+
+        def input_summary() -> Optional[Dict[str, float]]:
+            if not tokens_grid_total:
+                return None
+            steps_per_sec = telemetry.summary().get("steps_per_sec")
+            tokens_per_step = tokens_real_total / max(measured_total, 1)
+            effective = (
+                tokens_per_step * steps_per_sec
+                if steps_per_sec is not None and math.isfinite(steps_per_sec)
+                else float("nan")
+            )
+            return {
+                "tokens_real": tokens_real_total,
+                "tokens_grid": tokens_grid_total,
+                "padding_fraction": 1.0 - tokens_real_total / tokens_grid_total,
+                "effective_tokens_per_sec": effective,
+            }
+
+        def telemetry_tick(batch: Batch) -> Dict[str, float]:
+            """Fold the steps since the last tick into the telemetry window."""
+            nonlocal last_emitted_at, tick_tokens_real, tick_tokens_grid
+            delta = measured_total - last_emitted_at
+            last_emitted_at = measured_total
+            reference = batch.get(self.padding_mask_field)
+            rows = int(reference.shape[0]) if reference is not None else None
+            tick = telemetry.tick(samples=rows * delta if rows else None, steps=delta)
+            window_real = tokens_real_total - tick_tokens_real
+            window_grid = tokens_grid_total - tick_tokens_grid
+            tick_tokens_real, tick_tokens_grid = tokens_real_total, tokens_grid_total
+            nan = float("nan")
+            tick["padding_fraction"] = 1.0 - window_real / window_grid if window_grid else nan
+            tick["effective_tokens_per_sec"] = window_real / delta * tick["steps_per_sec"] if delta else nan
+            return tick
+
+        emit(
+            "on_fit_start", epoch=start_epoch, epochs=epochs, model=type(self.model).__name__,
+            loss=type(self.loss).__name__, optimizer=self.optimizer.name,
+            learning_rate=self.optimizer.learning_rate, resumed=bool(resume and pending_restore_step is not None),
+            **(self.precision.describe() if self.precision is not None else {}),
+        )
+
+        if pending_restore_step is not None and start_epoch >= epochs:
+            # the run is already complete: return its checkpoint — the
+            # monitored best when one is marked, as the uninterrupted fit did
+            first = next(iter(batches_for(0)), None)
+            if first is None:
+                msg = "fit() received no batches"
+                raise ValueError(msg)
+            restore_step = pending_restore_step
+            if monitor is not None and resumed_best_step is not None:
+                restore_step = resumed_best_step
+            restored = checkpoint_manager.restore(self.init_state(first), step=restore_step)
+            self._bind(restored)
+            logger.info("resume: run already complete at step %d", restore_step)
+            emit("on_fit_end", step=restore_step, epoch=start_epoch, note="resume: run already complete",
+                 **fit_end_payload())
+            return restored
+
+        def start(batch: Batch) -> None:
+            """Per-batch preamble: the state's first batch initializes it (or
+            restores the checkpoint a resume names), and the recovery
+            snapshot is taken before the first step."""
+            nonlocal state, pending_restore_step, initial_snapshot
+            if state is None:
+                state = self.init_state(batch)
+                if pending_restore_step is not None:
+                    state = checkpoint_manager.restore(state, step=pending_restore_step)
+                    self._bind(state)
+                    pending_restore_step = None
+            if recovery is not None and initial_snapshot is None:
+                initial_snapshot = _clone_state(state)
+
+        def account_step(batch: Batch, loss_value, good, grad_norm, epoch: int,
+                         step_id: Optional[int] = None, bad_total: Optional[int] = None) -> bool:
+            """Bookkeeping for one optimizer step, shared by single steps
+            (device scalars: the epoch sums add on the device) and the chunk
+            fan-out (host values: the same IEEE f32 adds on the host). Returns
+            True when a recovery rollback fired."""
+            nonlocal epoch_loss, epoch_good, n_steps, measured_total, last_grad_norm, consecutive_bad, state
+            rolled_back = False
+            if isinstance(loss_value, torch.Tensor):
+                if epoch_loss is not None and not isinstance(epoch_loss, torch.Tensor):
+                    # a resumed epoch's sums, and the chunks' before a tail step, are on the host
+                    epoch_loss = torch.tensor(epoch_loss, device=self.device)
+                    epoch_good = torch.tensor(epoch_good, device=self.device)
+                safe_loss, good_flag = torch.where(good, loss_value, 0.0), good.to(torch.int32)
+            else:
+                safe_loss = np.float32(loss_value) if bool(good) else np.float32(0.0)
+                good_flag = np.int32(bool(good))
+            epoch_loss = safe_loss if epoch_loss is None else epoch_loss + safe_loss
+            epoch_good = good_flag if epoch_good is None else epoch_good + good_flag
+            n_steps += 1
+            measured_total += 1
+            count_tokens(batch)
+            last_grad_norm = grad_norm
+            if check_anomalies or recovery is not None:
+                # a recovery policy sees every bad step, even with events off
+                if not bool(good):
+                    consecutive_bad += 1
+                    if check_anomalies:
+                        emit(
+                            "on_anomaly", step=state.step if step_id is None else step_id, epoch=epoch,
+                            loss=float(loss_value), grad_norm=float(grad_norm), consecutive_bad=consecutive_bad,
+                            bad_steps_total=int(state.bad_steps) if bad_total is None else bad_total,
+                        )
+                    if recovery is not None and consecutive_bad >= recovery.max_consecutive_bad:
+                        state = do_recovery("consecutive_bad_steps", epoch)
+                        # the epoch average describes the restored trajectory
+                        epoch_loss, epoch_good = None, None
+                        rolled_back = True
+                else:
+                    consecutive_bad = 0
+            if event_every and measured_total % event_every == 0:
+                emit_step = state.step if step_id is None else step_id
+                tick = telemetry_tick(batch)
+                emit(
+                    "on_train_step", step=emit_step, epoch=epoch, loss=float(loss_value),
+                    # the rate the optimizer applied: schedules are indexed by
+                    # the steps completed before the update
+                    lr=current_lr(emit_step - 1), samples_per_sec=tick["samples_per_sec"],
+                    steps_per_sec=tick["steps_per_sec"], step_seconds=tick["step_seconds"],
+                    effective_tokens_per_sec=tick["effective_tokens_per_sec"],
+                    padding_fraction=tick["padding_fraction"],
+                )
+            return rolled_back
+
+        def preempted_exit(epoch: int, boundary_saved: bool) -> bool:
+            """At a step (or chunk) boundary: honour a preemption request by
+            saving a position-stamped checkpoint; True when fit must return."""
+            if preemption is None or not preemption.requested:
+                return False
+            emit("on_preemption", step=state.step, epoch=epoch, signal=preemption.signal_name)
+            if checkpoint_manager is not None and not boundary_saved:
+                save_mid_epoch(preempted=True)
+            logger.warning("preemption: checkpoint saved at step %d; exiting fit", state.step)
+            emit("on_fit_end", step=state.step, epoch=epoch, preempted=True, **fit_end_payload())
+            return True
+
+        stopped_early = False
+        cursor_source = None  # the current epoch's resumable batch source
+        epoch_loss = epoch_good = None
+        n_steps = 0
+        with preemption or contextlib.nullcontext():
+            for epoch in range(start_epoch, epochs):
+                # n_steps = position in the epoch's stream (skipped batches
+                # included, keeping checkpoint_every aligned across resumes)
+                epoch_loss, epoch_good, n_steps = None, None, 0
+                skipped = 0
+                last_batch = None
+                epoch_needs_mark = True  # discounts the inter-epoch gap from the telemetry window
+                epoch_batches = batches_for(epoch)
+                cursor_source = epoch_batches if getattr(epoch_batches, "supports_cursor", False) else None
+                if pending_stream_cursor is not None and epoch == start_epoch and cursor_source is not None:
+                    recorded = int(pending_stream_cursor.get("batches", -1))
+                    if recorded == skip_steps:
+                        # seek: the batcher resumes mid-epoch without re-reading
+                        cursor_source.restore_cursor(pending_stream_cursor)
+                        skipped = n_steps = skip_steps
+                    else:
+                        logger.warning(
+                            "stream cursor records %d batches but the checkpoint position is %d; "
+                            "falling back to fast-forward", recorded, skip_steps,
+                        )
+                    pending_stream_cursor = None
+                if epoch == start_epoch and resumed_sums is not None:
+                    epoch_loss, epoch_good = resumed_sums
+                    resumed_sums = None
+                if scan_chunk:
+                    # a factory hid its batcher from the fit-start check
+                    reject_bucketed(epoch_batches)
+                stream = prefetch_batches(iter(epoch_batches), depth=prefetch) if prefetch else epoch_batches
+                try:
+                    batch_iter = iter(stream)
+                    first_batch = None
+                    for batch in batch_iter:
+                        start(batch)
+                        if epoch == start_epoch and skipped < skip_steps:
+                            # fast-forward: the stream is deterministic per
+                            # epoch, so consuming without stepping lands on the position
+                            skipped += 1
+                            n_steps += 1
+                            continue
+                        first_batch = batch
+                        break
+                    rest = itertools.chain([first_batch], batch_iter) if first_batch is not None else iter(())
+                    # without scan_chunk every batch is one "step" item
+                    items = _chunk_schedule(rest, scan_chunk) if scan_chunk else (("step", b) for b in rest)
+                    feed = (
+                        DevicePrefetcher(items, self._chunk_placer(), depth=1)
+                        if scan_chunk and device_feed and first_batch is not None
+                        else ((item, None) for item in items)
+                    )
+                    try:
+                        for (kind, payload), placed in feed:
+                            if epoch_needs_mark:
+                                telemetry.mark()
+                                epoch_needs_mark = False
+                            steps_before = n_steps
+                            if kind == "step":
+                                # device scalars: the epoch sums add on the device
+                                state, loss_value = self.train_step(state, payload)
+                                step_metrics = self.last_step_metrics
+                                account_step(payload, loss_value, step_metrics["good"], step_metrics["grad_norm"], epoch)
+                                last_batch = payload
+                            else:  # K optimizer steps in one replay
+                                k = len(payload)
+                                if placed is None:  # device_feed=False: placed on this thread
+                                    placed = self._place_chunk(self._stack_chunk(payload))
+                                first_step = state.step
+                                state, losses = self._run_chunk(state, placed, k)
+                                goods = self.last_step_metrics["good"].cpu().numpy()
+                                grad_norms = self.last_step_metrics["grad_norm"].cpu().numpy()
+                                bad_in_chunk = np.cumsum(~goods)
+                                bad_before = None
+                                if (check_anomalies or recovery is not None) and bad_in_chunk[-1]:
+                                    bad_before = int(state.bad_steps) - int(bad_in_chunk[-1])
+                                for i in range(k):
+                                    rolled_back = account_step(
+                                        payload[i], losses[i], goods[i], grad_norms[i], epoch,
+                                        step_id=first_step + i + 1,
+                                        bad_total=bad_before + int(bad_in_chunk[i]) if bad_before is not None else None,
+                                    )
+                                    if rolled_back:
+                                        # the rest of the chunk belongs to the
+                                        # discarded trajectory: consumed, not accounted
+                                        n_steps += k - (i + 1)
+                                        measured_total += k - (i + 1)
+                                        break
+                                last_batch = payload[-1]
+                            boundary_saved = False
+                            if (
+                                checkpoint_every
+                                and checkpoint_manager is not None
+                                and n_steps // checkpoint_every > steps_before // checkpoint_every
+                            ):
+                                # a boundary crossed inside a chunk saves at its end
+                                save_mid_epoch()
+                                boundary_saved = True
+                            if preempted_exit(epoch, boundary_saved):
+                                return state
+                    finally:
+                        if isinstance(feed, DevicePrefetcher):
+                            feed.close()
+                finally:
+                    if prefetch:
+                        stream.close()  # joins the prefetch thread, also when a step raised
+                good_count = int(epoch_good) if epoch_good is not None else 0
+                record = {
+                    "epoch": epoch,
+                    "train_loss": float(epoch_loss) / good_count if good_count else float("nan"),
+                }
+                if event_every and measured_total > last_emitted_at and last_batch is not None:
+                    telemetry_tick(last_batch)  # the epoch's tail steps, before validation
+                if val_batches is not None and state is not None:
+                    streams = val_batches if isinstance(val_batches, dict) else {"": val_batches}
+                    for stream_name, factory in streams.items():
+                        stream_metrics = self.validate(
+                            state, factory(), metrics=metrics, top_k=top_k, item_count=item_count,
+                            postprocessors=postprocessors,
+                        )
+                        prefix = f"{stream_name}/" if stream_name else ""
+                        record.update({f"{prefix}{k}": v for k, v in stream_metrics.items()})
+                    emit("on_validation_end", step=state.step, epoch=epoch, record=record)
+                self.history.append(record)
+                epoch_payload: Dict[str, Any] = {"record": record}
+                if state is not None:
+                    epoch_payload["bad_steps"] = int(state.bad_steps)
+                if last_grad_norm is not None:
+                    epoch_payload["grad_norm"] = float(last_grad_norm)
+                input_record = input_summary()
+                if input_record is not None:
+                    epoch_payload["input"] = input_record
+                emit("on_epoch_end", step=state.step if state is not None else None, epoch=epoch, **epoch_payload)
+                if not log_every:
+                    logger.info("epoch %d: %s", epoch, record)
+
+                if recovery is not None and monitor is not None and monitor in record and epoch_good is not None:
+                    # epoch-level blowup guard: roll back before this epoch's
+                    # checkpoint could become the rollback target
+                    value = float(record[monitor])
+                    blown = not math.isfinite(value)
+                    if (
+                        not blown
+                        and recovery.blowup_factor is not None
+                        and best_value is not None
+                        and math.isfinite(best_value)
+                    ):
+                        blown = (
+                            value > best_value * recovery.blowup_factor
+                            if mode == "min"
+                            else value < best_value / recovery.blowup_factor
+                        )
+                    if blown:
+                        state = do_recovery("metric_blowup", epoch)
+                        continue
+
+                improved = False
+                if monitor is not None:
+                    if monitor not in record:
+                        msg = f"monitor '{monitor}' not in the epoch record {sorted(record)}"
+                        raise KeyError(msg)
+                    value = record[monitor]
+                    improved = (
+                        best_value is None
+                        or (mode == "max" and value > best_value)
+                        or (mode == "min" and value < best_value)
+                    )
+                    if improved:
+                        # a copy: the next step writes into the live state
+                        best_state = _clone_state(state)
+                        best_value, stale_epochs = value, 0
+                    else:
+                        stale_epochs += 1
+                if checkpoint_manager is not None and state is not None:
+                    metadata = {"epoch": epoch}
+                    if self._lr_scale != 1.0:  # recovery backoff survives resume
+                        metadata["lr_scale"] = self._lr_scale
+                    if monitor:
+                        metadata.update({"best": improved, monitor: value})
+                    checkpoint_manager.save(state.step, state, history=self.history, metadata=metadata)
+                    if improved:
+                        checkpoint_manager.mark_best(state.step)
+                    emit("on_checkpoint", step=state.step, epoch=epoch, mid_epoch=False,
+                         best=bool(improved) if monitor else None)
+                if monitor is not None and patience is not None and stale_epochs >= patience:
+                    logger.info("early stop: no %s improvement for %d epochs", monitor, patience)
+                    stopped_early = True
+                    break
         if state is None:
             msg = "fit() received no batches"
             raise ValueError(msg)
+        if best_state is None and resumed_best_step is not None and monitor is not None:
+            # no epoch after the resume beat the earlier best: return that
+            # state, as the uninterrupted run would have
+            best_state = checkpoint_manager.restore(state, step=resumed_best_step)
+        emit("on_fit_end", step=state.step, stopped_early=stopped_early, **fit_end_payload())
+        if best_state is not None:
+            self._bind(best_state)
+            return best_state
         return state
 
-    def _fit_chunked(self, batches, state, chunk: int, device_feed: bool, account) -> Optional[TrainState]:
-        """One epoch of ``fit(scan_chunk=chunk)``: full chunks through
-        :meth:`_run_chunk`, the tail per step, each step's loss and flag to
-        ``account`` on the host, in stream order."""
-        batches = iter(batches)
-        first = next(batches, None)
-        if first is None:
-            return state
-        if state is None:
-            state = self.init_state(first)
-        items = _chunk_schedule(itertools.chain([first], batches), chunk)
-        feed = DevicePrefetcher(items, self._chunk_placer(), depth=1) if device_feed else ((i, None) for i in items)
-        try:
-            for (kind, payload), placed in feed:
-                if kind == "step":
-                    state, loss_value = self.train_step(state, payload)
-                    account(float(loss_value), bool(self.last_step_metrics["good"]), state.step)
-                    continue
-                if placed is None:  # device_feed=False: stacked and placed on this thread
-                    placed = self._place_chunk(self._stack_chunk(payload))
-                start = state.step
-                state, losses = self._run_chunk(state, placed, len(payload))
-                goods = self.last_step_metrics["good"].cpu().numpy()
-                for index in range(len(payload)):
-                    account(losses[index], goods[index], start + index + 1)
-        finally:
-            if isinstance(feed, DevicePrefetcher):
-                feed.close()
+    # -- learning-rate backoff and checkpoints ------------------------------ #
+    def _set_lr_scale(self, scale: float) -> None:
+        """Rebuild the optimizer with the base learning rate scaled by
+        ``scale`` (RecoveryPolicy backoff). The optimizer state's layout is
+        the same for any rate, so a restored ``opt_state`` keeps working; the
+        captured chunk graphs baked the old rate in and are dropped."""
+        self._lr_scale = float(scale)
+        factory = dataclasses.replace(self.optimizer, learning_rate=self.optimizer.learning_rate * self._lr_scale)
+        self._tx = factory.create()
+        self._chunk_graphs.clear()
+
+    def save_checkpoint(self, path: str, state: TrainState, backend: Optional[str] = None) -> None:
+        """Write the whole state (params, optimizer state, ``bad_steps``,
+        the dropout generator's state) to ``path`` (``.npz`` + ``.json``)."""
+        from replay_tpu_torch.utils.checkpoint import save_pytree
+
+        save_pytree(path, state, {"step": state.step}, backend=backend)
+
+    def restore_checkpoint(self, path: str, example_batch: Batch) -> TrainState:
+        """Rebuild a state from disk into a fresh ``init_state``'s template."""
+        from replay_tpu_torch.utils.checkpoint import restore_pytree
+
+        state = restore_pytree(path, self.init_state(example_batch))
+        self._bind(state)
         return state
 
     # -- eval / predict ---------------------------------------------------- #

@@ -1,8 +1,25 @@
 """Event sinks: one JSON-able record per observation.
 
 Copied from ``replay_tpu/obs/events.py``: :class:`TrainerEvent`, the
-:class:`RunLogger` protocol and :class:`JsonlLogger`. The scoring service
-emits its event family through them::
+:class:`RunLogger` protocol, :class:`JsonlLogger`, :class:`MultiLogger` and
+:class:`ConsoleLogger`. ``Trainer.fit`` emits its event family through them::
+
+    on_fit_start              (epochs, model, loss, optimizer, learning rate,
+                               resumed)
+      on_train_step*          (loss, lr, samples/s, steps/s, step seconds,
+                               effective tokens/s, padding fraction)
+      on_anomaly*             (a sentinel-skipped step: loss, grad norm,
+                               consecutive and total bad steps)
+      on_recovery*            (a rollback: reason, restarts, restored step,
+                               lr scale; or exhausted)
+      on_checkpoint*          (mid_epoch, step_in_epoch or best)
+      on_preemption           (the signal's name; on_fit_end follows)
+      on_validation_end*      (the epoch's record)
+      on_epoch_end*           (record, bad steps, grad norm, input summary)
+    on_fit_end                (telemetry, peak memory, history length, bad
+                               steps, input summary; stopped_early, preempted)
+
+The scoring service emits its own family::
 
     on_serve_start            (mode, bucket ladders, max_wait, cache capacity,
                                queue-depth bound, default deadline)
@@ -23,19 +40,22 @@ emits its event family through them::
 
 Every event flattens to one JSON-able dict (``event`` + ``time`` + optional
 ``step``/``epoch`` + the payload), so a run directory's ``events.jsonl`` is a
-self-describing artifact. The TensorBoard, console and multi sinks are not
-copied yet.
+self-describing artifact. The TensorBoard sink is not copied: the card
+machine has no tensorboard (``ROADMAP.md`` queue 1, item 5).
 """
 
 from __future__ import annotations
 
 import json
+import logging
 import math
 import os
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, Iterable, Mapping, Optional, Sequence
+
+logger = logging.getLogger("replay_tpu_torch")
 
 
 def _jsonable(value: Any) -> Any:
@@ -188,3 +208,68 @@ class JsonlLogger(RunLogger):
     def close(self) -> None:
         if not self._fh.closed:
             self._fh.close()
+
+
+class TensorBoardLogger(RunLogger):
+    """Not ported: the card machine has no tensorboard."""
+
+    def __init__(self, *args: Any, **kwargs: Any) -> None:
+        msg = "TensorBoardLogger is not ported yet: ROADMAP.md queue 1, item 5, 'The rest of Trainer.fit'"
+        raise NotImplementedError(msg)
+
+
+class MultiLogger(RunLogger):
+    """Fan one event stream out to several sinks."""
+
+    def __init__(self, loggers: Iterable[RunLogger]) -> None:
+        self.loggers: Sequence[RunLogger] = tuple(loggers)
+
+    def log_event(self, event: TrainerEvent) -> None:
+        for sink in self.loggers:
+            sink.log_event(event)
+
+    def close(self) -> None:
+        for sink in self.loggers:
+            sink.close()
+
+
+class ConsoleLogger(RunLogger):
+    """``fit``'s ``log_every`` print path on the event stream: every
+    ``every``-th received train-step event and every resilience event go to
+    the python logger (``fit`` filters the stream to the requested cadence
+    when the console is the only sink, so counting received events is exact)."""
+
+    def __init__(self, every: int = 100) -> None:
+        self.every = max(int(every), 1)
+        self._seen = 0
+
+    def log_event(self, event: TrainerEvent) -> None:
+        if event.event == "on_train_step":
+            self._seen += 1
+            if self._seen % self.every == 0:
+                logger.info(
+                    "epoch %s step %s loss %.4f", event.epoch, event.step, event.payload.get("loss", float("nan"))
+                )
+        elif event.event == "on_anomaly":
+            logger.warning(
+                "anomaly at step %s: non-finite loss/grads, update skipped (%s consecutive)",
+                event.step,
+                event.payload.get("consecutive_bad"),
+            )
+        elif event.event == "on_recovery":
+            logger.warning(
+                "recovery (%s): rolled back to step %s, lr scale %s, restart %s",
+                event.payload.get("reason"),
+                event.payload.get("restored_step"),
+                event.payload.get("lr_scale"),
+                event.payload.get("restarts"),
+            )
+        elif event.event == "on_preemption":
+            logger.warning(
+                "preemption (%s) at step %s: checkpoint saved, exiting", event.payload.get("signal"), event.step
+            )
+        elif event.event == "on_epoch_end":
+            logger.info("epoch %s: %s", event.epoch, event.payload.get("record"))
+        elif event.event == "on_fit_end":
+            summary = {k: event.payload.get(k) for k in ("telemetry", "peak_memory_bytes") if k in event.payload}
+            logger.info("fit complete: %s", summary)

@@ -964,15 +964,17 @@ def test_train_steps_graph_equals_the_eager_steps(cuda_device):
 # --------------------------------------------------------------------------- #
 @pytest.mark.parametrize(
     "batch,heads,length,dim,bidirectional",
-    [(512, 4, 100, 75, True), (512, 2, 50, 32, False), (3, 4, 37, 75, True), (2, 3, 100, 75, False)],
-    ids=["bert4rec", "twotower", "d75_short", "d75_causal"],
+    [(512, 4, 100, 75, True), (512, 2, 50, 32, False), (3, 4, 37, 75, True), (2, 3, 100, 75, False),
+     (32, 2, 50, 32, False)],
+    ids=["bert4rec", "twotower", "d75_short", "d75_causal", "notebook"],
 )
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("deterministic", [True, False], ids=["eval_mask", "train_mask"])
 def test_flash_attention_at_the_model_widths(cuda_device, batch, heads, length, dim, bidirectional, dtype, deterministic):
     """BERT4Rec's D=75 (no multiple of 4: Q, K and V staged by scalar loads,
     rows at a 300-byte stride; in bf16 at 150 bytes) with its padding-only
-    mask, one bias head for all heads, and TwoTower's D=32 causal."""
+    mask, one bias head for all heads, TwoTower's D=32 causal, and notebook
+    09's SASRec (batch 32, 2 heads of E=64, L=50) causal."""
     from replay_tpu_torch.nn.mask import bidirectional_attention_mask
 
     rng = np.random.default_rng(dim + length)
@@ -1088,3 +1090,86 @@ def test_model_serving_buckets_on_graphs(cuda_device, kind):
             )[:rows]
             assert torch.equal(got, want) and got.shape == (rows, 300)
     compiled.close()
+
+
+# --------------------------------------------------------------------------- #
+# Dropout inside a captured chunk
+# --------------------------------------------------------------------------- #
+def _dropout_trainer(device, initial=None):
+    schema = TensorSchema(
+        TensorFeatureInfo(
+            "item_id", FeatureType.CATEGORICAL, is_seq=True, feature_hint=FeatureHint.ITEM_ID,
+            cardinality=300, embedding_dim=32,
+        )
+    )
+    model = SasRec(
+        schema, embedding_dim=32, num_blocks=2, num_heads=2, max_sequence_length=12, use_flash=True,
+        dropout_rate=0.3, device=device, generator=torch.Generator().manual_seed(3),
+    )
+    from replay_tpu_torch.nn.loss import CE
+
+    trainer = Trainer(model, CE(), device=device)
+    return trainer, trainer.init_state(None, params=initial)
+
+
+def _state_tensors(state):
+    return [state.flat_params, *(t for link in state.opt_state for t in link.values()), state.bad_steps]
+
+
+def test_dropout_chunk_graph_equals_k_steps_and_its_masks_advance(cuda_device, tmp_path):
+    """Dropout 0.3: one replay of a K-step graph equals K ``train_step``s
+    bit for bit (losses, parameters, optimizer state, ``rng``); replays from
+    the same parameters draw other masks as the stream advances, and a
+    replay that reuses one stream position (a chunk replaying a fixed mask)
+    is caught by that check; a checkpoint restores the stream."""
+    from replay_tpu_torch.nn.train import _clone_state
+    from replay_tpu_torch.utils.checkpoint import restore_pytree, save_pytree
+
+    rng = np.random.default_rng(4)
+    batches = []
+    for _ in range(4):
+        items = rng.integers(0, 300, (16, 13)).astype(np.int32)
+        mask = np.ones((16, 12), bool)
+        batches.append({
+            "feature_tensors": {"item_id": items[:, :-1]}, "padding_mask": mask,
+            "positive_labels": items[:, 1:, None], "target_padding_mask": mask[:, :, None],
+        })
+    first, _ = _dropout_trainer(cuda_device)
+    initial = {name: value.detach().clone() for name, value in first.model.state_dict().items()}
+    runs = []
+    for _ in range(2):
+        trainer, state = _dropout_trainer(cuda_device, initial)
+        losses = torch.stack([trainer.train_step(state, b)[1] for b in batches])
+        runs.append((losses.cpu().numpy(), _clone_state(state)))
+    assert np.array_equal(runs[0][0], runs[1][0]), "the per-step path is not repeatable"
+    trainer, state = _dropout_trainer(cuda_device, initial)
+    start = _clone_state(state)
+    _, graph_losses = trainer.train_steps(state, batches)
+    assert np.array_equal(graph_losses, runs[0][0])
+    want = runs[0][1]
+    assert state.step == want.step and torch.equal(state.rng, want.rng)
+    for got, ref in zip(_state_tensors(state), _state_tensors(want)):
+        assert torch.equal(got, ref)
+
+    def replay_from(snapshot, stream):
+        for dst, src in zip(_state_tensors(state), _state_tensors(snapshot)):
+            dst.copy_(src)
+        state.rng = stream.clone()
+        _, losses = trainer.train_steps(state, batches)
+        return losses, state.rng.clone()
+
+    losses_a, advanced = replay_from(start, start.rng)
+    assert np.array_equal(losses_a, graph_losses) and trainer.capture_warmups == 1
+    losses_b, _ = replay_from(start, advanced)  # the next stretch of the stream
+    assert not np.array_equal(losses_b, losses_a)
+    losses_c, _ = replay_from(start, start.rng)  # the control: one fixed mask
+    assert np.array_equal(losses_c, losses_a)  # the check above would fail for it
+
+    # a checkpoint taken after one chunk continues the same masks
+    replay_from(start, start.rng)
+    save_pytree(str(tmp_path / "ckpt"), state)
+    _, uninterrupted = trainer.train_steps(state, batches)
+    resumed_trainer, template = _dropout_trainer(cuda_device, initial)
+    resumed = restore_pytree(str(tmp_path / "ckpt"), template)
+    _, after = resumed_trainer.train_steps(resumed, batches)
+    assert np.array_equal(after, uninterrupted) and torch.equal(resumed.rng, state.rng)

@@ -273,6 +273,20 @@ def _jax_losses(params, precision):
     return want
 
 
+@pytest.fixture(scope="module")
+def jax_losses(params):
+    """``_jax_losses`` by precision, each computed once for the module (the
+    f32 losses are the reference of three tests)."""
+    cache = {}
+
+    def losses(precision):
+        if precision not in cache:
+            cache[precision] = _jax_losses(params, precision)
+        return cache[precision]
+
+    return losses
+
+
 def _port_losses(params, precision):
     model = port_model()
     trainer = Trainer(
@@ -287,8 +301,8 @@ def _port_losses(params, precision):
 
 
 @pytest.mark.parametrize("precision", [None, "bf16"])
-def test_train_steps_match_the_jax_trainer(params, precision):
-    want = _jax_losses(params, precision)
+def test_train_steps_match_the_jax_trainer(params, jax_losses, precision):
+    want = jax_losses(precision)
     got, model, trainer, port_state = _port_losses(params, precision)
     np.testing.assert_allclose(got, want, rtol=1e-4 if precision is None else 2**-8)
     assert got[-1] < got[0] and int(port_state.bad_steps) == 0
@@ -319,11 +333,11 @@ def _bf16_scores_fault(q, k, v, kv_bias, causal):
 
 
 @pytest.mark.parametrize("fault", [_scale_fault, _bf16_scores_fault], ids=["scale", "bf16_scores"])
-def test_f32_trainer_parity_catches_a_faulty_k5(params, fault, monkeypatch):
+def test_f32_trainer_parity_catches_a_faulty_k5(params, jax_losses, fault, monkeypatch):
     """The f32 trainer check (rtol 1e-4) is tight enough to catch a subtly
     wrong K5: the kernel's forward swapped for a faulty one moves the port's
     losses further than 1e-4 from the JAX trainer's."""
-    want = _jax_losses(params, None)
+    want = jax_losses(None)
     monkeypatch.setattr(flash_tiled, "_forward", fault)
     got = _port_losses(params, None)[0]
     assert max(abs(a - b) / abs(b) for a, b in zip(got, want)) > 1e-4

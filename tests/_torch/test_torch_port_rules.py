@@ -77,12 +77,14 @@ def test_importing_the_port_loads_no_jax():
         ("obs", ("events", "trace")), ("models", ("ann",)), ("serve", ("service", "batcher", "pipeline", "promote")),
         ("nn.transform", ("transforms", "template")), ("nn.sequential.bert4rec", ("model",)),
         ("nn.sequential.twotower", ("model", "reader")),
+        ("utils", ("checkpoint", "faults")),
+        ("data.nn", ("iterator", "partitioning", "ragged", "sequential_dataset", "prefetch")),
     ],
 )
 def test_the_rules_reach_every_subpackage(subpackage, modules):
-    """The walk above and the source scan below cover the service slice's
-    and the model slice's subpackages by name, so that a move cannot drop
-    them silently."""
+    """The walk above and the source scan below cover the service slice's,
+    the model slice's and the training lifecycle's subpackages by name, so
+    that a move cannot drop them silently."""
     walked = {m.name for m in pkgutil.walk_packages(replay_tpu_torch.__path__, "replay_tpu_torch.")}
     scanned = {str(p.relative_to(REPO)) for p in _sources()}
     folder = subpackage.replace(".", "/")
@@ -293,3 +295,20 @@ def test_chip_smoke_refuses_to_run_without_a_gpu(tmp_path):
         )
         assert proc.returncode != 0
         assert '"ok": true' not in proc.stdout
+
+
+def test_the_lifecycle_modules_keep_the_device_rules(tmp_path):
+    """The batcher stays on the host (numpy batches, which the trainer
+    copies to its device), and a checkpoint restores onto its template's
+    device: a CPU trainer's state stays on the CPU, and the dropout stream
+    is a CPU byte tensor whatever the device."""
+    from replay_tpu_torch.data.nn import SequenceBatcher, SequentialDataset
+
+    data = SequentialDataset(_schema(), "user_id", "item_id", {"user_id": [1, 2], "item_id": [[1, 2, 3], [4]]})
+    batch = next(iter(SequenceBatcher(data, batch_size=2, max_sequence_length=4)))
+    assert all(isinstance(value, np.ndarray) for value in batch.values())
+    trainer = Trainer(SasRec(_schema(), embedding_dim=8, num_blocks=1, max_sequence_length=4, device="cpu"), CE(), device="cpu")
+    state = trainer.init_state(None)
+    trainer.save_checkpoint(str(tmp_path / "ckpt"), state)
+    restored = trainer.restore_checkpoint(str(tmp_path / "ckpt"), None)
+    assert restored.flat_params.device.type == "cpu" and restored.rng.dtype == torch.uint8

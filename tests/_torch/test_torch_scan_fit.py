@@ -15,8 +15,8 @@ of the port against its own per-step path and against the JAX package, on the CP
   ``tests/nn/test_scan_fit.py`` asks of its own. Two tests of that file fail
   at the seed (``ROADMAP.md`` queue 3), so the JAX chunked fit is not taken as
   a bitwise reference here: the JAX reference is ``train_steps`` above.
-* ``scan_chunk < 1`` raises, and every fit argument the port has not ported
-  still raises on the chunked path.
+* ``scan_chunk < 1`` raises, every fit argument the port has not ported
+  still raises on the chunked path, and the lifecycle arguments run there.
 """
 
 import numpy as np
@@ -38,7 +38,8 @@ from replay_tpu_torch.data.nn import TensorFeatureInfo as PortTensorFeatureInfo
 from replay_tpu_torch.data.nn import TensorSchema as PortTensorSchema
 from replay_tpu_torch.nn.loss import CE, CEFused
 from replay_tpu_torch.nn.sequential.sasrec import SasRec
-from replay_tpu_torch.nn.train import _UNPORTED_FIT_ARGS, Trainer
+from replay_tpu_torch.nn.train import _UNPORTED_FIT_ARGS, RecoveryPolicy, Trainer
+from replay_tpu_torch.utils.checkpoint import CheckpointManager
 
 NUM_ITEMS, DIM, SEQ_LEN, BATCH, K = 50, 16, 8, 4, 3
 WIDTH = dict(embedding_dim=DIM, num_blocks=2, num_heads=2, max_sequence_length=SEQ_LEN)
@@ -157,14 +158,16 @@ def test_chunked_fit_bitwise_equals_the_per_step_fit(variant):
 
 
 def test_chunked_fit_logs_every_step_number(caplog):
-    """``log_every`` counts the steps of a chunk one by one, as the per-step loop."""
+    """``log_every`` counts the steps of a chunk one by one, as the per-step
+    loop; the lines are the JAX ``ConsoleLogger``'s (``epoch e step s loss l``)."""
     records = []
     for scan_chunk in (None, K):
         caplog.clear()
         with caplog.at_level("INFO", logger="replay_tpu_torch"):
             port_trainer().fit(BATCHES, epochs=1, log_every=2, scan_chunk=scan_chunk)
-        records.append([r.getMessage() for r in caplog.records if r.getMessage().startswith("step ")])
+        records.append([r.getMessage() for r in caplog.records if " step " in r.getMessage()])
     assert records[0] == records[1] and len(records[0]) == 3
+    assert [line.split(" loss ")[0] for line in records[0]] == ["epoch 0 step 2", "epoch 0 step 4", "epoch 0 step 6"]
 
 
 def test_scan_chunk_must_be_positive():
@@ -178,18 +181,34 @@ def test_batches_that_cannot_stack_raise():
         port_trainer().train_steps(port_trainer().init_state(BATCHES[0]), ragged)
 
 
+# the lifecycle arguments of the JAX fit, each with a value the chunked fit
+# must now take (the rest of the JAX fit's arguments still raise)
+PORTED_VALUES = {
+    "checkpoint_manager": None, "checkpoint_every": 2, "resume": False, "monitor": "train_loss",
+    "patience": 2, "mode": "min", "loggers": [], "recovery": None, "detect_anomalies": True,
+    "handle_preemption": True,
+}
 UNPORTED_VALUES = {
-    "checkpoint_manager": object(), "checkpoint_every": 2, "resume": True, "monitor": "ndcg@10",
-    "patience": 2, "mode": "min", "loggers": [], "profile_steps": (1, 2), "profile_dir": "profile",
-    "recovery": object(), "detect_anomalies": True, "handle_preemption": True, "tracer": object(),
-    "trace_path": "trace.json", "metrics_port": 9000, "slo_rules": [], "flight_path": "flight",
+    "profile_steps": (1, 2), "profile_dir": "profile", "tracer": object(), "trace_path": "trace.json",
+    "metrics_port": 9000, "slo_rules": [], "flight_path": "flight",
 }
 
 
-@pytest.mark.parametrize("name", sorted(_UNPORTED_FIT_ARGS))
-def test_every_unported_fit_argument_still_raises_on_the_chunked_path(name):
+@pytest.mark.parametrize("name", sorted({**PORTED_VALUES, **UNPORTED_VALUES}))
+def test_every_unported_fit_argument_still_raises_on_the_chunked_path(name, tmp_path):
+    """The arguments still unported raise, naming their item; the lifecycle
+    arguments the port has taken off that list run on the chunked path."""
     assert set(UNPORTED_VALUES) == set(_UNPORTED_FIT_ARGS)
     trainer = port_trainer()
-    with pytest.raises(NotImplementedError, match="not ported yet: ROADMAP.md queue 1, 'The rest of Trainer.fit'"):
-        trainer.fit(BATCHES[:K], scan_chunk=K, **{name: UNPORTED_VALUES[name]})
-    assert trainer.history == []
+    if name in UNPORTED_VALUES:
+        with pytest.raises(NotImplementedError, match="not ported yet: ROADMAP.md queue 1, 'The rest of Trainer.fit'"):
+            trainer.fit(BATCHES[:K], scan_chunk=K, **{name: UNPORTED_VALUES[name]})
+        assert trainer.history == []
+        return
+    value = PORTED_VALUES[name]
+    if name == "checkpoint_manager":
+        value = CheckpointManager(str(tmp_path / "run"))
+    elif name == "recovery":
+        value = RecoveryPolicy()
+    state = trainer.fit(BATCHES[:K], scan_chunk=K, log_every=0, **{name: value})
+    assert state.step == K and len(trainer.history) == 1

@@ -44,7 +44,8 @@ from replay_tpu_torch.metrics import MetricsBuilder
 from replay_tpu_torch.nn.loss import CE, CEFused
 from replay_tpu_torch.nn.postprocess import SeenItemsFilter
 from replay_tpu_torch.nn.sequential.sasrec import SasRec
-from replay_tpu_torch.nn.train import LRSchedulerFactory, OptimizerFactory, Trainer
+from replay_tpu_torch.nn.train import LRSchedulerFactory, OptimizerFactory, RecoveryPolicy, Trainer
+from replay_tpu_torch.utils.checkpoint import CheckpointManager
 
 NUM_ITEMS, DIM, BLOCKS, HEADS, SEQ_LEN, BATCH = 50, 16, 1, 2, 8, 4
 STEPS = 4
@@ -338,12 +339,19 @@ def test_fit_takes_a_callable_and_a_one_shot_stream():
     "name,value",
     [("checkpoint_manager", object()), ("scan_chunk", 2), ("monitor", "ndcg@10"), ("recovery", object()), ("loggers", [])],
 )
-def test_unported_fit_arguments_raise(name, value):
+def test_unported_fit_arguments_raise(name, value, tmp_path):
+    """The lifecycle arguments are ported now: each runs (a monitor missing
+    from the epoch record raises ``KeyError``, as in the JAX fit), and beside
+    it an argument still unported raises, naming its item."""
     trainer = port_trainer("CE", False)
-    # scan_chunk is ported: on the chunked path an unported argument still raises
-    arguments = {name: value, "recovery": object()} if name == "scan_chunk" else {name: value}
+    usable = {"checkpoint_manager": CheckpointManager(str(tmp_path)), "recovery": RecoveryPolicy()}.get(name, value)
     with pytest.raises(NotImplementedError, match="not ported yet: ROADMAP.md queue 1, 'The rest of Trainer.fit'"):
-        trainer.fit(BATCHES[:1], **arguments)
+        trainer.fit(BATCHES[:1], tracer=True, **{name: usable})
+    if name == "monitor":
+        with pytest.raises(KeyError, match="not in the epoch record"):
+            trainer.fit(BATCHES[:1], monitor=value, log_every=0)
+    else:
+        trainer.fit(BATCHES[:1], log_every=0, **{name: usable})
     # the JAX defaults are accepted and change nothing
     trainer.fit(BATCHES[:1], scan_chunk=None, prefetch=0, mode="max", resume=False, log_every=0)
     with pytest.raises(TypeError, match="unexpected keyword"):

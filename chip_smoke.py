@@ -95,9 +95,14 @@ replays. Phases, one JSON line each:
                  checks;
 8. ``lifecycle`` — notebook 09's training run at ``examples/ml1m_parity.py``'s settings
                  (SASRec E=64, 2 heads, 2 blocks, dropout 0.3, L=50, batch 32, CE, 5
-                 epochs, monitor recall@10) on a synthetic MovieLens-1M-shaped log (6,040
-                 users, 3,706 items, 1,000,209 events), through ``SequenceBatcher``,
-                 ``TransformedBatches`` and ``validation_batches``, on K4 (D=32):
+                 epochs, monitor recall@10) on a synthetic MovieLens-1M-shaped raw log
+                 (6,040 users, 3,706 items, 1,000,209 events, sparse raw ids) through the
+                 port's front end (``LastNSplitter`` twice, ``Dataset``,
+                 ``SequenceTokenizer``; the tokenized splits decoded back to hand-built
+                 ones), ``SequenceBatcher``, ``TransformedBatches`` and
+                 ``validation_batches``, on K4 (D=32), evaluation on CUDA graphs (every
+                 graph bitwise the eager program, graph and eager ``validate`` timed
+                 side by side, ``top_k``'s time at two widths):
                  the dropout chunk contract (a K=32 graph bitwise K ``train_step``s,
                  replays drawing new masks, a fixed-mask control caught); one eager
                  epoch; the notebook run ``fit(scan_chunk=32, prefetch, device_feed,
@@ -694,23 +699,29 @@ def device_time_per_encode(engine, length_bucket, ids, mask, wrapper, blocks: in
     """Device time of one encode from a profiler trace: kernel time summed over
     ``calls`` encodes (graph replays), per call, and the kernels that take most
     of it; the attention kernel's launches counted through the replays must
-    equal its kernels in the trace. The profiler's own cost inflates the wall
-    time, so the busy share divides by the unprofiled p50 instead."""
+    equal its kernels in the trace, which is retaken (``TRACES_AT_MOST``) when
+    it lost kernel events. The profiler's own cost inflates the wall time, so
+    the busy share divides by the unprofiled p50 instead."""
     from torch.autograd import DeviceType
 
-    with profiled_window(lambda: engine.encode(length_bucket, ids, mask)) as prof:
-        before = wrapper.launches
-        for _ in range(calls):
-            engine.encode(length_bucket, ids, mask)
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    readings = []
+    for _ in range(TRACES_AT_MOST):
+        with profiled_window(lambda: engine.encode(length_bucket, ids, mask)) as prof:
+            before = wrapper.launches
+            for _ in range(calls):
+                engine.encode(length_bucket, ids, mask)
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        launched, traced = wrapper.launches - before, traced_kernels(kernels, [wrapper])[wrapper.__name__]
+        readings.append((launched, traced))
+        if launched == traced == calls * blocks:
+            break
+    else:
+        raise AssertionError(f"{calls} encodes: {wrapper.__name__} (counted, traced) launches in each trace: {readings}")
     kernels.sort(key=lambda e: -e.self_device_time_total)
-    launched, traced = wrapper.launches - before, traced_kernels(kernels, [wrapper])[wrapper.__name__]
-    if launched != traced or launched != calls * blocks:
-        raise AssertionError(f"{calls} encodes: {wrapper.__name__} counted {launched} launches, the trace holds {traced}")
     return {
         "device_ms": sum(e.self_device_time_total for e in kernels) / calls / 1e3,
         "device_kernels": sum(e.count for e in kernels) / calls,
-        "traced_attention_kernels": traced,
+        "traced_attention_kernels": traced, "traces": len(readings),
         "top_kernels_ms": {e.key[:60]: e.self_device_time_total / calls / 1e3 for e in kernels[:4]},
     }
 
@@ -2976,20 +2987,16 @@ def twotower_phase(device) -> dict:
     return {"train": training, "serve": serving}
 
 
-def notebook_log(seed: int):
+def notebook_events(seed: int):
     """A synthetic log shaped like MovieLens-1M, from default_rng(seed):
     ``NB_USERS`` users with at least ``NB_MIN_EVENTS`` events each,
     ``NB_EVENTS`` events in all (lengths geometric above the minimum), over
     ``NB_ITEMS`` items. Each event follows its predecessor's successor item (a
     fixed random map) with probability ``NB_FOLLOW``, else it is a draw from a
     Zipf law (exponent 1, ids in a shuffled order): item popularity is
-    skewed, and there is a sequential signal for the model to learn. Split
-    last-one-out twice, as examples/ml1m_parity.py does: each user's last
-    event is the test target, the one before it the validation target, the
-    rest the train history (the test's input history is the train history
-    and the validation target). Returns the four splits (train, validation
-    target, test history, test target) as numpy columns (a query id, an
-    object array of item arrays) and the event count."""
+    skewed, and there is a sequential signal for the model to learn. Returns
+    the ``[users, longest]`` item indices (each user's row in event order)
+    and each user's length."""
     rng = np.random.default_rng(seed)
     extra = rng.geometric(1.0 / (NB_EVENTS / NB_USERS - NB_MIN_EVENTS + 1), NB_USERS) - 1
     extra = np.floor(extra * ((NB_EVENTS - NB_USERS * NB_MIN_EVENTS) / extra.sum())).astype(np.int64)
@@ -3005,6 +3012,18 @@ def notebook_log(seed: int):
     log[:, 0] = draws[:, 0]
     for t in range(1, width):  # one step of every user's chain at a time
         log[:, t] = np.where(follow[:, t], successor[log[:, t - 1]], draws[:, t])
+    return log, lengths
+
+
+def notebook_log(seed: int):
+    """``notebook_events(seed)`` split last-one-out twice by hand, as
+    examples/ml1m_parity.py splits it: each user's last event is the test
+    target, the one before it the validation target, the rest the train
+    history (the test's input history is the train history and the
+    validation target). Returns the four splits (train, validation target,
+    test history, test target) as numpy columns (a query id, an object array
+    of item arrays) and the event count."""
+    log, lengths = notebook_events(seed)
     users = np.arange(NB_USERS, dtype=np.int64)
 
     def split(part):
@@ -3015,6 +3034,113 @@ def notebook_log(seed: int):
 
     splits = (split(lambda s: s[:-2]), split(lambda s: s[-2:-1]), split(lambda s: s[:-1]), split(lambda s: s[-1:]))
     return (*splits, int(lengths.sum()))
+
+
+def notebook_raw_items(seed: int) -> np.ndarray:
+    """The raw id of each of the ``NB_ITEMS`` item indices: a fixed random
+    subset of 1..3,952 (MovieLens-1M's ids are sparse: 3,706 of them rated)."""
+    return np.sort(np.random.default_rng(seed + 1).choice(np.arange(1, 3953), NB_ITEMS, replace=False))
+
+
+def notebook_raw_log(seed: int) -> dict:
+    """``notebook_events(seed)`` as the raw log notebook 09 starts from:
+    ``(user_id, item_id, timestamp)`` numpy columns, user ``u``'s raw id
+    ``u + 1`` (1..6,040), item ``i``'s ``notebook_raw_items(seed)[i]``, the
+    timestamp each user's event position (the notebook's cumcount); rows in
+    time order (position, then user)."""
+    log, lengths = notebook_events(seed)
+    positions, users = np.nonzero(np.arange(log.shape[1])[:, None] < lengths[None, :])
+    return {
+        "user_id": users.astype(np.int64) + 1,
+        "item_id": notebook_raw_items(seed)[log[users, positions]],
+        "timestamp": positions.astype(np.int64),
+    }
+
+
+def notebook_front_end(raw: dict) -> dict:
+    """Notebook 09's front end (examples/ml1m_parity.py:78-112) on the port:
+    ``LastNSplitter(N=1)`` twice, dropping cold users and items, then
+    ``FeatureSchema``, ``Dataset`` and ``SequenceTokenizer(handle_unknown_rule=
+    "drop")`` fitted on train and applied to the validation target, the test
+    history and the test target. Returns the four ``SequentialDataset``s,
+    the tensor schema with the tokenizer's item cardinality, the tokenizer,
+    the seconds of each stage and the rows dropped as cold."""
+    from replay_tpu_torch.data import Dataset, FeatureHint, FeatureInfo, FeatureSchema, FeatureSource, FeatureType
+    from replay_tpu_torch.data.nn import SequenceTokenizer, TensorFeatureInfo, TensorFeatureSource, TensorSchema
+    from replay_tpu_torch.splitters import LastNSplitter
+
+    seconds = {}
+
+    def timed(stage, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        seconds[stage] = time.perf_counter() - t0
+        return out
+
+    splitter = LastNSplitter(
+        N=1, divide_column="user_id", query_column="user_id", strategy="interactions",
+        drop_cold_users=True, drop_cold_items=True,
+    )
+    test_events, test_gt = timed("split_test", lambda: splitter.split(raw))
+    train_events, validation_gt = timed("split_validation", lambda: splitter.split(test_events))
+
+    def cold(source, train, test):
+        # N=1: before the drops, the test split holds each user's last event
+        users = np.unique(source["user_id"])
+        cold_users = int((~np.isin(users, train["user_id"])).sum())
+        return {"cold_users": cold_users, "cold_items": len(users) - cold_users - len(test)}
+
+    dropped = {"test": cold(raw, test_events, test_gt), "validation": cold(test_events, train_events, validation_gt)}
+    feature_schema = FeatureSchema([
+        FeatureInfo("user_id", FeatureType.CATEGORICAL, FeatureHint.QUERY_ID),
+        FeatureInfo("item_id", FeatureType.CATEGORICAL, FeatureHint.ITEM_ID),
+        FeatureInfo("timestamp", FeatureType.NUMERICAL, FeatureHint.TIMESTAMP),
+    ])
+    schema = TensorSchema(
+        TensorFeatureInfo(
+            "item_id", FeatureType.CATEGORICAL, is_seq=True, feature_hint=FeatureHint.ITEM_ID,
+            feature_sources=[TensorFeatureSource(FeatureSource.INTERACTIONS, "item_id")], embedding_dim=NB_DIM,
+        )
+    )
+    tokenizer = SequenceTokenizer(schema, handle_unknown_rule="drop")
+    train = timed("fit", lambda: tokenizer.fit_transform(Dataset(feature_schema=feature_schema, interactions=train_events)))
+    rest = [
+        timed(f"transform_{name}", lambda part=part: tokenizer.transform(Dataset(feature_schema=feature_schema, interactions=part)))
+        for name, part in (("validation_target", validation_gt), ("test_history", test_events), ("test_target", test_gt))
+    ]
+    return {
+        "splits": (train, *rest), "schema": schema, "tokenizer": tokenizer, "seconds": seconds, "dropped": dropped,
+    }
+
+
+def decodes_to_hand_splits(front: dict, seed: int) -> dict:
+    """The tokenized splits decoded through the encoders' inverse mappings
+    against ``notebook_log(seed)``'s hand-built splits after the same cold
+    drops: an item the train split lacks leaves a validation or test target
+    (the splitter's drop) and a test history (the tokenizer's); a user whose
+    target was dropped has no row there. Returns the rows compared and
+    whether every one is equal."""
+    tokenizer = front["tokenizer"]
+    labels = tokenizer.item_id_encoder.inverse_mapping["item_id"]
+    items = np.asarray([labels[code] for code in range(len(labels))])
+    users = tokenizer.query_id_encoder.inverse_mapping["user_id"]
+    raw_items = notebook_raw_items(seed)
+    hand = notebook_log(seed)[:4]
+    known = np.zeros(NB_ITEMS, bool)
+    known[np.concatenate(list(hand[0]["item_id"]))] = True
+    rows, equal = 0, True
+    for split, columns in zip(front["splits"], hand):
+        decoded = {
+            users[int(query)]: items[split.get_sequence(index, "item_id")].tolist()
+            for index, query in enumerate(split.query_ids)
+        }
+        for user, sequence in zip(columns["user_id"], columns["item_id"]):
+            want = raw_items[sequence[known[sequence]]].tolist()
+            got = decoded.pop(int(user) + 1, [])
+            equal &= got == want
+            rows += 1
+        equal &= not decoded
+    return {"rows": rows, "equal": bool(equal)}
 
 
 class FitEvents:
@@ -3110,6 +3236,107 @@ def dropout_contract(make_trainer, initial, batches) -> dict:
     return record
 
 
+@contextlib.contextmanager
+def eager_evaluation(trainer):
+    """The trainer's evaluation and metric programs run eagerly in the block
+    (the reference each evaluation graph is held to), its graphs after."""
+    from replay_tpu_torch.metrics.builder import metric_program
+    from replay_tpu_torch.nn.graphs import EagerProgram
+
+    saved = trainer._eval_runner, trainer._metric_runner
+    trainer._eval_runner, trainer._metric_runner = EagerProgram(trainer._eval_program), EagerProgram(metric_program)
+    try:
+        yield trainer
+    finally:
+        trainer._eval_runner, trainer._metric_runner = saved
+
+
+def evaluation_checks(trainer, states, batches, metric_kwargs: dict, blocks: int) -> dict:
+    """Notebook 09's evaluation on graphs against the eager programs:
+
+    * every validation batch's logits, graph replay against the eager
+      program, bit for bit, for each of ``states`` (the trained best state
+      and a second state in another buffer);
+    * ``validate`` over the validation batches (made on the fly, as ``fit``
+      makes them) on graphs and eagerly: metrics identical, seconds of each,
+      K4 launches through the replays = ``blocks`` a batch;
+    * a warm trace of the graph ``validate``: host ms, device ms and busy
+      share a batch; K4 kernels in the trace = K4 counted.
+    """
+    from replay_tpu_torch.ops.flash_attention import flash_attention
+
+    listed = list(batches())
+    logits_equal = True
+    for state in states:
+        for batch in listed:
+            graph = trainer.predict_logits(state, batch)
+            with eager_evaluation(trainer):
+                eager = trainer.predict_logits(state, batch)
+            logits_equal &= bool(torch.equal(graph, eager))
+    best = states[0]
+
+    def timed():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = trainer.validate(best, batches(), **metric_kwargs)
+        torch.cuda.synchronize()
+        return metrics, time.perf_counter() - t0
+
+    reset_counts(flash_attention)
+    graph_metrics, graph_s = timed()
+    replayed = flash_attention.launches
+    with eager_evaluation(trainer):
+        eager_metrics, eager_s = timed()
+    with profiled_window(lambda: trainer.validate(best, listed[:4], **metric_kwargs)) as prof:
+        reset_counts(flash_attention)
+        t0 = time.perf_counter()
+        trainer.validate(best, batches(), **metric_kwargs)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device = device_events(prof.key_averages())
+    device_ms = sum(e.self_device_time_total for e in device) / 1e3
+    record = {
+        "batches": len(listed), "states": len(states), "logits_bitwise": logits_equal,
+        "metrics_identical": graph_metrics == eager_metrics, "graph_validate_s": graph_s, "eager_validate_s": eager_s,
+        "k4_replayed": replayed, "k4_traced": traced_kernels(device, [flash_attention])["flash_attention"],
+        "k4_in_trace_window": flash_attention.launches,
+        "per_batch": {
+            "host_ms": wall_ms / len(listed), "device_ms": device_ms / len(listed), "busy_share": device_ms / wall_ms,
+            "kernels": sum(e.count for e in device if not e.key.startswith(COPY_EVENTS)) / len(listed),
+        },
+        "graphs": {"eval": len(trainer._eval_runner.keys), "metrics": len(trainer._metric_runner.keys)},
+    }
+    want = blocks * len(listed)
+    if not (logits_equal and record["metrics_identical"] and replayed == want
+            and record["k4_traced"] == record["k4_in_trace_window"] == want):
+        raise AssertionError(f"lifecycle: evaluation on graphs differs from the eager programs: {record}")
+    return record
+
+
+def top_k_times(device, cases) -> list:
+    """``models/ann.py::top_k`` (``jax.lax.top_k``'s tie order) against a bare
+    ``torch.topk`` at the evaluation shapes, device ms a call (``graph_ms``),
+    on logits with a third of each row at ``SeenItemsFilter``'s fill."""
+    from replay_tpu_torch.models.ann import top_k
+
+    out = []
+    for label, rows, columns, k in cases:
+        generator = torch.Generator(device).manual_seed(SEED)
+        logits = torch.randn(rows, columns, device=device, generator=generator)
+        seen = torch.rand(rows, columns, device=device, generator=generator) < 1 / 3
+        logits = torch.where(seen, torch.finfo(torch.float32).min, logits)
+        _, ids = top_k(logits, k)
+        order = torch.argsort(-logits, dim=-1, stable=True)[:, :k]
+        out.append({
+            "case": label, "shape": [rows, columns], "k": k, "top_k_ms": graph_ms(lambda: top_k(logits, k)),
+            "torch_topk_ms": graph_ms(lambda: torch.topk(logits, k, dim=-1)),
+            "ids_equal_stable_order": bool(torch.equal(ids, order)),
+        })
+    if not all(case["ids_equal_stable_order"] for case in out):
+        raise AssertionError(f"top_k: ids differ from the stable descending order: {out}")
+    return out
+
+
 def float_target(batch):
     """The ``valid`` rows folded into an f32 target mask: the float leaf that
     ``inject_nan`` poisons (a NaN weight makes the step's loss non-finite)."""
@@ -3122,8 +3349,9 @@ def float_target(batch):
 
 def lifecycle_phase(device) -> dict:
     """Notebook 09's training run (examples/ml1m_parity.py's settings) on the
-    port: ``SequentialDataset`` from numpy columns of a MovieLens-1M-shaped
-    log, ``SequenceBatcher(windows, shuffle, seed 0)`` with the SASRec
+    port: a MovieLens-1M-shaped raw log through the front end
+    (``notebook_front_end``; its splits decoded back to the hand-built ones),
+    ``SequenceBatcher(windows, shuffle, seed 0)`` with the SASRec
     templates through ``TransformedBatches``, ``validation_batches``,
     ``SasRec(use_flash=True, dropout 0.3)`` with ``CE`` and Adam 1e-3, and
     ``Trainer.fit``'s lifecycle:
@@ -3137,7 +3365,8 @@ def lifecycle_phase(device) -> dict:
         validation seconds, busy share, checkpoint ms and bytes, peak memory,
         K4 launches counted through the replays (the main path: the count
         starts at 0 with the run and is read at its end), the history, the
-        best epoch's state returned; then the best state on the test split;
+        best epoch's state returned; the evaluation graphs against the eager
+        programs (``evaluation_checks``); then the best state on the test split;
     (c) the same run preempted mid-epoch 2 by ``SignalAtStep(SIGTERM)``, then
         ``fit(resume=True)``: returned state, history, best step and final
         checkpoint bitwise (b)'s;
@@ -3145,21 +3374,14 @@ def lifecycle_phase(device) -> dict:
         ``RecoveryPolicy(max_consecutive_bad=...)``: the rollback and the LR
         backoff in the events, a finite end;
     (f) one epoch of the notebook run with ``CEFused`` for ``CE``: K1–K3 at
-        1,600 rows over the 3,706 items, their ``tf32`` variant once a step.
+        1,600 rows over the tokenizer's items, their ``tf32`` variant once a step;
+    (g) ``top_k_times``: the tie-order top-k at the notebook's and BERT4Rec's widths.
     """
     import signal
     import tempfile
     from pathlib import Path
 
-    from replay_tpu_torch.data.nn import (
-        SequenceBatcher,
-        SequentialDataset,
-        TensorFeatureInfo,
-        TensorSchema,
-        TransformedBatches,
-        validation_batches,
-    )
-    from replay_tpu_torch.data import FeatureHint, FeatureType
+    from replay_tpu_torch.data.nn import SequenceBatcher, TransformedBatches, validation_batches
     from replay_tpu_torch.nn.loss import CE, CEFused
     from replay_tpu_torch.nn.sequential.sasrec import SasRec
     from replay_tpu_torch.nn.train import OptimizerFactory, RecoveryPolicy, Trainer
@@ -3170,16 +3392,20 @@ def lifecycle_phase(device) -> dict:
     from replay_tpu_torch.utils import CheckpointManager, NaNInjector, SignalAtStep
 
     t0 = time.perf_counter()
-    train_cols, val_cols, test_history_cols, test_cols, events = notebook_log(SEED)
-    schema = TensorSchema(
-        TensorFeatureInfo(
-            "item_id", FeatureType.CATEGORICAL, is_seq=True, feature_hint=FeatureHint.ITEM_ID,
-            cardinality=NB_ITEMS, embedding_dim=NB_DIM,
-        )
-    )
-    train, val_gt, test_history, test_gt = (
-        SequentialDataset(schema, "user_id", "item_id", c) for c in (train_cols, val_cols, test_history_cols, test_cols)
-    )
+    raw_log = notebook_raw_log(SEED)
+    front = notebook_front_end(raw_log)
+    train, val_gt, test_history, test_gt = front["splits"]
+    schema = front["schema"]
+    items = schema["item_id"].cardinality  # the model's table and the CE width follow it
+    decoded = decodes_to_hand_splits(front, SEED)
+    front_end = {
+        "events": len(raw_log["user_id"]), "seconds": front["seconds"], "dropped": front["dropped"],
+        "item_cardinality": items, "users": len(train), "validation_users": len(val_gt), "test_users": len(test_gt),
+        "decoded_rows": decoded["rows"], "decodes_to_hand_splits": decoded["equal"],
+    }
+    emit("lifecycle", run="front_end", **front_end)
+    if not decoded["equal"] or len(train) != NB_USERS or not 0 < items <= NB_ITEMS:
+        raise AssertionError(f"lifecycle: the front end's splits do not decode to the hand-built ones: {front_end}")
     pipes = {split: Compose(p) for split, p in make_default_sasrec_transforms(schema).items()}
     batcher = SequenceBatcher(
         train, batch_size=NB_BATCH, max_sequence_length=NB_LEN + 1, windows=True, shuffle=True, seed=0
@@ -3220,14 +3446,15 @@ def lifecycle_phase(device) -> dict:
     initial = {name: value.detach().clone() for name, value in make_trainer().model.state_dict().items()}
     params = sum(value.numel() for value in initial.values())
     fit_kwargs = dict(
-        val_batches=val_batches, metrics=("ndcg", "recall", "map"), top_k=NB_TOP_K, item_count=NB_ITEMS,
+        val_batches=val_batches, metrics=("ndcg", "recall", "map"), top_k=NB_TOP_K, item_count=items,
         monitor="recall@10", log_every=0,
     )
     import gc
 
     record = {
-        "users": NB_USERS, "items": NB_ITEMS, "events": events, "train_events": int(sum(map(len, train_cols["item_id"]))),
-        "params": params, "setup_s": setup_s, "host": host,
+        "users": NB_USERS, "items": items, "events": front_end["events"],
+        "train_events": int(sum(train.get_sequence_length(i) for i in range(len(train)))),
+        "params": params, "setup_s": setup_s, "front_end": front_end, "host": host,
         # what the process carries into the phase (host times rise late in the script)
         "threads_alive": threading.active_count(), "gc_tracked_objects": len(gc.get_objects()),
     }
@@ -3289,11 +3516,17 @@ def lifecycle_phase(device) -> dict:
         trainer, best, manager, recorder, wall, chunk_ms, val_ms, save_ms = notebook_run(root / "b", source)
         k4_launches = flash_attention.launches
         captures = trainer.capture_warmups
+        eval_captures = trainer._eval_runner.warmups
         peak = torch.cuda.max_memory_allocated(device)
         steps = NB_EPOCHS * steps_per_epoch
-        expected = NB_BLOCKS * (steps + captures + NB_EPOCHS * val_count)
-        if k4_launches != expected:
-            raise AssertionError(f"lifecycle: K4 ran {k4_launches} times in the notebook run, not {expected}")
+        # chunk replays and tails, the chunk captures' and the evaluation
+        # graph's warm-ups, and each epoch's validation replays
+        expected = NB_BLOCKS * (steps + captures + eval_captures + NB_EPOCHS * val_count)
+        if k4_launches != expected or eval_captures != (1 if device.type == "cuda" else 0):
+            raise AssertionError(
+                f"lifecycle: K4 ran {k4_launches} times in the notebook run, not {expected} "
+                f"({eval_captures} evaluation captures)"
+            )
         history = [dict(r) for r in trainer.history]
         best_step = manager.best_step()
         best_epoch = int(np.argmax([r["recall@10"] for r in history]))
@@ -3322,9 +3555,12 @@ def lifecycle_phase(device) -> dict:
             raise AssertionError(f"lifecycle: no two traces of replays agree with the counts: {traces}")
         device_ms = trace["device_ms"] / (2 * NB_SCAN_K)
         validation_s = [ms / 1e3 for ms in val_ms]
+        metric_kwargs = dict(metrics=fit_kwargs["metrics"], top_k=NB_TOP_K, item_count=items)
+        evaluation = evaluation_checks(trainer, (best, trace_state), val_batches, metric_kwargs, NB_BLOCKS)
+        emit("lifecycle", run="evaluation", **evaluation)
         test_metrics = trainer.validate(
             best, (pipes["validate"](b) for b in validation_batches(test_history, test_gt, NB_BATCH, NB_LEN)),
-            metrics=("ndcg", "recall", "map"), top_k=NB_TOP_K, item_count=NB_ITEMS,
+            metrics=("ndcg", "recall", "map"), top_k=NB_TOP_K, item_count=items,
         )
         ckpt_bytes = sum(p.stat().st_size for p in (root / "b").glob(f"step_{final_step}.*"))
         notebook = {
@@ -3336,6 +3572,7 @@ def lifecycle_phase(device) -> dict:
             "device_busy_share_epoch": [device_ms * steps_per_epoch / 1e3 / s for s in epoch_s],
             "checkpoint_ms": save_ms, "checkpoint_bytes": ckpt_bytes, "checkpoints_saved": len(save_ms),
             "peak_memory_bytes": peak, "k4_launches": k4_launches, "capture_warmups": captures,
+            "eval_capture_warmups": eval_captures, "evaluation": evaluation,
             "history": history, "best_epoch": best_epoch, "best_step": best_step, "returned_best": returned_best,
             "test": dict(test_metrics),
         }
@@ -3428,6 +3665,10 @@ def lifecycle_phase(device) -> dict:
     if any(n != steps for n in fused.values()) or not cefused["finite"]:
         raise AssertionError(f"lifecycle: the CEFused epoch launched K1-K3 {fused} times, not {steps} each")
     check_fused_variants("the lifecycle's CEFused epoch", cefused["variants"], steps)
+
+    # the evaluation top-k at notebook 09's and at BERT4Rec's catalog width
+    record["top_k"] = top_k_times(device, (("notebook", NB_BATCH, items, max(NB_TOP_K)), ("bert4rec", 512, 27278, max(NB_TOP_K))))
+    emit("lifecycle", run="top_k", cases=record["top_k"])
     return record
 
 

@@ -1,3 +1,19 @@
-from .schema import FeatureHint, FeatureSource, FeatureType
+"""Host-side data (counterpart of ``replay_tpu/data``): the feature schema,
+``Dataset`` and ``DatasetLabelEncoder`` on numpy columns, without pandas."""
 
-__all__ = ["FeatureHint", "FeatureSource", "FeatureType"]
+from .dataset import Dataset, nunique, select
+from .dataset_label_encoder import DatasetLabelEncoder
+from .schema import FeatureHint, FeatureInfo, FeatureSchema, FeatureSource, FeatureType, interaction_schema
+
+__all__ = [
+    "Dataset",
+    "DatasetLabelEncoder",
+    "FeatureHint",
+    "FeatureInfo",
+    "FeatureSchema",
+    "FeatureSource",
+    "FeatureType",
+    "interaction_schema",
+    "nunique",
+    "select",
+]

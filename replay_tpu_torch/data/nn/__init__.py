@@ -1,8 +1,7 @@
 """Host-side data for the neural stack: the tensor schema, the sequence
-container and batcher, and the prefetch stages (counterpart of
-``replay_tpu/data/nn``). Still to come (``ROADMAP.md`` queue 1):
-``SequenceTokenizer`` and the label encoders (pandas, item 11),
-``ParquetBatcher``, ``DataModule`` and the packed batcher (item 6)."""
+tokenizer, container and batcher, and the prefetch stages (counterpart of
+``replay_tpu/data/nn``). Still to come (``ROADMAP.md`` queue 1, item 6):
+``ParquetBatcher``, ``DataModule`` and the packed batcher."""
 
 from .iterator import (
     DEFAULT_GROUND_TRUTH_PADDING_VALUE,
@@ -14,6 +13,7 @@ from .iterator import (
 from .partitioning import Partitioning, ReplicasInfo
 from .prefetch import DevicePrefetcher, prefetch
 from .schema import TensorFeatureInfo, TensorFeatureSource, TensorMap, TensorSchema
+from .sequence_tokenizer import SequenceTokenizer
 from .sequential_dataset import SequentialDataset
 
 __all__ = [
@@ -23,6 +23,7 @@ __all__ = [
     "Partitioning",
     "ReplicasInfo",
     "SequenceBatcher",
+    "SequenceTokenizer",
     "SequentialDataset",
     "TensorFeatureInfo",
     "TensorFeatureSource",

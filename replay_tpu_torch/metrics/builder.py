@@ -6,11 +6,19 @@ precision / ndcg / map / mrr / hitrate / novelty / coverage. Hits come from a
 broadcast compare (no per-user Python loop), and the accumulated state is a
 dict of sums, so a distributed trainer can all-reduce it before
 ``get_metrics`` divides.
+
+The JAX package jits the two per-batch programs, ``_batch_metric_sums`` and
+``_coverage_bitmap``, keyed by their static arguments. Here they run through
+a runner of :func:`metric_program` (``nn/graphs.py::runner``): on the card
+one CUDA graph per static arguments and input shapes, which a trainer keeps
+across its evaluation passes; elsewhere, and for a builder given none,
+eagerly.
+Adding each batch's sums to the running totals stays outside them, as in JAX.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Sequence
+from typing import Dict, Hashable, Mapping, Optional, Sequence
 
 import torch
 
@@ -99,19 +107,38 @@ def _coverage_bitmap(
     flat = top.reshape(-1).long()
     bitmap = torch.zeros(item_count + 1, dtype=torch.bool, device=predictions.device)
     # -1 (and anything below) lands on the scratch slot item_count, as JAX's
-    # negative index does
-    bitmap[torch.clamp(flat, -1, item_count - 1)] = True
+    # negative index does; index_fill_ takes its value as a scalar argument
+    # (no host tensor to copy, so the program can be captured)
+    slots = torch.remainder(torch.clamp(flat, -1, item_count - 1), item_count + 1)
+    bitmap.index_fill_(0, slots, True)
     return bitmap[:item_count]
 
 
+def metric_program(key: Hashable):
+    """The program of a metric key: ``("sums", ks, metrics, ...)`` runs
+    :func:`_batch_metric_sums`, ``("coverage", k, item_count, ...)``
+    :func:`_coverage_bitmap`; each takes ``(params, *inputs)`` (no params)."""
+    kind, first, second = key[:3]
+    if kind == "sums":
+        return lambda params, predictions, truth, train, valid: _batch_metric_sums(
+            predictions, truth, train, valid, first, second
+        )
+    return lambda params, predictions, valid: _coverage_bitmap(predictions, first, second, valid)
+
+
 class MetricsBuilder:
-    """Accumulates validation metrics over batches, on the batches' device."""
+    """Accumulates validation metrics over batches, on the batches' device.
+
+    :param programs: the runner of the per-batch programs (a runner of
+        :func:`metric_program`); without one they run eagerly.
+    """
 
     def __init__(
         self,
         metrics: Sequence[str] = tuple(DEFAULT_METRICS),
         top_k: Optional[Sequence[int]] = None,
         item_count: Optional[int] = None,
+        programs=None,
     ) -> None:
         self._metrics = tuple(sorted(set(metrics)))
         unknown = set(self._metrics) - set(PER_USER_METRICS) - {"coverage"}
@@ -124,6 +151,7 @@ class MetricsBuilder:
         if self._need_coverage and item_count is None:
             msg = "item_count is required to compute coverage."
             raise ValueError(msg)
+        self._programs = programs
         self.reset()
 
     @property
@@ -134,6 +162,15 @@ class MetricsBuilder:
         self._sums: Dict[str, torch.Tensor] = {}
         self._count = torch.zeros((), dtype=torch.int32)
         self._coverage: Dict[str, torch.Tensor] = {}
+
+    def _run(self, key: tuple, inputs: tuple):
+        """One per-batch program on ``inputs``: through the runner, keyed by
+        the static arguments and the inputs' shapes, or called directly."""
+        if self._programs is None:
+            return metric_program(key)({}, *inputs)
+        from replay_tpu_torch.nn.graphs import signature
+
+        return self._programs((*key, signature(inputs)), {}, inputs)
 
     def add_prediction(self, predictions, ground_truth, train=None, valid=None) -> None:
         """Accumulate one batch.
@@ -152,13 +189,13 @@ class MetricsBuilder:
         valid = None if valid is None else to_device(valid, device)
         per_user = tuple(m for m in self._metrics if m in PER_USER_METRICS)
         if per_user:
-            sums = _batch_metric_sums(predictions, ground_truth, train, valid, self._ks, per_user)
+            sums = self._run(("sums", self._ks, per_user), (predictions, ground_truth, train, valid))
             for name, value in sums.items():
                 previous = self._sums.get(name)
                 self._sums[name] = value if previous is None else previous.to(device) + value
         if self._need_coverage:
             for k in self._ks:
-                bitmap = _coverage_bitmap(predictions, k, self._item_count, valid)
+                bitmap = self._run(("coverage", k, self._item_count), (predictions, valid))
                 key = f"coverage@{k}"
                 previous = self._coverage.get(key)
                 self._coverage[key] = bitmap if previous is None else (previous.to(device) | bitmap)

@@ -78,10 +78,53 @@ def capture(
     return Graph(graph, list(launches)), outputs
 
 
-def _clone_rows(out, rows: int):
+def _clone_rows(out, rows: Optional[int]):
+    """Clones of ``out``'s tensors (their first ``rows`` rows, or whole)."""
     if isinstance(out, tuple):
         return tuple(_clone_rows(o, rows) for o in out)
-    return out[:rows].clone()
+    if isinstance(out, dict):
+        return {name: _clone_rows(o, rows) for name, o in out.items()}
+    return out.clone() if rows is None else out[:rows].clone()
+
+
+def signature(inputs: Sequence[Any]) -> Tuple[Any, ...]:
+    """The shapes and dtypes of ``inputs`` (``None`` where one is absent):
+    what a graph is captured for, so part of a key where shapes vary."""
+    def one(x):
+        if x is None:
+            return None
+        x = x if isinstance(x, torch.Tensor) else np.asarray(x)
+        return tuple(x.shape), str(x.dtype)
+
+    return tuple(one(x) for x in inputs)
+
+
+def program_for(programs, key: Hashable) -> Callable[..., Any]:
+    """``programs[key]``, or ``programs(key)`` where the programs are made
+    from their key (one program per kind, its static arguments in the key)."""
+    return programs[key] if isinstance(programs, Mapping) else programs(key)
+
+
+class EagerProgram:
+    """:class:`CapturedProgram`'s call, running the program itself: what a
+    CPU trainer runs, and on the card the eager reference that each graph is
+    held to bit for bit. It captures nothing (no ``keys``, no ``warmups``)."""
+
+    keys: Tuple[Hashable, ...] = ()
+    warmups = 0
+
+    def __init__(self, programs) -> None:
+        self._programs = programs
+
+    def __call__(self, key: Hashable, params: Mapping[str, torch.Tensor], inputs: Sequence[Any], rows: Optional[int] = None):
+        out = program_for(self._programs, key)(params, *inputs)
+        return out if rows is None else _clone_rows(out, rows)
+
+
+def runner(programs, device: torch.device):
+    """What runs ``programs`` on ``device``: a :class:`CapturedProgram` (one
+    CUDA graph per key) on the card, an :class:`EagerProgram` elsewhere."""
+    return CapturedProgram(programs, device) if device.type == "cuda" else EagerProgram(programs)
 
 
 def _fill(static: torch.Tensor, value) -> None:
@@ -94,7 +137,8 @@ def _fill(static: torch.Tensor, value) -> None:
 class CapturedProgram:
     """``programs[key](params, *inputs)`` on the card as one CUDA graph per
     key (a bucket: one input shape), the counterpart of the JAX package's AOT
-    executable per bucket.
+    executable per bucket. ``programs`` is a mapping, or a callable that
+    makes a key's program from the key (:func:`program_for`).
 
     Params stay an argument of every call, as in the JAX package: the graphs
     read a static copy of the installed parameter set, and a call with another
@@ -107,7 +151,7 @@ class CapturedProgram:
     ``warmups`` counts the eager warm-up runs (one before each capture).
     """
 
-    def __init__(self, programs: Mapping[Hashable, Callable[..., Any]], device: torch.device) -> None:
+    def __init__(self, programs, device: torch.device) -> None:
         self._programs = programs
         self.device = device
         self._lock = threading.Lock()
@@ -135,13 +179,19 @@ class CapturedProgram:
         ]
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
-        params, program = self._params, self._programs[key]
+        params, program = self._params, program_for(self._programs, key)
 
         def run():
             with torch.no_grad():
                 return program(params, *static)
 
-        graph, outputs = capture(run, self.device, self._pool)
+        try:
+            graph, outputs = capture(run, self.device, self._pool)
+        except BaseException:
+            # a failed capture leaves its memory pool marked as recording:
+            # later captures of this program take a new pool
+            self._pool = None
+            raise
         self.warmups += 1
         self._graphs[key] = (graph, static, outputs)
 
@@ -152,11 +202,12 @@ class CapturedProgram:
             if key not in self._graphs:
                 self._capture(key, inputs)
 
-    def __call__(self, key: Hashable, params: Mapping[str, torch.Tensor], inputs: Sequence[Any], rows: int):
+    def __call__(self, key: Hashable, params: Mapping[str, torch.Tensor], inputs: Sequence[Any], rows: Optional[int] = None):
         """Replay ``key``'s graph on ``inputs`` (host arrays or tensors of the
         captured shapes; ``None`` where the program takes none) with ``params``;
-        returns clones of the outputs' first ``rows`` rows. Captures the graph
-        first if ``key`` has none (after :meth:`close`, or a new shape)."""
+        returns clones of the outputs' first ``rows`` rows (of the whole
+        outputs, without ``rows``). Captures the graph first if ``key`` has
+        none (after :meth:`close`, or a new shape)."""
         with self._lock:
             stream = torch.cuda.current_stream(self.device)
             if self._done is not None:

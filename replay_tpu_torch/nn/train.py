@@ -48,6 +48,16 @@ its K steps draw, so one replay equals K eager steps bit for bit, two
 replays draw different masks, and a checkpoint of ``rng`` restores the
 stream of masks. The masks are torch's, not JAX's: parity with the JAX
 package holds at dropout 0 only.
+
+Evaluation: the programs the JAX trainer jits for ``validate``,
+``predict_top_k`` and ``predict_logits`` (``eval_logits``, ``encode_items``,
+``get_query_embeddings``, and the metric sums) replay CUDA graphs on the card,
+one per program and input shape, each reading a static copy of the
+parameters that every evaluation call copies in once (so a graph never reads
+weights that training, a rollback or another state changed since); on the
+CPU the same programs run eagerly. A capture or replay that fails raises.
+Postprocessors, the top-k (``models/ann.py::top_k``, ``jax.lax.top_k``'s
+order among ties) and the running metric totals run between the replays.
 """
 
 from __future__ import annotations
@@ -69,8 +79,10 @@ from torch import nn
 
 from replay_tpu_torch.data.nn.prefetch import DevicePrefetcher, prefetch as prefetch_batches
 from replay_tpu_torch.device import DeviceLike, resolve_device, to_device
-from replay_tpu_torch.metrics.builder import MetricsBuilder
-from replay_tpu_torch.nn.graphs import Graph, capture
+from replay_tpu_torch.metrics.builder import MetricsBuilder, metric_program
+from replay_tpu_torch.models.ann import top_k as _top_k
+from replay_tpu_torch.nn.compiled import bind
+from replay_tpu_torch.nn.graphs import Graph, capture, runner, signature
 from replay_tpu_torch.nn.precision import Precision
 from replay_tpu_torch.obs.collectors import StepTelemetry
 from replay_tpu_torch.obs.events import ConsoleLogger, MultiLogger, RunLogger, TrainerEvent
@@ -482,6 +494,33 @@ def _leaves(tree: Any) -> List[Any]:
     return [tree]
 
 
+def _flat(kwargs: Mapping[str, Any]) -> Tuple[Tuple[Any, ...], List[Any]]:
+    """Keyword arguments (values, or dicts of values) as a layout and a flat
+    list of inputs: the form a captured program takes them in."""
+    layout, inputs = [], []
+    for name, value in kwargs.items():
+        if isinstance(value, Mapping):
+            layout.append((name, tuple(value)))
+            inputs.extend(value.values())
+        else:
+            layout.append((name, None))
+            inputs.append(value)
+    return tuple(layout), inputs
+
+
+def _nested(layout: Tuple[Any, ...], inputs: Sequence[Any]) -> Dict[str, Any]:
+    """The keyword arguments of :func:`_flat`'s layout and inputs."""
+    kwargs, at = {}, 0
+    for name, keys in layout:
+        if keys is None:
+            kwargs[name] = inputs[at]
+            at += 1
+        else:
+            kwargs[name] = dict(zip(keys, inputs[at : at + len(keys)]))
+            at += len(keys)
+    return kwargs
+
+
 def _host(x) -> np.ndarray:
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
@@ -613,6 +652,10 @@ class Trainer:
         # K-step CUDA graphs by (K, batch layout), all tied to one state's tensors
         self._chunk_graphs: Dict[Any, _ChunkGraph] = {}
         self._feed_stream: Optional[torch.cuda.Stream] = None
+        # the evaluation programs and the metric sums: CUDA graphs on the
+        # card, one per program and input shape; the programs themselves on the CPU
+        self._eval_runner = runner(self._eval_program, self.device)
+        self._metric_runner = runner(metric_program, self.device)
         # eager warm-up steps run before chunk captures, one a capture (each
         # launches every kernel of one step once)
         self.capture_warmups = 0
@@ -1656,17 +1699,51 @@ class Trainer:
         return state
 
     # -- eval / predict ---------------------------------------------------- #
+    def _eval_program(self, key: Tuple[Any, ...]) -> Callable[..., Any]:
+        """The evaluation program of ``key = (kind, layout, shapes)``, bound
+        to the model (``nn/compiled.py::bind``): ``"logits"`` is
+        ``forward_inference`` (JAX's ``eval_logits``), ``"items"`` the
+        catalog's ``encode_items``, ``"queries"`` ``get_query_embeddings``.
+        ``layout`` rebuilds the model's keyword arguments from the flat inputs."""
+        kind, layout = key[0], key[1]
+
+        def run(model, *inputs):
+            kwargs = _nested(layout, inputs)
+            if kind == "logits":
+                return model.forward_inference(**kwargs)
+            if kind == "items":
+                return model.encode_items(**kwargs)
+            return model.get_query_embeddings(**kwargs)
+
+        return bind(self.model, run)
+
+    def _evaluate(self, kind: str, params: Mapping[str, torch.Tensor], kwargs: Mapping[str, Any]):
+        """Run ``kind``'s program on ``kwargs`` (tensors on the trainer's
+        device, one level of nested dicts) with ``params``: a graph replay on
+        the card (after a capture, for a new shape), the program on the CPU."""
+        layout, inputs = _flat(kwargs)
+        return self._eval_runner((kind, layout, signature(inputs)), params, inputs)
+
+    def _eval_params(self, state: TrainState) -> Dict[str, torch.Tensor]:
+        """A new mapping of ``state``'s parameters: the graphs copy it into
+        their static parameters at its first replay (a mapping is installed by
+        identity), once per evaluation call."""
+        self._bind(state)
+        return dict(self.model.named_parameters())
+
+    def _logits(self, params: Mapping[str, torch.Tensor], batch: Batch, candidates: Optional[torch.Tensor]):
+        kwargs = {name: batch[name] for name in self._inference_params if name in batch and name != "candidates_to_score"}
+        return self._evaluate("logits", params, {**kwargs, "candidates_to_score": candidates})
+
     def predict_logits(
         self, state: TrainState, batch: Batch, candidates: Optional[Any] = None
     ) -> torch.Tensor:
         """Next-item logits [B, num_items] (or [B, K] for candidates)."""
-        self._bind(state)
+        params = self._eval_params(state)
         batch = to_device(batch, self.device)
-        kwargs = {name: batch[name] for name in self._inference_params if name in batch}
         if candidates is not None:
             candidates = to_device(candidates, self.device)
-        with torch.no_grad():
-            return self.model.forward_inference(**kwargs, candidates_to_score=candidates)
+        return self._logits(params, batch, candidates)
 
     # -- vocabulary ------------------------------------------------------- #
     def resize_vocabulary(
@@ -1692,42 +1769,46 @@ class Trainer:
         raise NotImplementedError(msg)
 
     # -- eval-time catalog cache (item towers) ------------------------------ #
-    def _precompute_catalog(self, state: TrainState, batch: Batch) -> Optional[torch.Tensor]:
+    def _precompute_catalog(self, params: Mapping[str, torch.Tensor], batch: Batch) -> Optional[torch.Tensor]:
         """The catalog through the model's item tower, ``[num_items, E]``,
         encoded once per evaluation pass (``None`` for models without
         ``encode_items``): each validate / predict_top_k call encodes it anew
         with the state's current weights."""
         if not hasattr(type(self.model), "encode_items"):
             return None
-        self._bind(state)
         features = batch.get("item_feature_tensors")
-        with torch.no_grad():
-            return self.model.encode_items(
-                item_feature_tensors=None if features is None else to_device(features, self.device)
-            )
+        features = None if features is None else to_device(features, self.device)
+        return self._evaluate("items", params, {"item_feature_tensors": features})
 
-    def _catalog_logits(self, state: TrainState, batch: Batch, catalog: torch.Tensor) -> torch.Tensor:
-        """Query embeddings scored against the precomputed catalog."""
-        self._bind(state)
-        batch = to_device(batch, self.device)
+    def _catalog_logits(self, params: Mapping[str, torch.Tensor], batch: Batch, catalog: torch.Tensor) -> torch.Tensor:
+        """Query embeddings scored against the precomputed catalog (the
+        product outside the program, as in the JAX trainer)."""
+        queries = self._evaluate(
+            "queries", params,
+            {"feature_tensors": batch[self.feature_field], "padding_mask": batch[self.padding_mask_field]},
+        )
         with torch.no_grad():
-            queries = self.model.get_query_embeddings(batch[self.feature_field], batch[self.padding_mask_field])
             return queries @ catalog.T
 
     def _scored(self, state: TrainState, batches: Iterable[Batch], candidates: Optional[Any] = None):
-        """Each batch with its next-item logits: against the catalog encoded
-        once for the whole pass where the model has an item tower and no
-        candidates are given, else through ``predict_logits``."""
+        """Each batch (on the trainer's device) with its next-item logits:
+        against the catalog encoded once for the whole pass where the model
+        has an item tower and no candidates are given, else the logits
+        program. The state's parameters are copied to the programs once."""
         iterator = iter(batches)
         first = next(iterator, None)
         if first is None:
             return
-        catalog = self._precompute_catalog(state, first) if candidates is None else None
+        params = self._eval_params(state)
+        if candidates is not None:
+            candidates = to_device(candidates, self.device)
+        catalog = self._precompute_catalog(params, first) if candidates is None else None
         for batch in itertools.chain([first], iterator):
+            batch = to_device(batch, self.device)
             if catalog is not None:
-                yield batch, self._catalog_logits(state, batch, catalog)
+                yield batch, self._catalog_logits(params, batch, catalog)
             else:
-                yield batch, self.predict_logits(state, batch, candidates)
+                yield batch, self._logits(params, batch, candidates)
 
     def validate(
         self,
@@ -1740,12 +1821,11 @@ class Trainer:
     ) -> Mapping[str, float]:
         """Top-k metrics over validation batches (ground_truth/train padded with
         −1, as MetricsBuilder takes them)."""
-        builder = MetricsBuilder(metrics=metrics, top_k=top_k, item_count=item_count)
+        builder = MetricsBuilder(metrics=metrics, top_k=top_k, item_count=item_count, programs=self._metric_runner)
         for batch, logits in self._scored(state, batches):
-            batch = to_device(batch, self.device)
             for post in postprocessors:
                 logits = post(logits, batch)
-            top_ids = torch.topk(logits, builder.max_k, dim=-1).indices
+            _, top_ids = _top_k(logits, builder.max_k)
             builder.add_prediction(top_ids, batch["ground_truth"], batch.get("train"), batch.get("valid"))
         return builder.get_metrics()
 
@@ -1765,13 +1845,12 @@ class Trainer:
             batches = [batches]  # yield its string keys
         all_queries, all_items, all_scores = [], [], []
         for batch, logits in self._scored(state, batches, candidates):
-            batch = to_device(batch, self.device)
             if candidates is not None:
                 # visible to postprocessors (SeenItemsFilter's candidate matching)
                 batch = {**batch, "candidates_to_score": to_device(candidates, self.device)}
             for post in postprocessors:
                 logits = post(logits, batch)
-            scores, top_idx = torch.topk(logits, k, dim=-1)
+            scores, top_idx = _top_k(logits, k)
             top_ids = batch["candidates_to_score"][top_idx] if candidates is not None else top_idx
             valid = batch["valid"].cpu().numpy() if "valid" in batch else np.ones(top_ids.shape[0], bool)
             all_items.append(top_ids.cpu().numpy()[valid])

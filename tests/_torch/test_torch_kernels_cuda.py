@@ -1173,3 +1173,135 @@ def test_dropout_chunk_graph_equals_k_steps_and_its_masks_advance(cuda_device, t
     resumed = restore_pytree(str(tmp_path / "ckpt"), template)
     _, after = resumed_trainer.train_steps(resumed, batches)
     assert np.array_equal(after, uninterrupted) and torch.equal(resumed.rng, state.rng)
+
+
+# --------------------------------------------------------------------------- #
+# The evaluation programs on CUDA graphs
+# --------------------------------------------------------------------------- #
+class _Eager:
+    """The trainer's evaluation and metric programs run eagerly for the body
+    (the reference each graph is held to), then its graphs again."""
+
+    def __init__(self, trainer):
+        self.trainer = trainer
+
+    def __enter__(self):
+        from replay_tpu_torch.metrics.builder import metric_program
+        from replay_tpu_torch.nn.graphs import EagerProgram
+
+        self.saved = self.trainer._eval_runner, self.trainer._metric_runner
+        self.trainer._eval_runner = EagerProgram(self.trainer._eval_program)
+        self.trainer._metric_runner = EagerProgram(metric_program)
+        return self.trainer
+
+    def __exit__(self, *exc_info):
+        self.trainer._eval_runner, self.trainer._metric_runner = self.saved
+
+
+def _eval_batches(kind, count=3, rows=16, length=20):
+    """Validation batches of one shape: left-padded histories, a padded
+    ground truth and seen set, the last batch's tail rows invalid."""
+    batches = []
+    for seed in range(count):
+        rng = np.random.default_rng(100 + seed)
+        mask = _left_padded(rows, length, seed) | (np.arange(length) == length - 1)
+        ids = np.where(mask, rng.integers(0, 300, (rows, length)), 300).astype(np.int32)
+        truth = np.full((rows, 3), -1, np.int64)
+        truth[:, 0] = rng.integers(0, 300, rows)
+        valid = np.ones(rows, bool)
+        if seed == count - 1:
+            valid[-5:] = False
+        batches.append({
+            "feature_tensors": {"item_id": ids}, "padding_mask": mask, "ground_truth": truth,
+            "train": np.where(mask, ids, -1).astype(np.int64), "valid": valid, "query_id": np.arange(rows) + rows * seed,
+        })
+    return batches
+
+
+@pytest.mark.parametrize("kind", ["sasrec", "twotower"])
+def test_eval_graphs_equal_the_eager_programs(cuda_device, kind):
+    """``predict_logits``, the catalog encode and the query embeddings
+    (TwoTower), and the metric sums and coverage replay graphs bitwise equal
+    to the eager programs: on the initial weights, after in-place training
+    steps (the static parameters are copied in once per call, never stale),
+    and for a second state with another buffer. One capture per program and
+    shape; K4 counted once a block a replay."""
+    from replay_tpu_torch.nn.loss import CE, CESampled
+    from replay_tpu_torch.nn.postprocess import SeenItemsFilter
+
+    if kind == "sasrec":
+        model = SasRec(
+            _model_schema("twotower"), embedding_dim=32, num_blocks=2, num_heads=2, max_sequence_length=20,
+            use_flash=True, device=cuda_device, generator=torch.Generator().manual_seed(5),
+        )
+        trainer = Trainer(model, CE(), device=cuda_device)
+        train_batches = [
+            {"feature_tensors": {"item_id": b["feature_tensors"]["item_id"]}, "padding_mask": b["padding_mask"],
+             "positive_labels": b["feature_tensors"]["item_id"][:, :, None], "target_padding_mask": b["padding_mask"][:, :, None]}
+            for b in _eval_batches(kind)
+        ]
+    else:
+        trainer = Trainer(_model("twotower", cuda_device), CESampled(), device=cuda_device)
+        train_batches = _model_batches("twotower", 3)
+    batches = _eval_batches(kind)
+    kwargs = dict(metrics=("coverage", "map", "ndcg", "recall"), top_k=(1, 5, 10), item_count=300,
+                  postprocessors=[SeenItemsFilter()])
+    state = trainer.init_state(None)
+    other = trainer.init_state(None, params={k: v * 0.5 for k, v in trainer.model.state_dict().items()})
+
+    def compare(state):
+        flash_attention.launches = 0
+        graph_logits = [trainer.predict_logits(state, b) for b in batches]
+        graph_metrics = trainer.validate(state, batches, **kwargs)
+        _, graph_items, graph_scores = trainer.predict_top_k(state, batches, 10)
+        torch.cuda.synchronize()
+        launches = flash_attention.launches
+        with _Eager(trainer):
+            eager_logits = [trainer.predict_logits(state, b) for b in batches]
+            eager_metrics = trainer.validate(state, batches, **kwargs)
+            _, eager_items, eager_scores = trainer.predict_top_k(state, batches, 10)
+        assert all(torch.equal(g, e) for g, e in zip(graph_logits, eager_logits))
+        assert graph_metrics == eager_metrics
+        assert np.array_equal(graph_items, eager_items) and np.array_equal(graph_scores, eager_scores)
+        return graph_logits[0], launches
+
+    first, _ = compare(state)
+    for batch in train_batches:  # in place: the state's buffer changes under the graphs
+        trainer.train_step(state, batch)
+    trained, launches = compare(state)
+    assert not torch.equal(first, trained)
+    assert not torch.equal(compare(other)[0], trained)  # another buffer
+    # one capture per program and shape: logits (or queries and the catalog
+    # encode), the metric sums and one coverage graph per k
+    programs = {"sasrec": 1, "twotower": 3}[kind]
+    assert trainer._eval_runner.warmups == len(trainer._eval_runner.keys) == programs
+    assert trainer._metric_runner.warmups == len(trainer._metric_runner.keys) == 1 + 3
+    # K4: once a block for each replay (3 predict_logits, 3 validate, 3
+    # predict_top_k batches; TwoTower's catalog encode has no attention)
+    assert launches == 2 * 9
+
+
+def test_eval_graph_capture_failure_raises(cuda_device):
+    """A program that cannot be captured raises; nothing runs it eagerly instead."""
+    model = SasRec(
+        _model_schema("twotower"), embedding_dim=32, num_blocks=1, num_heads=2, max_sequence_length=20,
+        use_flash=True, device=cuda_device, generator=torch.Generator().manual_seed(5),
+    )
+    trainer = Trainer(model, CEFused(), device=cuda_device)
+    state = trainer.init_state(None)
+    original = model.forward_inference
+
+    def syncing(*args, **kwargs):
+        out = original(*args, **kwargs)
+        out.sum().item()  # a host read: illegal while capturing
+        return out
+
+    model.forward_inference = syncing
+    batch = _eval_batches("sasrec", 1)[0]
+    with pytest.raises(RuntimeError):
+        trainer.predict_logits(state, batch)
+    assert trainer._eval_runner.keys == ()
+    model.forward_inference = original  # and capturing works after
+    with _Eager(trainer):
+        want = trainer.predict_logits(state, batch)
+    assert torch.equal(trainer.predict_logits(state, batch), want)

@@ -77,14 +77,17 @@ def test_importing_the_port_loads_no_jax():
         ("obs", ("events", "trace")), ("models", ("ann",)), ("serve", ("service", "batcher", "pipeline", "promote")),
         ("nn.transform", ("transforms", "template")), ("nn.sequential.bert4rec", ("model",)),
         ("nn.sequential.twotower", ("model", "reader")),
-        ("utils", ("checkpoint", "faults")),
-        ("data.nn", ("iterator", "partitioning", "ragged", "sequential_dataset", "prefetch")),
+        ("utils", ("checkpoint", "faults", "types", "serde")),
+        ("data.nn", ("iterator", "partitioning", "ragged", "sequential_dataset", "prefetch", "sequence_tokenizer")),
+        ("data", ("dataset", "dataset_label_encoder", "schema")),
+        ("preprocessing", ("label_encoder",)),
+        ("splitters", ("base", "strategies")),
     ],
 )
 def test_the_rules_reach_every_subpackage(subpackage, modules):
     """The walk above and the source scan below cover the service slice's,
-    the model slice's and the training lifecycle's subpackages by name, so
-    that a move cannot drop them silently."""
+    the model slice's, the training lifecycle's and the data front end's
+    subpackages by name, so that a move cannot drop them silently."""
     walked = {m.name for m in pkgutil.walk_packages(replay_tpu_torch.__path__, "replay_tpu_torch.")}
     scanned = {str(p.relative_to(REPO)) for p in _sources()}
     folder = subpackage.replace(".", "/")

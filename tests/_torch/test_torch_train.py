@@ -14,8 +14,12 @@
   noise of ~1e-7 in a gradient moves a parameter by up to ~lr·1e-2.
 * The sentinel, ``fit`` history, ``MetricsBuilder``, ``validate``,
   ``predict_top_k`` and ``SeenItemsFilter`` against their JAX counterparts.
-  Ranked ids are compared only where neighbouring scores are clear of ties:
-  ``jax.lax.top_k`` and ``torch.topk`` break ties differently.
+  Ranked ids of the model's own logits are compared where neighbouring
+  scores are clear of ties: the two packages' logits differ by f32 rounding,
+  which can reorder near-equal scores.
+* Exact ties: on the same tied logits (``SeenItemsFilter``'s fill, logits
+  rounded to 0.1), ``validate`` and ``predict_top_k`` give exactly
+  ``jax.lax.top_k``'s ids (the lower index first among equal scores).
 """
 
 import numpy as np
@@ -453,3 +457,63 @@ def test_validate_and_predict_top_k_match_jax(jax_runs, initial_params):
     _, want_items, want_scores = jax_trainer_.predict_top_k(jax_state, VAL_BATCHES[:1], 3, post["jax"], candidates=slate)
     np.testing.assert_array_equal(items, want_items)
     np.testing.assert_allclose(scores, want_scores, atol=1e-5, rtol=1e-5)
+
+
+class FixedLogits:
+    """A postprocessor that replaces the model's logits with fixed values
+    (``convert`` makes them a torch tensor or a jax array): both packages then
+    rank exactly the same numbers."""
+
+    def __init__(self, values, convert):
+        self.values, self.convert = values, convert
+
+    def __call__(self, logits, batch):
+        return self.convert(self.values[: logits.shape[0]])
+
+
+def tied_logits(case, seed):
+    """``[BATCH, NUM_ITEMS]`` f32 logits full of exact ties, and the batch
+    key the seen-items filter reads (all items but 4 of each row seen)."""
+    rng = np.random.default_rng(seed)
+    logits = rng.standard_normal((BATCH, NUM_ITEMS)).astype(np.float32)
+    if case == "rounded":
+        logits = np.round(logits * 10) / 10
+    seen = np.stack([rng.permutation(NUM_ITEMS)[: NUM_ITEMS - 4] for _ in range(BATCH)]).astype(np.int32)
+    return logits, seen
+
+
+@pytest.mark.parametrize("case", ["seen_fill", "rounded"])
+def test_validate_and_predict_top_k_keep_jax_tie_order(case, jax_runs, initial_params):
+    """Exactly tied logits through both trainers' validate and predict_top_k:
+    the port's ids are jax.lax.top_k's, ids compared exactly (no tolerance),
+    metrics within rtol 1e-6 (the same hits summed in another order)."""
+    jax_trainer_ = jax_runs.trainer(("CE", False))
+    jax_state = jax_trainer_.init_state(BATCHES[0], params=initial_params)
+    trainer = port_trainer("CE", False)
+    state = trainer.init_state(BATCHES[0], params=flax_to_torch(initial_params))
+    batches, posts = [], {"jax": [], "port": []}
+    for seed in (30, 31):
+        logits, seen = tied_logits(case, seed)
+        batch = dict(val_batch(seed), seen=seen)
+        # ground truth among the tied items, where the tie order decides a hit
+        order = np.asarray(jax.lax.top_k(jnp.asarray(logits), 10)[1])
+        batch["ground_truth"] = np.stack([order[:, 7], order[:, 9], np.full(BATCH, -1)], 1).astype(np.int32)
+        batches.append(batch)
+        posts["jax"].append(FixedLogits(logits, jnp.asarray))
+        posts["port"].append(FixedLogits(logits, torch.as_tensor))
+    filters = dict(jax=[JaxSeenItemsFilter("seen")], port=[SeenItemsFilter("seen")]) if case == "seen_fill" else dict(jax=[], port=[])
+    for index, batch in enumerate(batches):
+        post = {side: [posts[side][index], *filters[side]] for side in posts}
+        tied = np.asarray(post["jax"][-1](jnp.asarray(posts["jax"][index].values), jax.tree.map(jnp.asarray, batch)))
+        top = np.sort(tied, axis=-1)[:, ::-1][:, :11]
+        assert (np.diff(top, axis=-1) == 0).any(axis=-1).all()  # every row ties inside its top 10
+        want_q, want_items, want_scores = jax_trainer_.predict_top_k(jax_state, [batch], 10, postprocessors=post["jax"])
+        queries, items, scores = trainer.predict_top_k(state, [batch], 10, postprocessors=post["port"])
+        np.testing.assert_array_equal(queries, want_q)
+        np.testing.assert_array_equal(items, want_items)
+        np.testing.assert_array_equal(scores, want_scores)
+        want = jax_trainer_.validate(jax_state, [batch], top_k=(1, 5, 10), postprocessors=post["jax"])
+        got = trainer.validate(state, [batch], top_k=(1, 5, 10), postprocessors=post["port"])
+        assert got.keys() == want.keys() and want["recall@10"] > 0
+        for key in want:
+            np.testing.assert_allclose(got[key], want[key], rtol=1e-6, err_msg=key)

@@ -23,6 +23,7 @@ import pytest
 import torch
 
 import jax
+import jax.numpy as jnp
 
 from replay_tpu.data import FeatureHint, FeatureType
 from replay_tpu.data.nn import TensorFeatureInfo, TensorSchema
@@ -314,8 +315,12 @@ def test_evaluation_encodes_the_catalog_once(jax_run):
     assert calls["n"] == 1  # one catalog encode for three batches
     per_batch = trainer.predict_logits(state, dict(batch)).numpy()
     order = np.argsort(-per_batch, axis=1, kind="stable")[:, :4]
-    real = mask.any(axis=1)  # the all-padding row scores every item 0: ties, in any order
+    real = mask.any(axis=1)
     np.testing.assert_array_equal(items[:BATCH][real], order[real])
+    # the all-padding row scores every item 0: top_k orders those ties by id,
+    # as jax.lax.top_k does
+    assert (~real).any() and (per_batch[~real] == 0).all()
+    np.testing.assert_array_equal(items[:BATCH], np.asarray(jax.lax.top_k(jnp.asarray(per_batch), 4)[1]))
     np.testing.assert_allclose(scores[:BATCH], np.take_along_axis(per_batch, order, 1), rtol=1e-5, atol=1e-6)
     calls["n"] = 0
     metrics = trainer.validate(state, [dict(batch), dict(batch)], top_k=(1, 4))

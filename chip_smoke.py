@@ -5,7 +5,8 @@
 
 Drives the port (``replay_tpu_torch``, never the JAX package) through its
 serving path and its scoring service at the ``bench_serve.py`` width and
-traffic, its serialized inference form, its training path at the
+traffic, its retrieval (int8 table, IVF index, exact rescore) at
+``bench_serve.py``'s quant and ann settings, its serialized inference form, its training path at the
 ``bench.py`` width, its long-sequence path (training and serving) at the
 ``bench_suite.py`` ``sasrec_l1024_tiled`` width, BERT4Rec and TwoTower
 (training and serving) at ``bench_suite.py``'s ``bert4rec`` and ``twotower``
@@ -51,6 +52,17 @@ replays. Phases, one JSON line each:
                  checked against a direct path on the unfused model; the bitwise contract
                  (fill, row position, advance = re-encode); a stale-cache control the
                  check must catch; qps, p50/p99, fill per lane, goodput, device busy share;
+   ``retrieval`` — bench_serve.py's quant and ann phases on the port: an f32 and an int8
+                 ``CandidatePipeline`` over the service model's table (64 query states on K4;
+                 recall, top-10 after the exact rescore, rank() ms, bytes; the int8 search held
+                 to the CPU's); brute force against IVF (f32) over a clustered 10,000,000-item
+                 catalog (recall@100 gated at 0.99, the speedup beside the x10 target, each
+                 build stage's seconds, brute force's product and top-k apart, peak memory);
+                 the int8 and int8+pq rungs at 100,000 items (recall gated, two builds bitwise
+                 equal, the card's searches held to the CPU's); the 100M-item projection;
+                 ``ScoringService`` over the int8 pipeline and the f32 one (8 threads × 16
+                 requests; every int8 response equal to ``pipeline.rank`` on the unfused model,
+                 the ``rescore`` span traced);
    ``serialize`` — ``CompiledInference.serialize`` → ``deserialize`` in each output mode and
                  ``export_inference`` → ``import_inference``: bitwise equal to the live
                  instance, K4 in the loaded program's trace;
@@ -166,6 +178,28 @@ SERVICE_MAX_WAIT_MS, SERVICE_CACHE, SERVICE_WAIT_S = 2.0, 1024, 120.0
 # the bitwise contract: one request among co-riders at these fills and at the
 # first and last row
 SERVICE_FILLS = (3, 8, 64)
+
+# bench_serve.py's retrieval phases at its defaults. quant (:344-425): 64
+# query states of the service model, MIPS top-100, the re-rank, top-10, five
+# timed rank() calls. ann (:429-620): a clustered 10,000,000-item catalog,
+# E=64, seed 7, 1,024 modes, auto nlist (4,096), nprobe 16, 64 queries,
+# k-means on 131,072 sampled rows, recall@100 gated at 0.99, brute force
+# timed over 3 searches and IVF over 10, the x10 speedup target; the rung
+# catalog (100,000 rows, seed 11, nlist 512, nprobe 48; int8+pq with M=16,
+# 3x overfetch, exact rescore) gated at recall@100 0.99; the 100M-item
+# projection against a 16 GiB budget. The int8 service: 8 client threads x 16
+# requests, as the brute service's closed loop draws them.
+QUANT_QUERIES, QUANT_REPS = 64, 5
+ANN_ITEMS, ANN_DIM, ANN_SEED, ANN_NPROBE, ANN_QUERIES, ANN_BUILD_SAMPLE = 10_000_000, 64, 7, 16, 64, 131072
+ANN_K, ANN_TOPK, ANN_BRUTE_REPS, ANN_IVF_REPS, ANN_SPEEDUP_TARGET = 100, 10, 3, 10, 10.0
+RUNG_ROWS, RUNG_SEED, RUNG_NLIST, RUNG_NPROBE, RUNG_PQ_M, RUNG_OVERFETCH = 100_000, 11, 512, 48, 16, 3
+RECALL_GATE = 0.99
+PROJECTION_BUDGET_BYTES = 16 * 1024**3
+RETRIEVAL_CLIENTS, RETRIEVAL_REQUESTS = 8, 16
+# the card's search against the CPU's on one index state: scores within this
+# (f32 products summed in another order, scores of magnitude up to ~10), ids
+# equal at every rank whose score is clear of its neighbours by more than it
+RETRIEVAL_TOL = 1e-4
 
 # bench.py's training width: batch 512 windows of L=50, the same model
 TRAIN_BATCH = 512
@@ -1097,14 +1131,15 @@ def service_setup(device):
     return model, plain_model, model.state_dict(), model.get_item_weights().detach(), rerank, histories
 
 
-def build_service(model, params, item_weights, rerank, histories, device, **overrides):
-    """ScoringService as bench_serve.py:1098-1120 builds it, retrieval mode."""
+def build_service(model, params, item_weights, rerank, histories, device, precision="f32", **overrides):
+    """ScoringService as bench_serve.py:1098-1120 builds it, retrieval mode,
+    over a brute index at ``precision``."""
     from replay_tpu_torch.models import MIPSIndex
     from replay_tpu_torch.obs import Tracer
     from replay_tpu_torch.serve import CandidatePipeline, CircuitBreaker, FallbackScorer, ScoringService
 
     pipeline = CandidatePipeline(
-        MIPSIndex(item_weights, device=device), num_candidates=SERVICE_CANDIDATES, top_k=SERVICE_TOPK,
+        MIPSIndex(item_weights, precision=precision, device=device), num_candidates=SERVICE_CANDIDATES, top_k=SERVICE_TOPK,
         reranker_weights=rerank,
     )
     kwargs = dict(
@@ -1118,16 +1153,23 @@ def build_service(model, params, item_weights, rerank, histories, device, **over
     return ScoringService(model, params, **kwargs)
 
 
+def plain_hidden(plain, windows: list, bucket: int) -> torch.Tensor:
+    """``encode`` on the unfused model's engine for ``windows`` at batch
+    ``bucket`` (rows past them repeat the first, as the engine pads)."""
+    from replay_tpu_torch.serve import make_window
+
+    rows = [make_window(items, SEQ_LEN) for items in windows]
+    rows += rows[:1] * (bucket - len(rows))
+    _, hidden = plain.encode(SEQ_LEN, np.stack([r[0] for r in rows]), np.stack([r[1] for r in rows]))
+    return hidden
+
+
 def direct_top10(plain, item_table: np.ndarray, rerank: np.ndarray, windows: list, bucket: int):
     """The direct path for ``windows`` at batch ``bucket``: ``encode`` on the
     unfused model, a float64 host MIPS over the item table (top-100, the lower
     id first among equal scores), the re-rank in float64, then the top-11
     (the 11th pins the 10th rank's gap). Returns (ids [n, 11], scores [n, 11])."""
-    from replay_tpu_torch.serve import make_window
-
-    rows = [make_window(items, SEQ_LEN) for items in windows]
-    rows += rows[:1] * (bucket - len(rows))  # fill the bucket, as the engine pads
-    _, hidden = plain.encode(SEQ_LEN, np.stack([r[0] for r in rows]), np.stack([r[1] for r in rows]))
+    hidden = plain_hidden(plain, windows, bucket)
     scores = hidden[: len(windows)].double().cpu().numpy() @ item_table.T
     candidates = np.argsort(-scores, axis=1, kind="stable")[:, :SERVICE_CANDIDATES]
     values = np.take_along_axis(scores, candidates, axis=1)
@@ -1137,19 +1179,20 @@ def direct_top10(plain, item_table: np.ndarray, rerank: np.ndarray, windows: lis
     return np.take_along_axis(candidates, order, axis=1), np.take_along_axis(ranking, order, axis=1)
 
 
-def check_responses(plain, item_table, rerank, records) -> dict:
-    """Holds each (history, response) of ``records`` to the direct path:
-    top-10 ids wherever a rank is clear of its neighbours by more than
-    SERVE_TOL, scores within SERVE_TOL. Returns the reading and the failures
-    (the caller decides whether they fail the run)."""
+def check_responses(direct, records) -> dict:
+    """Holds each (history, response) of ``records`` to ``direct(windows,
+    bucket)`` (the direct path's ids and scores ``[n, 11]``, run at the
+    response's batch bucket): top-10 ids wherever a rank is clear of its
+    neighbours by more than SERVE_TOL, scores within SERVE_TOL. Returns the
+    reading and the failures (the caller decides whether they fail the run)."""
     by_bucket = {}
     for items, response in records:
         by_bucket.setdefault(response.batch_bucket, []).append((items, response))
-    failures, pinned, max_err = [], 0, 0.0
+    failures, pinned, max_err, differing = [], 0, 0.0, 0
     for bucket, group in sorted(by_bucket.items()):
         for start in range(0, len(group), bucket):
             chunk = group[start : start + bucket]
-            want_ids, want_scores = direct_top10(plain, item_table, rerank, [c[0] for c in chunk], bucket)
+            want_ids, want_scores = direct([c[0] for c in chunk], bucket)
             for (items, response), ids, scores in zip(chunk, want_ids, want_scores):
                 got_ids, got_scores = np.asarray(response.item_ids), np.asarray(response.scores)
                 if got_ids.shape != (SERVICE_TOPK,) or not np.isfinite(got_scores).all():
@@ -1157,6 +1200,7 @@ def check_responses(plain, item_table, rerank, records) -> dict:
                     continue
                 err = float(np.abs(got_scores.astype(np.float64) - scores[:SERVICE_TOPK]).max())
                 max_err = max(max_err, err)
+                differing += int((got_ids != ids[:SERVICE_TOPK]).sum())
                 bad = err > SERVE_TOL
                 for rank in range(SERVICE_TOPK):
                     gap_prev = math.inf if rank == 0 else scores[rank - 1] - scores[rank]
@@ -1168,7 +1212,10 @@ def check_responses(plain, item_table, rerank, records) -> dict:
                         f"user {response.user_id} ({response.served_from}, bucket {bucket}): ids "
                         f"{got_ids.tolist()} vs {ids[:SERVICE_TOPK].tolist()}, max score err {err}"
                     )
-    return {"checked": len(records), "pinned_ranks": pinned, "max_score_err": max_err, "failures": failures}
+    return {
+        "checked": len(records), "pinned_ranks": pinned, "ids_differing": differing,
+        "max_score_err": max_err, "failures": failures,
+    }
 
 
 def percentile_ms(latencies: list, q: float) -> float:
@@ -1307,7 +1354,7 @@ def stale_cache_control(service, histories, plain, item_table, rerank, users: in
                 future = service.submit(user)
             batch.append((list(items), future))
         records += [(items, f.result(timeout=SERVICE_WAIT_S)) for items, f in batch]
-    reading = check_responses(plain, item_table, rerank, records)
+    reading = check_responses(functools.partial(direct_top10, plain, item_table, rerank), records)
     if not reading["failures"]:
         raise AssertionError("the stale-cache control passed the response check: the check catches nothing")
     return {"checked": reading["checked"], "caught": len(reading["failures"]), "max_score_err": reading["max_score_err"]}
@@ -1379,7 +1426,7 @@ def service_phase(device) -> dict:
     if launches < 1 or launches != model.num_blocks * encode_calls:
         raise AssertionError(f"service: K4 launches {launches} != {model.num_blocks} x {encode_calls} encode batches")
     checked = closed_records + open_records[::8]
-    reading = check_responses(plain, item_table, rerank, checked)
+    reading = check_responses(functools.partial(direct_top10, plain, item_table, rerank), checked)
     if reading["failures"]:
         raise AssertionError(f"service responses differ from the direct path: {reading['failures'][:5]}")
 
@@ -1432,6 +1479,396 @@ def service_phase(device) -> dict:
         rerank_weights=rerank.tolist(), allocated_left_by_the_phase_bytes=left_allocated, stats=stats,
         graphs=graphs,
     )
+    return {"launches": launches}
+
+
+def event_ms(fn, calls: int = 3) -> float:
+    """Median device time of one eager ``fn()`` (CUDA events around each call,
+    after one warm call): for calls too long to repeat 50 times."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(calls):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def wall_ms(fn, reps: int) -> float:
+    """Mean host time of ``fn()``, whose result reaches the host (a sync)."""
+    start = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - start) / reps * 1e3
+
+
+def recall(reference_ids, found_ids) -> float:
+    """bench_serve.py's recall: the mean share of each row's reference ids found."""
+    k = np.shape(reference_ids)[1]
+    return float(np.mean([len(set(a.tolist()) & set(b.tolist())) / k for a, b in zip(reference_ids, found_ids)]))
+
+
+def clustered_catalog(seed: int, items: int, modes: int, dim: int = ANN_DIM, queries: int = ANN_QUERIES):
+    """bench_serve.py's synthetic clustered catalog and queries (:472-478,
+    :551-558): unit-norm modes plus 0.1 Gaussian noise, f32."""
+    gen = np.random.default_rng(seed)
+    centers = gen.standard_normal((modes, dim), dtype=np.float32)
+    centers /= np.linalg.norm(centers, axis=1, keepdims=True) + 1e-9
+    catalog = centers[gen.integers(0, modes, size=items)]
+    catalog += 0.1 * gen.standard_normal((items, dim), dtype=np.float32)
+    query = centers[gen.integers(0, modes, size=queries)]
+    query += 0.1 * gen.standard_normal((queries, dim), dtype=np.float32)
+    return catalog, query
+
+
+def held_to_cpu(label: str, got, want, tol: float = RETRIEVAL_TOL) -> dict:
+    """The card's ``search`` (scores, ids ``[Q, k]``) against the CPU's search
+    of the same state at ``k + 1``: scores within ``tol`` rank by rank, ids
+    equal at every rank clear of both neighbours by more than ``tol``."""
+    got_values, got_ids = got
+    want_values, want_ids = (np.asarray(a) for a in want)
+    k = got_ids.shape[1]
+    gaps = want_values[:, :-1] - want_values[:, 1:]
+    previous = np.concatenate([np.full_like(gaps[:, :1], np.inf), gaps[:, : k - 1]], axis=1)
+    pinned = np.minimum(previous, gaps[:, :k]) > tol
+    err = float(np.abs(got_values - want_values[:, :k]).max())
+    record = {
+        "label": label, "k": k, "max_abs_err": err, "tol": tol, "pinned_ranks": int(pinned.sum()),
+        "ranks": int(pinned.size), "ids_equal": bool(np.array_equal(got_ids, want_ids[:, :k])),
+        "ids_differing": int((got_ids != want_ids[:, :k]).sum()),
+    }
+    if err > tol or not np.array_equal(got_ids[pinned], want_ids[:, :k][pinned]):
+        raise AssertionError(f"the card's {label} search differs from the CPU's on the same state: {record}")
+    return record
+
+
+def quant_checks(model, item_weights, rerank, device) -> dict:
+    """bench_serve.py's quant phase (:344-425) on the port: 64 query states
+    from ``SasRec.get_query_embeddings`` (K4), an f32 and an int8
+    ``CandidatePipeline`` over the service model's item table; recall@C of the
+    int8 sweep, top-10 agreement after the rescore, rank() ms, table bytes; the
+    int8 search held to the same table searched on the CPU; the f32 up-cast
+    the int8 product writes, timed."""
+    from replay_tpu_torch.models import MIPSIndex
+    from replay_tpu_torch.serve import CandidatePipeline
+
+    rng = np.random.default_rng(SEED)
+    ids = torch.as_tensor(rng.integers(0, NUM_ITEMS, size=(QUANT_QUERIES, SEQ_LEN)), device=device)
+    mask = torch.ones(QUANT_QUERIES, SEQ_LEN, dtype=torch.bool, device=device)
+    with torch.inference_mode():
+        queries = model.get_query_embeddings({"item_id": ids}, mask).float()
+    indexes = {
+        "f32": MIPSIndex(item_weights, device=device),
+        "int8": MIPSIndex(item_weights, precision="int8", device=device),
+    }
+    pipelines = {
+        name: CandidatePipeline(index, num_candidates=SERVICE_CANDIDATES, top_k=SERVICE_TOPK, reranker_weights=rerank)
+        for name, index in indexes.items()
+    }
+    found = {name: index.search(queries, SERVICE_CANDIDATES)[1] for name, index in indexes.items()}
+    rank_ms, top10 = {}, {}
+    for name, pipeline in pipelines.items():
+        pipeline.rank(queries)  # warm
+        rank_ms[name] = wall_ms(lambda p=pipeline: p.rank(queries), QUANT_REPS)
+        top10[name] = pipeline.rank(queries)[1]
+    on_cpu = MIPSIndex(item_weights, precision="int8", device="cpu")
+    held = held_to_cpu(
+        "int8 brute", indexes["int8"].search(queries, SERVICE_CANDIDATES),
+        on_cpu.search(queries.cpu(), SERVICE_CANDIDATES + 1),
+    )
+    int8 = indexes["int8"]
+    upcast_ms = event_ms(lambda: int8.item_vectors.T.to(torch.float32), calls=20)
+    bytes_record = int8.table_bytes()
+    return {
+        "queries": QUANT_QUERIES, "candidates": SERVICE_CANDIDATES, "top_k": SERVICE_TOPK,
+        "recall_at_candidates": recall(found["f32"], found["int8"]),
+        "topk_match_rate": recall(top10["f32"], top10["int8"]),
+        "f32_rank_ms": rank_ms["f32"], "int8_rank_ms": rank_ms["int8"],
+        "int8_table_bytes": bytes_record["payload_bytes"], "f32_table_bytes": bytes_record["f32_bytes"],
+        "bytes_ratio": bytes_record["bytes_ratio"],
+        "int8_upcast_bytes": NUM_ITEMS * EMBEDDING_DIM * 4, "int8_upcast_ms": upcast_ms,
+        "card_vs_cpu": held,
+    }
+
+
+def ivf_stage_ms(state, q, nprobe: int) -> dict:
+    """Device ms of an IVF search's three stages apart (CUDA events): the
+    centroid scan with its top-nprobe, the probe loop (gathers, scores,
+    masks), the final top-k."""
+    from replay_tpu_torch.models.ann import top_k
+    from replay_tpu_torch.models.ivf import _probe_scores
+
+    cscores = q @ state.centroids.T
+    _, probes = top_k(cscores, nprobe)
+    scores, _ = _probe_scores(state, q, cscores, probes, None)
+    return {
+        "centroid_scan": event_ms(lambda: top_k(q @ state.centroids.T, nprobe), calls=10),
+        "probes": event_ms(lambda: _probe_scores(state, q, cscores, probes, None), calls=10),
+        "final_top_k": event_ms(lambda: top_k(scores, ANN_K), calls=10),
+    }
+
+
+def ann_headline(device) -> dict:
+    """bench_serve.py's ann phase headline (:454-537) on the port: f32 brute
+    force against f32 IVF over the clustered 10M-item catalog; recall@100
+    hard-gated, the speedup recorded beside bench_serve.py's x10 target;
+    brute force's product and top-k timed apart (CUDA events), the int8 brute
+    sweep on the same catalog, each build stage's seconds, peak memory."""
+    from replay_tpu_torch.models import MIPSIndex
+    from replay_tpu_torch.models.ann import top_k
+    from replay_tpu_torch.models.ivf import default_nlist
+    from replay_tpu_torch.serve import CandidatePipeline
+
+    items = ANN_ITEMS
+    modes = max(8, min(items // 1400, 1024))
+    frag_cap = 1 << int(np.log2(max(8, modes * ANN_NPROBE // 2)))
+    nlist = min(4096, default_nlist(items), frag_cap)
+    nprobe = min(ANN_NPROBE, nlist)
+    t0 = time.perf_counter()
+    catalog, queries = clustered_catalog(ANN_SEED, items, modes)
+    catalog_s = time.perf_counter() - t0
+
+    release()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    brute = MIPSIndex(catalog, device=device)
+    torch.cuda.synchronize()
+    brute_upload_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ivf = MIPSIndex(catalog, index="ivf", nlist=nlist, nprobe=nprobe, build_sample=ANN_BUILD_SAMPLE, device=device)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    stats = ivf.index_stats()
+
+    brute.search(queries, ANN_K)
+    ivf.search(queries, ANN_K)
+    found, timings = {}, {}
+    for name, index, reps in (("brute", brute, ANN_BRUTE_REPS), ("ivf", ivf, ANN_IVF_REPS)):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            _, found[name] = index.search(queries, ANN_K)  # host arrays: each search ends synchronised
+        timings[name] = (time.perf_counter() - t0) / reps * 1e3
+    hit = recall(found["brute"], found["ivf"])
+    speedup = timings["brute"] / timings["ivf"]
+    peak = torch.cuda.max_memory_allocated(device)
+
+    # brute force's two device stages apart, and IVF's search on device time
+    q = torch.as_tensor(queries, device=device)
+    scores = q @ brute.item_vectors.T
+    product_ms = event_ms(lambda: q @ brute.item_vectors.T)
+    top_k_ms = event_ms(lambda: top_k(scores, ANN_K))
+    torch_topk_ms = event_ms(lambda: torch.topk(scores, ANN_K, dim=-1))
+    del scores
+    ivf_device_ms = event_ms(lambda: ivf.search_jax(q, ANN_K), calls=10)
+    ivf_split = ivf_stage_ms(ivf.ivf_state, q, nprobe)
+
+    topk = {}
+    for name, index in (("brute", brute), ("ivf", ivf)):
+        topk[name] = CandidatePipeline(index, num_candidates=ANN_K, top_k=ANN_TOPK).rank(queries)[1]
+    agreement = recall(topk["brute"], topk["ivf"])
+    record = {
+        "items": items, "dim": ANN_DIM, "modes": modes, "queries": ANN_QUERIES, "k": ANN_K,
+        "catalog_s": catalog_s, "brute_upload_s": brute_upload_s, "build_s": build_s,
+        "build_stage_s": ivf.ivf_state.build_seconds, "index_stats": stats,
+        "table_bytes": ivf.table_bytes(), "brute_table_bytes": brute.table_bytes()["payload_bytes"],
+        "recall_at_100": hit, "recall_gate": RECALL_GATE, "topk_agreement": agreement,
+        "brute_ms": timings["brute"], "ivf_ms": timings["ivf"], "speedup": speedup,
+        "speedup_target": ANN_SPEEDUP_TARGET, "meets_target": speedup >= ANN_SPEEDUP_TARGET,
+        "brute_qps": ANN_QUERIES / timings["brute"] * 1e3, "ivf_qps": ANN_QUERIES / timings["ivf"] * 1e3,
+        "brute_product_device_ms": product_ms, "brute_top_k_device_ms": top_k_ms,
+        "brute_torch_topk_device_ms": torch_topk_ms, "ivf_search_device_ms": ivf_device_ms,
+        "ivf_stage_device_ms": ivf_split,
+        # the least time of each on this card (HBM and f32 FMA rates): the
+        # sweep reads the table once and does 2·Q·I·E operations; IVF's probe
+        # gather reads Q × nprobe × CMAX rows
+        "brute_bound_ms": {
+            "bytes": items * ANN_DIM * 4 / HBM_BYTES_PER_S * 1e3,
+            "operations": 2 * ANN_QUERIES * items * ANN_DIM / F32_FMA_FLOPS * 1e3,
+        },
+        "ivf_gather_bound_ms": ANN_QUERIES * nprobe * stats["cmax"] * ANN_DIM * 4 / HBM_BYTES_PER_S * 1e3,
+        "peak_allocated_bytes": peak,
+    }
+    if hit < RECALL_GATE:
+        raise AssertionError(f"ann gate: IVF recall@{ANN_K} {hit:.4f} < {RECALL_GATE} at nprobe={nprobe}")
+    del brute, ivf
+    release()
+
+    # the int8 brute sweep over the same catalog: its product writes the f32
+    # up-cast of the whole table first
+    int8 = MIPSIndex(catalog, precision="int8", device=device)
+    int8.search(queries, ANN_K)
+    record["int8_brute_ms"] = wall_ms(lambda: int8.search(queries, ANN_K), ANN_BRUTE_REPS)
+    record["int8_brute_recall_at_100"] = recall(found["brute"], int8.search(queries, ANN_K)[1])
+    record["int8_brute_device_ms"] = event_ms(lambda: int8.search_jax(q, ANN_K))
+    record["int8_scores_device_ms"] = event_ms(lambda: (q @ int8.item_vectors.T.to(torch.float32)) * int8.item_scales[None, :])
+    record["int8_upcast_device_ms"] = event_ms(lambda: int8.item_vectors.T.to(torch.float32))
+    record["int8_upcast_bytes"] = items * ANN_DIM * 4
+    del int8
+    release()
+    return record
+
+
+def ann_rungs(device) -> dict:
+    """The quantized rungs on bench_serve.py's rung catalog (:538-596): int8
+    on its raw sweep and int8+pq through 3x overfetch and the exact rescore,
+    each gated at recall@100 0.99; each rung built twice and compared tensor
+    by tensor; each searched on the card and, from the same state, on the
+    CPU; and the 100M projection (:598-608)."""
+    from replay_tpu_torch.models import MIPSIndex
+    from replay_tpu_torch.models.ivf import brute_bytes, ivf_bytes
+
+    rung_modes = max(8, RUNG_ROWS // 1400)
+    catalog, queries = clustered_catalog(RUNG_SEED, RUNG_ROWS, rung_modes)
+    truth = MIPSIndex(catalog, device=device).search(queries, ANN_K)[1]
+    kwargs = dict(index="ivf", nlist=RUNG_NLIST, nprobe=RUNG_NPROBE, pq_subspaces=RUNG_PQ_M, device=device)
+    record = {"items": RUNG_ROWS, "modes": rung_modes, "nlist": RUNG_NLIST, "nprobe": RUNG_NPROBE}
+    for rung in ("int8", "int8+pq"):
+        t0 = time.perf_counter()
+        index = MIPSIndex(catalog, precision=rung, **kwargs)
+        build_s = time.perf_counter() - t0
+        again = MIPSIndex(catalog, precision=rung, **kwargs)
+        differ = [
+            name for name, tensor in index.ivf_state.tensors().items()
+            if not torch.equal(tensor, again.ivf_state.tensors()[name])
+        ]
+        if differ:
+            raise AssertionError(f"{rung}: two builds differ in {differ}")
+        k = ANN_K if rung == "int8" else RUNG_OVERFETCH * ANN_K
+        searched = index.search(queries, k)
+        found = searched[1]
+        if rung == "int8+pq":
+            rescored = index.exact_rescore(queries, found).cpu().numpy()
+            found = np.take_along_axis(found, np.argsort(-rescored, axis=1, kind="stable")[:, :ANN_K], axis=1)
+        on_cpu = MIPSIndex.from_state(catalog, rung, ivf=index.ivf_state.to("cpu"), device="cpu")
+        held = held_to_cpu(f"{rung} ivf", searched, on_cpu.search(queries, k + 1))
+        hit = recall(truth, found)
+        record[rung] = {
+            "recall_at_100": hit, "build_s": build_s, "build_stage_s": index.ivf_state.build_seconds,
+            "bitwise_rebuild": True, "index_stats": index.index_stats(), "table_bytes": index.table_bytes(),
+            "search_ms": wall_ms(lambda i=index: i.search(queries, k), 10), "card_vs_cpu": held,
+        }
+        if hit < RECALL_GATE:
+            raise AssertionError(f"ann gate: {rung} rung recall@{ANN_K} {hit:.4f} < {RECALL_GATE}")
+    proj_pq = ivf_bytes(100_000_000, 256, 65536, "int8+pq", pq_subspaces=32)
+    proj_int8_brute = brute_bytes(100_000_000, 256, "int8")
+    if not proj_pq["total_bytes"] < PROJECTION_BUDGET_BYTES < proj_int8_brute["total_bytes"]:
+        raise AssertionError(f"ann gate: 100M projection inverted: {proj_pq} vs {PROJECTION_BUDGET_BYTES} vs {proj_int8_brute}")
+    record["projection_100m"] = {
+        "budget_bytes": PROJECTION_BUDGET_BYTES, "pq_total_bytes": proj_pq["total_bytes"],
+        "int8_brute_bytes": proj_int8_brute["total_bytes"],
+    }
+    return record
+
+
+def pipeline_direct(plain, pipeline, windows: list, bucket: int):
+    """The direct path for ``windows`` at batch ``bucket``: ``encode`` on the
+    unfused model, then ``pipeline.rank`` at top-11 (the 11th pins the 10th
+    rank's gap) over the same index. Returns (ids, scores) ``[n, 11]``."""
+    scores, ids = pipeline.rank(plain_hidden(plain, windows, bucket))
+    return ids[: len(windows)], scores[: len(windows)]
+
+
+def retrieval_service(model, plain, params, item_weights, rerank, histories, device) -> dict:
+    """``ScoringService`` in retrieval mode over the int8 pipeline (and, for the
+    same-run comparison, over the brute f32 one): every user seeded cold, then
+    a closed loop of RETRIEVAL_CLIENTS threads x RETRIEVAL_REQUESTS requests.
+    Every int8 response primary and equal to ``pipeline.rank`` on the unfused
+    model's hidden state for its window (ids at every rank the tolerance
+    pins, scores within SERVE_TOL); the ``rescore`` span in the trace."""
+    from replay_tpu_torch.serve import CandidatePipeline
+
+    out = {}
+    for precision in ("int8", "f32"):
+        service = build_service(model, params, item_weights, rerank, histories, device, precision=precision)
+        client = ServiceClient(service, histories)
+        records, latencies, errors, lock = [], [], [], threading.Lock()
+        with service:
+            seeded = [client.seed(user) for user in range(SERVICE_USERS)]
+            records += [(items, f.result(timeout=SERVICE_WAIT_S)) for f, items in seeded]
+
+            def closed_client(index: int) -> None:
+                rng = np.random.default_rng(2000 + index)
+                for _ in range(RETRIEVAL_REQUESTS):
+                    start = time.perf_counter()
+                    future, items = client.request(rng, int(rng.integers(0, SERVICE_USERS)))
+                    try:
+                        response = future.result(timeout=SERVICE_WAIT_S)
+                    except Exception as exc:  # noqa: BLE001 — recorded, fails the phase below
+                        errors.append(repr(exc))
+                        continue
+                    with lock:
+                        latencies.append(time.perf_counter() - start)
+                        records.append((items, response))
+
+            threads = [threading.Thread(target=closed_client, args=(i,), daemon=True) for i in range(RETRIEVAL_CLIENTS)]
+            closed_start = time.perf_counter()
+            for thread in threads:
+                thread.start()
+            for thread in threads:
+                thread.join(timeout=SERVICE_WAIT_S * RETRIEVAL_REQUESTS)
+            closed_elapsed = time.perf_counter() - closed_start
+        if any(thread.is_alive() for thread in threads):
+            raise AssertionError("a retrieval closed-loop client never finished")
+        not_primary = sorted({r.served_by for _, r in records} - {"primary"})
+        if errors or not_primary or len(latencies) != RETRIEVAL_CLIENTS * RETRIEVAL_REQUESTS:
+            raise AssertionError(f"retrieval service ({precision}): errors {errors[:5]}, served_by {not_primary}")
+        spans = {e["name"] for e in service.tracer.to_chrome_trace()["traceEvents"]}
+        record = {
+            "requests": len(records), "closed_requests": len(latencies),
+            "closed_qps": len(latencies) / closed_elapsed,
+            "closed_p50_ms": percentile_ms(latencies, 0.5), "closed_p99_ms": percentile_ms(latencies, 0.99),
+            "spans": sorted(spans), "encode_batches": service.engine.encode_calls,
+            "capture_warmups": service.engine.graph_counts()["encode"]["warmups"],
+            "pipeline": service.retrieval.stats(),
+        }
+        if precision == "int8":
+            if "rescore" not in spans:
+                raise AssertionError(f"the int8 service's trace has no rescore span: {sorted(spans)}")
+            direct = CandidatePipeline(service.retrieval.index, num_candidates=SERVICE_CANDIDATES,
+                                       top_k=SERVICE_TOPK + 1, reranker_weights=rerank)
+            reading = check_responses(functools.partial(pipeline_direct, plain, direct), records)
+            failures = reading.pop("failures")
+            if failures:
+                raise AssertionError(f"int8 service responses differ from pipeline.rank: {failures[:5]}")
+            record["check"] = {**reading, "tol": SERVE_TOL}
+        out[precision] = record
+        del service
+        release()
+    return out
+
+
+def retrieval_phase(device) -> dict:
+    """Retrieval past brute force on the card: bench_serve.py's quant phase,
+    its ann phase (the 10M-item headline, the quantized rungs, the 100M
+    projection) and the scoring service over the int8 pipeline. K4 (the query
+    states and the services' encodes) is counted from 0 over the phase."""
+    from replay_tpu_torch.ops.flash_attention import flash_attention
+    from replay_tpu_torch.serve import ScoringEngine
+
+    start = time.perf_counter()
+    model, plain_model, params, item_weights, rerank, histories = service_setup(device)
+    plain = ScoringEngine(plain_model, params, batch_buckets=BATCH_BUCKETS, outputs="hidden", device=device)
+    # the main path: counts start at 0 here and are read at the phase's end
+    flash_attention.launches = 0
+    quant = quant_checks(model, item_weights, rerank, device)
+    quant_k4 = flash_attention.launches
+    services = retrieval_service(model, plain, params, item_weights, rerank, histories, device)
+    launches = flash_attention.launches
+    expected = quant_k4 + model.num_blocks * sum(r["encode_batches"] + r["capture_warmups"] for r in services.values())
+    if quant_k4 != model.num_blocks or launches != expected:
+        raise AssertionError(f"retrieval: K4 ran {launches} times ({quant_k4} for the queries), not {expected}")
+    emit("retrieval", part="quant", **quant)
+    emit("retrieval", part="service", **services)
+    headline = ann_headline(device)
+    emit("retrieval", part="ann", **headline)
+    rungs = ann_rungs(device)
+    emit("retrieval", part="rungs", **rungs)
+    seconds = time.perf_counter() - start
+    emit("retrieval", part="phase", seconds=seconds, k4_launches=launches)
     return {"launches": launches}
 
 
@@ -3697,6 +4134,7 @@ def main() -> int:
     tiled_backward_check(device)
     served = serve_phase(device)
     serviced = service_phase(device)
+    retrieval = retrieval_phase(device)
     serialized = serialize_phase(device)
     trained = train_phase(device)
     longseq = longseq_phase(device)
@@ -3705,7 +4143,7 @@ def main() -> int:
     lifecycle = lifecycle_phase(device)
 
     kernels = kernel_records(
-        k4, fused, tiled_records, served, serviced, serialized, trained, longseq, bert4rec, twotower, lifecycle
+        k4, fused, tiled_records, served, serviced, retrieval, serialized, trained, longseq, bert4rec, twotower, lifecycle
     )
     emit("kernels", kernels=[{k: r[k] for k in ("name", "launches", "passed")} for r in kernels])
     print(card, flush=True)
@@ -3736,14 +4174,15 @@ def k4_entry(name: str, record: dict, by_path: dict) -> dict:
 
 
 def kernel_records(
-    k4, fused, tiled_records, served, serviced, serialized, trained, longseq, bert4rec, twotower, lifecycle
+    k4, fused, tiled_records, served, serviced, retrieval, serialized, trained, longseq, bert4rec, twotower, lifecycle
 ) -> list:
     """The kernels line: every kernel of the paths driven, one entry per
     instantiation a path runs, with its launches there (counted through graph
     replays: the serving paths and ``*_graph`` run on captured graphs); raises
     if one of them launched no time."""
     k4_paths = {
-        "serve": served["launches"], "service": serviced["launches"], "serialize": serialized["launches"],
+        "serve": served["launches"], "service": serviced["launches"], "retrieval": retrieval["launches"],
+        "serialize": serialized["launches"],
         "train": trained["flash_attention"], "train_graph": trained["graph"]["flash_attention"],
     }
     kernels = [k4_entry("flash_attention", k4[("serve", torch.float32)], k4_paths)]

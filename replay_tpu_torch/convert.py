@@ -12,14 +12,25 @@ by swapping ``/`` for ``.`` and renaming the leaf:
 * ``Embed.embedding`` → ``weight``;
 * ``bias`` and raw params (``positional_embedding``, Bert4Rec's
   ``mask_embedding``) carry over as they are.
+
+A retrieval index carries across too: ``ivf_state_from_jax`` maps the JAX
+``IVFState`` (its arrays read as numpy, its config and scalars) onto the
+port's, and ``mips_index_from_jax`` a whole JAX ``MIPSIndex`` (the brute f32
+or int8 table, or an IVF state) onto the port's, with no build. Both read the
+JAX objects by attribute and never import JAX.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
+
+from replay_tpu_torch.device import DeviceLike, resolve_device
+from replay_tpu_torch.models.ann import MIPSIndex
+from replay_tpu_torch.models.ivf import IVFConfig, IVFState
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
@@ -67,3 +78,44 @@ def torch_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
             node = node.setdefault(parent, {})
         node[leaf] = np.ascontiguousarray(value)
     return tree
+
+
+def ivf_state_from_jax(state, device: DeviceLike = "cuda") -> IVFState:
+    """The port's :class:`IVFState` for a single-device JAX ``IVFState``: the
+    same config, scalars and arrays (bitwise), as tensors on ``device``."""
+    if getattr(state, "mesh", None) is not None:
+        msg = "a mesh-sharded IVF state is not ported yet: ROADMAP.md queue 1, 'Distributed training' (item 9)"
+        raise NotImplementedError(msg)
+    device = resolve_device(device)
+    config = IVFConfig(**{f.name: getattr(state.config, f.name) for f in dataclasses.fields(IVFConfig)})
+    arrays = {
+        name: None if getattr(state, name) is None else torch.as_tensor(np.array(getattr(state, name)), device=device)
+        for name in IVFState._TENSORS
+    }
+    return IVFState(
+        config=config,
+        precision=state.precision,
+        num_items=int(state.num_items),
+        dim=int(state.dim),
+        cmax=int(state.cmax),
+        storage_rows=int(state.storage_rows),
+        padded_fraction=float(state.padded_fraction),
+        **arrays,
+    )
+
+
+def mips_index_from_jax(index, device: DeviceLike = "cuda") -> MIPSIndex:
+    """The port's :class:`MIPSIndex` holding a single-device JAX
+    ``MIPSIndex``'s state: its host f32 master, and its IVF state or its
+    brute table (f32, or int8 values and scales), bitwise."""
+    if getattr(index, "mesh", None) is not None:
+        msg = "a mesh-sharded index is not ported yet: ROADMAP.md queue 1, 'Distributed training' (item 9)"
+        raise NotImplementedError(msg)
+    if index.index_mode == "ivf":
+        return MIPSIndex.from_state(
+            index.host_vectors, index.precision, ivf=ivf_state_from_jax(index._ivf, device), device=device
+        )
+    quantized = None
+    if index.precision == "int8":
+        quantized = (np.array(index.item_vectors), np.array(index.item_scales))
+    return MIPSIndex.from_state(index.host_vectors, index.precision, quantized=quantized, device=device)

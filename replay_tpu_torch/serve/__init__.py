@@ -9,8 +9,11 @@ Counterpart of ``replay_tpu/serve/`` with the JAX names:
   incremental window advances (``cache``).
 * :class:`ScoringEngine` — fixed-shape ``CompiledInference`` buckets per
   length bucket + cached-state scorers (``engine``).
-* :class:`CandidatePipeline` — exact MIPS retrieval fused with the two-stage
-  re-rank and top-k, all on the device (``pipeline``).
+* :class:`CandidatePipeline` — MIPS retrieval fused with the two-stage
+  re-rank and top-k, all on the device, with an exact f32 rescore stage over
+  an approximate index (``pipeline``).
+* :func:`quantize_embeddings` / :class:`QuantizedTable` /
+  :func:`quantization_error` — the int8 item table (``quant``).
 * :class:`CircuitBreaker` — closed→open→half-open supervision of the encode
   path (``breaker``), and :class:`FallbackScorer` — the host-side popularity
   floor of the degradation ladder (``degrade``).
@@ -21,7 +24,7 @@ Counterpart of ``replay_tpu/serve/`` with the JAX names:
   the running programs without a rebuild (``promote``).
 
 Not ported yet (ROADMAP.md queue 1): the fleet and router, the remote
-replicas, ``PromotionController`` and the int8 table (``quant``).
+replicas and ``PromotionController``.
 """
 
 from .batcher import MicroBatcher
@@ -32,6 +35,7 @@ from .engine import ScoringEngine
 from .errors import CircuitOpen, DeadlineExceeded, RequestShed, ServeError, ServiceClosed
 from .pipeline import CandidatePipeline
 from .promote import ParamGeneration, ParamStore, in_canary_slice
+from .quant import QuantizedTable, quantization_error, quantize_embeddings
 from .request import SERVED_FROM, ScoreRequest, ScoreResponse, make_window, top_k_cut
 from .service import ScoringService
 
@@ -46,6 +50,7 @@ __all__ = [
     "MicroBatcher",
     "ParamGeneration",
     "ParamStore",
+    "QuantizedTable",
     "RequestShed",
     "ScoreRequest",
     "ScoreResponse",
@@ -57,5 +62,7 @@ __all__ = [
     "UserStateCache",
     "in_canary_slice",
     "make_window",
+    "quantization_error",
+    "quantize_embeddings",
     "top_k_cut",
 ]

@@ -1,8 +1,8 @@
-"""Fused candidate→rank: exact MIPS retrieval + re-rank + top-k on the device.
+"""Fused candidate→rank: MIPS retrieval + re-rank + top-k on the device.
 
 Counterpart of ``replay_tpu/serve/pipeline.py::CandidatePipeline``. Instead of
 materializing a ``[B, |catalog|]`` score matrix per micro-batch, the encoder's
-last-hidden states query the exact MIPS index (``models/ann.py``) for the top-C
+last-hidden states query the MIPS index (``models/ann.py``) for the top-C
 candidates, a re-rank applies the two-stage scenario's logistic weights
 (``sigmoid(v·w₀ + w₁)`` over the one retrieval-score feature), and the final
 top-k cut happens on the device. The stages stay on the device between each
@@ -16,6 +16,12 @@ the candidate retrieved first (higher retrieval score, then lower id) wins.
 With the dot-product weight-tying head (no bias), MIPS scores over the
 item-embedding table are the full-catalog logits: retrieval only skips items
 that cannot reach the top-C.
+
+An approximate index (int8 table or IVF, ``MIPSIndex.is_approximate``) only
+selects the C candidates: a ``rescore`` stage replaces their scores by exact
+f32 inner products against the host f32 master (``MIPSIndex.exact_rescore``)
+before the re-rank, so the final scores are those of the f32 pipeline
+wherever the approximate sweep found the same candidates.
 """
 
 from __future__ import annotations
@@ -94,19 +100,31 @@ class CandidatePipeline:
         """``[B, E]`` query states (host array or tensor) → (scores ``[B, k]``,
         int32 item ids ``[B, k]``) host arrays.
 
-        The device stages are traced as ``retrieve`` / ``rerank`` spans when a
-        tracer is supplied; ``span_args`` merges extra args into each span.
-        (The JAX pipeline's ``rescore`` stage runs only for an approximate
-        index, int8 or IVF, which the port does not have yet.) The ``rerank``
-        span ends after the one copy of the results to the host, so it holds
-        the wait for the device."""
+        The device stages are traced as ``retrieve`` / ``rescore`` /
+        ``rerank`` spans when a tracer is supplied (``rescore`` only for an
+        approximate index); ``span_args`` merges extra args into each span.
+        The ``rerank`` span ends after the one copy of the results to the
+        host, so it holds the wait for the device."""
         span = tracer.span if tracer is not None else (lambda *_a, **_k: contextlib.nullcontext())
         extra = span_args or {}
         rows = int(hidden.shape[0])
         with span("retrieve", rows=rows, k=self.num_candidates, **extra):
             values, ids = self.index.search_jax(hidden, self.num_candidates)
+        if self.index.is_approximate:
+            # the approximate sweep only chose WHICH C rows to score; their
+            # ranking scores are exact f32
+            with span("rescore", rows=rows, k=self.num_candidates, **extra):
+                values = self.index.exact_rescore(hidden, ids)
         with span("rerank", rows=rows, k=self.top_k, **extra):
             scores, items = self._rerank(values, ids)
             scores = scores.cpu().numpy()
             items = items.to(torch.int32).cpu().numpy()
         return scores, items
+
+    def stats(self) -> dict:
+        return {
+            "num_candidates": self.num_candidates,
+            "top_k": self.top_k,
+            "index_precision": self.index.precision,
+            "index_mode": self.index.index_mode,
+        }

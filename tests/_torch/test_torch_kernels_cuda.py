@@ -1305,3 +1305,70 @@ def test_eval_graph_capture_failure_raises(cuda_device):
     with _Eager(trainer):
         want = trainer.predict_logits(state, batch)
     assert torch.equal(trainer.predict_logits(state, batch), want)
+
+
+# -- retrieval on the card: the IVF index and the int8 table ----------------------- #
+# The card's search against the CPU's on one index state: scores within
+# RETRIEVAL_TOL (f32 products summed in another order), ids equal at every
+# rank whose score is clear of its neighbours by more than it.
+RETRIEVAL_TOL = 1e-4
+
+
+def _clustered_catalog(items=20_000, dim=32, modes=40, queries=32, seed=0):
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((modes, dim), dtype=np.float32)
+    centers /= np.linalg.norm(centers, axis=1, keepdims=True)
+    table = centers[rng.integers(0, modes, items)] + np.float32(0.1) * rng.standard_normal((items, dim), dtype=np.float32)
+    query = centers[rng.integers(0, modes, queries)] + np.float32(0.1) * rng.standard_normal((queries, dim), dtype=np.float32)
+    return table, query
+
+
+def _assert_search_equal(got, want):
+    """``got`` (the card's search at k) against ``want`` (the CPU's at k + 1)."""
+    got_values, got_ids = got
+    want_values, want_ids = want
+    k = got_ids.shape[1]
+    np.testing.assert_allclose(got_values, want_values[:, :k], atol=RETRIEVAL_TOL, rtol=0)
+    gaps = want_values[:, :-1] - want_values[:, 1:]
+    previous = np.concatenate([np.full_like(gaps[:, :1], np.inf), gaps[:, : k - 1]], axis=1)
+    pinned = np.minimum(previous, gaps[:, :k]) > RETRIEVAL_TOL
+    assert pinned.mean() > 0.5
+    np.testing.assert_array_equal(got_ids[pinned], want_ids[:, :k][pinned])
+
+
+@pytest.mark.parametrize("precision", ["f32", "int8", "int8+pq"])
+def test_ivf_build_on_the_card_is_bitwise_repeatable_and_searches_as_the_cpu(cuda_device, precision):
+    from replay_tpu_torch.models import MIPSIndex
+
+    table, queries = _clustered_catalog()
+    kwargs = dict(index="ivf", precision=precision, nlist=64, nprobe=16, build_sample=16_384, pq_subspaces=8)
+    first = MIPSIndex(table, device=cuda_device, **kwargs)
+    second = MIPSIndex(table, device=cuda_device, **kwargs)
+    assert first.ivf_state.device.type == "cuda"
+    for name, tensor in first.ivf_state.tensors().items():
+        assert torch.equal(tensor, second.ivf_state.tensors()[name]), name
+    on_cpu = MIPSIndex.from_state(table, precision, ivf=first.ivf_state.to("cpu"), device="cpu")
+    for k in (10, 100):
+        _assert_search_equal(first.search(queries, k), on_cpu.search(queries, k + 1))
+    # the rescore reads the host master: the same f32 products on either side
+    ids = first.search(queries, 50)[1]
+    np.testing.assert_allclose(
+        first.exact_rescore(queries, ids).cpu().numpy(), on_cpu.exact_rescore(queries, ids).numpy(), atol=RETRIEVAL_TOL
+    )
+
+
+def test_int8_brute_index_on_the_card_equals_the_cpu_one(cuda_device):
+    from replay_tpu_torch.models import MIPSIndex
+    from replay_tpu_torch.serve import CandidatePipeline
+
+    table, queries = _clustered_catalog(items=30_000, dim=64)
+    card = MIPSIndex(table, precision="int8", device=cuda_device)
+    cpu = MIPSIndex(table, precision="int8", device="cpu")
+    assert card.item_vectors.dtype == torch.int8 and card.item_vectors.device.type == "cuda"
+    assert torch.equal(card.item_vectors.cpu(), cpu.item_vectors) and torch.equal(card.item_scales.cpu(), cpu.item_scales)
+    for k in (10, 100):
+        _assert_search_equal(card.search(queries, k), cpu.search(queries, k + 1))
+    rerank = np.array([1.5, -0.2], np.float32)
+    got = CandidatePipeline(card, num_candidates=100, top_k=11, reranker_weights=rerank).rank(queries)
+    want = CandidatePipeline(cpu, num_candidates=100, top_k=12, reranker_weights=rerank).rank(queries)
+    _assert_search_equal(got, want)

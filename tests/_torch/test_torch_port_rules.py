@@ -74,7 +74,7 @@ def test_importing_the_port_loads_no_jax():
 @pytest.mark.parametrize(
     "subpackage, modules",
     [
-        ("obs", ("events", "trace")), ("models", ("ann",)), ("serve", ("service", "batcher", "pipeline", "promote")),
+        ("obs", ("events", "trace")), ("models", ("ann", "ivf")), ("serve", ("service", "batcher", "pipeline", "promote", "quant")),
         ("nn.transform", ("transforms", "template")), ("nn.sequential.bert4rec", ("model",)),
         ("nn.sequential.twotower", ("model", "reader")),
         ("utils", ("checkpoint", "faults", "types", "serde")),

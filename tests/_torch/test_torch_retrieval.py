@@ -1,11 +1,14 @@
-"""Brute-force f32 retrieval: the port's MIPSIndex and CandidatePipeline
-against the JAX package's, on seeded numpy tables.
+"""Brute-force retrieval (f32 and int8): the port's MIPSIndex and
+CandidatePipeline against the JAX package's, on seeded numpy tables.
 
 Ids must be equal, ties included: ``jax.lax.top_k`` puts the lower index first
 among equal values, and the port's ``top_k`` keeps that order on any device.
 Ties are made on purpose with small-integer tables and queries (every inner
 product exact in f32, whatever the summation order) and with a re-rank whose
-sigmoid saturates to exactly 1.0. Scores are held at atol/rtol 1e-5.
+sigmoid saturates to exactly 1.0. Scores are held at atol/rtol 1e-5. The
+int8 table is the JAX one bitwise (host quantization), and its products of
+small integers with small-integer queries are exact, so ties hold there too.
+The IVF index has its own file, ``test_torch_ivf.py``.
 """
 
 import numpy as np
@@ -29,6 +32,11 @@ def _tables(kind, seed, items=300, dim=16, queries=9):
         return (rng.normal(size=(items, dim)).astype(np.float32), rng.normal(size=(queries, dim)).astype(np.float32))
     # entries in {-1, 0, 1} over 4 dims: inner products in -4..4, so most
     # cuts fall inside a run of exactly equal scores
+    if kind == "clustered":
+        centers = rng.normal(size=(12, dim)).astype(np.float32)
+        centers /= np.linalg.norm(centers, axis=1, keepdims=True)
+        table = (centers[rng.integers(0, 12, items)] + 0.1 * rng.normal(size=(items, dim))).astype(np.float32)
+        return table, (centers[rng.integers(0, 12, queries)] + 0.1 * rng.normal(size=(queries, dim))).astype(np.float32)
     table = rng.integers(-1, 2, (items, 4)).astype(np.float32)
     return table, rng.integers(-1, 2, (queries, 4)).astype(np.float32)
 
@@ -73,20 +81,80 @@ def test_index_introspection_matches_jax():
 @pytest.mark.parametrize(
     "kwargs, error, match",
     [
-        ({"index": "ivf"}, NotImplementedError, "ROADMAP.md queue 1, 'Retrieval'"),
-        ({"index": "ivf", "precision": "int8"}, NotImplementedError, "ROADMAP.md queue 1, 'Retrieval'"),
-        ({"precision": "int8"}, NotImplementedError, "ROADMAP.md queue 1, 'Retrieval'"),
-        ({"mesh": object()}, NotImplementedError, "ROADMAP.md queue 1, 'Distributed training'"),
+        ({"mesh": object()}, NotImplementedError, "ROADMAP.md queue 1, 'Distributed training' \\(item 9\\)"),
+        ({"index": "ivf", "mesh": object()}, NotImplementedError, "ROADMAP.md queue 1, 'Distributed training'"),
         ({"index": "hnsw"}, ValueError, "index must be 'brute' or 'ivf'"),
         ({"precision": "bf16"}, ValueError, "precision must be 'f32' or 'int8'"),
+        ({"precision": "int8+pq"}, ValueError, "precision must be 'f32' or 'int8'"),
         ({"index": "ivf", "precision": "fp8"}, ValueError, "precision must be 'f32', 'int8' or 'int8\\+pq'"),
     ],
-    ids=["ivf", "ivf_int8", "int8", "mesh", "bad_index", "bad_precision", "bad_ivf_precision"],
+    ids=["mesh", "ivf_mesh", "bad_index", "bad_precision", "brute_pq", "bad_ivf_precision"],
 )
 def test_unported_and_invalid_index_modes_raise(kwargs, error, match):
     table, _ = _tables("normal", seed=2)
     with pytest.raises(error, match=match):
         MIPSIndex(table, device="cpu", **kwargs)
+    if error is ValueError:
+        with pytest.raises(ValueError) as want:
+            JaxMIPSIndex(table, **kwargs)
+        with pytest.raises(ValueError) as got:
+            MIPSIndex(table, device="cpu", **kwargs)
+        assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize(
+    "kwargs",
+    [
+        {"index": "ivf", "nlist": 8, "nprobe": 4, "build_sample": 300},
+        {"index": "ivf", "precision": "int8", "nlist": 8, "nprobe": 4, "build_sample": 300},
+        {"precision": "int8"},
+    ],
+    ids=["ivf", "ivf_int8", "int8"],
+)
+def test_index_modes_that_raised_before_match_jax(kwargs):
+    """The modes that raised ``NotImplementedError`` until the retrieval slice
+    was ported: the port's own build searches as the JAX build does."""
+    table, queries = _tables("clustered", seed=2)
+    port, ref = MIPSIndex(table, device="cpu", **kwargs), JaxMIPSIndex(table, **kwargs)
+    assert port.is_approximate is ref.is_approximate is True
+    got_scores, got_ids = port.search(queries, 20)
+    want_scores, want_ids = ref.search(queries, 20)
+    np.testing.assert_array_equal(got_ids, np.asarray(want_ids))
+    np.testing.assert_allclose(got_scores, np.asarray(want_scores), atol=ATOL, rtol=RTOL)
+    assert port.table_bytes() == ref.table_bytes() and port.index_stats() == ref.index_stats()
+
+
+@pytest.mark.parametrize("kind", ["normal", "ties"])
+@pytest.mark.parametrize("k", [1, 10, 100])
+def test_int8_search_matches_jax(kind, k):
+    table, queries = _tables(kind, seed=20 + k)
+    port, ref = MIPSIndex(table, precision="int8", device="cpu"), JaxMIPSIndex(table, precision="int8")
+    np.testing.assert_array_equal(port.item_vectors.numpy(), np.asarray(ref.item_vectors))
+    np.testing.assert_array_equal(port.item_scales.numpy(), np.asarray(ref.item_scales))
+    got_scores, got_ids = port.search(queries, k)
+    want_scores, want_ids = ref.search(queries, k)
+    np.testing.assert_array_equal(got_ids, np.asarray(want_ids))
+    np.testing.assert_allclose(got_scores, np.asarray(want_scores), atol=ATOL, rtol=RTOL)
+    if kind == "ties":
+        np.testing.assert_array_equal(got_scores, np.asarray(want_scores))
+    # the rescore reads the host f32 master, not the int8 rows
+    np.testing.assert_allclose(
+        port.exact_rescore(queries, got_ids).numpy(), np.asarray(ref.exact_rescore(queries, want_ids)), atol=ATOL, rtol=RTOL
+    )
+    np.testing.assert_allclose(port.exact_rescore(queries, got_ids).numpy(), np.take_along_axis(queries @ table.T, got_ids.astype(np.int64), 1), atol=ATOL, rtol=RTOL)
+
+
+def test_int8_index_bytes_and_carry_across_match_jax():
+    from replay_tpu_torch.convert import mips_index_from_jax
+
+    table, queries = _tables("normal", seed=21)
+    ref = JaxMIPSIndex(table, precision="int8")
+    port = mips_index_from_jax(ref, device="cpu")
+    assert port.table_bytes() == ref.table_bytes() == MIPSIndex(table, precision="int8", device="cpu").table_bytes()
+    assert port.table_bytes()["payload_bytes"] == table.shape[0] * (table.shape[1] + 4)
+    assert port.table_shard_bytes() == ref.table_shard_bytes()
+    assert port.item_vectors.dtype == torch.int8 and port.item_scales.dtype == torch.float32
+    np.testing.assert_array_equal(port.search(queries, 10)[1], np.asarray(ref.search(queries, 10)[1]))
 
 
 @pytest.mark.parametrize("columns", [1, 7, 64, 3706])

@@ -3,8 +3,9 @@
 Both services serve ``SasRec(use_flash=True)`` on the same weights (carried
 across with ``convert.flax_to_torch``); the JAX side runs K4's Pallas kernel
 in interpret mode, the port K4's plain version on the CPU. The same request
-sequence goes to both, in ``full``, ``slate`` and ``retrieval`` mode, so the
-micro-batches are the same: scores agree at atol/rtol 1e-5, and top-k ids,
+sequence goes to both, in ``full``, ``slate`` and ``retrieval`` mode (over
+the brute f32 index, and over the int8 table with its exact rescore stage),
+so the micro-batches are the same: scores agree at atol/rtol 1e-5, and top-k ids,
 ``served_from``, ``served_by``, ``lane`` and ``batch_bucket`` exactly.
 
 Then, on the port alone, the contracts ``tests/serve/test_service_parity.py``
@@ -103,9 +104,10 @@ def _item_weights(params):
 def _mode_kwargs(mode, params, port):
     if mode == "slate":
         return {"candidates": SLATE}
-    if mode == "retrieval":
+    if mode.startswith("retrieval"):
         weights = _item_weights(params)
-        index = MIPSIndex(weights, device="cpu") if port else JaxMIPSIndex(weights)
+        precision = "int8" if mode == "retrieval_int8" else "f32"
+        index = MIPSIndex(weights, precision=precision, device="cpu") if port else JaxMIPSIndex(weights, precision=precision)
         pipeline = CandidatePipeline if port else JaxCandidatePipeline
         return {"retrieval": pipeline(index, num_candidates=12, top_k=6, reranker_weights=RERANK)}
     return {}
@@ -137,7 +139,7 @@ def _sequence(service, mode):
     or its max_wait passes after the last submit)."""
     responses = []
     users = _histories(7, 6)
-    k = 3 if mode != "retrieval" else None
+    k = 3 if not mode.startswith("retrieval") else None
 
     def score(user, **kwargs):
         responses.append(service.score(user, timeout=WAIT_S, **kwargs))
@@ -168,7 +170,7 @@ def _errors(service, mode):
     """The refusals of one mode, as (type, message): an unknown user, an
     advance without state, and the mode's own request errors."""
     requests = [("nobody", {}), ("nobody", {"new_items": [1]})]
-    requests.append(("seed", {"k": 50} if mode == "retrieval" else {"candidates": [1, 2]} if mode == "slate" else {"k": 2}))
+    requests.append(("seed", {"k": 50} if mode.startswith("retrieval") else {"candidates": [1, 2]} if mode == "slate" else {"k": 2}))
     service.score("seed", history=HISTORY, timeout=WAIT_S)
     out = []
     for user, kwargs in requests:
@@ -215,7 +217,7 @@ def _assert_responses_match(got, want):
     assert {b.batch_bucket for b in got} == set(BATCHES)
 
 
-@pytest.mark.parametrize("mode", ["full", "slate", "retrieval"])
+@pytest.mark.parametrize("mode", ["full", "slate", "retrieval", "retrieval_int8"])
 def test_service_matches_jax(setup, jax_runs, mode):
     want, want_errors, want_stats = jax_runs(mode)
     got, got_errors, got_stats = _run(_service(setup, mode), mode)

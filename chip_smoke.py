@@ -10,8 +10,9 @@ traffic, its retrieval (int8 table, IVF index, exact rescore) at
 ``bench.py`` width, its long-sequence path (training and serving) at the
 ``bench_suite.py`` ``sasrec_l1024_tiled`` width, BERT4Rec and TwoTower
 (training and serving) at ``bench_suite.py``'s ``bert4rec`` and ``twotower``
-widths, and notebook 09's training lifecycle (checkpoints, preemption and
-resume, recovery, dropout in captured chunks), and holds every kernel of those paths against its plain PyTorch
+widths, notebook 09's training lifecycle (checkpoints, preemption and
+resume, recovery, dropout in captured chunks), and bench_suite.py's stream rows (packed rows, the
+parquet stream), and holds every kernel of those paths against its plain PyTorch
 version. Serving runs on CUDA graphs (one
 captured graph per bucket, replayed by every encode) and is held bit for bit
 to the eager bound program; training runs per step and, through
@@ -121,7 +122,18 @@ replays. Phases, one JSON line each:
                  checkpoints, monitor, JsonlLogger)``; the same run preempted by SIGTERM
                  mid-epoch 2 and resumed, bitwise the uninterrupted one; a recovery run
                  (NaN batches, rollback, LR backoff); one line each;
-9. ``kernels`` — every ported kernel with its launches on the paths driven.
+9. ``stream`` — bench_suite.py's ``stream_inmem``, ``stream_parquet`` and ``stream_packed`` rows
+                 (the bench.py SASRec in bf16 on the unfused route, 24,576 sequences of 2–24
+                 items, batch 512, K=8 graphs through ``TransformedBatches`` and ``prefetch``)
+                 and the packed row with ``CEFused`` (K1–K3 on bf16 hidden states): sequences/s,
+                 step ms, effective tokens/s, padding fraction, segments per row, host ms per
+                 batch, busy share; the packed K=8 graphs bitwise the per-step path, no leakage
+                 across packed segments (a plain causal mask as the control), ``CEFused``
+                 against ``CE`` over 20 packed steps, and a SIGTERM in the parquet
+                 ``fit(scan_chunk=8)`` resumed bitwise through the stream cursor without
+                 rereading a slab (the parquet parts where pyarrow imports; a line says so
+                 where it does not);
+10. ``kernels`` — every ported kernel with its launches on the paths driven.
 
 Every trainer's device time per step comes from a profiler trace that agrees
 with a second trace of the same steps (``device_time_per_step``). Then the
@@ -363,6 +375,35 @@ NB_BAD_FROM, NB_BAD_STEPS, NB_MAX_BAD = 300, 10, 8
 # the synthetic log's sequential signal: the share of events that follow
 # their predecessor's successor item
 NB_FOLLOW = 0.5
+
+# bench_suite.py's stream rows (run_stream, :641-795; rows :834-836): the
+# bench.py SASRec (the catalog above, E=64, 2 blocks, 1 head, L=50, dropout 0,
+# Adam 1e-3, CE) in bf16 compute (bench_suite.py's dtype on an accelerator,
+# :816) on the unfused route; 512 x 48 = 24,576 synthetic sequences of 2–24
+# items (np.random.default_rng(0)); batches of 512 at batcher length 51,
+# shuffled with seed 0; K=8 train_steps graphs fed through
+# TransformedBatches and prefetch(depth=2), full chunks only; the parquet
+# row written in row groups of 512 rows, read with shard="row_groups",
+# read_ahead=2 and an 8 MiB memory budget. Each row is timed over whole
+# epochs until at least STREAM_MIN_STEPS steps (a packed epoch holds one
+# full chunk).
+STREAM_SEQUENCES, STREAM_SCAN_K, STREAM_MIN_STEPS = TRAIN_BATCH * 48, 8, 48
+# CEFused against CE on packed batches from the same weights, 20 eager steps:
+# the first step's losses come from the same bf16 hidden states, so they
+# differ by the two f32 reductions' order only (K1 against the plain
+# logsumexp): rtol 1e-5; every step's within 1e-3: the two gradients differ
+# by f32 rounding, which flips bf16 roundings of the activations in the
+# steps after (a 5.7e-5 reading after 8 steps at a small width on the CPU,
+# test_torch_kernels_cuda.py's packed case run on the plain versions)
+STREAM_LOSS_STEPS, STREAM_FUSED_FIRST_RTOL, STREAM_FUSED_RTOL = 20, 1e-5, 1e-3
+# hidden states of packed segments against their neighbours' rewrite and
+# their solo row, bf16 compute: equal bit for bit where every product keeps
+# its own rows (expected), else within a few bf16 ulps of O(1) values; a
+# plain causal mask (the control) moves later segments by far more
+STREAM_LEAK_TOL = 1e-2
+# the parquet fit's SIGTERM: while batch 20 of epoch 0 is fetched, in its
+# third chunk
+STREAM_PREEMPT_AT = 20
 
 
 def emit(phase: str, **fields) -> None:
@@ -2177,6 +2218,15 @@ def step_times(trainer, state, batch, steps: int):
 # warm-up cycle, whose events the profiler drops, and reads the window after it.
 TRACES_AT_MOST = 3
 COPY_EVENTS = ("Memcpy", "Memset")
+# The profiler keeps a device event only where it falls inside its capture
+# window, whose ends are read on the host clock, and it places device events
+# on that clock by a conversion of the device's timestamps. Work that ends
+# right at a window's edge can land outside it: a warm trace of 20 serving
+# encodes held 39, 24 and 26 of their 40 K4 kernels in one run (PR 12, run
+# R2). So every window opens this long before its first launch and closes
+# this long after its last kernel has finished (chip_trace_probe.py takes
+# traces with and without it).
+TRACE_MARGIN_S = 0.05
 
 
 def device_events(events) -> list:
@@ -2194,16 +2244,20 @@ def device_events(events) -> list:
 def profiled_window(primer):
     """A profiler whose recording starts warm: ``primer()`` runs as its warm-up
     cycle (traced, then dropped), and the block's work is the one active cycle
-    that ``key_averages()`` reads. Yields the profiler."""
+    that ``key_averages()`` reads, ``TRACE_MARGIN_S`` inside each end of the
+    window. Yields the profiler."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     plan = schedule(wait=0, warmup=1, active=1, repeat=1)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], schedule=plan) as prof:
         primer()
         torch.cuda.synchronize()
+        time.sleep(TRACE_MARGIN_S)
         prof.step()
+        time.sleep(TRACE_MARGIN_S)
         yield prof
         torch.cuda.synchronize()
+        time.sleep(TRACE_MARGIN_S)
         prof.step()
 
 
@@ -4109,6 +4163,420 @@ def lifecycle_phase(device) -> dict:
     return record
 
 
+class SigtermAt:
+    """A batch source that raises a real SIGTERM while batch ``at`` of its
+    first iteration is fetched, and forwards the streaming protocol
+    (``set_epoch``, the cursor calls, ``scan_compatible``) so that ``fit``
+    still records and seeks the stream cursor."""
+
+    def __init__(self, inner, at: int) -> None:
+        self.inner, self.at, self.raised = inner, at, False
+
+    def __iter__(self):
+        import signal
+
+        for position, batch in enumerate(self.inner):
+            if position == self.at and not self.raised:
+                self.raised = True
+                signal.raise_signal(signal.SIGTERM)
+            yield batch
+
+    def set_epoch(self, epoch: int) -> None:
+        self.inner.set_epoch(epoch)
+
+    @property
+    def supports_cursor(self) -> bool:
+        return self.inner.supports_cursor
+
+    def cursor_for(self, k: int):
+        return self.inner.cursor_for(k)
+
+    def restore_cursor(self, cursor) -> None:
+        self.inner.restore_cursor(cursor)
+
+    @property
+    def scan_compatible(self) -> bool:
+        return True
+
+
+def stream_chunks(stream, epoch: int):
+    """``bench_suite.py::run_stream``'s chunks: full groups of
+    ``STREAM_SCAN_K`` transformed batches of one epoch, the rest dropped."""
+    stream.set_epoch(epoch)
+    chunk = []
+    for batch in stream:
+        chunk.append(batch)
+        if len(chunk) == STREAM_SCAN_K:
+            yield chunk
+            chunk = []
+
+
+def stream_tokens(batch) -> tuple:
+    """Real tokens, grid tokens and user sequences of a transformed batch's
+    valid rows, as ``bench_suite.py::run_stream`` counts them."""
+    mask, valid = np.asarray(batch["padding_mask"]), np.asarray(batch["valid"])
+    if "segment_ids" in batch:
+        sequences = int((np.diff(np.asarray(batch["segment_ids"])[valid], prepend=0) > 0).sum())
+    else:
+        sequences = int(valid.sum())
+    return int(mask[valid].sum()), mask.size, sequences
+
+
+def stream_host_ms(batcher, pipeline, epoch: int) -> dict:
+    """Host ms per batch over one epoch, the batcher's assembly (for the
+    packed batcher, after the epoch's packing, timed apart) and the
+    transforms apart."""
+    batcher.set_epoch(epoch)
+    record = {}
+    if hasattr(batcher, "packing_summary"):
+        t0 = time.perf_counter()
+        len(batcher)  # packs the epoch (cached for the iteration)
+        record["pack_ms_per_epoch"] = (time.perf_counter() - t0) * 1e3
+    assembly, transforms = [], []
+    iterator = iter(batcher)
+    while True:
+        t0 = time.perf_counter()
+        raw = next(iterator, None)
+        t1 = time.perf_counter()
+        if raw is None:
+            break
+        pipeline(raw)
+        assembly.append((t1 - t0) * 1e3)
+        transforms.append((time.perf_counter() - t1) * 1e3)
+    record.update(
+        batches=len(assembly), assembly_ms=statistics.median(assembly), transforms_ms=statistics.median(transforms),
+        assembly_ms_mean=statistics.fmean(assembly),
+    )
+    return record
+
+
+def stream_row(name, trainer, initial, stream, counters) -> tuple:
+    """One row of ``bench_suite.py::run_stream``: a warm-up epoch (the graph's
+    capture), then whole epochs of full K-step chunks through
+    ``prefetch(depth=2)`` until ``STREAM_MIN_STEPS`` steps, timed on the host
+    clock; the counters set to 0 before the timed epochs and read after;
+    then device time per step from a warm trace of two chunk replays, whose
+    kernels must equal the launches counted."""
+    from replay_tpu_torch.data.nn import prefetch
+
+    state = trainer.init_state(None, params=initial)
+    for chunk in prefetch(stream_chunks(stream, 0), depth=2):
+        state, _ = trainer.train_steps(state, chunk)
+    torch.cuda.synchronize()
+    reset_counts(*counters)
+    steps = epochs = real = grid = sequences = 0
+    losses = []
+    t0 = time.perf_counter()
+    while steps < STREAM_MIN_STEPS or epochs < 2:
+        epochs += 1
+        for chunk in prefetch(stream_chunks(stream, epochs), depth=2):
+            state, chunk_losses = trainer.train_steps(state, chunk)
+            losses.extend(chunk_losses.tolist())
+            steps += len(chunk)
+            for batch in chunk:
+                counts = stream_tokens(batch)
+                real, grid, sequences = real + counts[0], grid + counts[1], sequences + counts[2]
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    last_chunk = chunk
+    readings = []
+    for _ in range(TRACES_AT_MOST):
+        state, reading = traced_chunks(trainer, state, last_chunk, 2, counters)
+        readings.append(reading)
+        if reading["traced"] == reading["launched"] and reading["device_ms"] <= reading["event_ms"]:
+            break
+    else:
+        raise AssertionError(f"{name}: no trace of K={STREAM_SCAN_K} replays agrees with the counts: {readings}")
+    device_ms = reading["device_ms"] / (2 * STREAM_SCAN_K)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{name}: non-finite losses")
+    record = {
+        "row": name, "steps": steps, "epochs": epochs, "wall_s": elapsed,
+        "samples_per_s": sequences / elapsed, "step_ms": elapsed / steps * 1e3,
+        "effective_tokens_per_s": real / elapsed, "padding_fraction": 1.0 - real / grid,
+        "sequences": sequences, "device_ms_per_step": device_ms, "device_busy_share": device_ms * steps / (elapsed * 1e3),
+        "kernels_per_step": reading["kernels"] / (2 * STREAM_SCAN_K), "launches": launches,
+        "traced_kernels": reading["traced"], "traces": len(readings),
+        "top_kernels_ms_per_step": {k: v / (2 * STREAM_SCAN_K) for k, v in reading["top_kernels_ms"].items()},
+        "first_loss": losses[0], "last_loss": losses[-1],
+    }
+    return state, record
+
+
+def stream_leakage(model, batch, padding_value: int) -> dict:
+    """No leakage across packed segments, on the card: (a) every row's first
+    segment rewritten (its items shifted by one id) leaves every other
+    segment's hidden states unchanged, and moves its own; the same check
+    without ``segment_ids`` (a plain causal mask) is the control, which must
+    show the leak; (b) the first segment (row offset 0) gives the hidden
+    states of the same sequence alone in its row. Bitwise where the card
+    holds it, else within ``STREAM_LEAK_TOL``."""
+    items = batch["feature_tensors"]["item_id"]
+    padding, segments = batch["padding_mask"], batch["segment_ids"]
+    first = segments == 1
+    shifted = torch.where(first, items % (NUM_ITEMS - 1) + 1, items)
+
+    def hidden(ids, mask, seg):
+        with torch.no_grad():
+            return model({"item_id": ids}, mask, deterministic=True, segment_ids=seg).float()
+
+    others = (segments > 1) & padding
+    base, moved = hidden(items, padding, segments), hidden(shifted, padding, segments)
+    leak = (base - moved)[others].abs().max().item()
+    own = (base - moved)[first & padding].abs().max().item()
+    control_base, control_moved = hidden(items, padding, None), hidden(shifted, padding, None)
+    control = (control_base - control_moved)[others].abs().max().item()
+    solo_ids = torch.where(first, items, torch.full_like(items, padding_value))
+    solo = hidden(solo_ids, padding & first, first.to(segments.dtype))
+    solo_diff = (base - solo)[first & padding].abs().max().item()
+    record = {
+        "rows": int(items.shape[0]), "segments": int(segments.max(dim=1).values.sum()),
+        "neighbour_bitwise": leak == 0.0, "neighbour_max_abs_diff": leak, "own_segment_moved_by": own,
+        "control_max_abs_diff": control, "control_caught": control > STREAM_LEAK_TOL,
+        "solo_bitwise": solo_diff == 0.0, "solo_max_abs_diff": solo_diff, "tol": STREAM_LEAK_TOL,
+    }
+    if leak > STREAM_LEAK_TOL or solo_diff > STREAM_LEAK_TOL or own == 0.0 or not record["control_caught"]:
+        raise AssertionError(f"stream: packed segments leak on the card: {record}")
+    return record
+
+
+def stream_fused_vs_ce(make_trainer, initial, batches, counters) -> dict:
+    """``STREAM_LOSS_STEPS`` eager steps of the packed row with ``CEFused``
+    (K1–K3 on bf16 hidden states) and with ``CE`` from the same weights: the
+    first step's losses within ``STREAM_FUSED_FIRST_RTOL``, every step's
+    within ``STREAM_FUSED_RTOL``; K1–K3 counted from 0 over the fused steps."""
+    from replay_tpu_torch.nn.loss import CE, CEFused
+
+    losses = {}
+    for name, loss in (("ce", CE()), ("cefused", CEFused())):
+        trainer = make_trainer(loss)
+        state = trainer.init_state(None, params=initial)
+        if name == "cefused":
+            reset_counts(*counters)
+        values = [trainer.train_step(state, batches[i % len(batches)])[1] for i in range(STREAM_LOSS_STEPS)]
+        torch.cuda.synchronize()
+        losses[name] = [float(v) for v in values]
+        del trainer, state
+    launches = {fn.__name__: fn.launches for fn in counters}
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses["cefused"], losses["ce"])]
+    record = {
+        "steps": STREAM_LOSS_STEPS, "first_rel_diff": rel[0], "max_rel_diff": max(rel), "rel_diff": rel,
+        "first_tol": STREAM_FUSED_FIRST_RTOL, "tol": STREAM_FUSED_RTOL, "launches": launches,
+        "variants": {fn.__name__: variant_counts(fn) for fn in counters},
+    }
+    if rel[0] > STREAM_FUSED_FIRST_RTOL or max(rel) > STREAM_FUSED_RTOL:
+        raise AssertionError(f"stream: CEFused vs CE on packed batches: {record}")
+    if any(n != STREAM_LOSS_STEPS for n in launches.values()):
+        raise AssertionError(f"stream: K1–K3 launches {launches} for {STREAM_LOSS_STEPS} fused steps")
+    return record
+
+
+def stream_preempt_resume(make_trainer, initial, make_source, root) -> dict:
+    """The parquet row's ``fit(scan_chunk=K)`` over two epochs, uninterrupted;
+    the same with a SIGTERM while batch ``STREAM_PREEMPT_AT`` of epoch 0 is
+    fetched and a checkpoint manager; then ``fit(resume=True)``: bitwise the
+    uninterrupted state and history, the resumed epoch's slabs read from the
+    cursor's on, each once."""
+    from replay_tpu_torch.nn.loss import CE
+    from replay_tpu_torch.utils import CheckpointManager
+
+    trainer_a = make_trainer(CE())
+    _, stream_a = make_source()
+    state_a = trainer_a.fit(stream_a, epochs=2, state=trainer_a.init_state(None, params=initial), scan_chunk=STREAM_SCAN_K, log_every=0)
+    trainer_b = make_trainer(CE())
+    _, stream_b = make_source()
+    interrupted = SigtermAt(stream_b, STREAM_PREEMPT_AT)
+    manager = CheckpointManager(str(root / "stream"), max_to_keep=100)
+    state_b = trainer_b.fit(
+        interrupted, epochs=2, state=trainer_b.init_state(None, params=initial), scan_chunk=STREAM_SCAN_K,
+        log_every=0, checkpoint_manager=manager,
+    )
+    meta = manager.metadata(manager.latest_step())
+    cursor = meta.get("stream_cursor") or {}
+    stopped = state_b.step
+    del trainer_b, state_b
+    trainer_c = make_trainer(CE())
+    batcher_c, stream_c = make_source()
+    reads = []
+    read = batcher_c._read_slab
+    batcher_c._read_slab = lambda path, slab: reads.append((slab.group, slab.start)) or read(path, slab)
+    t0 = time.perf_counter()
+    state_c = trainer_c.fit(stream_c, epochs=2, scan_chunk=STREAM_SCAN_K, log_every=0, checkpoint_manager=manager, resume=True)
+    resume_s = time.perf_counter() - t0
+    plans = [[(s.group, s.start) for s in batcher_c._plan(epoch)[0]] for epoch in (0, 1)]
+    record = {
+        "signal_at_batch": STREAM_PREEMPT_AT, "raised": interrupted.raised, "stopped_at_step": stopped,
+        "checkpoint": {k: meta.get(k) for k in ("epoch", "step_in_epoch", "preempted", "mid_epoch")},
+        "cursor": {k: cursor.get(k) for k in ("epoch", "slab", "rows", "batches")},
+        "slabs_per_epoch": [len(p) for p in plans], "slabs_read_on_resume": len(reads),
+        "reads_from_cursor_only": bool(cursor) and reads == plans[0][cursor["slab"] :] + plans[1],
+        "state_equal": state_equal(state_c, state_a), "history_equal": trainer_c.history == trainer_a.history,
+        "steps": state_a.step, "resume_s": resume_s,
+    }
+    emit("stream", run="preempt_resume", **record)
+    checks = ("raised", "reads_from_cursor_only", "state_equal", "history_equal")
+    if not all(record[k] for k in checks) or not meta.get("mid_epoch") or cursor.get("slab", 0) < 1:
+        raise AssertionError(f"stream: the preempted parquet fit did not resume as the uninterrupted one: {record}")
+    return record
+
+
+def stream_phase(device) -> dict:
+    """``bench_suite.py::run_stream``'s rows on the port at their full widths
+    (``STREAM_*``, bf16 compute, the unfused attention route: the kernel
+    routes refuse segments): ``stream_inmem`` (``SequenceBatcher``),
+    ``stream_packed`` (``PackedSequenceBatcher``, segment masks),
+    ``stream_parquet`` (``write_sequence_parquet`` → ``ParquetBatcher``, where
+    pyarrow imports) and ``stream_packed_fused`` (the packed row with
+    ``CEFused``: K1–K3 on bf16 hidden states), each through
+    ``TransformedBatches`` and ``prefetch`` into K=8 ``train_steps`` graphs;
+    one line a row. Then the checks: the K=8 graphs of the packed rows
+    bitwise the per-step path (``chunk_checks``), no leakage across segments,
+    ``CEFused`` against ``CE`` over 20 packed steps, and the parquet row's
+    preemption and cursor resume."""
+    import tempfile
+    from pathlib import Path
+
+    from replay_tpu_torch.data import FeatureHint, FeatureType
+    from replay_tpu_torch.device import to_device
+    from replay_tpu_torch.data.nn import (
+        PackedSequenceBatcher,
+        ParquetBatcher,
+        SequenceBatcher,
+        SequentialDataset,
+        TensorFeatureInfo,
+        TensorSchema,
+        TransformedBatches,
+        write_sequence_parquet,
+    )
+    from replay_tpu_torch.nn.loss import CE, CEFused
+    from replay_tpu_torch.nn.sequential.sasrec import SasRec
+    from replay_tpu_torch.nn.train import OptimizerFactory, Trainer
+    from replay_tpu_torch.nn.transform import Compose, make_default_sasrec_transforms, make_packed_sasrec_transforms
+    from replay_tpu_torch.ops import fused_ce as fc
+
+    started = time.perf_counter()
+    schema = TensorSchema(
+        TensorFeatureInfo(
+            "item_id", FeatureType.CATEGORICAL, is_seq=True, feature_hint=FeatureHint.ITEM_ID,
+            cardinality=NUM_ITEMS, embedding_dim=EMBEDDING_DIM,
+        )
+    )
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(2, max(3, SEQ_LEN // 2), size=STREAM_SEQUENCES)
+    sequences = [rng.integers(1, NUM_ITEMS, n).astype(np.int64) for n in lengths]
+    dataset = SequentialDataset(
+        schema, "query_id", "item_id", {"query_id": np.arange(STREAM_SEQUENCES), "item_id": sequences}
+    )
+    width = dict(
+        embedding_dim=EMBEDDING_DIM, num_blocks=NUM_BLOCKS, num_heads=NUM_HEADS, max_sequence_length=SEQ_LEN,
+        dropout_rate=0.0, use_flash=False, device=device,
+    )
+    initial = {
+        name: value.detach().clone()
+        for name, value in SasRec(schema, generator=torch.Generator().manual_seed(SEED), **width).state_dict().items()
+    }
+
+    def make_trainer(loss):
+        trainer = Trainer(
+            SasRec(schema, **width), loss, optimizer=OptimizerFactory(name="adam", learning_rate=1e-3),
+            precision="bf16", device=device,
+        )
+        if trainer.model.dtype != torch.bfloat16:
+            raise AssertionError("stream: precision='bf16' did not reach the model")
+        return trainer
+
+    pipes = {
+        "default": Compose(make_default_sasrec_transforms(schema)["train"]),
+        "packed": Compose(make_packed_sasrec_transforms(schema)["train"]),
+    }
+    batcher_kwargs = dict(batch_size=TRAIN_BATCH, max_sequence_length=SEQ_LEN + 1, shuffle=True, seed=0)
+    parquet_meta = {"item_id": {"shape": SEQ_LEN + 1, "padding": 0}}
+    fused = (fc.fused_lse_forward, fc.fused_lse_dh, fc.fused_lse_dw)
+    record = {"sequences": STREAM_SEQUENCES, "mean_length": float(lengths.mean())}
+    try:
+        import pyarrow
+    except ImportError as exc:
+        pyarrow = None
+        emit(
+            "stream", row="stream_parquet", run=False,
+            reason=f"pyarrow does not import on this machine ({type(exc).__name__}: {exc}): the parquet row "
+            "and its preemption check were not run",
+        )
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_stream_") as tmp:
+        root = Path(tmp)
+        rows = [
+            ("stream_inmem", lambda: SequenceBatcher(dataset, **batcher_kwargs), "default", CE(), ()),
+            ("stream_packed", lambda: PackedSequenceBatcher(dataset, **batcher_kwargs), "packed", CE(), ()),
+            ("stream_packed_fused", lambda: PackedSequenceBatcher(dataset, **batcher_kwargs), "packed", CEFused(), fused),
+        ]
+        if pyarrow is not None:
+            path = str(root / "stream.parquet")
+            t0 = time.perf_counter()
+            write_sequence_parquet(path, dataset, rows_per_chunk=TRAIN_BATCH)
+            record["parquet"] = {
+                "write_s": time.perf_counter() - t0, "bytes": Path(path).stat().st_size, "pyarrow": pyarrow.__version__,
+            }
+
+            def parquet_source():
+                batcher = ParquetBatcher(
+                    path, batch_size=TRAIN_BATCH, shuffle=True, seed=0, shard="row_groups", read_ahead=2,
+                    memory_budget_bytes=8 << 20, metadata=parquet_meta,
+                )
+                return batcher, TransformedBatches(batcher, pipes["default"])
+
+            rows.insert(1, ("stream_parquet", lambda: parquet_source()[0], "default", CE(), ()))
+        emit("stream", run="data", **record)
+        results = {}
+        for name, make_batcher, pipe, loss, counters in rows:
+            batcher = make_batcher()
+            host = stream_host_ms(batcher, pipes[pipe], 0)
+            if hasattr(batcher, "packing_summary"):
+                host["packing_summary"] = batcher.packing_summary()
+            trainer = make_trainer(loss)
+            state, row = stream_row(name, trainer, initial, TransformedBatches(batcher, pipes[pipe]), counters)
+            row["host_ms_per_batch"] = host
+            row["segments_per_row"] = host.get("packing_summary", {}).get("segments_per_row", 1.0)
+            results[name] = row
+            emit("stream", **row)
+            del trainer, state
+            release()
+        record["rows"] = results
+
+        # the packed rows' K=8 graphs against the per-step path (and fit(scan_chunk=8))
+        packed = [pipes["packed"](b) for b in PackedSequenceBatcher(dataset, **batcher_kwargs)]
+        tokens = TRAIN_BATCH * SEQ_LEN
+        checks = {}
+        for name, loss, counters in (("stream_packed", CE(), ()), ("stream_packed_fused", CEFused(), fused)):
+            trainer = make_trainer(loss)
+            checks[name] = chunk_checks(
+                trainer, initial, packed, STREAM_SCAN_K, counters, {fn.__name__: 1 for fn in counters}, tokens
+            )
+            emit("stream", run="chunk_checks", row=name, **checks[name])
+            if name == "stream_packed":
+                leak = stream_leakage(
+                    trainer.model, to_device(packed[0], device), schema["item_id"].padding_value
+                )
+            del trainer
+            release()
+        record["chunk_checks"] = checks
+        record["leakage"] = leak
+        emit("stream", run="leakage", **leak)
+        record["fused_vs_ce"] = stream_fused_vs_ce(make_trainer, initial, packed, fused)
+        emit("stream", run="fused_vs_ce", **record["fused_vs_ce"])
+        release()
+        if pyarrow is not None:
+            record["preempt_resume"] = stream_preempt_resume(make_trainer, initial, parquet_source, root)
+            release()
+    record["phase_s"] = time.perf_counter() - started
+    emit("stream", run="phase", phase_s=record["phase_s"], parquet_run=pyarrow is not None)
+    return {
+        "record": record,
+        "fused_eager": record["fused_vs_ce"]["launches"],
+        "fused_graph": results["stream_packed_fused"]["launches"],
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this script runs only on the GPU", file=sys.stderr)
@@ -4141,9 +4609,11 @@ def main() -> int:
     bert4rec = bert4rec_phase(device)
     twotower = twotower_phase(device)
     lifecycle = lifecycle_phase(device)
+    stream = stream_phase(device)
 
     kernels = kernel_records(
-        k4, fused, tiled_records, served, serviced, retrieval, serialized, trained, longseq, bert4rec, twotower, lifecycle
+        k4, fused, tiled_records, served, serviced, retrieval, serialized, trained, longseq, bert4rec, twotower,
+        lifecycle, stream,
     )
     emit("kernels", kernels=[{k: r[k] for k in ("name", "launches", "passed")} for r in kernels])
     print(card, flush=True)
@@ -4174,7 +4644,8 @@ def k4_entry(name: str, record: dict, by_path: dict) -> dict:
 
 
 def kernel_records(
-    k4, fused, tiled_records, served, serviced, retrieval, serialized, trained, longseq, bert4rec, twotower, lifecycle
+    k4, fused, tiled_records, served, serviced, retrieval, serialized, trained, longseq, bert4rec, twotower, lifecycle,
+    stream,
 ) -> list:
     """The kernels line: every kernel of the paths driven, one entry per
     instantiation a path runs, with its launches there (counted through graph
@@ -4217,6 +4688,12 @@ def kernel_records(
         ("_longseq_f32", "longseq_f32", {"longseq_f32_train": longseq["f32_train"]}),
     )
     fused_paths += (("_notebook", "notebook", {"lifecycle_cefused": lifecycle["cefused"]["launches"]}),)
+    # bf16 hidden states at the bench.py width: the stream phase's packed row
+    # with CEFused, its eager steps and its K=8 graphs
+    fused_paths += (
+        ("_stream_bf16_hidden", "train_bf16_hidden",
+         {"stream_packed": stream["fused_eager"], "stream_packed_graph": stream["fused_graph"]}),
+    )
     for suffix, case, paths in fused_paths:
         for name, kernel, line in fused_kernels:
             record = fused[case][kernel]

@@ -7,7 +7,9 @@ during training and ``finfo(dtype).min`` at evaluation, so fully-masked softmax
 rows stay finite in eval.
 
 Masks are additive float tensors of shape [B, 1, L, L], broadcast over heads;
-the long-sequence route (``use_flash="tiled"``) builds none.
+the long-sequence route (``use_flash="tiled"``) builds none. Packed rows
+(``segment_ids``, :class:`~replay_tpu_torch.data.nn.PackedSequenceBatcher`)
+add a same-segment constraint, on the unfused route only.
 """
 
 from __future__ import annotations
@@ -56,6 +58,29 @@ def bidirectional_attention_mask(
     return _additive(padding_mask[:, None, :].expand(batch, length, length), deterministic, dtype)
 
 
+def segment_attention_mask(
+    padding_mask: torch.Tensor,
+    segment_ids: torch.Tensor,
+    causal: bool = True,
+    deterministic: bool = False,
+    dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Additive mask [B, 1, L, L] for packed rows: (causal and) key padding and
+    same segment.
+
+    ``segment_ids`` is 0 on padding and 1..k per packed sequence. Attention
+    keeps to keys of the same segment, so co-packed sequences cannot see one
+    another: block-diagonal within the causal triangle. Padded positions
+    carry segment 0 and attend only to themselves (the diagonal rescue).
+    """
+    length = padding_mask.shape[1]
+    same = segment_ids[:, :, None] == segment_ids[:, None, :]  # [B, Lq, Lk]
+    allowed = same & padding_mask[:, None, :] & (segment_ids != 0)[:, :, None]
+    if causal:
+        allowed = allowed & torch.ones((length, length), dtype=torch.bool, device=padding_mask.device).tril()[None]
+    return _additive(allowed, deterministic, dtype)
+
+
 def require_ported_route(use_flash) -> None:
     """Raise for the attention route the port does not have yet."""
     if use_flash == "ring":
@@ -77,15 +102,24 @@ def attention_mask_for_route(
     (``use_flash=True``) take the [B, 1, L, L] mask. On the ``"tiled"`` route
     kernel K5 rebuilds causal and key-padding structure from indices and the
     [B, L] padding mask, so the [B, 1, L, L] tensor is not built: None. The
-    ``"ring"`` route and packed rows (``segment_ids``) are later slices of the
-    port and raise here.
+    ``"ring"`` route is a later slice of the port and raises here.
+
+    ``segment_ids`` (packed batches) adds the same-segment constraint through
+    :func:`segment_attention_mask`. The kernels K4 and K5 (and the ring route)
+    rebuild their masks from causality and padding alone and would attend
+    across packed segments, so every route but the unfused one refuses them.
     """
     if segment_ids is not None:
-        msg = (
-            "packed batches (segment_ids) are not ported yet: ROADMAP.md queue 1, "
-            "'The rest of the SASRec family'"
-        )
-        raise NotImplementedError(msg)
+        if use_flash:
+            route = "the ring SP route" if use_flash == "ring" else "the flash kernels"
+            msg = (
+                "packed batches (segment_ids) need the additive segment mask, "
+                f"which {route} cannot honor — run packing with "
+                "use_flash=False, or drop the packing for the "
+                f"use_flash={use_flash!r} route"
+            )
+            raise ValueError(msg)
+        return segment_attention_mask(padding_mask, segment_ids, causal=causal, deterministic=deterministic, dtype=dtype)
     require_ported_route(use_flash)
     if use_flash == "tiled":
         return None

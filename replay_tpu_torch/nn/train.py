@@ -835,6 +835,22 @@ class Trainer:
             self._check_loss_contract()
         self._bind(state)
 
+    def _refuse_dropped_segments(self, batch: Batch, params: Sequence[str], method: str) -> None:
+        """Refuse a packed batch (``segment_ids``) that the model's ``method``
+        cannot take: the keyword filtering would drop the key, and attention
+        and loss would cross packed segments. Host work only, before any step
+        or graph capture (the JAX trainer's refusal in its train step)."""
+        if "segment_ids" in batch and "segment_ids" not in params:
+            msg = (
+                f"batch carries 'segment_ids' (packed sequences) but "
+                f"{type(self.model).__name__}.{method} accepts no segment_ids "
+                "parameter — training would silently attend and compute "
+                "loss across packed segment boundaries. Use an unpacked "
+                "batcher for this model, or plumb segment_ids through "
+                "its attention path (nn.mask.segment_attention_mask)."
+            )
+            raise ValueError(msg)
+
     def train_step(self, state: TrainState, batch: Batch) -> Tuple[TrainState, torch.Tensor]:
         """One optimizer step. Returns ``(state, loss)``; the step metrics —
         ``loss``, the sentinel's ``good`` flag and ``grad_norm``, all device
@@ -842,6 +858,7 @@ class Trainer:
 
         The state's tensors are updated in place and the same state returned
         (the JAX step donates its state: the old one is not used again)."""
+        self._refuse_dropped_segments(batch, self._forward_params, "forward")
         self._prepare(state)
         loss_value, good, grad_norm = self._step(state, to_device(batch, self.device))
         self.last_step_metrics = {"loss": loss_value, "good": good, "grad_norm": grad_norm}
@@ -950,6 +967,7 @@ class Trainer:
         """K steps on a placed ``[K, ...]`` chunk: on the card one replay of
         the chunk's graph, on the CPU K eager steps. Sets
         :attr:`last_step_metrics` to ``[K]`` tensors; returns the losses."""
+        self._refuse_dropped_segments(placed.batch, self._forward_params, "forward")
         self._prepare(state)
         if self.device.type != "cuda":
             values = [self._step(state, _tree_map(lambda x: x[index], placed.batch)) for index in range(steps)]
@@ -1732,6 +1750,7 @@ class Trainer:
         return dict(self.model.named_parameters())
 
     def _logits(self, params: Mapping[str, torch.Tensor], batch: Batch, candidates: Optional[torch.Tensor]):
+        self._refuse_dropped_segments(batch, self._inference_params, "forward_inference")
         kwargs = {name: batch[name] for name in self._inference_params if name in batch and name != "candidates_to_score"}
         return self._evaluate("logits", params, {**kwargs, "candidates_to_score": candidates})
 
@@ -1783,6 +1802,7 @@ class Trainer:
     def _catalog_logits(self, params: Mapping[str, torch.Tensor], batch: Batch, catalog: torch.Tensor) -> torch.Tensor:
         """Query embeddings scored against the precomputed catalog (the
         product outside the program, as in the JAX trainer)."""
+        self._refuse_dropped_segments(batch, (), "get_query_embeddings")
         queries = self._evaluate(
             "queries", params,
             {"feature_tensors": batch[self.feature_field], "padding_mask": batch[self.padding_mask_field]},

@@ -167,7 +167,9 @@ def test_scoring_methods_match(params):
 
 def test_unported_routes_and_packed_rows_raise():
     ids, mask, _ = windows()
-    with pytest.raises(NotImplementedError, match="'The rest of the SASRec family'"):
+    # packed rows are ported on the unfused route only; the kernel route
+    # refuses them as the JAX model does
+    with pytest.raises(ValueError, match="the flash kernels cannot honor"):
         port_model()({"item_id": torch.tensor(ids)}, torch.tensor(mask), segment_ids=torch.ones(BATCH, SEQ_LEN))
     with pytest.raises(NotImplementedError, match="distributed training"):
         port_model("ring")({"item_id": torch.tensor(ids)}, torch.tensor(mask))

@@ -110,9 +110,11 @@ def test_cpu_path_launches_nothing():
 
 @pytest.mark.parametrize("route", ["tiled", "ring", "segment_ids"])
 def test_routes_not_ported_yet_raise(route):
-    """"ring" and packed rows are not ported and raise. "tiled" is ported (K5)
-    and behaves as the JAX route: no additive mask is built, and the route
-    refuses a missing padding mask or an additive mask it would drop."""
+    """"ring" is not ported and raises. "tiled" is ported (K5) and behaves as
+    the JAX route: no additive mask is built, and the route refuses a missing
+    padding mask or an additive mask it would drop. Packed rows are ported:
+    the unfused route builds the JAX segment mask, every kernel route refuses
+    them with the JAX error (``test_torch_packing.py`` covers the masks)."""
     padding = torch.tensor(_padding(9))
     if route == "tiled":
         assert torch_mask.attention_mask_for_route("tiled", padding) is None
@@ -123,14 +125,21 @@ def test_routes_not_ported_yet_raise(route):
         with pytest.raises(ValueError, match="additive mask"):
             dot_product_attention(q, k, v, torch.zeros(B, 1, L, L), use_flash="tiled", padding_mask=padding)
         return
-    use_flash = False if route == "segment_ids" else route
-    segment_ids = padding.long() if route == "segment_ids" else None
+    if route == "segment_ids":
+        segment_ids = padding.long()
+        got = torch_mask.attention_mask_for_route(False, padding, segment_ids=segment_ids)
+        want = jax_mask.attention_mask_for_route(
+            False, jnp.asarray(padding.numpy()), segment_ids=jnp.asarray(segment_ids.numpy())
+        )
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        with pytest.raises(ValueError, match="cannot honor"):
+            torch_mask.attention_mask_for_route(True, padding, segment_ids=segment_ids)
+        return
     with pytest.raises(NotImplementedError, match="not ported yet: ROADMAP.md queue 1"):
-        torch_mask.attention_mask_for_route(use_flash, padding, segment_ids=segment_ids)
-    if route != "segment_ids":
-        q, k, v = (torch.tensor(t) for t in _qkv(10))
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            dot_product_attention(q, k, v, None, use_flash=route)
+        torch_mask.attention_mask_for_route(route, padding)
+    q, k, v = (torch.tensor(t) for t in _qkv(10))
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        dot_product_attention(q, k, v, None, use_flash=route)
 
 
 def _grads_both(q, k, v, bias, g):

@@ -1372,3 +1372,67 @@ def test_int8_brute_index_on_the_card_equals_the_cpu_one(cuda_device):
     got = CandidatePipeline(card, num_candidates=100, top_k=11, reranker_weights=rerank).rank(queries)
     want = CandidatePipeline(cpu, num_candidates=100, top_k=12, reranker_weights=rerank).rank(queries)
     _assert_search_equal(got, want)
+
+
+# --------------------------------------------------------------------------- #
+# packed rows (segment masks, unfused attention) with K1–K3 on bf16 hidden states
+# --------------------------------------------------------------------------- #
+def _packed_training(cuda_device, loss, batches=8):
+    """A bf16 SASRec trainer on the unfused route and ``batches`` packed
+    batches of 32 rows of L=50 (sequences of 2–24 items over 300)."""
+    from replay_tpu_torch.data.nn import PackedSequenceBatcher, SequentialDataset
+    from replay_tpu_torch.nn.transform import Compose, make_packed_sasrec_transforms
+
+    schema = TensorSchema(
+        TensorFeatureInfo(
+            "item_id", FeatureType.CATEGORICAL, is_seq=True, feature_hint=FeatureHint.ITEM_ID, cardinality=300,
+            embedding_dim=64,
+        )
+    )
+    rng = np.random.default_rng(48)
+    sequences = [rng.integers(1, 300, n) for n in rng.integers(2, 25, 140 * batches)]
+    data = SequentialDataset(schema, "user_id", "item_id", {"user_id": np.arange(len(sequences)), "item_id": sequences})
+    pipeline = Compose(make_packed_sasrec_transforms(schema)["train"])
+    packed = [pipeline(b) for b in PackedSequenceBatcher(data, batch_size=32, max_sequence_length=51, shuffle=True)]
+    assert len(packed) >= batches and int(packed[0]["segment_ids"].max()) > 1
+    model = SasRec(
+        schema, embedding_dim=64, num_blocks=2, num_heads=1, max_sequence_length=50, use_flash=False,
+        dropout_rate=0.0, device=cuda_device, generator=torch.Generator().manual_seed(49),
+    )
+    return Trainer(model, loss, precision="bf16", device=cuda_device), packed[:batches]
+
+
+def test_packed_bf16_cefused_steps_match_ce(cuda_device):
+    """Packed batches, bf16 compute: CEFused (K1–K3 on bf16 hidden states,
+    their tf32 variant at E=64) against CE from the same weights, 8 steps.
+    The first step's loss, from the same hidden states, at rtol 1e-5 (f32
+    sums in another order); every step's at 5e-4: the two gradients differ
+    by f32 rounding, which flips bf16 roundings of the activations in later
+    steps (5.7e-5 at most on the CPU at this width, the plain versions)."""
+    from replay_tpu_torch.nn.loss import CE
+
+    fused, batches = _packed_training(cuda_device, CEFused())
+    plain, _ = _packed_training(cuda_device, CE())
+    initial = {name: value.detach().clone() for name, value in plain.model.state_dict().items()}
+    fused_state, plain_state = fused.init_state(None, params=initial), plain.init_state(None, params=initial)
+    before = fused_ce.fused_lse_dh.launches
+    got = [float(fused.train_step(fused_state, batch)[1]) for batch in batches]
+    want = [float(plain.train_step(plain_state, batch)[1]) for batch in batches]
+    assert fused_ce.fused_lse_dh.launches == before + len(batches)
+    assert fused_ce.fused_lse_dh.launches_by_variant["tf32"] >= len(batches)
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-5)
+    np.testing.assert_allclose(got, want, rtol=5e-4)
+
+
+def test_packed_chunk_graph_equals_the_eager_steps(cuda_device):
+    """``train_steps`` over K=8 packed batches (one graph) against 8
+    ``train_step`` calls from the same weights: bit for bit."""
+    trainer, batches = _packed_training(cuda_device, CEFused())
+    initial = {name: value.detach().clone() for name, value in trainer.model.state_dict().items()}
+    eager = trainer.init_state(None, params=initial)
+    want = [float(trainer.train_step(eager, batch)[1]) for batch in batches]
+    state = trainer.init_state(None, params=initial)
+    state, losses = trainer.train_steps(state, batches)
+    assert losses.tolist() == want and torch.equal(state.flat_params, eager.flat_params)
+    _, again = trainer.train_steps(trainer.init_state(None, params=initial), batches)  # a replay
+    assert again.tolist() == want

@@ -1,6 +1,6 @@
 """The rules the PyTorch port keeps.
 
-* ``replay_tpu_torch``, ``chip_smoke.py`` and ``chip_tf32_readings.py`` import nothing of JAX, flax, optax
+* ``replay_tpu_torch``, ``chip_smoke.py``, ``chip_tf32_readings.py`` and ``chip_trace_probe.py`` import nothing of JAX, flax, optax
   or the JAX package, at run time or in their sources, and no pandas (the GPU
   machine has none).
 * Entry points run on the GPU unless the caller asks for the CPU by name.
@@ -47,7 +47,7 @@ def _forbidden(module: str) -> bool:
 
 
 def _sources():
-    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "chip_tf32_readings.py"]
+    return sorted(PORT.rglob("*.py")) + [REPO / name for name in ("chip_smoke.py", "chip_tf32_readings.py", "chip_trace_probe.py")]
 
 
 def test_importing_the_port_loads_no_jax():
@@ -71,6 +71,41 @@ def test_importing_the_port_loads_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_importing_the_port_loads_no_pyarrow():
+    """pyarrow is the parquet stream's, imported where it reads or writes a
+    file: importing every module of the port leaves it unloaded."""
+    names = [m.name for m in pkgutil.walk_packages(replay_tpu_torch.__path__, "replay_tpu_torch.")]
+    assert "replay_tpu_torch.data.nn.parquet" in names
+    code = (
+        "import importlib, sys\n"
+        f"for name in {['replay_tpu_torch', *names]!r}:\n"
+        "    importlib.import_module(name)\n"
+        "sys.exit(1 if 'pyarrow' in sys.modules else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120, check=False)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(REPO)))
+def test_pyarrow_is_imported_only_inside_functions(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    inside = {
+        id(node)
+        for function in ast.walk(tree)
+        if isinstance(function, (ast.FunctionDef, ast.AsyncFunctionDef))
+        for node in ast.walk(function)
+    }
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            modules = [alias.name for alias in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            modules = [node.module]
+        else:
+            continue
+        if any(m.split(".")[0] == "pyarrow" for m in modules):
+            assert id(node) in inside, f"{path}:{node.lineno} imports pyarrow at module level"
+
+
 @pytest.mark.parametrize(
     "subpackage, modules",
     [
@@ -79,6 +114,7 @@ def test_importing_the_port_loads_no_jax():
         ("nn.sequential.twotower", ("model", "reader")),
         ("utils", ("checkpoint", "faults", "types", "serde")),
         ("data.nn", ("iterator", "partitioning", "ragged", "sequential_dataset", "prefetch", "sequence_tokenizer")),
+        ("data.nn", ("packing", "parquet", "module", "schema_builder")),
         ("data", ("dataset", "dataset_label_encoder", "schema")),
         ("preprocessing", ("label_encoder",)),
         ("splitters", ("base", "strategies")),

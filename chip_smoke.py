@@ -74,6 +74,16 @@ replays. Phases, one JSON line each:
                  ``train_steps`` at K=32 and ``fit(scan_chunk=32)`` over 70 batches
                  (``device_feed`` on and off) bitwise against the per-step path, with
                  their step time, device busy, launches and memory;
+   ``observe`` — the ``train`` trainer's ``fit(scan_chunk=32)`` over 99 batches with
+                 every observability argument on (health at cadence 33, ``tracer=True``,
+                 a profile window over a health step and a chunk, ``metrics_port=0``
+                 scraped from a thread, a planted SLO rule, a flight ring), beside the
+                 same fit plain, with health alone and with tracing alone: losses and
+                 weights bitwise the plain fit's, the window's traced K4 and K1–K3 equal
+                 to their counted launches and in the ``encoder`` / ``loss`` scopes (graph
+                 replays through the traced warm-up), goodput sums, one SLO violation,
+                 the scrapes, the ring; the step's MFU, the rooflines of ``train_step``,
+                 ``train_scan`` and each serving bucket, per-scope device time, overheads;
 6. ``longseq`` — ``Trainer(CEFused(), SasRec(use_flash="tiled"), precision="bf16")`` on
                  bench_suite.py's full windows: 20 steps with K5 launched twice a step;
                  the same from the same weights on ``use_flash=False``, and on the tiled
@@ -159,15 +169,21 @@ import time
 import numpy as np
 import torch
 
+from replay_tpu_torch.obs.mfu import PEAK_BF16_TFLOPS, PEAK_F32_TFLOPS, PEAK_TF32_TFLOPS
+from replay_tpu_torch.obs.profile import TRACE_MARGIN_S, TRACE_NAMES, device_events, profiled_window  # noqa: F401
+from replay_tpu_torch.obs.roofline import PEAK_HBM_GBPS
+
 # bench_serve.py's model: MovieLens-1M catalog, E=64, 2 blocks, 1 head, L=50
 NUM_ITEMS, EMBEDDING_DIM, NUM_BLOCKS, NUM_HEADS, SEQ_LEN = 3706, 64, 2, 1, 50
 LENGTH_BUCKETS, BATCH_BUCKETS = (16, 50), (1, 8, 64)
 SEED = 0
 
-# H100 SXM data sheet: HBM rate; dense peaks of the bf16 and TF32 tensor cores
-# and of f32 FMA on the CUDA cores
-HBM_BYTES_PER_S = 3.35e12
-BF16_FLOPS, TF32_FLOPS, F32_FMA_FLOPS = 989e12, 495e12, 67e12
+# H100 SXM data sheet, from the package's peak tables (obs/mfu.py,
+# obs/roofline.py): HBM rate; dense peaks of the bf16 and TF32 tensor cores and
+# of f32 FMA on the CUDA cores
+H100 = "h100 80gb hbm3"
+HBM_BYTES_PER_S = PEAK_HBM_GBPS[H100] * 1e9
+BF16_FLOPS, TF32_FLOPS, F32_FMA_FLOPS = (table[H100] * 1e12 for table in (PEAK_BF16_TFLOPS, PEAK_TF32_TFLOPS, PEAK_F32_TFLOPS))
 
 # kernel vs plain version, max abs error: f32 differs only in summation order
 # (online softmax over 32-key tiles vs one pass); bf16 adds the output's own
@@ -799,17 +815,6 @@ def device_time_per_encode(engine, length_bucket, ids, mask, wrapper, blocks: in
         "traced_attention_kernels": traced, "traces": len(readings),
         "top_kernels_ms": {e.key[:60]: e.self_device_time_total / calls / 1e3 for e in kernels[:4]},
     }
-
-
-# each kernel's function name in a profiler trace (the demangled name of its
-# __global__ function, templated or not), by the wrapper that counts it
-TRACE_NAMES = {
-    "flash_attention": r"\battention_forward[<(]",
-    "flash_attention_tiled": r"\btiled_forward(_mma|_tf32x3)?[<(]",
-    "fused_lse_forward": r"\blse_forward(_tf32)?[<(]",
-    "fused_lse_dh": r"\blse_grad_hidden(_tf32)?[<(]",
-    "fused_lse_dw": r"\blse_grad_table(_tf32)?[<(]",
-}
 
 
 def traced_kernels(events, wrappers) -> dict:
@@ -2218,47 +2223,10 @@ def step_times(trainer, state, batch, steps: int):
 # warm-up cycle, whose events the profiler drops, and reads the window after it.
 TRACES_AT_MOST = 3
 COPY_EVENTS = ("Memcpy", "Memset")
-# The profiler keeps a device event only where it falls inside its capture
-# window, whose ends are read on the host clock, and it places device events
-# on that clock by a conversion of the device's timestamps. Work that ends
-# right at a window's edge can land outside it: a warm trace of 20 serving
-# encodes held 39, 24 and 26 of their 40 K4 kernels in one run (PR 12, run
-# R2). So every window opens this long before its first launch and closes
-# this long after its last kernel has finished (chip_trace_probe.py takes
-# traces with and without it).
-TRACE_MARGIN_S = 0.05
-
-
-def device_events(events) -> list:
-    """A trace's kernels and copies: its device events with device time, less
-    the profiler's own ``ProfilerStep`` range."""
-    from torch.autograd import DeviceType
-
-    return [
-        e for e in events
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0 and not e.key.startswith("ProfilerStep")
-    ]
-
-
-@contextlib.contextmanager
-def profiled_window(primer):
-    """A profiler whose recording starts warm: ``primer()`` runs as its warm-up
-    cycle (traced, then dropped), and the block's work is the one active cycle
-    that ``key_averages()`` reads, ``TRACE_MARGIN_S`` inside each end of the
-    window. Yields the profiler."""
-    from torch.profiler import ProfilerActivity, profile, schedule
-
-    plan = schedule(wait=0, warmup=1, active=1, repeat=1)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], schedule=plan) as prof:
-        primer()
-        torch.cuda.synchronize()
-        time.sleep(TRACE_MARGIN_S)
-        prof.step()
-        time.sleep(TRACE_MARGIN_S)
-        yield prof
-        torch.cuda.synchronize()
-        time.sleep(TRACE_MARGIN_S)
-        prof.step()
+# The profiler keeps a device event only inside its capture window: every
+# window here is obs/profile.py::profiled_window, which opens and closes
+# TRACE_MARGIN_S away from the work (chip_trace_probe.py takes traces with and
+# without the margin).
 
 
 def traced_steps(trainer, state, batch, steps: int):
@@ -2650,6 +2618,250 @@ def train_phase(device) -> dict:
         perf=perf, chunked=chunked,
     )
     return {**launches, "graph": chunked["launches"]}
+
+
+# the observe phase: the bench.py-width trainer's fit(scan_chunk=32) with
+# every observability argument on, over 99 batches: at health cadence 33 that
+# is 3 K=32 chunks and 3 health steps (steps 33, 66, 99); the profile window
+# covers the first health step and the chunk after it (executed steps 32–64,
+# 0-based); the planted SLO rule breaches from step 50 on, so it fires once
+OBSERVE_BATCHES, OBSERVE_CADENCE, OBSERVE_WINDOW, OBSERVE_SLO_STEP = 99, 33, (32, 65), 50
+# goodput fractions sum to 1 by construction, up to f64 rounding
+GOODPUT_SUM_TOL = 1e-6
+
+
+class FitEventRecorder:
+    """A run-logger sink that keeps every event."""
+
+    def __init__(self) -> None:
+        self.events = []
+
+    def log_event(self, event) -> None:
+        self.events.append(event)
+
+    def named(self, name: str) -> list:
+        return [e for e in self.events if e.event == name]
+
+
+def scrape_while(trainer, stop, scrapes) -> None:
+    """Scrape the fit's exporter on localhost until ``stop`` is set: each
+    successful read of ``/metrics`` and ``/snapshot`` is appended."""
+    import urllib.request
+
+    while not stop.is_set():
+        exporter = trainer.metrics_exporter
+        url = exporter.url if exporter is not None else None
+        if url is not None:
+            try:
+                text = urllib.request.urlopen(f"{url}/metrics", timeout=2).read().decode()
+                snapshot = json.loads(urllib.request.urlopen(f"{url}/snapshot", timeout=2).read().decode())
+                scrapes.append({"metrics": text, "snapshot": snapshot})
+            except OSError:
+                pass
+        stop.wait(0.05)
+
+
+def goodput_sums(events) -> list:
+    """The goodput fractions' sum of every event that carries them."""
+    return [sum(e.payload["goodput"]["fractions"].values()) for e in events if "goodput" in e.payload]
+
+
+def observe_phase(device) -> dict:
+    """The bench.py-width SasRec(use_flash=True) trainer with CEFused through
+    fit(scan_chunk=32) four times from the same weights and batches: plain,
+    health at cadence 33, tracing, and every observability argument at once
+    (health, tracer, a profile window, the metrics exporter scraped from a
+    thread, a planted SLO rule, the flight ring). Checks the observed fit's
+    losses bitwise against the plain one, the window's traced K4 and K1–K3
+    against their counted launches and their scopes (encoder, loss), goodput
+    sums, one SLO violation, the scrapes and the ring; prints the step's MFU,
+    each program's and each serving bucket's roofline, the per-scope device
+    time and the overheads."""
+    import tempfile
+
+    from replay_tpu_torch.data import FeatureHint, FeatureType
+    from replay_tpu_torch.data.nn import TensorFeatureInfo, TensorSchema
+    from replay_tpu_torch.nn.compiled import CompiledInference
+    from replay_tpu_torch.nn.loss import CEFused
+    from replay_tpu_torch.nn.sequential.sasrec import SasRec
+    from replay_tpu_torch.nn.train import OptimizerFactory, Trainer
+    from replay_tpu_torch.obs import HealthConfig, SLORule, mfu, read_flight
+    from replay_tpu_torch.ops import fused_ce as fc
+    from replay_tpu_torch.ops.flash_attention import flash_attention
+
+    started = time.perf_counter()
+    schema = TensorSchema(
+        TensorFeatureInfo(
+            "item_id", FeatureType.CATEGORICAL, is_seq=True, feature_hint=FeatureHint.ITEM_ID,
+            cardinality=NUM_ITEMS, embedding_dim=EMBEDDING_DIM,
+        )
+    )
+    width = dict(
+        embedding_dim=EMBEDDING_DIM, num_blocks=NUM_BLOCKS, num_heads=NUM_HEADS,
+        max_sequence_length=SEQ_LEN, dropout_rate=0.0, device=device,
+    )
+    batches = [next_item_batch(TRAIN_BATCH, SEQ_LEN, seed) for seed in range(100, 100 + OBSERVE_BATCHES)]
+    counters = (fc.fused_lse_forward, fc.fused_lse_dh, fc.fused_lse_dw, flash_attention)
+
+    def refit(trainer, state, **observability):
+        """One fit over the batches; its wall time, steady steps/s and losses."""
+        sink = FitEventRecorder()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = trainer.fit(batches, state=state, scan_chunk=SCAN_K, loggers=[sink], log_every=0, **observability)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        losses = [e.payload["loss"] for e in sink.named("on_train_step")]
+        telemetry = sink.named("on_fit_end")[0].payload["telemetry"]
+        return state, sink, {"wall_s": wall, "steps_per_sec": telemetry["steps_per_sec"], "losses": losses}
+
+    def fit(health=None, **observability):
+        """A new trainer from the seed's weights, fitted twice: the first fit
+        (its graph captured, its first eager step) for the checks, the second
+        (the same trainer and state, nothing built) for the times."""
+        model = SasRec(schema, use_flash=True, generator=torch.Generator().manual_seed(SEED), **width)
+        trainer = Trainer(
+            model, CEFused(), optimizer=OptimizerFactory(name="adam", learning_rate=1e-3), device=device, health=health
+        )
+        state, sink, first = refit(trainer, trainer.init_state(batches[0]), **observability)
+        checked = {"state": state.flat_params.clone(), "losses": first["losses"]}
+        _, _, warm = refit(trainer, state, **observability)
+        return trainer, checked, sink, {"first_wall_s": first["wall_s"], "wall_s": warm["wall_s"], "steps_per_sec": warm["steps_per_sec"]}
+
+    plain_trainer, plain, _, plain_times = fit()
+    _, with_health, _, health_times = fit(health=HealthConfig(cadence=OBSERVE_CADENCE))
+    _, _, traced_sink, tracer_times = fit(tracer=True)
+
+    root = tempfile.mkdtemp(prefix="observe-")
+    stop, scrapes = threading.Event(), []
+    rule = SLORule(metric="replay_train_step", op=">=", threshold=OBSERVE_SLO_STEP, name="planted")
+    model = SasRec(schema, use_flash=True, generator=torch.Generator().manual_seed(SEED), **width)
+    trainer = Trainer(
+        model, CEFused(), optimizer=OptimizerFactory(name="adam", learning_rate=1e-3), device=device,
+        health=HealthConfig(cadence=OBSERVE_CADENCE),
+    )
+    state = trainer.init_state(batches[0])
+    sink = FitEventRecorder()
+    scraper = threading.Thread(target=scrape_while, args=(trainer, stop, scrapes), daemon=True)
+    scraper.start()
+    # the main path: counts start at 0 here and are read right after the fit
+    reset_counts(*counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        state = trainer.fit(
+            batches, state=state, scan_chunk=SCAN_K, loggers=[sink], log_every=0, tracer=True,
+            trace_path=f"{root}/trace.json", profile_steps=OBSERVE_WINDOW, profile_dir=f"{root}/profile",
+            metrics_port=0, slo_rules=[rule], flight_path=f"{root}/flight.ring",
+        )
+        torch.cuda.synchronize()
+    finally:
+        stop.set()
+        scraper.join(timeout=10)
+    observed_wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    end = sink.named("on_fit_end")[0].payload
+    observed_losses = [e.payload["loss"] for e in sink.named("on_train_step")]
+
+    # the observed fit trains exactly as the plain one: losses and weights bit for bit
+    failures = []
+    if observed_losses != plain["losses"] or with_health["losses"] != plain["losses"] or len(plain["losses"]) != OBSERVE_BATCHES:
+        failures.append(f"losses differ: observed/health/plain {len(observed_losses)}/{len(with_health['losses'])}/{len(plain['losses'])}")
+    if not (torch.equal(state.flat_params, plain["state"]) and torch.equal(with_health["state"], plain["state"])):
+        failures.append("weights differ from the plain fit")
+    # the window: each kernel's traced count is its counted launches, K4 all in
+    # encoder, K1–K3 all in loss, the replays matched their traced warm-up
+    device_time = end.get("device_time", {})
+    traced = {name: device_time.get("kernels", {}).get(name, {}).get("count") for name in launches}
+    counted = {name: device_time.get("launches", {}).get(name) for name in launches}
+    want_window = {"flash_attention": NUM_BLOCKS * 33, "fused_lse_forward": 33, "fused_lse_dh": 33, "fused_lse_dw": 33}
+    if traced != counted or counted != want_window:
+        failures.append(f"window kernels traced {traced}, counted {counted}, expected {want_window}")
+    scopes = {name: device_time.get("kernels", {}).get(name, {}).get("scopes") for name in launches}
+    want_scopes = {
+        name: {"encoder" if name == "flash_attention" else "loss": want_window[name]} for name in want_window
+    }
+    if scopes != want_scopes or "train_scan" not in device_time.get("modules", {}):
+        failures.append(
+            f"kernel scopes {scopes}, modules {device_time.get('modules')}, "
+            f"replays unmatched {device_time.get('unmatched_replays')}"
+        )
+    attributed = device_time.get("attributed_seconds", 0.0) + device_time.get("unattributed_seconds", 0.0)
+    if abs(attributed - device_time.get("total_device_seconds", -1.0)) > 1e-9:
+        failures.append(f"attributed + unattributed {attributed} != total {device_time.get('total_device_seconds')}")
+    sums = goodput_sums(sink.events) + goodput_sums(traced_sink.events)
+    if not sums or max(abs(s - 1.0) for s in sums) > GOODPUT_SUM_TOL:
+        failures.append(f"goodput fractions sum to {sums}")
+    violations = sink.named("on_slo_violation")
+    if len(violations) != 1 or violations[0].payload.get("rule") != "planted":
+        failures.append(f"SLO violations {[e.payload for e in violations]}")
+    live = [s for s in scrapes if "replay_train_loss" in s["metrics"]]
+    if not live or "__identity__" not in live[-1]["snapshot"]:
+        failures.append(f"scrapes: {len(scrapes)}, with the train loss {len(live)}")
+    flight = read_flight(f"{root}/flight.ring")
+    flight_events = [r.get("event") for r in flight.records]
+    if "on_fit_end" not in flight_events or flight.torn_tail:
+        failures.append(f"flight ring: {len(flight.records)} records, torn {flight.torn_tail}")
+    health_record = trainer.last_health or {}
+    if set(health_record) < {"grad_norm", "update_ratio", "activations", "logits", "grad_norm_global"}:
+        failures.append(f"health record keys {sorted(health_record)}")
+    if "attention_entropy" in health_record:  # K4 never builds the weights
+        failures.append("attention_entropy on the K4 route")
+    roofline = end.get("roofline", {})
+    if set(roofline) != {"train_step", "train_scan"} or any(r.get("roofline") is None for r in roofline.values()):
+        failures.append(f"roofline programs {sorted(roofline)}")
+    compiled = end.get("compile", {})
+    if compiled.get("train_scan", {}).get("traces") != 1 or compiled.get("train_step", {}).get("traces") != 1:
+        failures.append(f"compile report {compiled}")
+    if failures:
+        emit(
+            "observe", failed=failures, launches=launches, device_time=device_time, compile=compiled,
+            roofline=roofline, overhead={"plain": plain_times, "health": health_times, "tracer": tracer_times},
+        )
+        raise AssertionError("observe: " + "; ".join(failures))
+
+    # MFU of a training step: the K-step program's counted FLOPs a step over
+    # the plain fit's steady step time, against each of the card's peaks
+    flops_per_step = roofline["train_scan"]["flops"] / SCAN_K
+    tflops = flops_per_step * plain_times["steps_per_sec"] / 1e12
+    kind = torch.cuda.get_device_name(0)
+    step_mfu = {precision: mfu(tflops, kind, precision=precision) for precision in ("bf16", "tf32", "f32")}
+    # the serving buckets' rooflines at the bench_serve.py width
+    serving = CompiledInference.compile(
+        plain_trainer.model, dict(plain_trainer.model.named_parameters()), SEQ_LEN, mode="dynamic_batch_size",
+        dynamic_buckets=BATCH_BUCKETS, device=device,
+    )
+    buckets = serving.roofline()
+    serving.close()
+    if set(buckets) != set(BATCH_BUCKETS) or any(r.get("roofline") is None for r in buckets.values()):
+        raise AssertionError(f"serving rooflines for buckets {sorted(buckets)}")
+
+    def brief(record):
+        rl = record["roofline"]
+        return {
+            "flops": record["flops"], "bytes_accessed": record["bytes_accessed"], "bound": rl["bound"],
+            "intensity": rl["arithmetic_intensity"], "ceiling_tflops": rl["ceiling_tflops"],
+            "min_step_ms": rl["min_step_seconds"] * 1e3, "hbm_peak_bytes": record.get("hbm_peak_bytes"),
+        }
+
+    overhead = {
+        "plain": plain_times, "health": health_times, "tracer": tracer_times, "observed_wall_s": observed_wall,
+        "health_wall_ratio": health_times["wall_s"] / plain_times["wall_s"],
+        "tracer_wall_ratio": tracer_times["wall_s"] / plain_times["wall_s"],
+    }
+    emit(
+        "observe", batches=OBSERVE_BATCHES, scan_chunk=SCAN_K, cadence=OBSERVE_CADENCE, window=list(OBSERVE_WINDOW),
+        launches=launches, window_kernels=traced, window_scopes=scopes,
+        device_time={k: device_time[k] for k in ("total_device_seconds", "attributed_seconds", "unattributed_seconds", "modules", "scopes")},
+        flops_per_step=flops_per_step, tflops_per_sec=tflops, mfu=step_mfu,
+        roofline={name: brief(r) for name, r in roofline.items()},
+        serving_roofline={size: brief(r) for size, r in buckets.items()},
+        goodput=end["goodput"], spans=end["spans"], compile=compiled, overhead=overhead,
+        slo_violations=len(violations), scrapes=len(scrapes), flight_records=len(flight.records),
+        health={k: health_record[k] for k in ("grad_norm_global", "logits", "embedding_coverage") if k in health_record},
+        seconds=time.perf_counter() - started,
+    )
+    return launches
 
 
 def pinned_top10(got: torch.Tensor, want: torch.Tensor, tol: float) -> int:
@@ -4605,6 +4817,7 @@ def main() -> int:
     retrieval = retrieval_phase(device)
     serialized = serialize_phase(device)
     trained = train_phase(device)
+    observed = observe_phase(device)
     longseq = longseq_phase(device)
     bert4rec = bert4rec_phase(device)
     twotower = twotower_phase(device)
@@ -4613,7 +4826,7 @@ def main() -> int:
 
     kernels = kernel_records(
         k4, fused, tiled_records, served, serviced, retrieval, serialized, trained, longseq, bert4rec, twotower,
-        lifecycle, stream,
+        lifecycle, stream, observed,
     )
     emit("kernels", kernels=[{k: r[k] for k in ("name", "launches", "passed")} for r in kernels])
     print(card, flush=True)
@@ -4645,7 +4858,7 @@ def k4_entry(name: str, record: dict, by_path: dict) -> dict:
 
 def kernel_records(
     k4, fused, tiled_records, served, serviced, retrieval, serialized, trained, longseq, bert4rec, twotower, lifecycle,
-    stream,
+    stream, observed,
 ) -> list:
     """The kernels line: every kernel of the paths driven, one entry per
     instantiation a path runs, with its launches there (counted through graph
@@ -4655,6 +4868,7 @@ def kernel_records(
         "serve": served["launches"], "service": serviced["launches"], "retrieval": retrieval["launches"],
         "serialize": serialized["launches"],
         "train": trained["flash_attention"], "train_graph": trained["graph"]["flash_attention"],
+        "observe": observed["flash_attention"],
     }
     kernels = [k4_entry("flash_attention", k4[("serve", torch.float32)], k4_paths)]
     # K4 on the BERT4Rec (D=75, bidirectional) and TwoTower (D=32, causal)
@@ -4683,7 +4897,7 @@ def kernel_records(
         ("fused_lse_forward", "K1", 132), ("fused_lse_dh", "K2", 156), ("fused_lse_dw", "K3", 177),
     )
     fused_paths = (
-        ("", "train_f32", {"train": trained, "train_graph": trained["graph"]}),
+        ("", "train_f32", {"train": trained, "train_graph": trained["graph"], "observe": observed}),
         ("_longseq_bf16_hidden", "longseq_bf16_hidden", {"longseq_train": longseq["train"], "longseq_train_graph": longseq["graph"]}),
         ("_longseq_f32", "longseq_f32", {"longseq_f32_train": longseq["f32_train"]}),
     )

@@ -69,8 +69,7 @@ def main() -> int:
                 windows = [make_window(requests[i % len(requests)], lb) for i in range(bucket)]
                 ids, mask = np.stack([w[0] for w in windows]), np.stack([w[1] for w in windows])
                 margin = margins[trace % 2]
-                smoke.TRACE_MARGIN_S = margin
-                with smoke.profiled_window(lambda: engine.encode(lb, ids, mask)) as prof:
+                with smoke.profiled_window(lambda: engine.encode(lb, ids, mask), margin=margin) as prof:
                     before = flash_attention.launches
                     for _ in range(calls):
                         engine.encode(lb, ids, mask)

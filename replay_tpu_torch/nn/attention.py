@@ -23,6 +23,7 @@ from torch import nn
 from replay_tpu_torch.nn.layers import Dense
 from replay_tpu_torch.nn.mask import require_ported_route
 from replay_tpu_torch.nn.utils import init_dense
+from replay_tpu_torch.obs import health
 from replay_tpu_torch.ops.flash_attention import flash_attention
 from replay_tpu_torch.ops.flash_tiled import flash_attention_tiled, padding_mask_bias
 
@@ -35,8 +36,12 @@ def dot_product_attention(
     use_flash=False,  # False | True (kernel K4) | "tiled" (kernel K5)
     padding_mask: Optional[torch.Tensor] = None,  # [B, L] bool, required for "tiled"
     causal: bool = True,
-) -> torch.Tensor:
+    return_weights: bool = False,  # the unfused route only: also the [B, H, L, L] weights
+):
     require_ported_route(use_flash)
+    if return_weights and use_flash:
+        msg = "return_weights needs the unfused route: kernels K4 and K5 never build the weights"
+        raise ValueError(msg)
     if use_flash == "tiled":
         if padding_mask is None:
             msg = "use_flash='tiled' needs the [B, L] padding_mask"
@@ -52,7 +57,9 @@ def dot_product_attention(
     # a fill on the device, not a host copy: CUDA graphs capture this route too
     scale = 1.0 / torch.sqrt(torch.full((), q.shape[-1], dtype=q.dtype, device=q.device))
     scores = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale + mask.to(q.dtype)
-    return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(scores, dim=-1), v)
+    weights = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhqk,bhkd->bhqd", weights, v)
+    return (out, weights) if return_weights else out
 
 
 class MultiHeadAttention(nn.Module):
@@ -101,9 +108,16 @@ class MultiHeadAttention(nn.Module):
         def split(proj: Dense) -> torch.Tensor:
             return proj(x).reshape(*lead, self.num_heads, head_dim).transpose(-3, -2)
 
-        out = dot_product_attention(
-            split(self.query), split(self.key), split(self.value), mask, use_flash=self.use_flash,
-            padding_mask=padding_mask, causal=causal,
-        )
+        q, k, v = split(self.query), split(self.key), split(self.value)
+        if not self.use_flash and health.capturing():
+            # a health step on the unfused route: the same ops, and the
+            # per-head entropy of the weights they built (the kernel routes
+            # never build them, as in JAX)
+            out, weights = dot_product_attention(q, k, v, mask, causal=causal, return_weights=True)
+            health.sow("attention_entropy", health.attention_entropy(weights, padding_mask))
+        else:
+            out = dot_product_attention(
+                q, k, v, mask, use_flash=self.use_flash, padding_mask=padding_mask, causal=causal,
+            )
         out = self.out(out.transpose(-3, -2).reshape(*lead, dim))
         return F.dropout(out, self.dropout_rate, training=not deterministic)

@@ -292,12 +292,25 @@ class CompiledInference:
         return self._graphs
 
     def roofline(self) -> Dict[int, Any]:
-        """Not ported: the JAX package reads XLA's cost analysis per executable."""
-        msg = (
-            "CompiledInference.roofline() is not ported yet: ROADMAP.md queue 1, "
-            "'The rest of Trainer.fit' (CompiledInference.roofline() with the H100 peak table)"
-        )
-        raise NotImplementedError(msg)
+        """The roofline record of every bucket's program
+        (:func:`replay_tpu_torch.obs.roofline.analyze_program`): one eager
+        call at the bucket's shape with counted FLOPs (K4 and K5 through their
+        formulas), an eager bytes count, the allocator's memory on the card,
+        and memory- vs compute-bound against the card's peaks. Deserialized
+        instances too; buckets without a program are left out."""
+        from replay_tpu_torch.obs.roofline import analyze_program
+
+        records: Dict[int, Any] = {}
+        for size in self.buckets:
+            program = self._compiled[size]
+            if program is None:
+                continue
+            ids, mask, cands = _example_inputs(size, self.max_sequence_length, self._candidates_count, self.device)
+            with torch.no_grad():
+                record = analyze_program(program, self._params, ids, mask, cands, device=self.device)
+            if record is not None:
+                records[int(size)] = record
+        return records
 
     def _capture_buckets(self) -> None:
         """One CUDA graph per bucket, each after a warm-up run (card only)."""

@@ -39,6 +39,7 @@ from replay_tpu_torch.nn.embedding import SequenceEmbedding
 from replay_tpu_torch.nn.head import EmbeddingTyingHead
 from replay_tpu_torch.nn.layers import LayerNorm
 from replay_tpu_torch.nn.mask import attention_mask_for_route
+from replay_tpu_torch.obs.health import sow_stage_stats
 
 from ..sasrec.transformer import SasRecTransformerLayer
 
@@ -130,13 +131,17 @@ class Bert4RecBody(nn.Module):
         # left-padded inputs: the most recent position maps to the last table row
         x = total + self.positional_embedding[self.max_sequence_length - seq_len :].to(total.dtype)
         x = F.dropout(self.input_norm(x), self.dropout_rate, training=not deterministic)
+        # model-health stage stats (a no-op outside a health capture)
+        sow_stage_stats(self, "embed", x)
         attention_mask = attention_mask_for_route(
             self.use_flash, padding_mask, causal=False, deterministic=deterministic,
             dtype=self.dtype, segment_ids=segment_ids,
         )
         for _ in range(self.num_passes_over_block):
             x = self.encoder(x, attention_mask, padding_mask, deterministic=deterministic, causal=False)
-        return self.final_norm(x)
+        out = self.final_norm(x)
+        sow_stage_stats(self, "final_norm", out)
+        return out
 
 
 class Bert4Rec(nn.Module):

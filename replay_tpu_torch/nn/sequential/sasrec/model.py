@@ -35,6 +35,8 @@ from replay_tpu_torch.nn.embedding import SequenceEmbedding
 from replay_tpu_torch.nn.head import EmbeddingTyingHead
 from replay_tpu_torch.nn.layers import LayerNorm
 from replay_tpu_torch.nn.mask import attention_mask_for_route
+from replay_tpu_torch.obs.health import sow_stage_stats
+from replay_tpu_torch.obs.profile import scope
 
 from .transformer import SasRecTransformerLayer
 
@@ -102,13 +104,22 @@ class SasRecBody(nn.Module):
         deterministic: bool = True,
         segment_ids: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
-        x = self.aggregator(self.embedder(feature_tensors), deterministic=deterministic)
-        attention_mask = attention_mask_for_route(
-            self.use_flash, padding_mask, causal=True, deterministic=deterministic,
-            dtype=x.dtype, segment_ids=segment_ids,
-        )
-        x = self.encoder(x, attention_mask, padding_mask, deterministic=deterministic)
-        return self.final_norm(x)
+        # the named scopes exist only inside a profile window, and the stage
+        # stats only inside a health step's capture (obs/profile.py,
+        # obs/health.py): otherwise both are no-ops
+        with scope("embed"):
+            x = self.aggregator(self.embedder(feature_tensors), deterministic=deterministic)
+            sow_stage_stats(self, "embed", x)
+        with scope("encoder"):
+            attention_mask = attention_mask_for_route(
+                self.use_flash, padding_mask, causal=True, deterministic=deterministic,
+                dtype=x.dtype, segment_ids=segment_ids,
+            )
+            x = self.encoder(x, attention_mask, padding_mask, deterministic=deterministic)
+        with scope("final_norm"):
+            out = self.final_norm(x)
+            sow_stage_stats(self, "final_norm", out)
+            return out
 
 
 class SasRec(nn.Module):

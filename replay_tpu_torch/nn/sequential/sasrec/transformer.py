@@ -19,6 +19,7 @@ from torch import nn
 from replay_tpu_torch.nn.attention import MultiHeadAttention
 from replay_tpu_torch.nn.ffn import PointWiseFeedForward
 from replay_tpu_torch.nn.layers import LayerNorm
+from replay_tpu_torch.obs.health import sow_scope, sow_stage_stats
 
 
 class _SasRecBlock(nn.Module):
@@ -100,6 +101,9 @@ class SasRecTransformerLayer(nn.Module):
         causal: bool = True,
     ) -> torch.Tensor:
         keep = padding_mask[..., None].to(x.dtype)
-        for block in self.blocks():
-            x = block(x, attention_mask, keep, deterministic, padding_mask, causal)
+        for i, block in enumerate(self.blocks()):
+            with sow_scope(f"block_{i}"):
+                x = block(x, attention_mask, keep, deterministic, padding_mask, causal)
+            # model-health stage stats (a no-op outside a health capture)
+            sow_stage_stats(self, f"block_{i}", x)
         return x

@@ -9,9 +9,15 @@ device-prefetch stage (:mod:`replay_tpu_torch.data.nn.prefetch`). ``fit`` has
 the JAX training lifecycle: checkpoints and ``resume``
 (:mod:`replay_tpu_torch.utils.checkpoint`), best-state tracking and early
 stop, :class:`RecoveryPolicy` rollbacks, :class:`PreemptionHandler` and the
-event sinks (:mod:`replay_tpu_torch.obs.events`). The mesh, sharding, remat,
-profiling, tracing and health arguments are later slices (``ROADMAP.md``
-queue 1). ``precision="bf16"`` is the JAX trainer's: the model computes in
+event sinks (:mod:`replay_tpu_torch.obs.events`), and its observability:
+model health at a cadence (:mod:`replay_tpu_torch.obs.health`), span tracing
+and goodput (:mod:`replay_tpu_torch.obs.trace`), a profile window with
+per-scope device time and every program's roofline
+(:mod:`replay_tpu_torch.obs.profile`, :mod:`replay_tpu_torch.obs.roofline`),
+the live metrics plane (:mod:`replay_tpu_torch.obs.metrics`, ``exporter``,
+``slo``) and the flight recorder (:mod:`replay_tpu_torch.obs.blackbox`). The
+mesh, sharding and remat arguments are later slices (``ROADMAP.md`` queue
+1). ``precision="bf16"`` is the JAX trainer's: the model computes in
 bf16 while the flat parameter buffer, the optimizer state and the sentinel
 stay f32 (:mod:`replay_tpu_torch.nn.precision`).
 
@@ -69,7 +75,9 @@ import inspect
 import itertools
 import logging
 import math
+import os
 import signal as _signal
+import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Iterable, List, Mapping, Optional, Sequence, Tuple
 
@@ -84,8 +92,13 @@ from replay_tpu_torch.models.ann import top_k as _top_k
 from replay_tpu_torch.nn.compiled import bind
 from replay_tpu_torch.nn.graphs import Graph, capture, runner, signature
 from replay_tpu_torch.nn.precision import Precision
-from replay_tpu_torch.obs.collectors import StepTelemetry
-from replay_tpu_torch.obs.events import ConsoleLogger, MultiLogger, RunLogger, TrainerEvent
+from replay_tpu_torch.obs import health as health_module
+from replay_tpu_torch.obs import profile as profile_module
+from replay_tpu_torch.obs.collectors import CompileTracker, MemoryMonitor, StepTelemetry
+from replay_tpu_torch.obs.events import ConsoleLogger, JsonlLogger, MultiLogger, RunLogger, TrainerEvent
+from replay_tpu_torch.obs.health import HealthConfig
+from replay_tpu_torch.obs.profile import scope
+from replay_tpu_torch.obs.trace import Tracer, goodput_breakdown, traced_iterator
 
 logger = logging.getLogger("replay_tpu_torch")
 
@@ -525,20 +538,39 @@ def _host(x) -> np.ndarray:
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
-def _chunk_schedule(batches: Iterable[Batch], chunk: int):
-    """Group a batch stream into ``("scan", [chunk batches])`` and, for the
-    short tail, ``("step", batch)`` items, in stream order: one chunk length
-    and the per-step program, never a zoo of chunk lengths. The JAX
-    ``_chunk_schedule`` also breaks chunks at health steps; health is not
-    ported (``ROADMAP.md`` queue 1, 'The rest of Trainer.fit')."""
+def _chunk_schedule(
+    batches: Iterable[Batch],
+    chunk: int,
+    health_every: Optional[int] = None,
+    start: int = 0,
+):
+    """Group a batch stream into ``("scan", [chunk batches])`` items and
+    ``("step", batch)`` items, in stream order: one chunk length and the
+    per-step program, never a zoo of chunk lengths. A step whose 1-based
+    executed position (counted from ``start``, the fit's executed steps) lands
+    on a ``health_every`` cadence boundary runs singly, through the
+    health-instrumented per-step program, as do the (< chunk) leftovers before
+    it and the epoch's short tail. With ``health_every ≡ 1 (mod chunk)`` every
+    gap between health steps packs into full chunks."""
     buffered: List[Batch] = []
+    position = start
+
+    def flush():
+        for leftover in buffered:
+            yield ("step", leftover)
+        buffered.clear()
+
     for batch in batches:
+        position += 1
+        if health_every and position % health_every == 0:
+            yield from flush()
+            yield ("step", batch)
+            continue
         buffered.append(batch)
         if len(buffered) == chunk:
             yield ("scan", list(buffered))
             buffered.clear()
-    for leftover in buffered:
-        yield ("step", leftover)
+    yield from flush()
 
 
 @dataclass
@@ -562,17 +594,11 @@ class _ChunkGraph:
     state_tensors: List[torch.Tensor]
 
 
-# fit arguments of the JAX signature that the port does not have yet: passing
-# one with anything but its JAX default raises, naming the ROADMAP.md item
-_UNPORTED_FIT_ARGS = {
-    "profile_steps": (None, "'The rest of Trainer.fit' (profiling)"),
-    "profile_dir": (None, "'The rest of Trainer.fit' (profiling)"),
-    "tracer": (None, "'The rest of Trainer.fit' (tracing)"),
-    "trace_path": (None, "'The rest of Trainer.fit' (tracing)"),
-    "metrics_port": (None, "'The rest of Trainer.fit' (metrics plane)"),
-    "slo_rules": (None, "'The rest of Trainer.fit' (metrics plane)"),
-    "flight_path": (None, "'The rest of Trainer.fit' (flight recorder)"),
-}
+def _sync(value: Any) -> None:
+    """Wait for a device value (a span fenced on the loss, as JAX's
+    ``block_until_ready``)."""
+    if isinstance(value, torch.Tensor) and value.is_cuda:
+        torch.cuda.current_stream(value.device).synchronize()
 
 
 # --------------------------------------------------------------------------- #
@@ -600,6 +626,16 @@ class Trainer:
     :param device: ``"cuda"`` by default; raises without a card unless given
         ``"cpu"``. The model is moved there.
     :param label_field / mask fields: batch keys, as in the JAX trainer.
+    :param compile_tracker: counts and times each program's first builds
+        (graph captures, first calls at a shape, kernel builds); its report
+        rides ``on_fit_end`` as ``compile``.
+    :param tracer: an enabled :class:`~replay_tpu_torch.obs.trace.Tracer`
+        traces every fit (``fit(tracer=...)`` traces one).
+    :param health: a :class:`~replay_tpu_torch.obs.health.HealthConfig`: the
+        per-step program computes the health record (norms, update ratios,
+        activation stats, attention entropy, logits stats, embedding
+        coverage) and ``fit`` fetches it every ``cadence`` steps. ``None``
+        runs the step exactly as before.
     """
 
     model: Any
@@ -611,6 +647,9 @@ class Trainer:
     label_field: str = "positive_labels"
     target_mask_field: str = "target_padding_mask"
     negative_field: str = "negative_labels"
+    compile_tracker: CompileTracker = field(default_factory=CompileTracker)
+    tracer: Optional[Tracer] = None
+    health: Optional[HealthConfig] = None
     precision: Optional[Any] = None
     device: DeviceLike = "cuda"
 
@@ -660,6 +699,22 @@ class Trainer:
         # launches every kernel of one step once)
         self.capture_warmups = 0
         self.last_step_metrics: Optional[Dict[str, Any]] = None
+        # the most recent fetched health record (python scalars and lists),
+        # refreshed by fit every health.cadence steps
+        self.last_health: Optional[Dict[str, Any]] = None
+        # {name: (steps, batch)}: a copy of the first batch each program
+        # (train_step, train_scan) ran, so the analyses can run it again
+        self._programs: Dict[str, Tuple[int, Batch]] = {}
+        # {program: [(kernel, scope)]}: a chunk graph's eager warm-up, traced
+        # while a fit that profiles captures it (obs/profile.py)
+        self._graph_kernels: Dict[str, List[Tuple[str, Optional[str]]]] = {}
+        self._trace_warmups = False
+        self._builds = 0  # the generation of the step programs (a new optimizer: a new one)
+        self._state: Optional[TrainState] = None  # the state the model is bound to
+        # the live metrics plane (fit(metrics_port=...) / fit(slo_rules=...)):
+        # the registry outlives the fit; the exporter exposes its port while live
+        self.metrics_registry = None
+        self.metrics_exporter = None
         self.history: List[Dict[str, float]] = []
 
     # -- state ------------------------------------------------------------- #
@@ -718,6 +773,7 @@ class Trainer:
             offset += size
         state.params = views
         self._bound = state.flat_params
+        self._state = state
 
     # -- train ------------------------------------------------------------- #
     def _check_loss_contract(self) -> None:
@@ -739,12 +795,15 @@ class Trainer:
             raise ValueError(msg)
         self._loss_checked = True
 
-    def _loss_value(self, batch: Batch, target_mask: torch.Tensor) -> torch.Tensor:
+    def _loss_value(self, batch: Batch, target_mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The step's loss and the model's hidden states."""
         model, loss = self.model, self.loss
         kwargs = {name: batch[name] for name in self._forward_params if name in batch}
         if "deterministic" in self._forward_params:
             kwargs["deterministic"] = False
-        hidden = model(**kwargs)
+        # named scopes (a profile window only) label the device time by stage
+        with scope("forward"):
+            hidden = model(**kwargs)
         logits_extra = {name: batch[name] for name in self._logits_extra_params if name in batch}
         logits_callback = functools.partial(model.get_logits, **logits_extra) if logits_extra else model.get_logits
         if self.precision is not None and self.precision.casts_logits:
@@ -755,26 +814,38 @@ class Trainer:
         loss.logits_callback = logits_callback
         if getattr(loss, "needs_item_embeddings", False):
             loss.item_embeddings_callback = model.get_item_weights
-        return loss(
-            hidden,
-            batch.get(self.feature_field, {}),
-            batch[self.label_field],
-            batch.get(self.negative_field),
-            batch[self.padding_mask_field],
-            target_mask,
-        )
+        with scope("loss"):
+            value = loss(
+                hidden,
+                batch.get(self.feature_field, {}),
+                batch[self.label_field],
+                batch.get(self.negative_field),
+                batch[self.padding_mask_field],
+                target_mask,
+            )
+        return value, hidden
 
-    def _update(self, state: TrainState, batch: Batch) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    def _update(
+        self, state: TrainState, batch: Batch, health: Optional[HealthConfig] = None
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[Dict[str, Any]]]:
         """The device part of one step on a batch already on the device:
         forward, loss, gradient, the sentinel and the optimizer update, all
         written into the state's own tensors. Returns ``(loss, good,
-        grad_norm)``. Device ops only, so a CUDA graph can capture it."""
+        grad_norm, health)``: ``health`` is the step's health record (device
+        tensors) under a :class:`HealthConfig`, else ``None``. Device ops
+        only, so a CUDA graph can capture it (the graphs capture no health)."""
         # batch-padding rows (fixed-shape final batch) get zero loss weight
         target_mask = batch[self.target_mask_field]
         if "valid" in batch:
             target_mask = target_mask & batch["valid"][(slice(None),) + (None,) * (target_mask.dim() - 1)]
         params = list(state.params.values())
-        loss_value = self._loss_value(batch, target_mask)
+        capture = (
+            health_module.capture_intermediates()
+            if health is not None and health.capture_intermediates
+            else contextlib.nullcontext(None)
+        )
+        with capture as intermediates:
+            loss_value, hidden = self._loss_value(batch, target_mask)
         grads = torch.autograd.grad(loss_value, params, allow_unused=True)
         with torch.no_grad():
             flat_grad = torch.cat(
@@ -786,10 +857,58 @@ class Trainer:
             # this update may touch the state
             good = torch.isfinite(loss_value) & torch.isfinite(grad_norm)
             updates, opt_state = self._tx.update(flat_grad, state.opt_state, state.flat_params)
+            record = None
+            if health is not None:
+                # read before the update: the JAX record holds the step's
+                # pre-update parameters
+                record = self._health_record(health, state, flat_grad, updates, intermediates, hidden, batch, grad_norm)
             state.flat_params.copy_(torch.where(good, state.flat_params + updates, state.flat_params))
             _where_into(good, opt_state, state.opt_state)
             state.bad_steps.add_((~good).to(torch.int32))
-        return loss_value, good, grad_norm
+        return loss_value, good, grad_norm, record
+
+    def _health_record(
+        self, health: HealthConfig, state: TrainState, flat_grad: torch.Tensor, updates: torch.Tensor,
+        intermediates, hidden: torch.Tensor, batch: Batch, grad_norm: torch.Tensor,
+    ) -> Dict[str, Any]:
+        """The JAX train step's health block: the group norms over named
+        views of the flat buffers, the captured stage stats and entropies,
+        and the last position's logits stats (streamed over the catalog for a
+        loss that never builds the full logits)."""
+        model, loss = self.model, self.loss
+        grad_views, update_views, offset = {}, {}, 0
+        for name, param in state.params.items():
+            size = param.numel()
+            grad_views[name] = flat_grad[offset : offset + size].view(param.shape)
+            update_views[name] = updates[offset : offset + size].view(param.shape)
+            offset += size
+        logits, streamed = None, None
+        if health.logits_stats and hasattr(type(model), "get_logits"):
+            last_hidden = (hidden[:, -1, :] if hidden.dim() == 3 else hidden).detach()
+            if getattr(loss, "avoid_full_logits", False):
+                if getattr(model, "logits_via_item_weights", False) and hasattr(type(model), "get_item_weights"):
+                    with scope("health_logits"):
+                        streamed = health_module.streamed_logits_stats(last_hidden, model.get_item_weights())
+                else:
+                    streamed = {"skipped": torch.ones((), dtype=torch.float32, device=hidden.device)}
+                    logger.warning(
+                        "health.logits_stats: %s avoids full logits and %s has no bias-free tying head to "
+                        "stream stats from — the health record carries logits={'skipped': 1.0} instead",
+                        type(loss).__name__, type(model).__name__,
+                    )
+            else:
+                extra = {name: batch[name] for name in self._logits_extra_params if name in batch}
+                with scope("health_logits"):
+                    logits = model.get_logits(last_hidden, None, **extra)
+        with scope("health"):
+            record = health_module.health_metrics(
+                health, {name: p.detach() for name, p in state.params.items()}, grad_views, update_views,
+                intermediates, logits,
+            )
+        if streamed is not None:
+            record["logits"] = streamed
+        record["grad_norm_global"] = grad_norm
+        return record
 
     def _generator(self) -> torch.Generator:
         """The generator the model's dropout draws from: the default one of
@@ -819,14 +938,14 @@ class Trainer:
             yield
             state.rng = generator.get_state()
 
-    def _step(self, state: TrainState, batch: Batch) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    def _step(self, state: TrainState, batch: Batch, health: Optional[HealthConfig] = None):
         """:meth:`_update` with the dropout masks drawn from ``state.rng``
         where the model has a non-zero rate; advances ``step`` and ``rng``."""
         if self._stochastic:
             with self._dropout_stream(state):
-                metrics = self._update(state, batch)
+                metrics = self._update(state, batch, health)
         else:
-            metrics = self._update(state, batch)
+            metrics = self._update(state, batch, health)
         state.step += 1
         return metrics
 
@@ -860,8 +979,40 @@ class Trainer:
         (the JAX step donates its state: the old one is not used again)."""
         self._refuse_dropped_segments(batch, self._forward_params, "forward")
         self._prepare(state)
-        loss_value, good, grad_norm = self._step(state, to_device(batch, self.device))
+        with self._h2d_span():
+            placed = to_device(batch, self.device)
+        self._record_template("train_step", placed, 1)
+        with self.compile_tracker.observe("train_step", key=(self._builds, signature(_leaves(placed)))):
+            loss_value, good, grad_norm, record = self._step(state, placed, self.health)
         self.last_step_metrics = {"loss": loss_value, "good": good, "grad_norm": grad_norm}
+        if record is not None:
+            self.last_step_metrics["health"] = record
+        return state, loss_value
+
+    def _h2d_span(self):
+        """An ``h2d`` span when an enabled tracer is attached, else a no-op."""
+        if self.tracer is not None and self.tracer.enabled:
+            return self.tracer.span("h2d")
+        return contextlib.nullcontext()
+
+    def traced_train_step(self, state: TrainState, batch: Batch) -> Tuple[TrainState, torch.Tensor]:
+        """:meth:`train_step` under the attached tracer's ``train_step`` span.
+
+        Waits for the loss inside the span (an unfenced span would time the
+        launches, not the step) and carves the build time of a step that
+        built its program (the first call at a shape: kernel builds, cuBLAS
+        set-up) out into a nested ``compile`` span. A plain
+        :meth:`train_step` when tracing is off."""
+        tracer = self.tracer
+        if tracer is None or not tracer.enabled:
+            return self.train_step(state, batch)
+        compile_before = self.compile_tracker.total_compile_seconds
+        with tracer.span("train_step") as step_span:
+            state, loss_value = self.train_step(state, batch)
+            _sync(loss_value)
+        compile_delta = self.compile_tracker.total_compile_seconds - compile_before
+        if compile_delta > 0:
+            tracer.carve(step_span, "compile", compile_delta)
         return state, loss_value
 
     # -- K steps a dispatch ------------------------------------------------ #
@@ -897,19 +1048,29 @@ class Trainer:
             event.record(stream)
         return _Placed(batch, event)
 
-    def _chunk_placer(self) -> Callable[[Any], Optional[_Placed]]:
+    def _chunk_placer(self, tracer: Optional[Tracer] = None) -> Callable[[Any], Optional[_Placed]]:
         """The device-feed ``place`` callable for ``fit(scan_chunk=...)``:
         stack and place a chunk on the feeder thread, so that the next chunk's
         copy to the card overlaps the running chunk; single steps pass
-        through unplaced (the per-step path places its own batch)."""
+        through unplaced (the per-step path places its own batch). With an
+        enabled ``tracer`` the copy is an ``h2d`` span on the feeder thread,
+        fenced there: ``trace.json`` shows the overlap, while the fit
+        thread's goodput counts only what the feed could not hide."""
         if self.device.type == "cuda" and self._feed_stream is None:
             self._feed_stream = torch.cuda.Stream(device=self.device)
+        traced = tracer is not None and tracer.enabled
 
         def place(item):
             kind, payload = item
             if kind != "scan":
                 return None
-            return self._place_chunk(self._stack_chunk(payload), self._feed_stream)
+            if not traced:
+                return self._place_chunk(self._stack_chunk(payload), self._feed_stream)
+            with tracer.span("h2d", steps=len(payload)):
+                placed = self._place_chunk(self._stack_chunk(payload), self._feed_stream)
+                if placed.event is not None:
+                    placed.event.synchronize()
+            return placed
 
         return place
 
@@ -948,6 +1109,11 @@ class Trainer:
             self._update(scratch, _tree_map(lambda x: x[0], static))
             self._bind(state)
 
+        def traced_warmup():
+            # a fit that profiles: the warm-up's kernels and scopes, which
+            # the replays' kernels take position by position (obs/profile.py)
+            self._graph_kernels["train_scan"] = profile_module.traced_kernel_scopes(warmup)
+
         def run():
             for index in range(steps):
                 values = self._update(state, _tree_map(lambda x: x[index], static))
@@ -956,12 +1122,24 @@ class Trainer:
 
         # the warm-up draws from the dropout generator; the capture records
         # its draws as offsets from the generator's state at each replay
+        start = time.perf_counter()
         with self._generator_kept():
-            graph, _ = capture(run, self.device, warmup=warmup)
+            graph, _ = capture(run, self.device, warmup=traced_warmup if self._trace_warmups else warmup)
+        self.compile_tracker.record("train_scan", time.perf_counter() - start)
         self.capture_warmups += 1
         chunk = _ChunkGraph(graph, static, metrics, tensors)
         self._chunk_graphs[key] = chunk
         return chunk
+
+    def _chunk_graph_for(self, state: TrainState, placed: _Placed, steps: int) -> _ChunkGraph:
+        """The chunk graph for a placed chunk, captured now if it has none,
+        once the chunk's copies are done (card only)."""
+        current = torch.cuda.current_stream(self.device)
+        if placed.event is not None:
+            current.wait_event(placed.event)
+            for leaf in _leaves(placed.batch):
+                leaf.record_stream(current)
+        return self._chunk_graph(state, placed.batch, steps)
 
     def _run_chunk(self, state: TrainState, placed: _Placed, steps: int) -> Tuple[TrainState, np.ndarray]:
         """K steps on a placed ``[K, ...]`` chunk: on the card one replay of
@@ -969,19 +1147,16 @@ class Trainer:
         :attr:`last_step_metrics` to ``[K]`` tensors; returns the losses."""
         self._refuse_dropped_segments(placed.batch, self._forward_params, "forward")
         self._prepare(state)
+        self._record_template("train_scan", placed.batch, steps)
         if self.device.type != "cuda":
-            values = [self._step(state, _tree_map(lambda x: x[index], placed.batch)) for index in range(steps)]
+            with self.compile_tracker.observe("train_scan", key=(self._builds, steps, signature(_leaves(placed.batch)))):
+                values = [self._step(state, _tree_map(lambda x: x[index], placed.batch)) for index in range(steps)]
             metrics = {
                 name: torch.stack([v[position] for v in values])
                 for position, name in enumerate(("loss", "good", "grad_norm"))
             }
         else:
-            current = torch.cuda.current_stream(self.device)
-            if placed.event is not None:
-                current.wait_event(placed.event)
-                for leaf in _leaves(placed.batch):
-                    leaf.record_stream(current)
-            chunk = self._chunk_graph(state, placed.batch, steps)
+            chunk = self._chunk_graph_for(state, placed, steps)
             _tree_map(lambda static, value: static.copy_(value), chunk.batch, placed.batch)
             # the replay's masks continue state.rng's stream, as K steps would
             with self._dropout_stream(state) if self._stochastic else contextlib.nullcontext():
@@ -1002,7 +1177,89 @@ class Trainer:
         batches = list(batches)
         return self._run_chunk(state, self._place_chunk(self._stack_chunk(batches)), len(batches))
 
-    def fit(
+    # -- program introspection (obs/profile.py, obs/roofline.py) ------------ #
+    def _record_template(self, name: str, batch: Batch, steps: int) -> None:
+        """Keep a copy of the first batch a program ran (once per name), so
+        that the analyses can run the program again on a copy of the state."""
+        if name not in self._programs:
+            self._programs[name] = (steps, _tree_map(lambda x: x.clone() if isinstance(x, torch.Tensor) else x, batch))
+
+    def _program_run(self, name: str) -> Tuple[Callable[..., Any], Tuple[Any, ...]]:
+        """``(run, args)``: one call of program ``name`` (``steps`` optimizer
+        steps on its recorded batch, the per-step one with this trainer's
+        health) on a copy of the bound state, leaving the live state, the
+        dropout generator and the model's binding as they were."""
+        steps, batch = self._programs[name]
+        live = self._state
+        scratch = _clone_state(live)
+        health = self.health if name == "train_step" else None
+
+        def run(flat_params, opt_state, bad_steps, batch):
+            self._bind(scratch)
+            try:
+                with self._generator_kept():
+                    for index in range(steps):
+                        one = batch if name == "train_step" else _tree_map(lambda x: x[index], batch)
+                        out = self._update(scratch, one, health)
+            finally:
+                self._bind(live)
+            return out
+
+        return run, (scratch.flat_params, scratch.opt_state, scratch.bad_steps, batch)
+
+    def analyze_programs(self, extra_flops: Optional[Mapping[str, float]] = None) -> Dict[str, Any]:
+        """The roofline record of every program this trainer ran
+        (``train_step``, ``train_scan``; :func:`replay_tpu_torch.obs.roofline.analyze_program`):
+        FLOPs counted over one call on a copy of the state (K1–K3 through
+        ``fused_ce_flops``), an eager bytes count, the allocator's memory, and
+        memory- vs compute-bound with the predicted ceiling. ``extra_flops``
+        maps a program name to FLOPs the counter cannot see."""
+        from replay_tpu_torch.obs.roofline import analyze_program
+
+        out: Dict[str, Any] = {}
+        for name in self._programs:
+            if self._state is None:
+                break
+            run, args = self._program_run(name)
+            record = analyze_program(run, *args, extra_flops=(extra_flops or {}).get(name, 0.0), device=self.device)
+            if record is not None:
+                out[name] = record
+        return out
+
+    def _profile_payload(self, profile_dir: str, launches: Optional[Mapping[str, int]] = None) -> Dict[str, Any]:
+        """A profiled fit's analyses: the per-scope device time of its capture
+        (obs/profile.py; replays through the traced warm-ups), each
+        program's roofline record, and the kernel launches counted in the
+        window. Best-effort: a capture that cannot be read logs a warning."""
+        payload: Dict[str, Any] = {}
+        try:
+            payload["device_time"] = profile_module.attribute_capture(
+                profile_dir, self._graph_kernels, kernels=profile_module.TRACE_NAMES
+            )
+        except (OSError, ValueError) as exc:
+            logger.warning("device-time attribution failed for %s: %s", profile_dir, exc)
+        else:
+            if launches is not None:
+                payload["device_time"]["launches"] = dict(launches)
+        rooflines = self.analyze_programs()
+        if rooflines:
+            payload["roofline"] = rooflines
+        return payload
+
+    def fit(self, *args, **kwargs) -> TrainState:
+        try:
+            return self._fit_impl(*args, **kwargs)
+        except BaseException:
+            # a raising fit must not leak the live metrics endpoint: the
+            # non-raising exits (and the recovery-exhausted raise) close it
+            # in finish_trace; this catches every other exit
+            if self.metrics_exporter is not None:
+                self.metrics_exporter.close()
+                self.metrics_exporter = None
+            self._trace_warmups = False
+            raise
+
+    def _fit_impl(
         self,
         train_batches: Iterable[Batch] | Callable[..., Iterable[Batch]],
         epochs: int = 1,
@@ -1025,10 +1282,16 @@ class Trainer:
         scan_chunk: Optional[int] = None,
         device_feed: bool = True,
         loggers: Optional[RunLogger | Sequence[RunLogger]] = None,
+        profile_steps: Optional[Tuple[int, int]] = None,
+        profile_dir: Optional[str] = None,
         recovery: Optional[RecoveryPolicy] = None,
         detect_anomalies: Optional[bool] = None,
         handle_preemption: Optional[bool] = None,
-        **unported: Any,
+        tracer: Optional[Tracer | bool] = None,
+        trace_path: Optional[str] = None,
+        metrics_port: Optional[int] = None,
+        slo_rules: Optional[Sequence[Any]] = None,
+        flight_path: Optional[str] = None,
     ) -> TrainState:
         """Train for ``epochs`` passes; validates after each epoch when
         ``val_batches`` is given, appending one record per epoch to
@@ -1091,20 +1354,53 @@ class Trainer:
         ``handle_preemption`` (default: on with a ``checkpoint_manager``)
         installs SIGTERM/SIGINT handlers for the loop (:class:`PreemptionHandler`).
 
-        The rest of the JAX ``fit``'s arguments (profiling, tracing, the
-        metrics plane, the flight recorder) raise ``NotImplementedError``
-        naming their ``ROADMAP.md`` item when given anything but their JAX
-        default. One deviation: a resumed epoch's ``train_loss`` covers the
-        whole epoch (the JAX fit averages only the steps after the resume).
+        Model health: with a :class:`HealthConfig` on :attr:`health` the
+        per-step program also computes the health record; fit fetches it
+        every ``cadence`` executed steps (one host read), attaches it as a
+        ``health`` payload to the next ``on_train_step`` and to every
+        ``on_epoch_end``, keeps it on :attr:`last_health`, and, with a
+        ``HealthWatcher``, emits ``on_health_warning`` on a blowup (a
+        rollback too, with ``trigger_recovery`` and a ``recovery`` policy).
+        Under ``scan_chunk`` every ``cadence``-th step runs singly through the
+        health-instrumented per-step program; the other steps stay in the
+        K-step graphs, which compute no health.
+
+        Tracing: ``tracer=True`` (or a :class:`~replay_tpu_torch.obs.trace.Tracer`)
+        records the ``data_wait`` / ``h2d`` / ``compile`` / ``train_step`` /
+        ``validation`` / ``checkpoint`` / ``recovery`` spans, writes a Chrome
+        trace ``trace.json`` to ``trace_path`` (default: the first
+        ``JsonlLogger``'s run directory) at ``on_fit_end``, at
+        ``on_preemption`` and when the recovery budget runs out, and adds a
+        ``goodput`` breakdown of the fit thread's wall clock to every
+        ``on_epoch_end`` and ``on_fit_end`` (``spans`` too, on the latter). A
+        tracer given as an argument scopes to this fit. A traced step waits
+        for its loss.
+
+        Profiling: ``profile_steps=(start, stop)`` records a ``torch.profiler``
+        window over those executed steps (rounded out to chunk boundaries)
+        into ``profile_dir`` (default: the first ``JsonlLogger``'s
+        ``run_dir/profile``, else ``./torch_profile``), with the named scopes
+        open; ``on_fit_end`` then carries ``device_time`` (per-scope device
+        time, :mod:`replay_tpu_torch.obs.profile`, and the kernel launches
+        counted in the window) and ``roofline`` (each program's record,
+        :meth:`analyze_programs`).
+
+        The live metrics plane: ``metrics_port`` serves a
+        :class:`~replay_tpu_torch.obs.metrics.MetricsLogger` registry over
+        HTTP while the fit runs (``/metrics``, ``/snapshot``, ``/healthz``;
+        ``0`` binds an ephemeral port, read from :attr:`metrics_exporter`; a
+        port that cannot bind logs a warning and serves nothing);
+        ``slo_rules`` attaches an :class:`~replay_tpu_torch.obs.slo.SLOWatchdog`
+        whose ``on_slo_violation`` / ``on_slo_recovery`` events go through
+        the same sinks. ``flight_path`` (default: ``$REPLAY_TPU_FLIGHT_PATH``)
+        records the event stream into a flight ring that survives SIGKILL
+        (:mod:`replay_tpu_torch.obs.blackbox`). Each of them implies per-step
+        events, like any explicit sink; the exporter and the ring close at
+        fit end.
+
+        One deviation: a resumed epoch's ``train_loss`` covers the whole
+        epoch (the JAX fit averages only the steps after the resume).
         """
-        for name, value in unported.items():
-            if name not in _UNPORTED_FIT_ARGS:
-                msg = f"fit() got an unexpected keyword argument {name!r}"
-                raise TypeError(msg)
-            default, item = _UNPORTED_FIT_ARGS[name]
-            if value != default:
-                msg = f"fit({name}=...) is not ported yet: ROADMAP.md queue 1, {item}"
-                raise NotImplementedError(msg)
         if checkpoint_manager is not None and not self.history:
             # resume: earlier epochs' records survive the restart
             self.history = list(checkpoint_manager.history())
@@ -1224,16 +1520,131 @@ class Trainer:
         if loggers is not None:
             # duck-typed: a single sink is anything with log_event
             explicit_loggers = [loggers] if hasattr(loggers, "log_event") else list(loggers)
+        # -- the live metrics plane (obs/metrics.py, exporter.py, slo.py) --- #
+        # the MetricsLogger is an explicit sink: live gauges need per-step events
+        metrics_logger = None
+        if self.metrics_exporter is not None:
+            # a previous fit raised before its terminal event: free the port
+            self.metrics_exporter.close()
+            self.metrics_exporter = None
+        if metrics_port is not None or slo_rules:
+            from replay_tpu_torch.obs.exporter import MetricsExporter
+            from replay_tpu_torch.obs.metrics import MetricsLogger
+            from replay_tpu_torch.obs.slo import SLOWatchdog
+
+            metrics_logger = MetricsLogger()
+            self.metrics_registry = metrics_logger.registry
+            if slo_rules:
+                # emit is pointed at the sink fan-out once run_logger exists
+                metrics_logger.watchdog = SLOWatchdog(slo_rules, metrics_logger.registry)
+            explicit_loggers.append(metrics_logger)
+            if metrics_port is not None:
+                self.metrics_exporter = MetricsExporter(
+                    metrics_logger.registry, port=metrics_port, identity={"process_index": 0}
+                ).start()
+        # -- the flight ring (obs/blackbox.py): survives SIGKILL ----------- #
+        flight_path = flight_path or os.environ.get("REPLAY_TPU_FLIGHT_PATH")
+        flight_logger = None
+        if flight_path:
+            from replay_tpu_torch.obs.blackbox import BlackboxLogger
+
+            try:
+                flight_logger = BlackboxLogger(flight_path, meta={"role": "fit", "pid": os.getpid(), "process_index": 0})
+            except OSError as exc:
+                # the black box must never take down the run it records
+                logger.warning("flight recorder: cannot open %s (%s); fit runs unrecorded", flight_path, exc)
+            else:
+                explicit_loggers.append(flight_logger)
         sinks: List[RunLogger] = list(explicit_loggers)
         if log_every:
             # alone, the console receives events at log_every cadence already
             sinks.append(ConsoleLogger(every=log_every if explicit_loggers else 1))
         run_logger: Optional[RunLogger] = MultiLogger(sinks) if len(sinks) > 1 else (sinks[0] if sinks else None)
+        if metrics_logger is not None and metrics_logger.watchdog is not None:
+            # violations ride the same fan-out as every other event
+            metrics_logger.watchdog.emit = run_logger.log_event
         event_every = 1 if explicit_loggers else (log_every or 0)
+
+        def first_run_dir() -> Optional[str]:
+            queue: List[RunLogger] = list(explicit_loggers)
+            while queue:  # MultiLogger nests sinks: search them too
+                sink = queue.pop(0)
+                if isinstance(sink, JsonlLogger):
+                    return sink.run_dir
+                if isinstance(sink, MultiLogger):
+                    queue.extend(sink.loggers)
+            return None
+
+        # -- span tracing and goodput (obs/trace.py) ------------------------ #
+        prior_tracer = self.tracer
+        tracer_from_arg = tracer is not None
+        if tracer is True:
+            tracer = Tracer()
+        if isinstance(tracer, Tracer):
+            self.tracer = tracer  # train_step's h2d spans route through it too
+        trace = self.tracer if self.tracer is not None and self.tracer.enabled else None
+        tracing = trace is not None
+        if tracing and trace_path is None and first_run_dir() is not None:
+            trace_path = os.path.join(first_run_dir(), "trace.json")
+        # goodput windows decompose this thread's wall clock: other threads'
+        # spans (the feeder's h2d) overlap it, so they stay out of the fractions
+        fit_trace_base = trace.snapshot(only_current_thread=True) if tracing else {}
+        fit_summary_base = trace.summary() if tracing else {}
+        fit_trace_t0 = time.perf_counter()
+
+        def span(name: str, **args):
+            """A trace span when tracing, else a no-op context."""
+            return trace.span(name, **args) if tracing else contextlib.nullcontext()
+
+        def trace_window(base: Dict[str, float], t0: float) -> Dict[str, Any]:
+            """Goodput record over this thread's spans since (base, t0)."""
+            current = trace.snapshot(only_current_thread=True)
+            diff = {name: current.get(name, 0.0) - base.get(name, 0.0) for name in current}
+            return goodput_breakdown(diff, time.perf_counter() - t0)
+
+        def fit_spans() -> Dict[str, Dict[str, float]]:
+            """Per-name span totals over this fit (all threads)."""
+            out: Dict[str, Dict[str, float]] = {}
+            for name, entry in trace.summary().items():
+                prev = fit_summary_base.get(name, {"count": 0, "seconds": 0.0, "self_seconds": 0.0})
+                count = entry["count"] - prev["count"]
+                if count > 0:
+                    out[name] = {
+                        "count": count,
+                        "seconds": entry["seconds"] - prev["seconds"],
+                        "self_seconds": entry["self_seconds"] - prev["self_seconds"],
+                    }
+            return out
+
+        def save_trace(when: str = "") -> None:
+            try:
+                trace.save(trace_path)
+            except OSError as exc:
+                logger.warning("trace.json not written to %s%s: %s", trace_path, when, exc)
+
+        def finish_trace() -> None:
+            """Terminal work: write trace.json, stop the exporter, close the
+            flight ring, and detach a tracer given as a fit argument."""
+            if tracing and trace_path is not None:
+                save_trace()
+            if tracer_from_arg:
+                self.tracer = prior_tracer
+            if self.metrics_exporter is not None:
+                self.metrics_exporter.close()
+                self.metrics_exporter = None
+            if flight_logger is not None:
+                flight_logger.close()
+            self._trace_warmups = False
 
         def emit(name: str, step=None, epoch=None, **payload) -> None:
             if run_logger is not None:
                 run_logger.log_event(TrainerEvent(event=name, step=step, epoch=epoch, payload=payload))
+            if name == "on_preemption" and tracing and trace_path is not None:
+                # flush the span tree before the shutdown-window save
+                save_trace(" at preemption")
+            if name == "on_fit_end":
+                # every non-raising exit ends in exactly one on_fit_end
+                finish_trace()
 
         # -- resilience ----------------------------------------------------- #
         # host-side anomaly checks cost one device sync per step, so they
@@ -1245,16 +1656,42 @@ class Trainer:
         initial_snapshot: Optional[TrainState] = None  # rollback target before any checkpoint
         last_grad_norm = None
 
+        # -- model health (obs/health.py) ----------------------------------- #
+        # the per-step program computes the record; the host fetches it every
+        # cadence steps. The K-step graphs compute none: under scan_chunk the
+        # cadence steps run singly (_chunk_schedule breaks the chunks there)
+        health_cfg = self.health
+        health_watcher = health_cfg.watcher if health_cfg is not None else None
+        health_every = health_cfg.cadence if (scan_chunk and health_cfg is not None) else None
+        if health_every:
+            logger.info(
+                "scan_chunk=%d with health cadence %d: every %dth step runs the health-instrumented "
+                "per-step program; cadence ≡ 1 (mod scan_chunk) keeps full chunks between health steps",
+                scan_chunk, health_every, health_every,
+            )
+        pending_health: Optional[Dict[str, Any]] = None
+        # per-fit scope: a second fit must not carry the previous fit's record
+        self.last_health = None
+
         def do_recovery(reason: str, epoch: int) -> TrainState:
+            with span("recovery", reason=reason):
+                return _do_recovery(reason, epoch)
+
+        def _do_recovery(reason: str, epoch: int) -> TrainState:
             """Roll back to the last checkpoint (else the initial snapshot),
             back the LR off, and return the state to continue from. The
             stream is not rewound: recovery moves forward through the data."""
-            nonlocal restarts, consecutive_bad, last_grad_norm
+            nonlocal restarts, consecutive_bad, last_grad_norm, pending_health
             restarts += 1
             consecutive_bad = 0
-            last_grad_norm = None
+            # the discarded trajectory's records must not describe the restored one
+            last_grad_norm, pending_health, self.last_health = None, None, None
+            if health_watcher is not None:
+                health_watcher.reset()
             if restarts > recovery.max_restarts:
                 emit("on_recovery", epoch=epoch, reason=reason, restarts=restarts, exhausted=True)
+                # this raise skips on_fit_end: persist the trace now
+                finish_trace()
                 msg = (
                     f"RecoveryPolicy budget exhausted: {restarts - 1} restarts "
                     f"(max_restarts={recovery.max_restarts}) did not stabilize "
@@ -1299,17 +1736,19 @@ class Trainer:
                 "epoch_loss": float(epoch_loss) if epoch_loss is not None else 0.0,
                 "epoch_good": int(epoch_good) if epoch_good is not None else 0,
             }
-            checkpoint_manager.save(
-                state.step, state, history=self.history,
-                metadata={"mid_epoch": True, "epoch": epoch, "step_in_epoch": n_steps, **sums, **extra},
-                process_metadata=process_extra,
-            )
+            with span("checkpoint"):
+                checkpoint_manager.save(
+                    state.step, state, history=self.history,
+                    metadata={"mid_epoch": True, "epoch": epoch, "step_in_epoch": n_steps, **sums, **extra},
+                    process_metadata=process_extra,
+                )
             emit("on_checkpoint", step=state.step, epoch=epoch, mid_epoch=True, step_in_epoch=n_steps, **extra)
 
         install_preemption = handle_preemption if handle_preemption is not None else checkpoint_manager is not None
         preemption = PreemptionHandler() if install_preemption else None
 
         telemetry = StepTelemetry(warmup_steps=1)
+        memory = MemoryMonitor([self.device])
         lr_schedule = (
             self.optimizer.scheduler.create(self.optimizer.learning_rate) if self.optimizer.scheduler else None
         )
@@ -1324,17 +1763,64 @@ class Trainer:
         def fit_end_payload() -> Dict[str, Any]:
             payload: Dict[str, Any] = {
                 "telemetry": telemetry.summary(),
-                "peak_memory_bytes": (
-                    torch.cuda.max_memory_allocated(self.device) if self.device.type == "cuda" else None
-                ),
+                "compile": self.compile_tracker.report(),
+                "peak_memory_bytes": memory.peak_bytes(),
                 "history_len": len(self.history),
             }
+            if memory.observed_samples:
+                # the chunk-boundary samples: this fit's own high-water mark
+                payload["peak_memory_sampled_bytes"] = memory.observed_peak_bytes
+                payload["peak_memory_samples"] = memory.observed_samples
             if state is not None:
                 payload["bad_steps"] = int(state.bad_steps)
             input_record = input_summary()
             if input_record is not None:
                 payload["input"] = input_record
+            if tracing:
+                payload["goodput"] = trace_window(fit_trace_base, fit_trace_t0)
+                payload["spans"] = fit_spans()
+            if profile_capture_dir is not None:
+                close_profile()  # a window still open when the fit ended
+                payload.update(self._profile_payload(profile_capture_dir, profile_launches))
             return payload
+
+        # -- the profile window (obs/profile.py) ---------------------------- #
+        if profile_steps is not None:
+            profile_start, profile_stop = int(profile_steps[0]), int(profile_steps[1])
+            if profile_stop <= profile_start or profile_start < 0:
+                msg = f"profile_steps must be a valid [start, stop) window, got {profile_steps}"
+                raise ValueError(msg)
+            # the chunk graph captured in this fit traces its warm-up, whose
+            # kernels the replays in the window take their scopes from
+            self._trace_warmups = True
+            if "train_scan" not in self._graph_kernels:
+                self._chunk_graphs.clear()
+        profile_stack = contextlib.ExitStack()
+        profile_active = False
+        profile_capture_dir: Optional[str] = None  # set when the window opens
+        profile_launches: Optional[Dict[str, int]] = None
+        launches_at_open: Dict[str, int] = {}
+
+        def open_profile(steps: int) -> None:
+            """Open the window if it starts within the next ``steps`` executed steps."""
+            nonlocal profile_active, profile_capture_dir, launches_at_open
+            if profile_steps is None or profile_active or profile_capture_dir is not None:
+                return
+            if not measured_total <= profile_start < measured_total + steps:
+                return
+            run_dir = first_run_dir()
+            profile_capture_dir = profile_dir or (os.path.join(run_dir, "profile") if run_dir else "torch_profile")
+            profile_stack.enter_context(profile_module.trace(profile_capture_dir))
+            launches_at_open = profile_module.launch_counts()
+            profile_active = True
+
+        def close_profile() -> None:
+            nonlocal profile_active, profile_launches
+            if profile_active:
+                counted = profile_module.launch_counts()
+                profile_launches = {name: counted[name] - launches_at_open[name] for name in counted}
+                profile_stack.close()
+                profile_active = False
 
         measured_total = 0  # steps executed by this fit call
         last_emitted_at = 0
@@ -1422,12 +1908,16 @@ class Trainer:
                 initial_snapshot = _clone_state(state)
 
         def account_step(batch: Batch, loss_value, good, grad_norm, epoch: int,
-                         step_id: Optional[int] = None, bad_total: Optional[int] = None) -> bool:
+                         step_id: Optional[int] = None, bad_total: Optional[int] = None,
+                         health_record: Optional[Mapping[str, Any]] = None) -> bool:
             """Bookkeeping for one optimizer step, shared by single steps
             (device scalars: the epoch sums add on the device) and the chunk
-            fan-out (host values: the same IEEE f32 adds on the host). Returns
+            fan-out (host values: the same IEEE f32 adds on the host): the
+            epoch sums, the health fetch at the cadence and its watcher, the
+            anomaly events, the profile window's end, the step event. Returns
             True when a recovery rollback fired."""
             nonlocal epoch_loss, epoch_good, n_steps, measured_total, last_grad_norm, consecutive_bad, state
+            nonlocal pending_health
             rolled_back = False
             if isinstance(loss_value, torch.Tensor):
                 if epoch_loss is not None and not isinstance(epoch_loss, torch.Tensor):
@@ -1444,6 +1934,19 @@ class Trainer:
             measured_total += 1
             count_tokens(batch)
             last_grad_norm = grad_norm
+            if health_cfg is not None and health_record is not None and measured_total % health_cfg.cadence == 0:
+                # the health sync: one host read of the step's small record
+                fetched = health_module.to_host(health_record)
+                self.last_health = pending_health = fetched
+                if health_watcher is not None:
+                    warning = health_watcher.observe(fetched)
+                    if warning is not None:
+                        emit("on_health_warning", step=state.step if step_id is None else step_id, epoch=epoch,
+                             **warning)
+                        if health_watcher.trigger_recovery and recovery is not None:
+                            state = do_recovery("health_warning", epoch)
+                            epoch_loss, epoch_good = None, None
+                            rolled_back = True
             if check_anomalies or recovery is not None:
                 # a recovery policy sees every bad step, even with events off
                 if not bool(good):
@@ -1461,6 +1964,8 @@ class Trainer:
                         rolled_back = True
                 else:
                     consecutive_bad = 0
+            if profile_active and measured_total >= profile_stop:
+                close_profile()
             if event_every and measured_total % event_every == 0:
                 emit_step = state.step if step_id is None else step_id
                 tick = telemetry_tick(batch)
@@ -1472,7 +1977,10 @@ class Trainer:
                     steps_per_sec=tick["steps_per_sec"], step_seconds=tick["step_seconds"],
                     effective_tokens_per_sec=tick["effective_tokens_per_sec"],
                     padding_fraction=tick["padding_fraction"],
+                    # a health record fetched since the last emission rides the next step event
+                    **({"health": pending_health} if pending_health is not None else {}),
                 )
+                pending_health = None
             return rolled_back
 
         def preempted_exit(epoch: int, boundary_saved: bool) -> bool:
@@ -1491,7 +1999,12 @@ class Trainer:
         cursor_source = None  # the current epoch's resumable batch source
         epoch_loss = epoch_good = None
         n_steps = 0
-        with preemption or contextlib.nullcontext():
+        # the per-epoch goodput window: opens here and again right after each
+        # on_epoch_end, so consecutive windows tile the fit's wall clock
+        epoch_trace_base = trace.snapshot(only_current_thread=True) if tracing else {}
+        epoch_trace_t0 = time.perf_counter()
+        # profile_stack closes a window still open on any exit
+        with profile_stack, (preemption or contextlib.nullcontext()):
             for epoch in range(start_epoch, epochs):
                 # n_steps = position in the epoch's stream (skipped batches
                 # included, keeping checkpoint_every aligned across resumes)
@@ -1519,7 +2032,10 @@ class Trainer:
                 if scan_chunk:
                     # a factory hid its batcher from the fit-start check
                     reject_bucketed(epoch_batches)
-                stream = prefetch_batches(iter(epoch_batches), depth=prefetch) if prefetch else epoch_batches
+                source = prefetch_batches(iter(epoch_batches), depth=prefetch) if prefetch else epoch_batches
+                # traced: every next() is a data_wait span (chunked, the
+                # feeder consumes the stream, and the wait on the feed is timed)
+                stream = traced_iterator(source, trace) if tracing and not scan_chunk else source
                 try:
                     batch_iter = iter(stream)
                     first_batch = None
@@ -1535,30 +2051,56 @@ class Trainer:
                         break
                     rest = itertools.chain([first_batch], batch_iter) if first_batch is not None else iter(())
                     # without scan_chunk every batch is one "step" item
-                    items = _chunk_schedule(rest, scan_chunk) if scan_chunk else (("step", b) for b in rest)
+                    items = (
+                        _chunk_schedule(rest, scan_chunk, health_every, start=measured_total)
+                        if scan_chunk
+                        else (("step", b) for b in rest)
+                    )
                     feed = (
-                        DevicePrefetcher(items, self._chunk_placer(), depth=1)
+                        DevicePrefetcher(items, self._chunk_placer(trace), depth=1)
                         if scan_chunk and device_feed and first_batch is not None
                         else ((item, None) for item in items)
                     )
+                    feed_stream = traced_iterator(feed, trace) if tracing and scan_chunk else feed
                     try:
-                        for (kind, payload), placed in feed:
+                        for (kind, payload), placed in feed_stream:
                             if epoch_needs_mark:
                                 telemetry.mark()
                                 epoch_needs_mark = False
                             steps_before = n_steps
                             if kind == "step":
-                                # device scalars: the epoch sums add on the device
-                                state, loss_value = self.train_step(state, payload)
+                                # a health-cadence or tail step through the
+                                # per-step program; device scalars: the epoch
+                                # sums add on the device
+                                open_profile(1)
+                                state, loss_value = self.traced_train_step(state, payload)
                                 step_metrics = self.last_step_metrics
-                                account_step(payload, loss_value, step_metrics["good"], step_metrics["grad_norm"], epoch)
+                                account_step(
+                                    payload, loss_value, step_metrics["good"], step_metrics["grad_norm"], epoch,
+                                    health_record=step_metrics.get("health"),
+                                )
                                 last_batch = payload
                             else:  # K optimizer steps in one replay
                                 k = len(payload)
                                 if placed is None:  # device_feed=False: placed on this thread
-                                    placed = self._place_chunk(self._stack_chunk(payload))
+                                    with self._h2d_span():
+                                        placed = self._place_chunk(self._stack_chunk(payload))
+                                if profile_steps is not None and not profile_active and self.device.type == "cuda":
+                                    # a window opening at this chunk finds its
+                                    # graph captured, the warm-up traced
+                                    self._prepare(state)
+                                    self._chunk_graph_for(state, placed, k)
+                                open_profile(k)
                                 first_step = state.step
-                                state, losses = self._run_chunk(state, placed, k)
+                                compile_before = self.compile_tracker.total_compile_seconds
+                                with span("train_step", steps=k) as step_span:
+                                    # the [K] losses come to the host: the span is fenced
+                                    state, losses = self._run_chunk(state, placed, k)
+                                if tracing:
+                                    compile_delta = self.compile_tracker.total_compile_seconds - compile_before
+                                    if compile_delta > 0:
+                                        trace.carve(step_span, "compile", compile_delta)
+                                memory.observe()  # the chunk-boundary memory sample
                                 goods = self.last_step_metrics["good"].cpu().numpy()
                                 grad_norms = self.last_step_metrics["grad_norm"].cpu().numpy()
                                 bad_in_chunk = np.cumsum(~goods)
@@ -1594,7 +2136,7 @@ class Trainer:
                             feed.close()
                 finally:
                     if prefetch:
-                        stream.close()  # joins the prefetch thread, also when a step raised
+                        source.close()  # joins the prefetch thread, also when a step raised
                 good_count = int(epoch_good) if epoch_good is not None else 0
                 record = {
                     "epoch": epoch,
@@ -1604,13 +2146,14 @@ class Trainer:
                     telemetry_tick(last_batch)  # the epoch's tail steps, before validation
                 if val_batches is not None and state is not None:
                     streams = val_batches if isinstance(val_batches, dict) else {"": val_batches}
-                    for stream_name, factory in streams.items():
-                        stream_metrics = self.validate(
-                            state, factory(), metrics=metrics, top_k=top_k, item_count=item_count,
-                            postprocessors=postprocessors,
-                        )
-                        prefix = f"{stream_name}/" if stream_name else ""
-                        record.update({f"{prefix}{k}": v for k, v in stream_metrics.items()})
+                    with span("validation"):
+                        for stream_name, factory in streams.items():
+                            stream_metrics = self.validate(
+                                state, factory(), metrics=metrics, top_k=top_k, item_count=item_count,
+                                postprocessors=postprocessors,
+                            )
+                            prefix = f"{stream_name}/" if stream_name else ""
+                            record.update({f"{prefix}{k}": v for k, v in stream_metrics.items()})
                     emit("on_validation_end", step=state.step, epoch=epoch, record=record)
                 self.history.append(record)
                 epoch_payload: Dict[str, Any] = {"record": record}
@@ -1621,6 +2164,14 @@ class Trainer:
                 input_record = input_summary()
                 if input_record is not None:
                     epoch_payload["input"] = input_record
+                if health_cfg is not None and self.last_health is not None:
+                    epoch_payload["health"] = self.last_health
+                if tracing:
+                    # phase fractions over this epoch's wall clock, summing to 1
+                    epoch_payload["goodput"] = trace_window(epoch_trace_base, epoch_trace_t0)
+                    # what follows (this epoch's checkpoint) bills to the next epoch
+                    epoch_trace_base = trace.snapshot(only_current_thread=True)
+                    epoch_trace_t0 = time.perf_counter()
                 emit("on_epoch_end", step=state.step if state is not None else None, epoch=epoch, **epoch_payload)
                 if not log_every:
                     logger.info("epoch %d: %s", epoch, record)
@@ -1668,9 +2219,10 @@ class Trainer:
                         metadata["lr_scale"] = self._lr_scale
                     if monitor:
                         metadata.update({"best": improved, monitor: value})
-                    checkpoint_manager.save(state.step, state, history=self.history, metadata=metadata)
-                    if improved:
-                        checkpoint_manager.mark_best(state.step)
+                    with span("checkpoint"):
+                        checkpoint_manager.save(state.step, state, history=self.history, metadata=metadata)
+                        if improved:
+                            checkpoint_manager.mark_best(state.step)
                     emit("on_checkpoint", step=state.step, epoch=epoch, mid_epoch=False,
                          best=bool(improved) if monitor else None)
                 if monitor is not None and patience is not None and stale_epochs >= patience:
@@ -1690,6 +2242,9 @@ class Trainer:
             return best_state
         return state
 
+    # the public entry is the exception-safe wrapper above; its help() reads as the real thing
+    fit.__doc__ = _fit_impl.__doc__
+
     # -- learning-rate backoff and checkpoints ------------------------------ #
     def _set_lr_scale(self, scale: float) -> None:
         """Rebuild the optimizer with the base learning rate scaled by
@@ -1700,6 +2255,7 @@ class Trainer:
         factory = dataclasses.replace(self.optimizer, learning_rate=self.optimizer.learning_rate * self._lr_scale)
         self._tx = factory.create()
         self._chunk_graphs.clear()
+        self._builds += 1  # the step programs are new: their next calls build anew
 
     def save_checkpoint(self, path: str, state: TrainState, backend: Optional[str] = None) -> None:
         """Write the whole state (params, optimizer state, ``bad_steps``,

@@ -1,15 +1,19 @@
-"""Step timing for ``Trainer.fit``'s events.
+"""Step timing, program builds and device memory for ``Trainer.fit``'s events.
 
-Counterpart of ``StepTelemetry`` in ``replay_tpu/obs/collectors.py`` (the
-JAX module's retrace counter and memory monitor are not copied: the port
-reads the card's memory through ``torch.cuda``, and its compiled programs are
-captured graphs, ``ROADMAP.md`` queue 1, item 5).
+Counterpart of ``replay_tpu/obs/collectors.py``: :class:`StepTelemetry` as
+in JAX; :class:`CompileTracker` counts and times a program's first builds,
+which in the port are a CUDA-graph capture (a chunk graph, an evaluation
+graph), the first call of an eager program at a new shape, and each kernel
+library that :mod:`replay_tpu_torch.ops.build` compiles at first use;
+:class:`MemoryMonitor` reads ``torch.cuda.memory_stats`` under the JAX
+names (``bytes_in_use``, ``peak_bytes_in_use``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Hashable, Optional, Sequence
 
 import torch
 
@@ -127,3 +131,139 @@ class StepTelemetry:
                 if self._measured_samples:
                     record["samples_per_sec"] = self._measured_samples / elapsed
         return record
+
+
+class CompileTracker:
+    """Counts the first builds of each program and the wall time they took.
+
+    The JAX tracker counts jit traces; the port's programs are built when
+    first run at a shape (an eager program, whose first call builds kernels
+    and sets up cuBLAS) or captured as a CUDA graph. :meth:`observe` around a
+    program's call counts one build when its ``key`` (a shape) is new and
+    attributes the call's wall time to it; kernel libraries that
+    :mod:`replay_tpu_torch.ops.build` compiles inside the call are counted
+    under ``kernel:<name>`` with their own seconds. A run at fixed shapes
+    shows one build per program; more is a shape leak.
+    """
+
+    def __init__(self) -> None:
+        self._traces: Dict[str, int] = {}
+        self._compile_seconds: Dict[str, float] = {}
+        self._seen: Dict[str, set] = {}
+
+    def _add(self, name: str, seconds: float) -> None:
+        self._traces[name] = self._traces.get(name, 0) + 1
+        self._compile_seconds[name] = self._compile_seconds.get(name, 0.0) + seconds
+
+    @contextlib.contextmanager
+    def observe(self, name: str, key: Hashable = None):
+        """Attribute the enclosed call's wall time to building ``name`` iff
+        ``key`` was not seen for it before (first call, new shape)."""
+        from replay_tpu_torch.ops import build
+
+        self._traces.setdefault(name, 0)
+        seen = self._seen.setdefault(name, set())
+        fresh = key not in seen
+        builds_before = len(build.BUILD_LOG)
+        start = time.perf_counter()
+        try:
+            yield
+        finally:
+            if fresh:
+                seen.add(key)
+                self._add(name, time.perf_counter() - start)
+            for library, seconds in build.BUILD_LOG[builds_before:]:
+                self._add(f"kernel:{library}", seconds)
+
+    def record(self, name: str, seconds: float) -> None:
+        """Count one build of ``name`` that took ``seconds`` (a graph capture)."""
+        self._add(name, seconds)
+
+    @property
+    def traces(self) -> Dict[str, int]:
+        return dict(self._traces)
+
+    @property
+    def compile_seconds(self) -> Dict[str, float]:
+        return dict(self._compile_seconds)
+
+    @property
+    def total_compile_seconds(self) -> float:
+        return float(sum(self._compile_seconds.values()))
+
+    def report(self) -> Dict[str, Dict[str, float]]:
+        """{name: {traces, compile_seconds}} over every observed program."""
+        return {
+            name: {
+                "traces": count,
+                "compile_seconds": round(self._compile_seconds.get(name, 0.0), 4),
+            }
+            for name, count in sorted(self._traces.items())
+        }
+
+
+class MemoryMonitor:
+    """Per-device allocator snapshots and the cross-device peak.
+
+    Reads ``torch.cuda.memory_stats`` of each CUDA device (all visible ones
+    by default), with ``bytes_in_use`` and ``peak_bytes_in_use`` (the JAX
+    names) taken from the allocator's current and peak allocated bytes. On a
+    machine without a card every accessor returns an empty snapshot or
+    ``None``, as the JAX monitor does on a CPU backend.
+    """
+
+    def __init__(self, devices: Optional[Sequence[Any]] = None) -> None:
+        self._devices = devices
+        # chunk-boundary sampling (observe()): the windowed high-water mark
+        # over explicit samples, vs the allocator's process-lifetime peak
+        self.observed_peak_bytes: Optional[int] = None
+        self.observed_samples: int = 0
+
+    def _resolve(self):
+        if self._devices is None:
+            count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+            self._devices = [torch.device("cuda", index) for index in range(count)]
+        return [torch.device(d) for d in self._devices if torch.device(d).type == "cuda"]
+
+    def snapshot(self) -> Dict[str, Dict[str, float]]:
+        stats = {}
+        for device in self._resolve():
+            raw = torch.cuda.memory_stats(device)
+            if not raw:
+                continue
+            record = {
+                key: float(value)
+                for key, value in raw.items()
+                if isinstance(value, (int, float)) and not isinstance(value, bool)
+            }
+            record["bytes_in_use"] = float(raw.get("allocated_bytes.all.current", 0))
+            record["peak_bytes_in_use"] = float(raw.get("allocated_bytes.all.peak", 0))
+            record["bytes_reserved"] = float(raw.get("reserved_bytes.all.current", 0))
+            stats[str(device)] = record
+        return stats
+
+    def _max_over_devices(self, key: str) -> Optional[int]:
+        values = [s[key] for s in self.snapshot().values() if key in s]
+        return int(max(values)) if values else None
+
+    def peak_bytes(self) -> Optional[int]:
+        """Max ``peak_bytes_in_use`` over devices (None when unavailable)."""
+        return self._max_over_devices("peak_bytes_in_use")
+
+    def bytes_in_use(self) -> Optional[int]:
+        return self._max_over_devices("bytes_in_use")
+
+    def observe(self) -> Optional[int]:
+        """Sample the current cross-device peak into the observed window.
+
+        The chunked fit calls this at every chunk boundary, so
+        ``observed_peak_bytes`` tracks the fit's own high-water mark. Without
+        a card it returns None and the sample is not counted.
+        """
+        peak = self.peak_bytes()
+        if peak is None:
+            return None
+        self.observed_samples += 1
+        if self.observed_peak_bytes is None or peak > self.observed_peak_bytes:
+            self.observed_peak_bytes = peak
+        return peak

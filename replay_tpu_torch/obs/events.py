@@ -250,6 +250,36 @@ class ConsoleLogger(RunLogger):
                 logger.info(
                     "epoch %s step %s loss %.4f", event.epoch, event.step, event.payload.get("loss", float("nan"))
                 )
+        elif event.event == "on_health_warning":
+            logger.warning(
+                "health warning at step %s: %s blew up to %.3g (%.1fx its EWMA %.3g)",
+                event.step,
+                event.payload.get("signal"),
+                event.payload.get("value", float("nan")),
+                event.payload.get("factor", float("nan")),
+                event.payload.get("ewma", float("nan")),
+            )
+        elif event.event == "on_slo_violation":
+            logger.warning(
+                "SLO violation [%s] at step %s: %s = %.4g (breached %s %.4g, %s consecutive)",
+                event.payload.get("rule"),
+                event.step,
+                event.payload.get("metric"),
+                event.payload.get("value", float("nan")),
+                event.payload.get("op"),
+                event.payload.get("threshold", float("nan")),
+                event.payload.get("consecutive"),
+            )
+        elif event.event == "on_slo_recovery":
+            logger.info(
+                "SLO recovered [%s] at step %s: %s = %.4g after %.2fs in breach (%s evaluation(s))",
+                event.payload.get("rule"),
+                event.step,
+                event.payload.get("metric"),
+                event.payload.get("value", float("nan")),
+                event.payload.get("breach_seconds", float("nan")),
+                event.payload.get("breached_evaluations"),
+            )
         elif event.event == "on_anomaly":
             logger.warning(
                 "anomaly at step %s: non-finite loss/grads, update skipped (%s consecutive)",

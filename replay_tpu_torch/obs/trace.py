@@ -27,7 +27,7 @@ import json
 import os
 import threading
 import time
-from typing import Any, Dict, Iterable, List, Mapping, Optional
+from typing import Any, Dict, Iterable, Iterator, List, Mapping, Optional
 
 __all__ = [
     "GOODPUT_SPANS",
@@ -36,6 +36,7 @@ __all__ = [
     "Tracer",
     "goodput_breakdown",
     "lifecycle_span",
+    "traced_iterator",
 ]
 
 # the phases of the goodput breakdown, in display order. "other" (derived) is
@@ -354,6 +355,23 @@ class Tracer:
         with open(path, "w") as fh:
             json.dump(self.to_chrome_trace(), fh)
         return path
+
+
+def traced_iterator(batches: Iterable[Any], tracer: Tracer, name: str = "data_wait") -> Iterator[Any]:
+    """Yield from ``batches``, timing every ``next()`` as a ``name`` span.
+
+    This is how the fit loop attributes host input time: the span covers
+    exactly the wait for the batcher (prefetch queue pops included), not the
+    consumer's work on the yielded batch.
+    """
+    iterator = iter(batches)
+    while True:
+        with tracer.span(name):
+            try:
+                batch = next(iterator)
+            except StopIteration:
+                return
+        yield batch
 
 
 def lifecycle_span(

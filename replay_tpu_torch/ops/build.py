@@ -36,6 +36,10 @@ NVCC_FLAGS = (
 
 # name -> loaded library: one load per process, reused by every launch
 _LIBRARIES: Dict[str, ctypes.CDLL] = {}
+# (name, seconds) of every library compiled at its first use in this process,
+# in order: obs/collectors.py::CompileTracker counts the ones a program's
+# first call built
+BUILD_LOG: List[Tuple[str, float]] = []
 
 
 def find_nvcc() -> str:
@@ -105,6 +109,8 @@ def aligned(t: "torch.Tensor") -> "torch.Tensor":
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
     if name not in _LIBRARIES:
-        build(name)
+        start = time.perf_counter()
+        if build(name):
+            BUILD_LOG.append((name, time.perf_counter() - start))
         _LIBRARIES[name] = ctypes.CDLL(str(library_path(name)))
     return _LIBRARIES[name]

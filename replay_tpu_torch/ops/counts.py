@@ -11,6 +11,12 @@ or replayed, as a profiler trace of the same work shows them.
 
 Captures are looked up by stream, not by thread: autograd runs a captured
 backward on its own worker thread, on the stream of the forward.
+
+The ``ctypes`` kernels (K1–K3) are invisible to PyTorch's dispatch-mode
+counters (``obs/mfu.py``'s FLOP and byte counts): each reports its costs
+with :func:`opaque` instead, and its plain version runs inside
+:func:`outside_modes`, so that a program counts the same on the CPU as on
+the card.
 """
 
 from __future__ import annotations
@@ -24,6 +30,9 @@ Launch = Tuple[Any, Optional[str]]
 # the stream handle (an int) of every capture in progress -> its launch list
 _RECORDING: Dict[int, List[Launch]] = {}
 _LOCK = threading.Lock()
+# the open cost sinks of obs/mfu.py::program_costs (any thread: autograd runs
+# the backward on a worker thread)
+_COST_SINKS: List[List[Dict[str, float]]] = []
 
 
 def add(wrapper, variant: Optional[str] = None) -> None:
@@ -65,3 +74,34 @@ def recording(stream: int) -> Iterator[List[Launch]]:
     finally:
         with _LOCK:
             del _RECORDING[stream]
+
+
+def opaque(flops: float, nbytes: float) -> None:
+    """An opaque kernel call's FLOPs and bytes moved, for every open
+    :func:`opaque_costs` sink (nothing when none is open)."""
+    if not _COST_SINKS:
+        return
+    with _LOCK:
+        for sink in _COST_SINKS:
+            sink.append({"flops": float(flops), "bytes": float(nbytes)})
+
+
+@contextlib.contextmanager
+def opaque_costs() -> Iterator[List[Dict[str, float]]]:
+    """Collect the :func:`opaque` reports made while the block runs."""
+    sink: List[Dict[str, float]] = []
+    with _LOCK:
+        _COST_SINKS.append(sink)
+    try:
+        yield sink
+    finally:
+        with _LOCK:
+            _COST_SINKS.remove(sink)
+
+
+def outside_modes():
+    """Run the block outside every active dispatch mode: an opaque kernel's
+    plain version, which a counter must not see op by op."""
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    return _disable_current_modes()

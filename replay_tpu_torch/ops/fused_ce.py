@@ -172,11 +172,22 @@ def _entry(kernel: str, variant: str) -> str:
     return f"replay_fused_lse_{kernel}_tf32" if variant == "tf32" else f"replay_fused_lse_{kernel}"
 
 
+def _report(hidden: torch.Tensor, table: torch.Tensor, *operands: torch.Tensor, out_bytes: int) -> None:
+    """One K1/K2/K3 call's costs for the counters (``ops/counts.py::opaque``):
+    a third of the fused head's ``6·N·E·I`` (``obs/mfu.py::fused_ce_flops``,
+    the JAX package's count), and its operands' and result's bytes."""
+    rows, embed = hidden.shape
+    nbytes = sum(t.numel() * t.element_size() for t in (hidden, table, *operands)) + out_bytes
+    counts.opaque(2.0 * rows * embed * table.shape[0], nbytes)
+
+
 def fused_lse_forward(hidden: torch.Tensor, table: torch.Tensor, num_valid=None) -> torch.Tensor:
     """K1: ``[N]`` f32 catalog log-sum-exp. The plain version for CPU tensors;
     on CUDA tensors the kernel, or raise."""
+    _report(hidden, table, out_bytes=4 * hidden.shape[0])
     if _on_cpu(hidden, table):
-        return fused_lse_reference(hidden, table, num_valid)
+        with counts.outside_modes():
+            return fused_lse_reference(hidden, table, num_valid)
     _check(hidden, table)
     valid = _num_valid(table, num_valid)
     variant = _variant(table.shape[1])
@@ -203,8 +214,10 @@ def fused_lse_forward(hidden: torch.Tensor, table: torch.Tensor, num_valid=None)
 def fused_lse_dh(hidden, table, grad, lse, num_valid=None) -> torch.Tensor:
     """K2: ``dh`` in ``hidden.dtype``. The plain version for CPU tensors; on
     CUDA tensors the kernel, or raise."""
+    _report(hidden, table, grad, lse, out_bytes=hidden.numel() * hidden.element_size())
     if _on_cpu(hidden, table, grad, lse):
-        return fused_lse_dh_reference(hidden, table, grad, lse, num_valid)
+        with counts.outside_modes():
+            return fused_lse_dh_reference(hidden, table, grad, lse, num_valid)
     _check(hidden, table, grad, lse)
     valid = _num_valid(table, num_valid)
     variant = _variant(table.shape[1])
@@ -245,8 +258,10 @@ def dw_row_split(rows: int, items: int, dim: int, variant: str) -> Tuple[int, in
 def fused_lse_dw(hidden, table, grad, lse, num_valid=None) -> torch.Tensor:
     """K3: ``dW`` in ``table.dtype``. The plain version for CPU tensors; on
     CUDA tensors the kernel, or raise."""
+    _report(hidden, table, grad, lse, out_bytes=table.numel() * table.element_size())
     if _on_cpu(hidden, table, grad, lse):
-        return fused_lse_dw_reference(hidden, table, grad, lse, num_valid)
+        with counts.outside_modes():
+            return fused_lse_dw_reference(hidden, table, grad, lse, num_valid)
     _check(hidden, table, grad, lse)
     valid = _num_valid(table, num_valid)
     variant = _variant(table.shape[1])

@@ -154,8 +154,9 @@ def test_refusals():
     chooser = CompiledInference(dict.fromkeys((1, 4)), SEQ_LEN, "dynamic_batch_size", device="cpu")
     with pytest.raises(ValueError, match="no executables"):
         chooser.serialize()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, 'The rest of Trainer.fit'"):
-        chooser.roofline()
+    # buckets without a program have no roofline record (the records of real
+    # buckets: test_torch_roofline.py)
+    assert chooser.roofline() == {}
 
 
 @pytest.fixture(scope="module")

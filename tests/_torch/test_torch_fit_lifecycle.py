@@ -12,7 +12,7 @@
   the module.
 * ``fit(scan_chunk=3)`` at dropout 0.3 on the CPU: bit for bit the per-step
   fit, with the checkpoints, the monitored best and the dropout stream.
-* Every ``fit`` argument the port has not ported still raises, naming its item.
+* The seven observability arguments of the JAX ``fit`` are taken, each alone.
 """
 
 import jax
@@ -39,7 +39,7 @@ from replay_tpu_torch.data.nn import TensorFeatureInfo as PortTensorFeatureInfo
 from replay_tpu_torch.data.nn import TensorSchema as PortTensorSchema
 from replay_tpu_torch.nn.loss import CE
 from replay_tpu_torch.nn.sequential.sasrec import SasRec
-from replay_tpu_torch.nn.train import _UNPORTED_FIT_ARGS, OptimizerFactory, Trainer
+from replay_tpu_torch.nn.train import OptimizerFactory, Trainer
 from replay_tpu_torch.nn.transform import Compose, make_default_sasrec_transforms
 from replay_tpu_torch.utils.checkpoint import CheckpointManager
 
@@ -177,16 +177,43 @@ def test_chunked_fit_with_dropout_equals_the_per_step_fit(tmp_path):
     assert not torch.equal(a.rng, torch.Generator().manual_seed(0).get_state())  # the masks were drawn
 
 
-@pytest.mark.parametrize("name", sorted(_UNPORTED_FIT_ARGS))
-def test_every_unported_fit_argument_still_raises(name):
+# the seven fit arguments of the JAX signature that raised until the
+# observability slice; each is now taken (obs/ tests hold them to JAX)
+OBSERVABILITY_FIT_ARGS = (
+    "flight_path", "metrics_port", "profile_dir", "profile_steps", "slo_rules", "trace_path", "tracer",
+)
+
+
+@pytest.mark.parametrize("name", OBSERVABILITY_FIT_ARGS)
+def test_every_unported_fit_argument_still_raises(name, tmp_path):
+    """None of them raises any more: the fit runs with each alone, and each
+    leaves its mark (a ring, a registry, a capture, a goodput record)."""
+    from replay_tpu_torch.obs import SLORule, read_flight
+
     values = {
-        "profile_steps": (1, 2), "profile_dir": "profile", "tracer": True, "trace_path": "trace.json",
-        "metrics_port": 9000, "slo_rules": [object()], "flight_path": "flight",
+        "profile_steps": (1, 2), "profile_dir": str(tmp_path / "profile"), "tracer": True,
+        "trace_path": str(tmp_path / "trace.json"), "metrics_port": 0,
+        "slo_rules": [SLORule(metric="replay_train_loss", op=">", threshold=0.0)],
+        "flight_path": str(tmp_path / "flight.ring"),
     }
+    extra = {"profile_dir": str(tmp_path / "profile")} if name == "profile_steps" else {}
     trainer, source, _ = port_side()
-    with pytest.raises(NotImplementedError, match="not ported yet: ROADMAP.md queue 1, 'The rest of Trainer.fit'"):
-        trainer.fit(source, **{name: values[name]})
-    assert trainer.history == []
+    sink = EventSink()
+    trainer.fit(source, log_every=0, loggers=[sink], **{name: values[name]}, **extra)
+    assert len(trainer.history) == 1
+    end = [e for e in sink.events if e.event == "on_fit_end"][0].payload
+    if name == "profile_steps":
+        assert end["device_time"]["capture"].startswith(str(tmp_path / "profile")) and "roofline" in end
+    elif name == "tracer":
+        assert set(end["goodput"]["fractions"]) >= {"train_step", "data_wait", "other"} and trainer.tracer is None
+    elif name == "flight_path":
+        assert read_flight(values[name]).records[-1]["event"] == "on_fit_end"
+    elif name in ("metrics_port", "slo_rules"):
+        assert trainer.metrics_registry is not None and trainer.metrics_exporter is None
+        assert any(e.event == "on_slo_violation" for e in sink.events) == (name == "slo_rules")
+    else:  # profile_dir without a window, trace_path without a tracer: nothing is written
+        assert not (tmp_path / "profile").exists() and not (tmp_path / "trace.json").exists()
+        assert "device_time" not in end and "goodput" not in end
 
 
 def test_console_and_multi_loggers_print_the_jax_lines(caplog):

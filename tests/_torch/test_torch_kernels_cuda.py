@@ -1436,3 +1436,93 @@ def test_packed_chunk_graph_equals_the_eager_steps(cuda_device):
     assert losses.tolist() == want and torch.equal(state.flat_params, eager.flat_params)
     _, again = trainer.train_steps(trainer.init_state(None, params=initial), batches)  # a replay
     assert again.tolist() == want
+
+
+def _observed_trainer(cuda_device, health=None):
+    from replay_tpu_torch.obs.health import HealthConfig
+
+    schema = TensorSchema(
+        TensorFeatureInfo(
+            "item_id", FeatureType.CATEGORICAL, is_seq=True, feature_hint=FeatureHint.ITEM_ID,
+            cardinality=300, embedding_dim=64,
+        )
+    )
+    model = SasRec(
+        schema, embedding_dim=64, num_blocks=2, num_heads=1, max_sequence_length=16, use_flash=True,
+        device=cuda_device, generator=torch.Generator().manual_seed(3),
+    )
+    return Trainer(model, CEFused(), device=cuda_device, health=HealthConfig(cadence=health) if health else None)
+
+
+def _observed_batches(count):
+    rng = np.random.default_rng(5)
+    batches = []
+    for _ in range(count):
+        items = rng.integers(0, 300, (32, 17)).astype(np.int32)
+        mask = np.ones((32, 16), dtype=bool)
+        batches.append({
+            "feature_tensors": {"item_id": items[:, :-1]}, "padding_mask": mask,
+            "positive_labels": items[:, 1:, None], "target_padding_mask": mask[:, :, None],
+        })
+    return batches
+
+
+def test_observe_a_profiled_chunked_fit_attributes_its_kernels(cuda_device, tmp_path):
+    """fit(scan_chunk=4) over 10 batches with health at cadence 5 (steps 5
+    and 10 singly), tracing and a profile window over executed steps 4–8 (a
+    health step and a graph replay): the window's traced K4 and K1–K3 equal
+    their counted launches, K4 all in ``encoder``, K1–K3 all in ``loss`` (the
+    replay's through its traced warm-up); the losses bitwise a plain fit's."""
+    batches = _observed_batches(10)
+    events = []
+
+    class Sink:
+        def log_event(self, event):
+            events.append(event)
+
+    plain = _observed_trainer(cuda_device)
+    plain_state = plain.fit(batches, scan_chunk=4, log_every=0)
+    trainer = _observed_trainer(cuda_device, health=5)
+    state = trainer.fit(
+        batches, scan_chunk=4, log_every=0, loggers=[Sink()], tracer=True, profile_steps=(4, 9),
+        profile_dir=str(tmp_path / "profile"),
+    )
+    assert torch.equal(state.flat_params, plain_state.flat_params)
+    record = [e for e in events if e.event == "on_fit_end"][0].payload["device_time"]
+    counted = {name: record["launches"][name] for name in ("flash_attention", "fused_lse_forward", "fused_lse_dh", "fused_lse_dw")}
+    assert counted == {"flash_attention": 10, "fused_lse_forward": 5, "fused_lse_dh": 5, "fused_lse_dw": 5}
+    for name, launches in counted.items():
+        scope = "encoder" if name == "flash_attention" else "loss"
+        assert record["kernels"][name] == {"count": launches, "scopes": {scope: launches}}
+    assert "train_scan" in record["modules"] and "eager" in record["modules"]
+    assert record["attributed_seconds"] + record["unattributed_seconds"] == pytest.approx(record["total_device_seconds"])
+
+
+def test_observe_flops_on_the_card_equal_the_cpu_count(cuda_device):
+    """The counted FLOPs of one step: the same on the card (K4 through its
+    operator's formula, K1–K3 reported by their wrappers) as on the CPU
+    (their plain versions hidden from the counter)."""
+    batch = _observed_batches(1)[0]
+    counts = []
+    for device in (cuda_device, torch.device("cpu")):
+        trainer = _observed_trainer(device)
+        state = trainer.init_state(batch)
+        trainer.train_step(state, batch)
+        counts.append(trainer.analyze_programs()["train_step"])
+    assert counts[0]["flops"] == counts[1]["flops"] > 0
+    assert counts[0]["roofline"]["bound"] in ("memory", "compute")
+    assert counts[0]["temp_bytes"] > 0 and counts[0]["argument_bytes"] > 0
+
+
+def test_observe_compiled_inference_roofline_per_bucket(cuda_device):
+    from replay_tpu_torch.nn.compiled import CompiledInference
+
+    trainer = _observed_trainer(cuda_device)
+    served = CompiledInference.compile(
+        trainer.model, dict(trainer.model.named_parameters()), 16, mode="dynamic_batch_size",
+        dynamic_buckets=(1, 8, 64), device=cuda_device,
+    )
+    records = served.roofline()
+    served.close()
+    assert sorted(records) == [1, 8, 64]
+    assert all(r["roofline"] is not None and r["flops"] > 0 and "hbm_peak_bytes" in r for r in records.values())

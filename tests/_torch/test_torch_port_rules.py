@@ -109,7 +109,8 @@ def test_pyarrow_is_imported_only_inside_functions(path):
 @pytest.mark.parametrize(
     "subpackage, modules",
     [
-        ("obs", ("events", "trace")), ("models", ("ann", "ivf")), ("serve", ("service", "batcher", "pipeline", "promote", "quant")),
+        ("obs", ("events", "trace", "collectors", "health", "profile", "mfu", "roofline", "metrics", "exporter", "slo", "blackbox")),
+        ("models", ("ann", "ivf")), ("serve", ("service", "batcher", "pipeline", "promote", "quant")),
         ("nn.transform", ("transforms", "template")), ("nn.sequential.bert4rec", ("model",)),
         ("nn.sequential.twotower", ("model", "reader")),
         ("utils", ("checkpoint", "faults", "types", "serde")),

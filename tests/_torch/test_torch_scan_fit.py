@@ -15,8 +15,8 @@ of the port against its own per-step path and against the JAX package, on the CP
   ``tests/nn/test_scan_fit.py`` asks of its own. Two tests of that file fail
   at the seed (``ROADMAP.md`` queue 3), so the JAX chunked fit is not taken as
   a bitwise reference here: the JAX reference is ``train_steps`` above.
-* ``scan_chunk < 1`` raises, every fit argument the port has not ported
-  still raises on the chunked path, and the lifecycle arguments run there.
+* ``scan_chunk < 1`` raises, and every argument of the JAX fit runs on the
+  chunked path.
 """
 
 import numpy as np
@@ -38,7 +38,7 @@ from replay_tpu_torch.data.nn import TensorFeatureInfo as PortTensorFeatureInfo
 from replay_tpu_torch.data.nn import TensorSchema as PortTensorSchema
 from replay_tpu_torch.nn.loss import CE, CEFused
 from replay_tpu_torch.nn.sequential.sasrec import SasRec
-from replay_tpu_torch.nn.train import _UNPORTED_FIT_ARGS, RecoveryPolicy, Trainer
+from replay_tpu_torch.nn.train import RecoveryPolicy, Trainer
 from replay_tpu_torch.utils.checkpoint import CheckpointManager
 
 NUM_ITEMS, DIM, SEQ_LEN, BATCH, K = 50, 16, 8, 4, 3
@@ -181,34 +181,32 @@ def test_batches_that_cannot_stack_raise():
         port_trainer().train_steps(port_trainer().init_state(BATCHES[0]), ragged)
 
 
-# the lifecycle arguments of the JAX fit, each with a value the chunked fit
-# must now take (the rest of the JAX fit's arguments still raise)
+# the lifecycle and observability arguments of the JAX fit, each with a
+# value the chunked fit must take (the observability ones raised until the
+# observability slice; every fit argument is ported now)
 PORTED_VALUES = {
     "checkpoint_manager": None, "checkpoint_every": 2, "resume": False, "monitor": "train_loss",
     "patience": 2, "mode": "min", "loggers": [], "recovery": None, "detect_anomalies": True,
     "handle_preemption": True,
 }
 UNPORTED_VALUES = {
-    "profile_steps": (1, 2), "profile_dir": "profile", "tracer": object(), "trace_path": "trace.json",
-    "metrics_port": 9000, "slo_rules": [], "flight_path": "flight",
+    "profile_steps": (1, 2), "profile_dir": "profile", "tracer": True, "trace_path": "trace.json",
+    "metrics_port": 0, "slo_rules": [], "flight_path": "flight.ring",
 }
 
 
 @pytest.mark.parametrize("name", sorted({**PORTED_VALUES, **UNPORTED_VALUES}))
 def test_every_unported_fit_argument_still_raises_on_the_chunked_path(name, tmp_path):
-    """The arguments still unported raise, naming their item; the lifecycle
-    arguments the port has taken off that list run on the chunked path."""
-    assert set(UNPORTED_VALUES) == set(_UNPORTED_FIT_ARGS)
+    """Every argument of the JAX fit runs on the chunked path (paths under
+    the test's directory)."""
     trainer = port_trainer()
-    if name in UNPORTED_VALUES:
-        with pytest.raises(NotImplementedError, match="not ported yet: ROADMAP.md queue 1, 'The rest of Trainer.fit'"):
-            trainer.fit(BATCHES[:K], scan_chunk=K, **{name: UNPORTED_VALUES[name]})
-        assert trainer.history == []
-        return
-    value = PORTED_VALUES[name]
+    value = {**PORTED_VALUES, **UNPORTED_VALUES}[name]
     if name == "checkpoint_manager":
         value = CheckpointManager(str(tmp_path / "run"))
     elif name == "recovery":
         value = RecoveryPolicy()
-    state = trainer.fit(BATCHES[:K], scan_chunk=K, log_every=0, **{name: value})
+    elif name in ("profile_dir", "trace_path", "flight_path"):
+        value = str(tmp_path / value)
+    extra = {"profile_dir": str(tmp_path / "profile")} if name == "profile_steps" else {}
+    state = trainer.fit(BATCHES[:K], scan_chunk=K, log_every=0, **{name: value}, **extra)
     assert state.step == K and len(trainer.history) == 1

@@ -344,18 +344,19 @@ def test_fit_takes_a_callable_and_a_one_shot_stream():
     [("checkpoint_manager", object()), ("scan_chunk", 2), ("monitor", "ndcg@10"), ("recovery", object()), ("loggers", [])],
 )
 def test_unported_fit_arguments_raise(name, value, tmp_path):
-    """The lifecycle arguments are ported now: each runs (a monitor missing
-    from the epoch record raises ``KeyError``, as in the JAX fit), and beside
-    it an argument still unported raises, naming its item."""
+    """The lifecycle arguments are ported: each runs (a monitor missing
+    from the epoch record raises ``KeyError``, as in the JAX fit), alone and
+    beside ``tracer=True``, which raised until every fit argument was ported."""
     trainer = port_trainer("CE", False)
     usable = {"checkpoint_manager": CheckpointManager(str(tmp_path)), "recovery": RecoveryPolicy()}.get(name, value)
-    with pytest.raises(NotImplementedError, match="not ported yet: ROADMAP.md queue 1, 'The rest of Trainer.fit'"):
-        trainer.fit(BATCHES[:1], tracer=True, **{name: usable})
     if name == "monitor":
-        with pytest.raises(KeyError, match="not in the epoch record"):
-            trainer.fit(BATCHES[:1], monitor=value, log_every=0)
+        for extra in ({}, {"tracer": True}):
+            with pytest.raises(KeyError, match="not in the epoch record"):
+                trainer.fit(BATCHES[:1], monitor=value, log_every=0, **extra)
     else:
+        trainer.fit(BATCHES[:1], log_every=0, tracer=True, **{name: usable})
         trainer.fit(BATCHES[:1], log_every=0, **{name: usable})
+        assert trainer.tracer is None
     # the JAX defaults are accepted and change nothing
     trainer.fit(BATCHES[:1], scan_chunk=None, prefetch=0, mode="max", resume=False, log_every=0)
     with pytest.raises(TypeError, match="unexpected keyword"):

@@ -11,8 +11,10 @@ traffic, its retrieval (int8 table, IVF index, exact rescore) at
 ``bench_suite.py`` ``sasrec_l1024_tiled`` width, BERT4Rec and TwoTower
 (training and serving) at ``bench_suite.py``'s ``bert4rec`` and ``twotower``
 widths, notebook 09's training lifecycle (checkpoints, preemption and
-resume, recovery, dropout in captured chunks), and bench_suite.py's stream rows (packed rows, the
-parquet stream), and holds every kernel of those paths against its plain PyTorch
+resume, recovery, dropout in captured chunks), bench_suite.py's stream rows (packed rows, the
+parquet stream) and catalog-scaling rows (SCE, gBCE at 1M items, CEFused at 100k),
+bench_continual.py's growing-catalog loop (vocabulary surgery, finetune, a grown
+generation served), and holds every kernel of those paths against its plain PyTorch
 version. Serving runs on CUDA graphs (one
 captured graph per bucket, replayed by every encode) and is held bit for bit
 to the eager bound program; training runs per step and, through
@@ -143,7 +145,23 @@ replays. Phases, one JSON line each:
                  ``fit(scan_chunk=8)`` resumed bitwise through the stream cursor without
                  rereading a slab (the parquet parts where pyarrow imports; a line says so
                  where it does not);
-10. ``kernels`` — every ported kernel with its launches on the paths driven.
+10. ``scale`` — bench_suite.py's catalog-scaling rows (SASRec E=128, 2 blocks, 2 heads, L=50,
+                 batch 512, bf16, K4): ``sasrec_100k_sce`` (SCE, 160 buckets of 256),
+                 ``scale_1m_gbce`` (1,000,000 items, GBCE t=0.75 over 256 negatives, one
+                 health step streamed over the table) and ``sasrec_100k_fused`` (CEFused,
+                 K1–K3 at 100,000 items): eager step p50, step on K=8 graphs, device ms a
+                 step from two agreeing traces, kernels and copies a step, peak memory;
+                 the graphs bitwise the per-step path; SCE's losses repeat from the seed,
+                 and its preempted fit resumes bitwise;
+11. ``continual`` — bench_continual.py's loop at MovieLens-1M's scale (6,040 users, a
+                 catalog growing from 3,000 by 353 items every 2 days; SASRec E=64, 2
+                 heads, K4 at D=32): each day ``Trainer.finetune`` on the tail against a
+                 fresh fit on the whole history, NDCG@10 / recall@10 on the next day; each
+                 resize bitwise the CPU's, moments carried, programs captured anew, a K=32
+                 graph bitwise 32 eager steps; the grown generation through
+                 ``ScoringService.publish_candidate``'s shape-change path, its top-10 that of
+                 ``predict_top_k``;
+12. ``kernels`` — every ported kernel with its launches on the paths driven.
 
 Every trainer's device time per step comes from a profiler trace that agrees
 with a second trace of the same steps (``device_time_per_step``). Then the
@@ -273,6 +291,9 @@ FUSED_CASES = (
     # notebook 09's batch (32 windows of L=50) over the same catalog, E=64:
     # the lifecycle phase's CEFused epoch
     ("notebook", 32 * SEQ_LEN, NUM_ITEMS, None, torch.float32, EMBEDDING_DIM),
+    # bench_suite.py's sasrec_100k_fused: 25,600 rows, 100,000 items, E=128,
+    # the bf16 trainer's hidden states (the scale phase's CEFused row)
+    ("scale_100k", TRAIN_BATCH * SEQ_LEN, 100_000, None, torch.bfloat16, 128),
 )
 
 # bench_suite.py's sasrec_l1024_tiled: the same catalog, E=128, 2 blocks, 2
@@ -355,6 +376,9 @@ KERNEL_SHAPES = (
     # notebook 09's SASRec (examples/ml1m_parity.py): batch 32, 2 heads of
     # E=64 (D=32), L=50, causal
     ("notebook", 32, 2, 50, 32, 1, "train"),
+    # bench_suite.py's catalog-scaling rows: batch 512, 2 heads of E=128
+    # (D=64), L=50, causal
+    ("scale", 512, 2, 50, 64, 1, "train"),
 )
 
 # bench_suite.py's bert4rec and twotower rows (:333-379, :828-829): the
@@ -420,6 +444,43 @@ STREAM_LEAK_TOL = 1e-2
 # the parquet fit's SIGTERM: while batch 20 of epoch 0 is fetched, in its
 # third chunk
 STREAM_PREEMPT_AT = 20
+
+# bench_suite.py's catalog-scaling rows (run_sasrec / run_sasrec_sce,
+# :245-330; rows :827, :857-862): SASRec E=128, 2 blocks, 2 heads, L=50,
+# batch 512, dropout 0, Adam 1e-3, bf16 compute (:816 on an accelerator),
+# batches as sasrec_batch (:211-226) builds them. sasrec_100k_sce: 100,000
+# items, SCE with 160 buckets (:313's formula at 25,600 tokens) of 256
+# positions and 256 items; scale_1m_gbce: 1,000,000 items, GBCE t=0.75 over a
+# shared pool of 256 negatives; sasrec_100k_fused: the exact head SCE
+# approximates, CEFused (K1-K3) at 100,000 items. use_flash=True (K4) where
+# bench_suite.py runs unfused. K=8 graphs over 11 batches (a chunk and a
+# tail of 3); the eager steps timed over 10 after 2, traced over 3.
+SCALE_DIM, SCALE_BLOCKS, SCALE_HEADS, SCALE_BATCH = 128, 2, 2, 512
+SCALE_ROWS = (
+    ("sasrec_100k_sce", 100_000, "sce", 0),
+    ("scale_1m_gbce", 1_000_000, "gbce", 256),
+    ("sasrec_100k_fused", 100_000, "fused", 0),
+)
+SCALE_SCE = dict(n_buckets=160, bucket_size_x=256, bucket_size_y=256)
+SCALE_STEPS, SCALE_SCAN_K, SCALE_BATCHES = 5, 8, 11
+SCALE_TIMED_STEPS, SCALE_WARMUP_STEPS, SCALE_PROFILED_STEPS = 10, 2, 3
+# the SCE fit's SIGTERM: while batch 13 of its 2 epochs of 11 is fetched
+SCALE_PREEMPT_AT = 13
+
+# bench_continual.py's loop (simulate_stream :111-140, the loop :220-300) at
+# MovieLens-1M's scale: 6,040 users, 6 events a user a day over 5 days, a
+# catalog growing by 353 items every 2 days from 3,000 (3,706 at day 4);
+# SASRec E=64, 2 blocks, 2 heads (K4 at D=32), L=50, CE, batch 32, dropout 0,
+# Adam 1e-2 (:241-255), 2 epochs over the day's tail (continual, through
+# Trainer.finetune with xavier cold rows) and over the whole history (a
+# fresh model each day), K=32 graphs, NDCG@10 / recall@10 on the next day.
+CONT_DAYS, CONT_USERS, CONT_EVENTS_PER_DAY, CONT_ITEMS, CONT_GROW_ITEMS, CONT_GROW_EVERY = 5, 6040, 6, 3000, 353, 2
+CONT_DIM, CONT_BLOCKS, CONT_HEADS, CONT_LEN, CONT_BATCH, CONT_LR = 64, 2, 2, 50, 32, 1e-2
+CONT_TAIL_EPOCHS, CONT_RETRAIN_EPOCHS, CONT_TOPK, CONT_SCAN_K = 2, 2, 10, 32
+# users whose top-10 from the served grown generation is held to
+# predict_top_k's: ids equal at every rank clear of its neighbours by more
+# than SERVE_TOL (two programs' f32 sums in other orders)
+CONT_SERVE_USERS = 32
 
 
 def emit(phase: str, **fields) -> None:
@@ -4789,6 +4850,597 @@ def stream_phase(device) -> dict:
     }
 
 
+class SigtermList:
+    """A list of batches, iterable once an epoch, that raises a real SIGTERM
+    while batch ``at`` (counted over every iteration) is fetched."""
+
+    def __init__(self, batches, at: int) -> None:
+        self.batches, self.at, self.fetched, self.raised = list(batches), at, 0, False
+
+    def __iter__(self):
+        import signal
+
+        for batch in self.batches:
+            if self.fetched == self.at and not self.raised:
+                self.raised = True
+                signal.raise_signal(signal.SIGTERM)
+            self.fetched += 1
+            yield batch
+
+
+def scale_batch(num_items: int, seed: int, negatives: int = 0):
+    """``bench_suite.py::sasrec_batch`` at the scale width: full windows of
+    L + 1 items from default_rng(seed), and a shared pool of ``negatives``
+    sampled ids where the loss takes one."""
+    rng = np.random.default_rng(seed)
+    items = rng.integers(0, num_items, size=(SCALE_BATCH, SEQ_LEN + 1)).astype(np.int32)
+    mask = np.ones((SCALE_BATCH, SEQ_LEN), dtype=bool)
+    batch = {
+        "feature_tensors": {"item_id": items[:, :-1]},
+        "padding_mask": mask,
+        "positive_labels": items[:, 1:, None],
+        "target_padding_mask": mask[:, :, None],
+    }
+    if negatives:
+        batch["negative_labels"] = rng.integers(0, num_items, size=(negatives,)).astype(np.int32)
+    return batch
+
+
+def scale_loss(kind: str, num_items: int):
+    from replay_tpu_torch.nn.loss import GBCE, SCE, CEFused, SCEParams
+
+    if kind == "sce":
+        return SCE(SCEParams(**SCALE_SCE))
+    if kind == "gbce":
+        return GBCE(catalog_size=num_items, t=0.75)
+    return CEFused()
+
+
+def scale_preempt_resume(make_trainer, initial, batches, root) -> dict:
+    """The SCE trainer's ``fit(scan_chunk=K)`` over two epochs, uninterrupted;
+    the same with a SIGTERM while batch ``SCALE_PREEMPT_AT`` is fetched and a
+    checkpoint manager; then ``fit(resume=True)``: the resumed state (its
+    projection stream in ``rng`` too) and history bitwise the uninterrupted
+    run's."""
+    from replay_tpu_torch.utils.checkpoint import CheckpointManager
+
+    fit = dict(epochs=2, scan_chunk=SCALE_SCAN_K, log_every=0)
+    trainer_a = make_trainer()
+    state_a = trainer_a.fit(batches, state=trainer_a.init_state(batches[0], params=initial), **fit)
+    trainer_b = make_trainer()
+    interrupted = SigtermList(batches, SCALE_PREEMPT_AT)
+    manager = CheckpointManager(str(root / "sce"), max_to_keep=100)
+    state_b = trainer_b.fit(
+        interrupted, state=trainer_b.init_state(batches[0], params=initial), checkpoint_manager=manager, **fit
+    )
+    stopped = state_b.step
+    meta = manager.metadata(manager.latest_step())
+    del trainer_b, state_b
+    trainer_c = make_trainer()
+    state_c = trainer_c.fit(batches, checkpoint_manager=manager, resume=True, **fit)
+    record = {
+        "signal_at_batch": SCALE_PREEMPT_AT, "raised": interrupted.raised, "stopped_at_step": stopped,
+        "checkpoint": {k: meta.get(k) for k in ("epoch", "step_in_epoch", "preempted", "mid_epoch")},
+        "state_equal": state_equal(state_c, state_a), "history_equal": trainer_c.history == trainer_a.history,
+        "steps": state_a.step,
+    }
+    if not (record["raised"] and record["state_equal"] and record["history_equal"] and 0 < stopped < state_a.step):
+        raise AssertionError(f"scale: the preempted SCE fit did not resume as the uninterrupted one: {record}")
+    return record
+
+
+def scale_row(name: str, num_items: int, kind: str, negatives: int, device, root) -> dict:
+    """One catalog-scaling row: the bf16 SASRec at E=128 with the row's loss.
+    The main path (each kernel counted from 0): ``SCALE_STEPS`` eager steps
+    from the seed, K4 twice a step and, for CEFused, K1–K3 once each. SCE:
+    the same seed repeats its losses bitwise, another seed does not, and a
+    preempted fit resumes bitwise. gBCE: one health step whose logits stats
+    stream over the 1M-row table. Then step times, device time and memory
+    (``trainer_perf``) and the K=8 graphs against the per-step path
+    (``chunk_checks``), which must be bitwise."""
+    from replay_tpu_torch.data import FeatureHint, FeatureType
+    from replay_tpu_torch.data.nn import TensorFeatureInfo, TensorSchema
+    from replay_tpu_torch.nn.sequential.sasrec import SasRec
+    from replay_tpu_torch.nn.train import OptimizerFactory, Trainer
+    from replay_tpu_torch.obs.health import HealthConfig
+    from replay_tpu_torch.ops import fused_ce as fc
+    from replay_tpu_torch.ops.flash_attention import flash_attention
+
+    started = time.perf_counter()
+    schema = TensorSchema(
+        TensorFeatureInfo(
+            "item_id", FeatureType.CATEGORICAL, is_seq=True, feature_hint=FeatureHint.ITEM_ID,
+            cardinality=num_items, embedding_dim=SCALE_DIM,
+        )
+    )
+    width = dict(
+        embedding_dim=SCALE_DIM, num_blocks=SCALE_BLOCKS, num_heads=SCALE_HEADS, max_sequence_length=SEQ_LEN,
+        dropout_rate=0.0, use_flash=True, device=device,
+    )
+    initial = {
+        key: value.detach().clone()
+        for key, value in SasRec(schema, generator=torch.Generator().manual_seed(SEED), **width).state_dict().items()
+    }
+    fused = (fc.fused_lse_forward, fc.fused_lse_dh, fc.fused_lse_dw) if kind == "fused" else ()
+    counters = (flash_attention, *fused)
+    per_step = {"flash_attention": SCALE_BLOCKS, **{fn.__name__: 1 for fn in fused}}
+
+    def make_trainer(seed=SEED, **kwargs):
+        trainer = Trainer(
+            SasRec(schema, **width), scale_loss(kind, num_items),
+            optimizer=OptimizerFactory(name="adam", learning_rate=1e-3), precision="bf16", seed=seed,
+            device=device, **kwargs,
+        )
+        if trainer.model.dtype != torch.bfloat16:
+            raise AssertionError(f"{name}: precision='bf16' did not reach the model")
+        return trainer
+
+    batches = [scale_batch(num_items, seed, negatives) for seed in range(SCALE_BATCHES)]
+    tokens = SCALE_BATCH * SEQ_LEN
+
+    # the main path: eager steps from the seed, every kernel counted from 0
+    trainer = make_trainer()
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_counts(*counters)
+    state = trainer.init_state(batches[0], params=initial)
+    losses = [trainer.train_step(state, batch)[1] for batch in batches[:SCALE_STEPS]]
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counters}
+    variants = fused_variant_counts(fc) if fused else None
+    losses = [float(x) for x in losses]
+    expected = {key: count * SCALE_STEPS for key, count in per_step.items()}
+    if launches != expected or not all(math.isfinite(x) for x in losses) or int(state.bad_steps):
+        raise AssertionError(f"{name}: launches {launches} (expected {expected}), losses {losses}")
+    if fused:
+        check_fused_variants(name, variants, SCALE_STEPS)
+    record = {
+        "row": name, "items": num_items, "loss": type(trainer.loss).__name__, "negatives": negatives,
+        "losses": losses, "launches": launches, "variants": variants,
+        "max_memory_allocated_steps_bytes": torch.cuda.max_memory_allocated(device),
+    }
+    if kind == "sce":
+        repeats = {}
+        for seed in (SEED, SEED + 1):
+            again = make_trainer(seed)
+            again_state = again.init_state(batches[0], params=initial)
+            repeats[seed] = [float(again.train_step(again_state, b)[1]) for b in batches[:SCALE_STEPS]]
+            del again, again_state
+        record.update(seed_repeats=repeats[SEED] == losses, other_seed_losses=repeats[SEED + 1])
+        if repeats[SEED] != losses or repeats[SEED + 1] == losses:
+            raise AssertionError(f"{name}: the projection does not follow the seed: {losses} vs {repeats}")
+    if kind == "gbce":
+        # one health step: the logits stats stream over the 1M-row table
+        health = make_trainer(health=HealthConfig(cadence=1, attention_entropy=False, activation_stats=False))
+        health_state = health.init_state(batches[0], params=initial)
+        health.train_step(health_state, batches[0])
+        got = health.last_step_metrics["health"]
+        record["health"] = {
+            "logits": {key: float(value) for key, value in got["logits"].items()},
+            "embedding_coverage": float(got["embedding_coverage"]),
+            "grad_norm_global": float(got["grad_norm_global"]),
+        }
+        # the rows the batch touches: its input ids, labels and negatives
+        touched = np.unique(np.concatenate([batches[0][key].reshape(-1) for key in ("positive_labels", "negative_labels")]
+                                           + [batches[0]["feature_tensors"]["item_id"].reshape(-1)]))
+        record["health"]["coverage_bound"] = (len(touched) + 1) / (num_items + 1)
+        stats = record["health"]["logits"]
+        if set(stats) != {"mean", "absmax", "std"} or not all(math.isfinite(v) for v in stats.values()) or not (
+            0.0 < record["health"]["embedding_coverage"] <= record["health"]["coverage_bound"]
+        ):
+            raise AssertionError(f"{name}: the streamed health record is wrong: {record['health']}")
+        del health, health_state
+    release()
+    _, record["perf"] = trainer_perf(
+        trainer, state, batches[0], SCALE_TIMED_STEPS, SCALE_WARMUP_STEPS, SCALE_PROFILED_STEPS, tokens
+    )
+    record["chunked"] = chunk_checks(trainer, initial, batches, SCALE_SCAN_K, counters, per_step, tokens)
+    if not record["chunked"]["per_step_bitwise_deterministic"] or not record["chunked"]["fit_bitwise_deterministic"]:
+        raise AssertionError(f"{name}: the per-step path is not bitwise repeatable: {record['chunked']}")
+    del trainer, state
+    release()
+    if kind == "sce":
+        record["preempt_resume"] = scale_preempt_resume(make_trainer, initial, batches, root)
+        release()
+    record["row_s"] = time.perf_counter() - started
+    perf, chunked = record["perf"], record["chunked"]["perf"]
+    emit(
+        "scale", row=name, items=num_items, loss=record["loss"], losses=losses, launches=launches,
+        eager_p50_ms=perf["p50_ms"], graph_step_ms=chunked["train_steps_ms_per_step"],
+        device_ms_per_step=perf["device_ms"], graph_device_ms_per_step=chunked["device_ms_per_step"],
+        kernels_per_step=perf["kernels_per_step"], copies_per_step=perf["copies_per_step"],
+        max_memory_allocated_bytes=max(perf["max_memory_allocated_bytes"], chunked["max_memory_allocated_bytes"]),
+        row_s=record["row_s"], record=record,
+    )
+    return record
+
+
+def scale_phase(device) -> dict:
+    """bench_suite.py's catalog-scaling rows on the port (``SCALE_ROWS``),
+    one line a row, then the phase's seconds."""
+    import tempfile
+    from pathlib import Path
+
+    started = time.perf_counter()
+    rows = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_scale_") as tmp:
+        for name, num_items, kind, negatives in SCALE_ROWS:
+            rows[name] = scale_row(name, num_items, kind, negatives, device, Path(tmp))
+    phase_s = time.perf_counter() - started
+    emit("scale", run="phase", phase_s=phase_s)
+    fused = rows["sasrec_100k_fused"]
+    return {
+        "rows": rows, "phase_s": phase_s,
+        "k4": {name: row["launches"]["flash_attention"] for name, row in rows.items()},
+        "k4_graph": {name: row["chunked"]["launches"]["flash_attention"] for name, row in rows.items()},
+        "fused_eager": fused["launches"], "fused_graph": fused["chunked"]["launches"],
+    }
+
+
+# --------------------------------------------------------------------------- #
+# continual: bench_continual.py's loop
+# --------------------------------------------------------------------------- #
+def continual_stream(rng):
+    """``bench_continual.py::simulate_stream`` at ``CONT_*``: per-user, per-day
+    interaction lists over a growing catalog (a noisy successor pattern), and
+    the catalog of each day."""
+    catalog = CONT_ITEMS
+    events, catalog_by_day = [], []
+    state = rng.integers(0, CONT_ITEMS, size=CONT_USERS)
+    for day in range(CONT_DAYS):
+        if day > 0 and CONT_GROW_EVERY > 0 and day % CONT_GROW_EVERY == 0:
+            catalog += CONT_GROW_ITEMS
+        catalog_by_day.append(catalog)
+        day_events = []
+        for user in range(CONT_USERS):
+            items = []
+            current = int(state[user])
+            for _ in range(CONT_EVENTS_PER_DAY):
+                if rng.random() < 0.2:
+                    current = int(rng.integers(0, catalog))
+                else:
+                    current = (current * 3 + 7) % catalog
+                items.append(current)
+            state[user] = current
+            day_events.append(items)
+        events.append(day_events)
+    return events, catalog_by_day
+
+
+def continual_window(items, length: int):
+    """A right-aligned window of the last ``length`` items, padded with 0."""
+    window = np.zeros(length, np.int32)
+    count = min(len(items), length)
+    if count:
+        window[length - count :] = np.asarray(items[-count:], np.int32)
+    mask = np.zeros(length, bool)
+    mask[length - count :] = True
+    return window, mask
+
+
+def continual_train_batches(histories, rng) -> list:
+    """``bench_continual.py::train_batches``: fixed-shape next-item batches of
+    each user's right-aligned window, shuffled, the last one padded with
+    invalid rows."""
+    users = [u for u, h in enumerate(histories) if len(h) >= 2]
+    rng.shuffle(users)
+    batches = []
+    for start in range(0, len(users), CONT_BATCH):
+        chunk = users[start : start + CONT_BATCH]
+        windows = [continual_window(histories[user], CONT_LEN + 1) for user in chunk]
+        ids = np.stack([w for w, _ in windows])
+        mask = np.stack([m for _, m in windows])
+        valid = np.zeros(CONT_BATCH, bool)
+        valid[: len(chunk)] = True
+        if len(chunk) < CONT_BATCH:
+            pad = CONT_BATCH - len(chunk)
+            ids = np.concatenate([ids, np.repeat(ids[:1], pad, 0)])
+            mask = np.concatenate([mask, np.zeros((pad, CONT_LEN + 1), bool)])
+        batches.append(
+            {
+                "feature_tensors": {"item_id": ids[:, :-1]},
+                "padding_mask": mask[:, :-1],
+                "positive_labels": ids[:, 1:, None],
+                "target_padding_mask": (mask[:, :-1] & mask[:, 1:])[:, :, None],
+                "valid": valid,
+            }
+        )
+    return batches
+
+
+def continual_eval_batches(histories, next_day_events) -> list:
+    """``bench_continual.py::eval_batches``: each user's window against their
+    first interaction of the next day."""
+    rows = [
+        (*continual_window(history, CONT_LEN), next_day_events[user][0])
+        for user, history in enumerate(histories)
+        if history and next_day_events[user]
+    ]
+    batches = []
+    for start in range(0, len(rows), CONT_BATCH):
+        part = rows[start : start + CONT_BATCH]
+        ids = np.stack([r[0] for r in part])
+        mask = np.stack([r[1] for r in part])
+        truth = np.asarray([r[2] for r in part], np.int32)[:, None]
+        valid = np.zeros(CONT_BATCH, bool)
+        valid[: len(part)] = True
+        if len(part) < CONT_BATCH:
+            pad = CONT_BATCH - len(part)
+            ids = np.concatenate([ids, np.repeat(ids[:1], pad, 0)])
+            mask = np.concatenate([mask, np.repeat(mask[:1], pad, 0)])
+            truth = np.concatenate([truth, np.repeat(truth[:1], pad, 0)])
+        batches.append({"feature_tensors": {"item_id": ids}, "padding_mask": mask, "ground_truth": truth, "valid": valid})
+    return batches
+
+
+def host_state(state) -> dict:
+    """A CPU copy of a train state's tensors and its parameter layout."""
+    return {
+        "flat": state.flat_params.detach().cpu().clone(),
+        "opt": [{key: value.detach().cpu().clone() for key, value in link.items()} for link in state.opt_state],
+        "rng": state.rng.clone(), "step": state.step, "bad_steps": state.bad_steps.detach().cpu().clone(),
+        "layout": [(name, tuple(value.shape)) for name, value in state.params.items()],
+    }
+
+
+def table_rows(flat: torch.Tensor, layout, name: str) -> torch.Tensor:
+    """The ``[rows, E]`` rows of parameter ``name`` in a flat buffer."""
+    offset = 0
+    for key, shape in layout:
+        size = math.prod(shape)
+        if key == name:
+            return flat[offset : offset + size].view(shape)
+        offset += size
+    raise KeyError(name)
+
+
+def resize_checks(resize: dict, make_trainer) -> dict:
+    """One recorded resize of the continual trainer: the same resize of the
+    same state on the CPU, bitwise; the item rows and every moment buffer's
+    rows carried bitwise, the cold rows' moments zero, the padding row moved
+    last; the captured programs dropped."""
+    from replay_tpu_torch.nn.train import TrainState
+
+    before, after, old, new = resize["before"], resize["after"], resize["old"], resize["new"]
+    cpu = make_trainer(old, torch.device("cpu"))
+    state = TrainState(
+        step=before["step"], flat_params=before["flat"].clone(), params={},
+        opt_state=[{key: value.clone() for key, value in link.items()} for link in before["opt"]],
+        bad_steps=before["bad_steps"].clone(), rng=before["rng"].clone(),
+    )
+    grown = cpu.resize_vocabulary(state, new, **resize["kwargs"])
+    same_as_cpu = torch.equal(grown.flat_params, after["flat"]) and all(
+        torch.equal(a[key], b[key]) for a, b in zip(grown.opt_state, after["opt"]) for key in a
+    )
+    table = "body.embedder.embedding_item_id.table.weight"
+    carried, cold_zero, padding_moved = True, True, True
+    buffers = [("params", before["flat"], after["flat"])] + [
+        (f"opt[{i}][{key}]", link[key], after["opt"][i][key])
+        for i, link in enumerate(before["opt"]) for key in link if link[key].dim() == 1
+    ]
+    for label, old_flat, new_flat in buffers:
+        old_rows, new_rows = table_rows(old_flat, before["layout"], table), table_rows(new_flat, after["layout"], table)
+        carried &= bool(torch.equal(new_rows[:old], old_rows[:old]))
+        padding_moved &= bool(torch.equal(new_rows[-1], old_rows[-1]))
+        if label != "params":
+            cold_zero &= not bool(new_rows[old:-1].any())
+    record = {
+        "old": old, "new": new, "resize_ms": resize["ms"], "same_as_cpu": same_as_cpu, "rows_carried": carried,
+        "cold_moments_zero": cold_zero, "padding_row_moved": padding_moved, "programs_dropped": resize["dropped"],
+        "moment_buffers": len(buffers) - 1,
+    }
+    if not all(record[k] for k in ("same_as_cpu", "rows_carried", "cold_moments_zero", "padding_row_moved",
+                                  "programs_dropped")):
+        raise AssertionError(f"continual: the resize is wrong: {record}")
+    return record
+
+
+def graph_equals_eager(trainer, state, batches) -> dict:
+    """``train_steps`` on ``len(batches)`` batches (a graph captured for a
+    copy of ``state``) against as many ``train_step`` calls on another copy:
+    losses and parameters bitwise. The trainer is bound to ``state`` after."""
+    from replay_tpu_torch.nn.train import _clone_state
+
+    graph_state, eager_state = _clone_state(state), _clone_state(state)
+    warmups = trainer.capture_warmups
+    graph_state, graph_losses = trainer.train_steps(graph_state, batches)
+    eager_losses = [float(trainer.train_step(eager_state, batch)[1]) for batch in batches]
+    torch.cuda.synchronize()
+    record = {
+        "steps": len(batches), "captured": trainer.capture_warmups - warmups,
+        "losses_bitwise": [float(x) for x in graph_losses] == eager_losses,
+        "params_bitwise": bool(torch.equal(graph_state.flat_params, eager_state.flat_params)),
+    }
+    trainer._bind(state)
+    if not (record["losses_bitwise"] and record["params_bitwise"] and record["captured"] == 1):
+        raise AssertionError(f"continual: the K={len(batches)} graph differs from the eager steps: {record}")
+    return record
+
+
+def served_top10(service, trainer, state, histories, users) -> dict:
+    """``CONT_SERVE_USERS`` requests to ``service`` against ``predict_top_k``
+    on the same windows: ids equal at every rank clear of its neighbours by
+    ``SERVE_TOL`` in ``predict_logits``' scores."""
+    from replay_tpu_torch.serve.request import top_k_cut
+
+    windows = [continual_window(histories[u], CONT_LEN) for u in users]
+    batch = {
+        "feature_tensors": {"item_id": np.stack([w for w, _ in windows])},
+        "padding_mask": np.stack([m for _, m in windows]),
+    }
+    _, want_ids, _ = trainer.predict_top_k(state, [batch], k=CONT_TOPK)
+    want_scores = trainer.predict_logits(state, batch)
+    got = [service.score(f"user{u}", history=histories[u][-CONT_LEN:], timeout=60.0) for u in users]
+    got_ids = np.stack([top_k_cut(response, CONT_TOPK)[0] for response in got])
+    top = torch.topk(want_scores, CONT_TOPK + 1, dim=-1).values.cpu()
+    gaps = top[:, :-1] - top[:, 1:]
+    previous = torch.cat([torch.full_like(gaps[:, :1], math.inf), gaps[:, :-1]], dim=1)
+    pinned = (torch.minimum(previous, gaps) > SERVE_TOL).numpy()
+    record = {
+        "users": len(users), "catalog": int(want_scores.shape[-1]),
+        "scores_width": int(got[0].scores.shape[-1]), "pinned_ranks": int(pinned.sum()),
+        "top10_equal_at_pinned": bool(np.array_equal(got_ids[pinned], want_ids[pinned])),
+        "top10_equal": bool(np.array_equal(got_ids, want_ids)),
+        "served_by": sorted({response.served_by for response in got}),
+    }
+    if not record["top10_equal_at_pinned"] or record["scores_width"] != record["catalog"] or record["served_by"] != ["primary"]:
+        raise AssertionError(f"continual: the served grown generation differs from predict_top_k: {record}")
+    return record
+
+
+def continual_phase(device) -> dict:
+    """bench_continual.py's loop on the port (``CONT_*``): each day the
+    continual model runs ``Trainer.finetune`` on the day's tail (its catalog
+    grown, moments carried, xavier cold rows) and a fresh model refits the
+    whole history, both through ``fit(scan_chunk=32)`` on K4; both scored on
+    the next day. Each resize is held to the same resize on the CPU and to
+    the surgery's contract, its captured programs are dropped and captured
+    anew, and a K=32 graph of the grown model equals 32 eager steps. The
+    grown generation, published to a ``ScoringService`` built on the first
+    day's model, takes the shape-change path and serves ``predict_top_k``'s
+    top-10."""
+    from replay_tpu_torch.data import FeatureHint, FeatureType
+    from replay_tpu_torch.data.nn import TensorFeatureInfo, TensorSchema
+    from replay_tpu_torch.nn.loss import CE
+    from replay_tpu_torch.nn.sequential.sasrec import SasRec
+    from replay_tpu_torch.nn.train import OptimizerFactory, Trainer
+    from replay_tpu_torch.ops.flash_attention import flash_attention
+    from replay_tpu_torch.serve import ScoringService
+
+    started = time.perf_counter()
+    events, catalog_by_day = continual_stream(np.random.default_rng(0))
+    stream_s = time.perf_counter() - started
+
+    def make_trainer(cardinality, on=device):
+        schema = TensorSchema(
+            TensorFeatureInfo(
+                "item_id", FeatureType.CATEGORICAL, is_seq=True, feature_hint=FeatureHint.ITEM_ID,
+                cardinality=cardinality, embedding_dim=CONT_DIM,
+            )
+        )
+        model = SasRec(
+            schema, embedding_dim=CONT_DIM, num_blocks=CONT_BLOCKS, num_heads=CONT_HEADS,
+            max_sequence_length=CONT_LEN, dropout_rate=0.0, use_flash=True, device=on,
+            generator=torch.Generator().manual_seed(SEED),
+        )
+        return Trainer(model, CE(), optimizer=OptimizerFactory(learning_rate=CONT_LR), device=on)
+
+    continual = make_trainer(catalog_by_day[0])
+    resizes = []
+    resize = continual.resize_vocabulary
+
+    def recorded(state, new_cardinality, **kwargs):
+        old = continual.model.schema["item_id"].cardinality
+        before = host_state(state)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grown = resize(state, new_cardinality, **kwargs)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        dropped = not continual._chunk_graphs and not continual._eval_runner.keys
+        resizes.append({"old": old, "new": new_cardinality, "ms": ms, "kwargs": kwargs, "dropped": dropped,
+                        "before": before, "after": host_state(grown)})
+        return grown
+
+    continual.resize_vocabulary = recorded  # finetune resizes through it
+    fit = dict(scan_chunk=CONT_SCAN_K, log_every=0)
+    metrics = dict(metrics=("ndcg", "recall"), top_k=(CONT_TOPK,))
+    histories = [[] for _ in range(CONT_USERS)]
+    state, service, days, checks = None, None, [], []
+    continual_s = retrain_s = 0.0
+    reset_counts(flash_attention)
+    try:
+        for day in range(CONT_DAYS - 1):
+            for user in range(CONT_USERS):
+                histories[user].extend(events[day][user])
+            catalog = catalog_by_day[day]
+            tail = continual_train_batches([h[-(CONT_LEN + 1) :] for h in histories], np.random.default_rng(100 + day))
+            warm = (continual.capture_warmups, continual._eval_runner.warmups, len(resizes))
+            t0 = time.perf_counter()
+            if state is None:
+                state = continual.fit(tail, epochs=CONT_TAIL_EPOCHS, **fit)
+            else:
+                grow = catalog if catalog > continual.model.schema["item_id"].cardinality else None
+                state = continual.finetune(state, tail, new_cardinality=grow, epochs=CONT_TAIL_EPOCHS, **fit)
+            torch.cuda.synchronize()
+            continual_day_s = time.perf_counter() - t0
+
+            retrain = make_trainer(catalog)
+            full = continual_train_batches(histories, np.random.default_rng(200 + day))
+            t0 = time.perf_counter()
+            retrain_state = retrain.fit(full, epochs=CONT_RETRAIN_EPOCHS, **fit)
+            torch.cuda.synchronize()
+            retrain_day_s = time.perf_counter() - t0
+            continual_s += continual_day_s
+            retrain_s += retrain_day_s
+
+            evals = continual_eval_batches(histories, events[day + 1])
+            got = continual.validate(state, evals, **metrics)
+            want = retrain.validate(retrain_state, evals, **metrics)
+            day_record = {
+                "day": day, "catalog": catalog, "model_catalog": continual.model.schema["item_id"].cardinality,
+                "tail_batches": len(tail), "history_batches": len(full), "continual_fit_s": continual_day_s,
+                "retrain_fit_s": retrain_day_s, "continual_ndcg": got[f"ndcg@{CONT_TOPK}"],
+                "retrain_ndcg": want[f"ndcg@{CONT_TOPK}"], "continual_recall": got[f"recall@{CONT_TOPK}"],
+                "retrain_recall": want[f"recall@{CONT_TOPK}"],
+            }
+            if len(resizes) > warm[2]:
+                # no graph of the old shape ran after the resize: the fit and
+                # the validation captured their programs anew
+                day_record["resize"] = resize_checks(resizes[-1], make_trainer)
+                day_record["recaptured"] = {
+                    "chunk": continual.capture_warmups - warm[0], "eval": continual._eval_runner.warmups - warm[1],
+                }
+                if min(day_record["recaptured"].values()) < 1:
+                    raise AssertionError(f"continual: a program of the old shape was not captured anew: {day_record}")
+                day_record["graph_vs_eager"] = graph_equals_eager(continual, state, tail[:CONT_SCAN_K])
+                checks.append(day_record)
+            emit("continual", run="day", **day_record)
+            days.append(day_record)
+            if service is None:
+                # the serving generation of day 0, on a model of its own
+                service = ScoringService(
+                    make_trainer(catalog).model, {k: v.detach().clone() for k, v in state.params.items()},
+                    length_buckets=(CONT_LEN,), batch_buckets=(1, 8, 32), device=device,
+                ).start()
+            del retrain, retrain_state
+            release()
+        k4 = flash_attention.launches
+        # the grown generation through publish_candidate's shape-change path
+        generation = service.publish_candidate(
+            {k: v.detach().clone() for k, v in state.params.items()}, label="grown"
+        )
+        fresh_engine = service.store.generation(generation).engine is not None
+        service.promote(generation)
+        users = list(range(0, CONT_USERS, CONT_USERS // CONT_SERVE_USERS))[:CONT_SERVE_USERS]
+        served = served_top10(service, continual, state, histories, users)
+        served["fresh_engine"] = fresh_engine
+        if not fresh_engine:
+            raise AssertionError("continual: the grown generation did not build a fresh engine")
+    finally:
+        if service is not None:
+            service.close()
+    continual_ndcg = float(np.mean([d["continual_ndcg"] for d in days]))
+    retrain_ndcg = float(np.mean([d["retrain_ndcg"] for d in days]))
+    record = {
+        "continual_vs_retrain_ndcg": continual_ndcg / retrain_ndcg, "continual_ndcg": continual_ndcg,
+        "retrain_ndcg": retrain_ndcg,
+        "continual_recall": float(np.mean([d["continual_recall"] for d in days])),
+        "retrain_recall": float(np.mean([d["retrain_recall"] for d in days])),
+        "continual_fit_s": continual_s, "retrain_fit_s": retrain_s, "fit_s_ratio": continual_s / retrain_s,
+        "resize_ms": [r["ms"] for r in resizes], "k4_launches": k4, "days": CONT_DAYS,
+        "catalog_start": catalog_by_day[0], "catalog_end": catalog_by_day[-1],
+        "model_catalog_end": continual.model.schema["item_id"].cardinality, "resizes": len(resizes),
+        "served": served, "stream_s": stream_s,
+    }
+    if not resizes or not all(math.isfinite(d["continual_ndcg"]) and math.isfinite(d["retrain_ndcg"]) for d in days):
+        raise AssertionError(f"continual: {record}")
+    record["phase_s"] = time.perf_counter() - started
+    emit("continual", run="summary", **record)
+    del continual, state
+    release()
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this script runs only on the GPU", file=sys.stderr)
@@ -4823,10 +5475,12 @@ def main() -> int:
     twotower = twotower_phase(device)
     lifecycle = lifecycle_phase(device)
     stream = stream_phase(device)
+    scaled = scale_phase(device)
+    continual = continual_phase(device)
 
     kernels = kernel_records(
         k4, fused, tiled_records, served, serviced, retrieval, serialized, trained, longseq, bert4rec, twotower,
-        lifecycle, stream, observed,
+        lifecycle, stream, observed, scaled, continual,
     )
     emit("kernels", kernels=[{k: r[k] for k in ("name", "launches", "passed")} for r in kernels])
     print(card, flush=True)
@@ -4858,7 +5512,7 @@ def k4_entry(name: str, record: dict, by_path: dict) -> dict:
 
 def kernel_records(
     k4, fused, tiled_records, served, serviced, retrieval, serialized, trained, longseq, bert4rec, twotower, lifecycle,
-    stream, observed,
+    stream, observed, scaled, continual,
 ) -> list:
     """The kernels line: every kernel of the paths driven, one entry per
     instantiation a path runs, with its launches there (counted through graph
@@ -4886,10 +5540,16 @@ def kernel_records(
             kernels.append(k4_entry(f"flash_attention_{model}{suffix}", k4[(model, dtype)], by_path))
     # K4 at notebook 09's width (D=32, batch 32, f32): the lifecycle's
     # notebook run, its training graphs, tails and validation
+    # and bench_continual.py's loop at the same width (the continual phase)
     kernels.append(
         k4_entry("flash_attention_notebook", k4[("notebook", torch.float32)],
-                 {"lifecycle": lifecycle["notebook"]["k4_launches"]})
+                 {"lifecycle": lifecycle["notebook"]["k4_launches"], "continual": continual["k4_launches"]})
     )
+    # K4 at the catalog-scaling width (B=512, D=64, causal, bf16): each
+    # scale row's eager steps and K=8 graphs
+    scale_paths = {f"scale_{row}": count for row, count in scaled["k4"].items()}
+    scale_paths.update({f"scale_{row}_graph": count for row, count in scaled["k4_graph"].items()})
+    kernels.append(k4_entry("flash_attention_scale_bf16", k4[("scale", torch.bfloat16)], scale_paths))
     # K1–K3, one entry per kernel and instantiation on the paths: f32 at the
     # bench.py width (train), bf16 hidden states at the long-sequence width
     # (the bf16 trainer), f32 there (the f32 trainer)
@@ -4907,6 +5567,11 @@ def kernel_records(
     fused_paths += (
         ("_stream_bf16_hidden", "train_bf16_hidden",
          {"stream_packed": stream["fused_eager"], "stream_packed_graph": stream["fused_graph"]}),
+    )
+    # bf16 hidden states at 100,000 items, E=128: the scale phase's CEFused row
+    fused_paths += (
+        ("_scale_100k", "scale_100k",
+         {"scale_fused": scaled["fused_eager"], "scale_fused_graph": scaled["fused_graph"]}),
     )
     for suffix, case, paths in fused_paths:
         for name, kernel, line in fused_kernels:

@@ -13,6 +13,11 @@ by swapping ``/`` for ``.`` and renaming the leaf:
 * ``bias`` and raw params (``positional_embedding``, Bert4Rec's
   ``mask_embedding``) carry over as they are.
 
+Optimizer state carries across with ``opt_state_from_jax``: optax's chain
+state (Adam's ``count``, ``mu`` and ``nu`` trees, momentum's ``trace``, a
+schedule's ``count``) onto the trainer's links, each moment tree flattened
+into one buffer in the order of the port's flat parameter buffer.
+
 A retrieval index carries across too: ``ivf_state_from_jax`` maps the JAX
 ``IVFState`` (its arrays read as numpy, its config and scalars) onto the
 port's, and ``mips_index_from_jax`` a whole JAX ``MIPSIndex`` (the brute f32
@@ -23,7 +28,7 @@ JAX objects by attribute and never import JAX.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, List, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -78,6 +83,55 @@ def torch_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
             node = node.setdefault(parent, {})
         node[leaf] = np.ascontiguousarray(value)
     return tree
+
+
+def _optax_links(state) -> List[Any]:
+    """The per-transformation states of an optax chain state, in order
+    (nested chains flattened; each is a NamedTuple, ``EmptyState`` included)."""
+    if hasattr(state, "_fields"):
+        return [state]
+    if isinstance(state, (tuple, list)):
+        return [link for part in state for link in _optax_links(part)]
+    return [state]
+
+
+def opt_state_from_jax(
+    opt_state, like: Sequence[Mapping[str, torch.Tensor]], names: Sequence[str]
+) -> List[Dict[str, torch.Tensor]]:
+    """The trainer's optimizer state holding a JAX (optax) one.
+
+    ``like`` is a port state of the same optimizer (``trainer._tx.init``, or
+    a ``TrainState.opt_state``): its links give the structure, dtypes and
+    device. Each link takes the values of the next optax state with the same
+    fields, in chain order: Adam's ``count``, ``mu`` and ``nu``, momentum's
+    ``trace``, a schedule's ``count``; links with no state take none.
+    ``names`` are the port's parameter names in the order of its flat buffer
+    (``TrainState.params``): each moment tree is mapped as ``flax_to_torch``
+    maps parameters (a kernel transposed) and concatenated in that order."""
+    pending = [link for link in _optax_links(opt_state) if getattr(link, "_fields", ())]
+    out: List[Dict[str, torch.Tensor]] = []
+    for link in like:
+        keys = set(link)
+        if not keys:
+            out.append({})
+            continue
+        # the port's link keys are optax's field names
+        while pending and set(pending[0]._fields) != keys:
+            pending.pop(0)
+        if not pending:
+            msg = f"the JAX optimizer state has no state with the fields {sorted(keys)} of the port's link"
+            raise ValueError(msg)
+        source = pending.pop(0)
+        carried = {}
+        for key, template in link.items():
+            value = getattr(source, key)
+            if key == "count":
+                carried[key] = torch.tensor(np.asarray(value), dtype=template.dtype, device=template.device)
+                continue
+            tree = flax_to_torch(value)
+            carried[key] = torch.cat([tree[name].reshape(-1) for name in names]).to(template.device, template.dtype)
+        out.append(carried)
+    return out
 
 
 def ivf_state_from_jax(state, device: DeviceLike = "cuda") -> IVFState:

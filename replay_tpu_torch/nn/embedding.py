@@ -50,6 +50,10 @@ class CategoricalEmbedding(nn.Module):
         Requires ``padding_value == cardinality`` (the LAST table row is the
         padding row): any other padding value would make full-catalog logit
         column ``i`` correspond to a different table row than item id ``i``.
+        The rows are all of the table's but its last, whatever table the module
+        is called with: a grown generation's table served through a module
+        built at the old size (``torch.func.functional_call``) scores its whole
+        catalog.
         """
         if self.padding_value != self.cardinality:
             msg = (
@@ -60,7 +64,26 @@ class CategoricalEmbedding(nn.Module):
                 "(the sequence tokenizer does this by default)."
             )
             raise ValueError(msg)
-        return self.table.weight[: self.cardinality]
+        return self.table.weight[:-1]
+
+
+def fit_tables(model: nn.Module, params) -> None:
+    """Rebuild, in place, each :class:`CategoricalEmbedding` of ``model``
+    whose table has another shape than ``params``' entry of the same name (a
+    grown or shrunk catalog): a table of the params' size in the old one's
+    compute dtype and on its device, the cardinality and padding row
+    following it (the padding row is the last). The new table's values are
+    placeholders, for ``params`` to supply."""
+    for name, module in list(model.named_modules()):
+        key = f"{name}.table.weight"
+        if not isinstance(module, CategoricalEmbedding) or key not in params:
+            continue
+        shape = tuple(params[key].shape)
+        old = module.table
+        if tuple(old.weight.shape) != shape:
+            module.table = Embed(shape[0], shape[1], old.dtype).to(old.weight.device)
+            module.cardinality = shape[0] - 1
+            module.padding_value = module.cardinality
 
 
 class SequenceEmbedding(nn.Module):

@@ -228,6 +228,12 @@ class Bert4Rec(nn.Module):
             **kwargs,
         )
 
+    @property
+    def schema(self) -> TensorSchema:
+        """The tensor schema the model was built from (vocabulary surgery
+        updates it in place)."""
+        return self._config["schema"]
+
     def clone(self, **changes) -> "Bert4Rec":
         """A copy with some constructor arguments changed (flax's ``Module.clone``)
         and this model's current weights, e.g. ``clone(dtype=torch.bfloat16)``."""

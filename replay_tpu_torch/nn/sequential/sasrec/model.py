@@ -173,6 +173,12 @@ class SasRec(nn.Module):
         self.body.reset_parameters(generator if generator is not None else torch.Generator().manual_seed(0))
         self.to(device)
 
+    @property
+    def schema(self) -> TensorSchema:
+        """The tensor schema the model was built from (vocabulary surgery
+        updates it in place)."""
+        return self._config["schema"]
+
     def clone(self, **changes) -> "SasRec":
         """A copy with some constructor arguments changed (flax's ``Module.clone``)
         and this model's current weights, e.g. ``clone(dtype=torch.bfloat16)``."""

@@ -172,6 +172,12 @@ class TwoTower(nn.Module):
             **kwargs,
         )
 
+    @property
+    def schema(self) -> TensorSchema:
+        """The tensor schema the model was built from (vocabulary surgery
+        updates it in place)."""
+        return self._config["schema"]
+
     def clone(self, **changes) -> "TwoTower":
         """A copy with some constructor arguments changed and this model's
         current weights (the context merger copied, not shared)."""

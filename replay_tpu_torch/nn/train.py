@@ -53,7 +53,17 @@ generator's seed and offset at replay time and advances the offset by what
 its K steps draw, so one replay equals K eager steps bit for bit, two
 replays draw different masks, and a checkpoint of ``rng`` restores the
 stream of masks. The masks are torch's, not JAX's: parity with the JAX
-package holds at dropout 0 only.
+package holds at dropout 0 only. A ``needs_rng`` loss (SCE) draws its
+projection from the same stream, after the step's dropout (the JAX step
+splits a key of its own for the loss), so its draws repeat from the seed and
+a captured step draws what the eager one does.
+
+Vocabulary: :meth:`Trainer.resize_vocabulary` and :meth:`Trainer.finetune`
+grow the item table of a trained state (:mod:`replay_tpu_torch.nn.vocabulary`):
+the flat parameter buffer and each flat moment buffer are rebuilt with the
+rows inserted at the table's offset, the model's item embedding modules are
+rebuilt at the new size, and every captured program of the old shapes (chunk
+graphs, evaluation graphs) is dropped.
 
 Evaluation: the programs the JAX trainer jits for ``validate``,
 ``predict_top_k`` and ``predict_logits`` (``eval_logits``, ``encode_items``,
@@ -657,16 +667,19 @@ class Trainer:
         if isinstance(self.loss, str):
             from replay_tpu_torch.nn import loss as loss_zoo
 
-            if self.loss.lower() == "bce":
-                msg = "loss='bce' is not ported yet: ROADMAP.md queue 1, 'Other losses'"
-                raise NotImplementedError(msg)
-            if self.loss.lower() != "ce":
+            # only losses constructible with no arguments qualify as shorthands;
+            # parametrized ones (SCE, LogInCE, LogOutCE, sampled variants) need
+            # an explicit instance
+            by_name = {name.lower(): getattr(loss_zoo, name) for name in ("CE", "BCE")}
+            if self.loss.lower() not in by_name:
                 msg = (
-                    f"Unknown loss shorthand {self.loss!r}; use 'ce', or pass a "
-                    "replay_tpu_torch.nn.loss instance"
+                    f"Unknown loss shorthand {self.loss!r}; use one of "
+                    f"{sorted(by_name)}, or pass a replay_tpu_torch.nn.loss instance "
+                    "(losses with required parameters, e.g. SCE/LogInCE/LogOutCE, "
+                    "must be instantiated by the caller)"
                 )
                 raise ValueError(msg)
-            self.loss = loss_zoo.CE()
+            self.loss = by_name[self.loss.lower()]()
         self.precision = Precision.resolve(self.precision)
         if self.precision is not None:
             self.model = self.precision.apply_to_model(self.model)
@@ -682,9 +695,12 @@ class Trainer:
             for name in _signature_names(getattr(type(self.model), "get_logits", None))
             if name not in ("hidden", "candidates_to_score")
         ]
-        # dropout draws from the device's default generator, set to the
-        # state's stream for each step, only where a rate is non-zero
-        self._stochastic = any(getattr(m, "dropout_rate", 0.0) for m in self.model.modules())
+        # dropout (where a rate is non-zero) and a needs_rng loss (SCE's
+        # projection) draw from the device's default generator, set to the
+        # state's stream for each step
+        self._stochastic = any(getattr(m, "dropout_rate", 0.0) for m in self.model.modules()) or bool(
+            getattr(self.loss, "needs_rng", False)
+        )
         self._lr_scale = 1.0  # RecoveryPolicy backoff multiplier (1.0 = none)
         self._loss_checked = False
         self._bound: Optional[torch.Tensor] = None  # the flat buffer the model's parameters view
@@ -814,6 +830,10 @@ class Trainer:
         loss.logits_callback = logits_callback
         if getattr(loss, "needs_item_embeddings", False):
             loss.item_embeddings_callback = model.get_item_weights
+        if getattr(loss, "needs_rng", False):
+            # the stream dropout draws from, set to state.rng for the step
+            # (eager and captured alike): the JAX step's loss_rng
+            loss.rng = self._generator()
         with scope("loss"):
             value = loss(
                 hidden,
@@ -1445,6 +1465,16 @@ class Trainer:
                 msg = "scan_chunk must be >= 1 (optimizer steps per lax.scan dispatch)"
                 raise ValueError(msg)
             reject_bucketed(train_batches)
+
+        if state is not None:
+            # continual-training guard: a table grown without its optimizer
+            # moments (or the reverse) fails here, naming the table, before
+            # any step trains on moments that no longer line up with the rows
+            from replay_tpu_torch.nn.vocabulary import validate_optimizer_state
+
+            schema = getattr(self.model, "schema", None)
+            if schema is not None:
+                validate_optimizer_state(state.params or dict(self.model.named_parameters()), state.opt_state, schema)
 
         start_epoch, skip_steps, pending_restore_step = 0, 0, None
         resumed_best_step, pending_stream_cursor, resumed_sums = None, None, None
@@ -2323,25 +2353,83 @@ class Trainer:
     # -- vocabulary ------------------------------------------------------- #
     def resize_vocabulary(
         self, state: TrainState, new_cardinality: int, init_tensor=None, carry_opt_state: bool = True,
-        init: str = "mean", rng=None,
+        init: str = "mean", rng: Optional[torch.Generator] = None,
     ) -> TrainState:
-        """Not ported: item-table surgery with the optimizer moments resized."""
-        msg = (
-            "Trainer.resize_vocabulary is not ported yet: ROADMAP.md queue 1, "
-            "'BERT4Rec, TwoTower and the vocabulary' (nn/vocabulary.py)"
+        """Catalog growth between or during fits: item-table surgery with the
+        optimizer moments resized in lockstep (:mod:`replay_tpu_torch.nn.vocabulary`).
+
+        ``carry_opt_state=True`` (the continual-training path) keeps every
+        trained row's moments and starts the cold rows' at zero; ``False``
+        starts a fresh optimizer state. ``init`` picks the cold rows when no
+        ``init_tensor`` is given: ``"mean"`` (the reference default) or
+        ``"xavier"`` (``set_item_embeddings_by_size``, drawn from ``rng``, a
+        CPU ``torch.Generator``). Step, ``rng`` and ``bad_steps`` carry over.
+
+        The state returned holds new tensors (``state`` is spent, as after a
+        step) and the model is bound to it: its item embedding modules are
+        rebuilt at the new size, and every captured program of the old shapes
+        (the chunk graphs, the evaluation graphs) is dropped, so none of them
+        replays again."""
+        from replay_tpu_torch.nn.embedding import fit_tables
+        from replay_tpu_torch.nn.vocabulary import resize_item_embeddings, set_item_embeddings_by_size
+
+        schema = self.model.schema
+        self._bind(state)
+        params = dict(state.params)
+        opt_state = state.opt_state if carry_opt_state else None
+        if init == "xavier" and init_tensor is None:
+            result = set_item_embeddings_by_size(params, schema, new_cardinality, rng=rng, opt_state=opt_state)
+        elif init == "mean" or init_tensor is not None:
+            result = resize_item_embeddings(params, schema, new_cardinality, init_tensor, opt_state=opt_state)
+        else:
+            msg = f"unknown init {init!r}: use 'mean' or 'xavier'"
+            raise ValueError(msg)
+        params, opt_state = result if carry_opt_state else (result, None)
+        # the embedding modules whose table changed size get a table of the new
+        # size, which _bind below makes a view of the new flat buffer
+        fit_tables(self.model, params)
+        with torch.no_grad():
+            flat = torch.cat([params[name].detach().reshape(-1) for name, _ in self.model.named_parameters()])
+        flat = flat.to(self.device, state.flat_params.dtype)
+        grown = TrainState(
+            step=state.step,
+            flat_params=flat,
+            params={},
+            opt_state=opt_state if opt_state is not None else self._tx.init(flat),
+            bad_steps=state.bad_steps.clone(),
+            rng=state.rng.clone(),
         )
-        raise NotImplementedError(msg)
+        # every program captured for the old shapes goes: the chunk graphs, and
+        # the evaluation graphs, keyed by their inputs, which a resize leaves as
+        # they were (a replay would read the old table's static copy)
+        self._chunk_graphs.clear()
+        self._graph_kernels.clear()
+        self._programs.clear()
+        if hasattr(self._eval_runner, "close"):
+            self._eval_runner.close()
+        self._builds += 1
+        self._bind(grown)
+        return grown
 
     def finetune(
         self, state: TrainState, train_batches, new_cardinality: Optional[int] = None, init: str = "xavier",
         epochs: int = 1, **fit_kwargs,
     ) -> TrainState:
-        """Not ported: the continual-training entry (a catalog resize, then fit)."""
-        msg = (
-            "Trainer.finetune is not ported yet: ROADMAP.md queue 1, "
-            "'BERT4Rec, TwoTower and the vocabulary' (nn/vocabulary.py)"
-        )
-        raise NotImplementedError(msg)
+        """The continual-training entry: optionally grow the catalog (moments
+        carried, ``init`` cold rows: xavier by default), then ``fit`` from the
+        given trained state on the fresh interaction tail. A shrink raises."""
+        schema = self.model.schema
+        feature_name = schema.item_id_feature_name
+        if new_cardinality is not None and feature_name is not None:
+            if new_cardinality < schema[feature_name].cardinality:
+                msg = (
+                    f"finetune cannot shrink the catalog "
+                    f"({schema[feature_name].cardinality} -> {new_cardinality})"
+                )
+                raise ValueError(msg)
+            if new_cardinality > schema[feature_name].cardinality:
+                state = self.resize_vocabulary(state, new_cardinality, carry_opt_state=True, init=init)
+        return self.fit(train_batches, epochs=epochs, state=state, **fit_kwargs)
 
     # -- eval-time catalog cache (item towers) ------------------------------ #
     def _precompute_catalog(self, params: Mapping[str, torch.Tensor], batch: Batch) -> Optional[torch.Tensor]:

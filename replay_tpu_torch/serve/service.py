@@ -68,6 +68,7 @@ recorder.
 from __future__ import annotations
 
 import contextlib
+import copy
 import threading
 import time
 from concurrent.futures import Future
@@ -79,6 +80,7 @@ import torch
 
 from replay_tpu_torch.device import DeviceLike
 from replay_tpu_torch.nn.compiled import as_device_tensor, pad_rows, to_device_params
+from replay_tpu_torch.nn.embedding import fit_tables
 from replay_tpu_torch.obs import TrainerEvent, Tracer
 from replay_tpu_torch.obs.trace import SERVE_GOODPUT_SPANS, goodput_breakdown, lifecycle_span
 
@@ -485,9 +487,12 @@ class ScoringService:
             )
             reason = None
         else:
-            # shape change: a fresh engine, built off the serve worker
+            # shape change: a fresh engine, built off the serve worker, on a
+            # copy of the model whose item tables take the candidate's size
+            model = copy.deepcopy(self._model)
+            fit_tables(model, params)
             engine = ScoringEngine(
-                self._model,
+                model,
                 params,
                 length_buckets=self.engine.length_buckets,
                 batch_buckets=self.engine.batch_buckets,

@@ -175,11 +175,14 @@ def test_unported_routes_and_packed_rows_raise():
         port_model("ring")({"item_id": torch.tensor(ids)}, torch.tensor(mask))
     with pytest.raises(NotImplementedError, match="remat"):
         port_model(remat=True)
+    # the vocabulary surgery is ported (tests/_torch/test_torch_vocabulary.py):
+    # a BERT4Rec trainer grows its table and refuses a shrink
     trainer = Trainer(port_model(), CE(), device="cpu")
-    with pytest.raises(NotImplementedError, match="'BERT4Rec, TwoTower and the vocabulary'"):
-        trainer.resize_vocabulary(None, NUM_ITEMS + 5)
-    with pytest.raises(NotImplementedError, match="'BERT4Rec, TwoTower and the vocabulary'"):
-        trainer.finetune(None, [], new_cardinality=NUM_ITEMS + 5)
+    state = trainer.init_state(None)
+    grown = trainer.resize_vocabulary(state, NUM_ITEMS + 5)
+    assert trainer.model.get_item_weights().shape[0] == NUM_ITEMS + 5
+    with pytest.raises(ValueError, match="cannot shrink"):
+        trainer.finetune(grown, [], new_cardinality=NUM_ITEMS)
 
 
 def test_from_params_excludes_the_query_id():

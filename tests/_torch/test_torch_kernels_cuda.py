@@ -1526,3 +1526,122 @@ def test_observe_compiled_inference_roofline_per_bucket(cuda_device):
     served.close()
     assert sorted(records) == [1, 8, 64]
     assert all(r["roofline"] is not None and r["flops"] > 0 and "hbm_peak_bytes" in r for r in records.values())
+
+
+# --------------------------------------------------------------------------- #
+# the catalog slice: SCE on graphs, vocabulary surgery, a grown generation served
+# --------------------------------------------------------------------------- #
+def _next_item_batches(count, num_items, seed, batch=16, length=50):
+    rng = np.random.default_rng(seed)
+    batches = []
+    for _ in range(count):
+        items = rng.integers(0, num_items, (batch, length + 1)).astype(np.int32)
+        mask = np.ones((batch, length), bool)
+        batches.append({
+            "feature_tensors": {"item_id": items[:, :-1]}, "padding_mask": mask,
+            "positive_labels": items[:, 1:, None], "target_padding_mask": mask[:, :, None],
+        })
+    return batches
+
+
+def test_scale_sce_chunk_graph_equals_eager_steps_and_repeats_from_the_seed(cuda_device):
+    """SCE on a bf16 SASRec (K4): its projection draws from the state's
+    stream, so a K=8 graph equals 8 eager steps bit for bit (losses, weights,
+    the stream's state), the same seed repeats the losses and another does not."""
+    from replay_tpu_torch.nn.loss import SCE, SCEParams
+
+    model = SasRec(
+        _long_schema(), embedding_dim=32, num_blocks=2, num_heads=2, max_sequence_length=50,
+        use_flash=True, dropout_rate=0.0, device=cuda_device, generator=torch.Generator().manual_seed(51),
+    )
+    initial = {name: value.detach().clone() for name, value in model.state_dict().items()}
+    batches = _next_item_batches(8, 300, 52)
+
+    def trainer(seed=0):
+        return Trainer(SasRec(_long_schema(), embedding_dim=32, num_blocks=2, num_heads=2, max_sequence_length=50,
+                              use_flash=True, device=cuda_device),
+                       SCE(SCEParams(n_buckets=8, bucket_size_x=64, bucket_size_y=32)), precision="bf16",
+                       seed=seed, device=cuda_device)
+
+    def eager(seed=0):
+        t = trainer(seed)
+        state = t.init_state(batches[0], params=initial)
+        return [float(t.train_step(state, b)[1]) for b in batches], state
+
+    want, want_state = eager()
+    again, _ = eager()
+    other, _ = eager(1)
+    assert want == again and want != other
+    t = trainer()
+    state = t.init_state(batches[0], params=initial)
+    state, losses = t.train_steps(state, batches)
+    assert t.capture_warmups == 1
+    assert losses.tolist() == want
+    assert torch.equal(state.flat_params, want_state.flat_params) and torch.equal(state.rng, want_state.rng)
+
+
+def test_continual_resized_trainer_replays_no_graph_of_the_old_shape(cuda_device):
+    """After ``resize_vocabulary`` the chunk and evaluation graphs of the old
+    table are gone: the next fit and validate capture anew, their results are
+    the eager programs' over the grown catalog, and a K=4 graph equals 4
+    eager steps bit for bit."""
+    from replay_tpu_torch.nn.loss import CE
+    from replay_tpu_torch.nn.train import _clone_state
+
+    schema = _long_schema()
+    trainer = Trainer(
+        SasRec(schema, embedding_dim=32, num_blocks=2, num_heads=2, max_sequence_length=50, use_flash=True,
+               device=cuda_device, generator=torch.Generator().manual_seed(53)),
+        CE(), device=cuda_device,
+    )
+    batches = _next_item_batches(8, 300, 54)
+    state = trainer.fit(batches, scan_chunk=4, log_every=0)
+    probe = {"feature_tensors": batches[0]["feature_tensors"], "padding_mask": batches[0]["padding_mask"]}
+    assert trainer.predict_logits(state, probe).shape == (16, 300)
+    warmups = (trainer.capture_warmups, trainer._eval_runner.warmups)
+    assert trainer._chunk_graphs and trainer._eval_runner.keys
+    grown = trainer.resize_vocabulary(state, 340, init="xavier")
+    assert not trainer._chunk_graphs and not trainer._eval_runner.keys
+    grown_batches = _next_item_batches(8, 340, 55)
+    grown = trainer.fit(grown_batches, state=grown, scan_chunk=4, log_every=0)
+    logits = trainer.predict_logits(grown, probe)
+    assert logits.shape == (16, 340)
+    assert trainer.capture_warmups == warmups[0] + 1 and trainer._eval_runner.warmups == warmups[1] + 1
+    with _Eager(trainer):
+        assert torch.equal(trainer.predict_logits(grown, probe), logits)
+    a, b = _clone_state(grown), _clone_state(grown)
+    a, losses = trainer.train_steps(a, grown_batches[:4])
+    want = [float(trainer.train_step(b, batch)[1]) for batch in grown_batches[:4]]
+    assert losses.tolist() == want and torch.equal(a.flat_params, b.flat_params)
+
+
+def test_continual_grown_generation_serves_the_top10_of_predict_top_k(cuda_device):
+    """A service built on the model at 300 items takes a generation grown to
+    340 through ``publish_candidate``'s shape-change path (a fresh engine on
+    graphs) and serves ``predict_top_k``'s top-10 over the 340 items."""
+    from replay_tpu_torch.nn.loss import CE
+    from replay_tpu_torch.serve import ScoringService
+    from replay_tpu_torch.serve.request import top_k_cut
+
+    def model():
+        return SasRec(_long_schema(), embedding_dim=32, num_blocks=2, num_heads=2, max_sequence_length=50,
+                      use_flash=True, device=cuda_device, generator=torch.Generator().manual_seed(56))
+
+    trainer = Trainer(model(), CE(), device=cuda_device)
+    state = trainer.init_state(None)
+    service = ScoringService(model(), {k: v.detach().clone() for k, v in state.params.items()},
+                             length_buckets=(50,), batch_buckets=(1, 8), device=cuda_device).start()
+    try:
+        grown = trainer.resize_vocabulary(state, 340, init="xavier")
+        generation = service.publish_candidate({k: v.detach().clone() for k, v in grown.params.items()})
+        assert service.store.generation(generation).engine is not None
+        service.promote(generation)
+        history = [5, 310, 7, 330, 12]
+        window, mask, _ = make_window(history, 50)
+        batch = {"feature_tensors": {"item_id": window[None]}, "padding_mask": mask[None]}
+        _, items, _ = trainer.predict_top_k(grown, [batch], k=10)
+        response = service.score("u", history=history, timeout=60.0)
+        assert response.scores.shape == (340,)
+        assert top_k_cut(response, 10)[0].tolist() == items[0].tolist()
+    finally:
+        service.close()

@@ -56,6 +56,8 @@ def test_importing_the_port_loads_no_jax():
         "replay_tpu_torch.serve.engine", "replay_tpu_torch.nn.train", "replay_tpu_torch.ops.fused_ce",
         "replay_tpu_torch.ops.flash_tiled", "replay_tpu_torch.nn.precision", "replay_tpu_torch.nn.graphs",
         "replay_tpu_torch.nn.compiled", "replay_tpu_torch.ops.counts", "replay_tpu_torch.data.nn.prefetch",
+        "replay_tpu_torch.nn.vocabulary", "replay_tpu_torch.nn.loss.bce", "replay_tpu_torch.nn.loss.sce",
+        "replay_tpu_torch.nn.loss.login_ce", "replay_tpu_torch.nn.loss.logout_ce",
     } <= set(names)
     code = (
         "import importlib, sys\n"

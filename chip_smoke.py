@@ -14,8 +14,9 @@ widths, notebook 09's training lifecycle (checkpoints, preemption and
 resume, recovery, dropout in captured chunks), bench_suite.py's stream rows (packed rows, the
 parquet stream) and catalog-scaling rows (SCE, gBCE at 1M items, CEFused at 100k),
 bench_continual.py's growing-catalog loop (vocabulary surgery, finetune, a grown
-generation served), and holds every kernel of those paths against its plain PyTorch
-version. Serving runs on CUDA graphs (one
+generation served), the rest of the SASRec family (remat and scan_blocks over K5 and
+K4, the differential-attention encoder, TiSasRec, the list and numerical embedders), and
+holds every kernel of those paths against its plain PyTorch version. Serving runs on CUDA graphs (one
 captured graph per bucket, replayed by every encode) and is held bit for bit
 to the eager bound program; training runs per step and, through
 ``Trainer.train_steps`` / ``fit(scan_chunk=K)``, as one graph of K steps held
@@ -161,7 +162,21 @@ replays. Phases, one JSON line each:
                  graph bitwise 32 eager steps; the grown generation through
                  ``ScoringService.publish_candidate``'s shape-change path, its top-10 that of
                  ``predict_top_k``;
-12. ``kernels`` — every ported kernel with its launches on the paths driven.
+12. ``family`` — the rest of the SASRec family (``FAMILY_*``): remat on K5 at the long-sequence
+                 width (bf16, ``CEFused``) with ``remat_policy`` None, ``"full"``, ``"dots"`` and
+                 ``scan_blocks`` with ``"dots"``: K5 launches a step (2 → 4), one step and its
+                 gradient bitwise the plain step's, eager p50, device ms, peak memory, a K=8 graph
+                 bitwise its eager steps and a trace of its replays whose kernels equal the
+                 launches counted; the dropout contract at 0.3 (a remat step bitwise the plain one,
+                 a remat graph bitwise its eager steps); remat ``"dots"`` on K4 at the ``bench.py``
+                 width (K=32 graph) and at BERT4Rec's (three steps, peak memory); the diff encoder
+                 (2 heads, f32 and bf16, ``CE``): no K4 launch, a K=32 graph, ``ScoringEngine`` under
+                 ``graph_contract``, logits held to the CPU port; TiSasRec (``time_span`` 256, float
+                 timestamps from ``notebook_raw_log``): a K=8 graph, ``predict_logits`` held to the
+                 CPU port, ``validate`` on the evaluation graphs; a SASRec over a genre list (sum,
+                 mean, max) and a numerical feature, tables from ``xavier_normal_embed_init``: a K=8
+                 graph, losses and logits held to the CPU port;
+13. ``kernels`` — every ported kernel with its launches on the paths driven.
 
 Every trainer's device time per step comes from a profiler trace that agrees
 with a second trace of the same steps (``device_time_per_step``). Then the
@@ -481,6 +496,35 @@ CONT_TAIL_EPOCHS, CONT_RETRAIN_EPOCHS, CONT_TOPK, CONT_SCAN_K = 2, 2, 10, 32
 # predict_top_k's: ids equal at every rank clear of its neighbours by more
 # than SERVE_TOL (two programs' f32 sums in other orders)
 CONT_SERVE_USERS = 32
+
+# The rest of the SASRec family (the family phase). Remat on K5 at the
+# long-sequence width (LONG_*: bench_suite.py's sasrec_l1024_tiled, bf16,
+# CEFused) with remat_policy None, "full", "dots" and scan_blocks + "dots";
+# remat "dots" on K4 at the bench.py width (f32, CEFused, K=32 graphs) and at
+# BERT4Rec's (MODEL_*/B4R_*: f32, CE, three eager steps); the diff encoder at
+# the bench.py width with 2 heads (E must divide by 2H), f32 and bf16, CE; TiSasRec
+# at the bench.py width, time_span 256, timestamps from notebook_raw_log; a SASRec
+# over item ids, a genre list (18 genres, up to 6 an item) in each pooling and a
+# numerical feature, tables drawn by xavier_normal_embed_init. Random weights
+# from SEED; dropout 0 but in the dropout contract (FAMILY_DROPOUT).
+FAMILY_REMAT = (("none", None, False), ("full", "full", False), ("dots", "dots", False), ("scan_dots", "dots", True))
+FAMILY_K5_SCAN_K, FAMILY_K4_SCAN_K, FAMILY_SCAN_K = 8, 32, 8
+FAMILY_STEPS, FAMILY_WARMUP_STEPS, FAMILY_PROFILED_STEPS, FAMILY_B4R_STEPS = 10, 3, 5, 3
+FAMILY_DROPOUT, FAMILY_DIFF_HEADS, TI_SPAN = 0.3, 2, 256
+GENRES, GENRE_SLOTS, FAMILY_POOLINGS = 18, 6, ("sum", "mean", "max")
+# the card's logits against the CPU port's on the same weights, largest
+# absolute difference: f32 sums in other orders (SERVE_TOL, the serve phase's
+# limit); bf16 compute, LONGSEQ_SERVE_MAX_TOL's bound for bf16 logits
+FAMILY_CPU_TOL = {torch.float32: SERVE_TOL, torch.bfloat16: LONGSEQ_SERVE_MAX_TOL}
+# losses of the card's eager steps against the CPU port's from the same weights
+FAMILY_CPU_STEPS = 2
+# the family phase's embedding tables whose gradient is read both ways (torch's
+# CUDA kernel, nn/layers.py::table_gradient): (name, rows, width, lookups' shape)
+FAMILY_EMBED_CASES = (
+    ("genres", GENRES + 1, EMBEDDING_DIM, (TRAIN_BATCH, SEQ_LEN, GENRE_SLOTS)),
+    ("interval_bias", TI_SPAN + 1, NUM_HEADS, (TRAIN_BATCH, SEQ_LEN, SEQ_LEN)),
+    ("item_table", NUM_ITEMS + 1, EMBEDDING_DIM, (TRAIN_BATCH, SEQ_LEN)),
+)
 
 
 def emit(phase: str, **fields) -> None:
@@ -5441,6 +5485,623 @@ def continual_phase(device) -> dict:
     return record
 
 
+def stacked_layout(state: dict) -> dict:
+    """A loop-layout state dict in the scan_blocks layout: ``...block_<i>.<p>``
+    becomes ``...blocks.block.<p>`` stacked over i (flax's ``nn.scan`` tree)."""
+    out, layers = {}, {}
+    for name, value in state.items():
+        head, sep, tail = name.partition(".block_")
+        if not sep:
+            out[name] = value
+            continue
+        index, _, leaf = tail.partition(".")
+        layers.setdefault(f"{head}.blocks.block.{leaf}", {})[int(index)] = value
+    for name, stack in layers.items():
+        out[name] = torch.stack([stack[i] for i in sorted(stack)])
+    return out
+
+
+def loop_layout(state: dict) -> dict:
+    """The inverse of ``stacked_layout``: every stacked leaf split by layer."""
+    out = {}
+    for name, value in state.items():
+        head, sep, leaf = name.partition(".blocks.block.")
+        if not sep:
+            out[name] = value
+            continue
+        for index in range(value.shape[0]):
+            out[f"{head}.block_{index}.{leaf}"] = value[index]
+    return out
+
+
+def named_gradient(model, loss, batch, device) -> dict:
+    """``loss_gradient`` by parameter name, in the loop layout."""
+    loss.logits_callback = model.get_logits
+    loss.item_embeddings_callback = model.get_item_weights
+    tensors = {key: torch.as_tensor(batch[key], device=device) for key in ("padding_mask", "positive_labels", "target_padding_mask")}
+    features = {k: torch.as_tensor(v, device=device) for k, v in batch["feature_tensors"].items()}
+    hidden = model(features, tensors["padding_mask"], deterministic=False)
+    value = loss(hidden, {}, tensors["positive_labels"], None, tensors["padding_mask"], tensors["target_padding_mask"])
+    names = [name for name, _ in model.named_parameters()]
+    grads = torch.autograd.grad(value, [p for _, p in model.named_parameters()])
+    return loop_layout({name: grad.detach().clone() for name, grad in zip(names, grads)})
+
+
+def same_tensors(got: dict, want: dict) -> dict:
+    """Largest absolute difference of two name → tensor dicts, and whether they are equal bit for bit."""
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"different names: {sorted(set(got) ^ set(want))[:6]}")
+    diff = max((got[n].float() - want[n].float()).abs().max().item() for n in got)
+    return {"bitwise": all(torch.equal(got[n], want[n]) for n in got), "max_abs_diff": diff}
+
+
+def counted(wrappers) -> dict:
+    return {fn.__name__: fn.launches for fn in wrappers}
+
+
+def state_diff(a, b) -> dict:
+    """Two training states' largest absolute differences: loss-free leaves
+    (parameters by name, the optimizer state, the generator), and whether
+    every leaf is equal bit for bit."""
+    names = {n: (a.params[n] - b.params[n]).abs().max().item() for n in a.params}
+    moments = [(x, y) for la, lb in zip(a.opt_state, b.opt_state) for x, y in zip(la.values(), lb.values())]
+    bitwise = (torch.equal(a.flat_params, b.flat_params) and all(torch.equal(x, y) for x, y in moments)
+               and torch.equal(a.rng, b.rng))
+    differing = sorted(((d, n) for n, d in names.items() if d), reverse=True)[:4]
+    return {"bitwise": bitwise, "params_max_abs_diff": max(names.values()), "differing": {n: d for d, n in differing}}
+
+
+def graph_vs_eager(trainer, initial, batches, wrappers, per_step: dict) -> dict:
+    """``len(batches)`` steps as one ``train_steps`` graph against as many
+    ``train_step`` calls from ``initial``, as ``chunk_checks`` holds them:
+    the eager steps run twice first; where the two runs are bitwise equal,
+    the graph's losses, parameters, optimizer state and generator state must
+    be bitwise theirs, else within the two runs' spread. Each wrapper's
+    launches through the capture and the replay = its launches a step
+    (``per_step``) × (K + the capture's eager warm-up step). Then the graph's
+    ms a step, host clock, median of three ``train_steps`` calls."""
+    steps = len(batches)
+
+    def eager_run():
+        state = trainer.init_state(batches[0], params=initial)
+        losses = torch.stack([trainer.train_step(state, batch)[1] for batch in batches]).cpu().numpy()
+        torch.cuda.synchronize()
+        return state, losses
+
+    (eager, eager_losses), (again, again_losses) = eager_run(), eager_run()
+    eager_vs_eager = state_diff(again, eager)
+    deterministic = eager_vs_eager["bitwise"] and np.array_equal(eager_losses, again_losses)
+    before, warm = counted(wrappers), trainer.capture_warmups
+    state = trainer.init_state(batches[0], params=initial)
+    state, losses = trainer.train_steps(state, batches)
+    torch.cuda.synchronize()
+    launches = {name: count - before[name] for name, count in counted(wrappers).items()}
+    warmups = trainer.capture_warmups - warm
+    expected = {name: per_step[name] * (steps + warmups) for name in launches}
+    graph_vs = state_diff(state, eager)
+    loss_diff = float(np.abs(np.asarray(losses) - eager_losses).max())
+    if deterministic:
+        held = graph_vs["bitwise"] and loss_diff == 0.0
+    else:
+        held = (loss_diff <= float(np.abs(again_losses - eager_losses).max())
+                and graph_vs["params_max_abs_diff"] <= eager_vs_eager["params_max_abs_diff"])
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        state, _ = trainer.train_steps(state, batches)
+        times.append((time.perf_counter() - t0) * 1e3 / steps)
+    record = {
+        "K": steps, "bitwise": held and deterministic, "held": held, "eager_bitwise_deterministic": deterministic,
+        "eager_vs_eager": eager_vs_eager, "graph_vs_eager": graph_vs, "loss_max_abs_diff": loss_diff,
+        "launches": launches, "expected": expected, "capture_warmups": warmups, "ms_a_step": statistics.median(times),
+    }
+    if not held or launches != expected or warmups != 1:
+        raise AssertionError(f"train_steps K={steps} vs {steps} train_step calls: {record}")
+    return record, state
+
+
+def family_remat_k5(device) -> dict:
+    """Remat on K5 at the long-sequence width: for each of ``FAMILY_REMAT``,
+    one step and the gradient from the same weights bitwise the plain step's,
+    K5 launches a step, eager p50, device ms and peak memory, a K=8 graph
+    bitwise its eager steps and a trace of its replays whose K5 kernels equal
+    the launches counted; then the dropout contract at ``FAMILY_DROPOUT``."""
+    from replay_tpu_torch.data import FeatureHint, FeatureType
+    from replay_tpu_torch.data.nn import TensorFeatureInfo, TensorSchema
+    from replay_tpu_torch.nn.loss import CEFused
+    from replay_tpu_torch.nn.sequential.sasrec import SasRec
+    from replay_tpu_torch.nn.train import OptimizerFactory, Trainer
+    from replay_tpu_torch.ops import fused_ce
+    from replay_tpu_torch.ops.flash_tiled import flash_attention_tiled
+
+    schema = TensorSchema(
+        TensorFeatureInfo(
+            "item_id", FeatureType.CATEGORICAL, is_seq=True, feature_hint=FeatureHint.ITEM_ID,
+            cardinality=NUM_ITEMS, embedding_dim=LONG_DIM,
+        )
+    )
+    width = dict(embedding_dim=LONG_DIM, num_blocks=LONG_BLOCKS, num_heads=LONG_HEADS, max_sequence_length=LONG_LEN,
+                 use_flash="tiled", device=device)
+    batches = [next_item_batch(LONG_BATCH, LONG_LEN, seed) for seed in range(FAMILY_K5_SCAN_K)]
+    kernels = (flash_attention_tiled, fused_ce.fused_lse_forward, fused_ce.fused_lse_dh, fused_ce.fused_lse_dw)
+
+    def trainer_for(policy, scan, dropout=0.0):
+        model = SasRec(schema, scan_blocks=scan, dropout_rate=dropout, generator=torch.Generator().manual_seed(SEED),
+                       **width)
+        optimizer = OptimizerFactory(name="adam", learning_rate=1e-3)
+        return Trainer(model, CEFused(), optimizer=optimizer, precision="bf16", remat_policy=policy, device=device)
+
+    initial = {k: v.detach().clone() for k, v in trainer_for(None, False).model.state_dict().items()}
+    rows, reference = {}, None
+    reset_counts(*kernels)
+    for label, policy, scan in FAMILY_REMAT:
+        trainer = trainer_for(policy, scan)
+        start = stacked_layout(initial) if scan else initial
+        before = counted(kernels)
+        state = trainer.init_state(batches[0], params=start)
+        state, loss = trainer.train_step(state, batches[0])
+        torch.cuda.synchronize()
+        per_step = {name: count - before[name] for name, count in counted(kernels).items()}
+        stepped = {
+            "loss": loss.detach().clone(),
+            "params": loop_layout({name: p.detach().clone() for name, p in state.params.items()}),
+            "grads": named_gradient(trainer.model, CEFused(), batches[1], device),
+        }
+        if reference is None:
+            reference = stepped
+        against = {
+            "loss_bitwise": bool(torch.equal(stepped["loss"], reference["loss"])),
+            "params": same_tensors(stepped["params"], reference["params"]),
+            "grads": same_tensors(stepped["grads"], reference["grads"]),
+        }
+        state, perf = trainer_perf(trainer, state, batches[0], FAMILY_STEPS, FAMILY_WARMUP_STEPS,
+                                   FAMILY_PROFILED_STEPS, LONG_BATCH * LONG_LEN)
+        graph, state = graph_vs_eager(trainer, start, batches, kernels, per_step)
+        for _ in range(TRACES_AT_MOST):  # a trace that lost kernels at its window's edge is retaken
+            state, trace = traced_chunks(trainer, state, batches, 2, kernels)
+            if trace["traced"] == trace["launched"]:
+                break
+        row = {"remat_policy": policy, "scan_blocks": scan, "k5_launches_a_step": per_step["flash_attention_tiled"],
+               "per_step_launches": per_step, "against_no_remat": against, "perf": perf, "graph": graph,
+               "graph_trace": {k: trace[k] for k in ("traced", "launched", "kernels", "device_ms")}}
+        emit("family", row=f"remat_k5_{label}", **row)
+        want_k5 = LONG_BLOCKS * (2 if policy is not None else 1)
+        if (per_step["flash_attention_tiled"] != want_k5 or not against["loss_bitwise"]
+                or not against["params"]["bitwise"] or not against["grads"]["bitwise"]
+                or trace["traced"] != trace["launched"]):
+            raise AssertionError(f"family remat on K5, {label}: {row}")
+        rows[label] = row
+        del trainer, state
+        release()
+    rows["dropout_contract"] = family_dropout_contract(trainer_for, initial, batches, kernels)
+    rows["launches"] = counted(kernels)
+    return rows
+
+
+def family_dropout_contract(trainer_for, initial, batches, kernels) -> dict:
+    """At ``FAMILY_DROPOUT``: a remat step (``"full"`` and ``"dots"``) from the
+    same weights and generator state bitwise the plain step, whose masks are
+    real (its loss is not the dropout-0 step's); a K=8 graph of remat steps
+    bitwise its eager steps (the recompute reads the forward's draws back)."""
+    from replay_tpu_torch.ops.flash_tiled import flash_attention_tiled
+
+    def one_step(policy, dropout=FAMILY_DROPOUT):
+        trainer = trainer_for(policy, False, dropout)
+        state = trainer.init_state(batches[0], params=initial)
+        state, loss = trainer.train_step(state, batches[0])
+        torch.cuda.synchronize()
+        return trainer, state, loss.detach().clone()
+
+    _, plain, plain_loss = one_step(None)
+    _, _, no_dropout_loss = one_step(None, 0.0)
+    record = {"masks_drawn": not torch.equal(plain_loss, no_dropout_loss)}
+    for policy in ("full", "dots"):
+        trainer, state, loss = one_step(policy)
+        record[policy] = {
+            "loss_bitwise": bool(torch.equal(loss, plain_loss)),
+            "params_bitwise": bool(torch.equal(state.flat_params, plain.flat_params)),
+            "rng_bitwise": bool(torch.equal(state.rng, plain.rng)),
+        }
+        per_step = {fn.__name__: 0 for fn in kernels}
+        per_step.update(flash_attention_tiled=2 * LONG_BLOCKS, fused_lse_forward=1, fused_lse_dh=1, fused_lse_dw=1)
+        record[policy]["graph"], _ = graph_vs_eager(trainer, initial, batches, kernels, per_step)
+    emit("family", row="remat_k5_dropout_contract", dropout=FAMILY_DROPOUT, **record)
+    if not record["masks_drawn"] or not all(all(v for k, v in record[p].items() if k != "graph") for p in ("full", "dots")):
+        raise AssertionError(f"family: the dropout contract: {record}")
+    return record
+
+
+def family_remat_k4(device) -> dict:
+    """Remat ``"dots"`` on K4: at the bench.py width (f32, CEFused) one step
+    bitwise the plain step's, K4 launches a step 2 → 4, eager p50, device ms
+    and memory of both, a K=32 graph bitwise its eager steps; at BERT4Rec's
+    width (f32, CE) three eager steps of each, their losses bitwise, K4
+    launches a step and peak memory."""
+    from replay_tpu_torch.data import FeatureHint, FeatureType
+    from replay_tpu_torch.data.nn import TensorFeatureInfo, TensorSchema
+    from replay_tpu_torch.nn.loss import CE, CEFused
+    from replay_tpu_torch.nn.sequential.bert4rec import Bert4Rec
+    from replay_tpu_torch.nn.sequential.sasrec import SasRec
+    from replay_tpu_torch.nn.train import Trainer
+    from replay_tpu_torch.ops import fused_ce
+    from replay_tpu_torch.ops.flash_attention import flash_attention
+
+    schema = TensorSchema(
+        TensorFeatureInfo(
+            "item_id", FeatureType.CATEGORICAL, is_seq=True, feature_hint=FeatureHint.ITEM_ID,
+            cardinality=NUM_ITEMS, embedding_dim=EMBEDDING_DIM,
+        )
+    )
+    width = dict(embedding_dim=EMBEDDING_DIM, num_blocks=NUM_BLOCKS, num_heads=NUM_HEADS, max_sequence_length=SEQ_LEN,
+                 use_flash=True, device=device)
+    batches = [next_item_batch(TRAIN_BATCH, SEQ_LEN, seed) for seed in range(FAMILY_K4_SCAN_K)]
+    kernels = (flash_attention, fused_ce.fused_lse_forward, fused_ce.fused_lse_dh, fused_ce.fused_lse_dw)
+    initial = SasRec(schema, generator=torch.Generator().manual_seed(SEED), **width).state_dict()
+    record = {"bench": {}, "bert4rec": {}}
+    reset_counts(*kernels)
+    losses = {}
+    for label, policy in (("none", None), ("dots", "dots")):
+        trainer = Trainer(SasRec(schema, **width), CEFused(), remat_policy=policy, device=device)
+        before = counted(kernels)
+        state = trainer.init_state(batches[0], params=initial)
+        state, loss = trainer.train_step(state, batches[0])
+        torch.cuda.synchronize()
+        per_step = {name: count - before[name] for name, count in counted(kernels).items()}
+        losses[label] = (loss.detach().clone(), state.flat_params.clone())
+        state, perf = trainer_perf(trainer, state, batches[0], FAMILY_STEPS, FAMILY_WARMUP_STEPS,
+                                   FAMILY_PROFILED_STEPS, TRAIN_BATCH * SEQ_LEN)
+        row = {"k4_launches_a_step": per_step["flash_attention"], "per_step_launches": per_step, "perf": perf}
+        if policy is not None:
+            row["graph"], _ = graph_vs_eager(trainer, initial, batches, kernels, per_step)
+            row["against_no_remat"] = {
+                "loss_bitwise": bool(torch.equal(losses["dots"][0], losses["none"][0])),
+                "params_bitwise": bool(torch.equal(losses["dots"][1], losses["none"][1])),
+            }
+        emit("family", row=f"remat_k4_bench_{label}", **row)
+        if per_step["flash_attention"] != NUM_BLOCKS * (2 if policy else 1) or (
+                policy and not all(row["against_no_remat"].values())):
+            raise AssertionError(f"family remat on K4 at the bench.py width, {label}: {row}")
+        record["bench"][label] = row
+        del trainer, state
+        release()
+    record["bench"]["launches"] = counted(kernels)
+
+    b4r_schema = model_schema(B4R_DIM)
+    b4r_width = dict(embedding_dim=B4R_DIM, num_blocks=B4R_BLOCKS, num_heads=B4R_HEADS, max_sequence_length=B4R_LEN,
+                     dropout_rate=0.0, use_flash=True, device=device)
+    b4r_batches = mlm_batches(b4r_schema, FAMILY_B4R_STEPS)
+    b4r_initial = Bert4Rec(b4r_schema, generator=torch.Generator().manual_seed(SEED), **b4r_width).state_dict()
+    reset_counts(flash_attention)
+    b4r_losses = {}
+    for label, policy in (("none", None), ("dots", "dots")):
+        trainer = Trainer(Bert4Rec(b4r_schema, **b4r_width), CE(), remat_policy=policy, device=device)
+        state = trainer.init_state(b4r_batches[0], params=b4r_initial)
+        release()
+        torch.cuda.reset_peak_memory_stats(device)
+        at_start = torch.cuda.memory_allocated(device)
+        before, times, values = flash_attention.launches, [], []
+        for batch in b4r_batches:
+            t0 = time.perf_counter()
+            state, loss = trainer.train_step(state, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            values.append(loss.detach().clone())
+        b4r_losses[label] = torch.stack(values)
+        row = {
+            "k4_launches_a_step": (flash_attention.launches - before) / FAMILY_B4R_STEPS, "step_ms": times,
+            "losses": b4r_losses[label].tolist(), "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(device),
+            "memory_allocated_at_start_bytes": at_start,
+        }
+        if policy is not None:
+            row["losses_bitwise_no_remat"] = bool(torch.equal(b4r_losses["dots"], b4r_losses["none"]))
+            row["peak_vs_no_remat"] = row["max_memory_allocated_bytes"] / record["bert4rec"]["none"][
+                "max_memory_allocated_bytes"]
+        emit("family", row=f"remat_k4_bert4rec_{label}", **row)
+        if row["k4_launches_a_step"] != B4R_BLOCKS * (2 if policy else 1) or (
+                policy and not row["losses_bitwise_no_remat"]):
+            raise AssertionError(f"family remat on K4 at BERT4Rec's width, {label}: {row}")
+        record["bert4rec"][label] = row
+        del trainer, state
+        release()
+    record["bert4rec"]["launches"] = flash_attention.launches
+    return record
+
+
+def held_to_cpu_port(make_cpu_model, params, query: dict, got: torch.Tensor, dtype, predict=None) -> dict:
+    """The card's logits against the CPU port's on the same weights and
+    query (``forward_inference``, or ``predict(cpu_model)``), within
+    ``FAMILY_CPU_TOL[dtype]``."""
+    cpu = make_cpu_model()
+    cpu.load_state_dict({k: v.detach().cpu() for k, v in params.items()})
+    with torch.no_grad():
+        if predict is not None:
+            want = predict(cpu)
+        else:
+            want = cpu.forward_inference(
+                {k: torch.as_tensor(v) for k, v in query["feature_tensors"].items()},
+                torch.as_tensor(query["padding_mask"]),
+            )
+    err = (got.detach().float().cpu() - torch.as_tensor(want).float()).abs().max().item()
+    if not err <= FAMILY_CPU_TOL[dtype]:
+        raise AssertionError(f"family: logits differ from the CPU port's by {err} (limit {FAMILY_CPU_TOL[dtype]})")
+    return {"max_abs_diff": err, "limit": FAMILY_CPU_TOL[dtype], "rows": int(got.shape[0])}
+
+
+def family_diff(device) -> dict:
+    """The diff encoder at the bench.py width, 2 heads, ``use_flash=True``, f32
+    and bf16, ``CE``: eager steps, a K=32 graph bitwise its eager steps,
+    ``ScoringEngine`` L (16, 50) × B (1, 8, 64) under ``graph_contract``, logits
+    held to the CPU port, and no K4 or K5 launch anywhere."""
+    from replay_tpu_torch.data import FeatureHint, FeatureType
+    from replay_tpu_torch.data.nn import TensorFeatureInfo, TensorSchema
+    from replay_tpu_torch.nn.loss import CE
+    from replay_tpu_torch.nn.sequential.sasrec import SasRec
+    from replay_tpu_torch.nn.train import Trainer
+    from replay_tpu_torch.ops.flash_attention import flash_attention
+    from replay_tpu_torch.ops.flash_tiled import flash_attention_tiled
+    from replay_tpu_torch.serve import ScoringEngine
+
+    schema = TensorSchema(
+        TensorFeatureInfo(
+            "item_id", FeatureType.CATEGORICAL, is_seq=True, feature_hint=FeatureHint.ITEM_ID,
+            cardinality=NUM_ITEMS, embedding_dim=EMBEDDING_DIM,
+        )
+    )
+    width = dict(embedding_dim=EMBEDDING_DIM, num_blocks=NUM_BLOCKS, num_heads=FAMILY_DIFF_HEADS,
+                 max_sequence_length=SEQ_LEN, encoder_type="diff", use_flash=True)
+    batches = [next_item_batch(TRAIN_BATCH, SEQ_LEN, seed) for seed in range(FAMILY_K4_SCAN_K)]
+    kernels = (flash_attention, flash_attention_tiled)
+    initial = SasRec(schema, device=device, generator=torch.Generator().manual_seed(SEED), **width).state_dict()
+    other = SasRec(schema, device=device, generator=torch.Generator().manual_seed(SEED + 1), **width).state_dict()
+    requests = histories(np.random.default_rng(SEED), 48)
+    query = held_out_windows(64)[0]
+    record = {}
+    reset_counts(*kernels)
+    for dtype in (torch.float32, torch.bfloat16):
+        label = "f32" if dtype == torch.float32 else "bf16"
+        trainer = Trainer(SasRec(schema, device=device, **width), CE(),
+                          precision="bf16" if dtype == torch.bfloat16 else None, device=device)
+        state = trainer.init_state(batches[0], params=initial)
+        state, perf = trainer_perf(trainer, state, batches[0], FAMILY_STEPS, FAMILY_WARMUP_STEPS,
+                                   FAMILY_PROFILED_STEPS, TRAIN_BATCH * SEQ_LEN)
+        graph, state = graph_vs_eager(trainer, initial, batches, kernels, {fn.__name__: 0 for fn in kernels})
+        params = {k: v.detach().clone() for k, v in state.params.items()}
+        engine = ScoringEngine(trainer.model, params, length_buckets=LENGTH_BUCKETS, batch_buckets=BATCH_BUCKETS,
+                               device=device)
+        contract = graph_contract(engine, other, requests, SEQ_LEN)
+        with torch.no_grad():
+            got = trainer.model.forward_inference(
+                {"item_id": torch.as_tensor(query["feature_tensors"]["item_id"], device=device)},
+                torch.as_tensor(query["padding_mask"], device=device),
+            )
+        cpu = held_to_cpu_port(lambda: SasRec(schema, device="cpu", dtype=dtype, **width), params, query, got, dtype)
+        row = {"perf": perf, "graph": graph, "engine": contract, "cpu_port": cpu, "launches": counted(kernels)}
+        emit("family", row=f"diff_{label}", heads=FAMILY_DIFF_HEADS, **row)
+        record[label] = row
+        del trainer, state, engine
+        release()
+    if any(counted(kernels).values()):
+        raise AssertionError(f"family: the diff encoder launched an attention kernel: {counted(kernels)}")
+    return record
+
+
+def ti_windows(count: int, rows: int, seed: int):
+    """Next-item windows of ``notebook_raw_log(SEED)``'s users (the last
+    ``SEQ_LEN + 1`` events of ``rows`` users drawn from default_rng(seed),
+    left-padded), with their timestamps as float32 (the log's event
+    positions); ``count`` batches, and the per-user arrays."""
+    raw = notebook_raw_log(SEED)
+    items = np.searchsorted(notebook_raw_items(SEED), raw["item_id"])
+    order = np.lexsort((raw["timestamp"], raw["user_id"]))
+    users, starts = np.unique(raw["user_id"][order], return_index=True)
+    ends = np.append(starts[1:], len(order))
+    rng = np.random.default_rng(seed)
+    batches = []
+    for _ in range(count):
+        ids = np.full((rows, SEQ_LEN + 1), NUM_ITEMS, np.int32)
+        stamps = np.zeros((rows, SEQ_LEN + 1), np.float32)
+        for row, user in enumerate(rng.choice(len(users), rows, replace=False)):
+            events = order[max(starts[user], ends[user] - SEQ_LEN - 1) : ends[user]]
+            ids[row, -len(events) :] = items[events]
+            stamps[row, -len(events) :] = raw["timestamp"][events]
+        mask = ids[:, :-1] != NUM_ITEMS  # left-padded: a real input has a real next item
+        batches.append({
+            "feature_tensors": {"item_id": ids[:, :-1], "timestamp": stamps[:, :-1]},
+            "padding_mask": mask,
+            "positive_labels": ids[:, 1:, None],
+            "target_padding_mask": mask[:, :, None],
+        })
+    return batches
+
+
+def family_tisasrec(device) -> dict:
+    """TiSasRec at the bench.py width, ``time_span`` 256, float timestamps
+    from the MovieLens-1M-shaped log: eager steps, a K=8 graph bitwise its
+    eager steps (the float feature through the graph's static buffers),
+    ``predict_logits`` and ``validate`` on the evaluation graphs, the logits
+    held to the CPU port on the trained weights."""
+    from replay_tpu_torch.data import FeatureHint, FeatureType
+    from replay_tpu_torch.data.nn import TensorFeatureInfo, TensorSchema
+    from replay_tpu_torch.nn.loss import CE
+    from replay_tpu_torch.nn.sequential.sasrec import TiSasRec
+    from replay_tpu_torch.nn.train import Trainer
+    from replay_tpu_torch.ops.flash_attention import flash_attention
+
+    started = time.perf_counter()
+    batches = ti_windows(FAMILY_SCAN_K + 1, TRAIN_BATCH, SEED)
+    data_s = time.perf_counter() - started
+    schema = TensorSchema([
+        TensorFeatureInfo("item_id", FeatureType.CATEGORICAL, is_seq=True, feature_hint=FeatureHint.ITEM_ID,
+                          cardinality=NUM_ITEMS, embedding_dim=EMBEDDING_DIM),
+        TensorFeatureInfo("timestamp", FeatureType.NUMERICAL, is_seq=True, tensor_dim=1),
+    ])
+    width = dict(embedding_dim=EMBEDDING_DIM, num_blocks=NUM_BLOCKS, num_heads=NUM_HEADS,
+                 max_sequence_length=SEQ_LEN, time_span=TI_SPAN)
+    model = TiSasRec(schema, device=device, generator=torch.Generator().manual_seed(SEED), **width)
+    initial = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    trainer = Trainer(model, CE(), device=device)
+    reset_counts(flash_attention)
+    state = trainer.init_state(batches[0], params=initial)
+    state, perf = trainer_perf(trainer, state, batches[0], FAMILY_STEPS, FAMILY_WARMUP_STEPS,
+                               FAMILY_PROFILED_STEPS, TRAIN_BATCH * SEQ_LEN)
+    graph, state = graph_vs_eager(trainer, initial, batches[:FAMILY_SCAN_K], (flash_attention,), {"flash_attention": 0})
+    held = batches[FAMILY_SCAN_K]
+    query = {k: held[k] for k in ("feature_tensors", "padding_mask")}
+    got = trainer.predict_logits(state, query)
+    params = {k: v.detach().clone() for k, v in state.params.items()}
+    cpu = held_to_cpu_port(lambda: TiSasRec(schema, device="cpu", **width), params, query, torch.as_tensor(got),
+                           torch.float32)
+    seen = np.where(held["padding_mask"], held["feature_tensors"]["item_id"], -1)
+    validation = dict(query, ground_truth=held["positive_labels"][:, -1], train=seen, query_id=np.arange(TRAIN_BATCH))
+    metrics = trainer.validate(state, [validation], metrics=("ndcg", "recall"), top_k=(10,))
+    if not all(math.isfinite(v) for v in metrics.values()) or flash_attention.launches:
+        raise AssertionError(f"family TiSasRec: metrics {metrics}, K4 launches {flash_attention.launches}")
+    row = {"perf": perf, "graph": graph, "cpu_port": cpu, "validate": metrics, "data_s": data_s,
+           "timestamp_dtype": str(batches[0]["feature_tensors"]["timestamp"].dtype), "time_span": TI_SPAN}
+    emit("family", row="tisasrec", **row)
+    del trainer, state
+    release()
+    return row
+
+
+def genre_tables(seed: int):
+    """Each item's genres (1–``GENRE_SLOTS`` of ``GENRES``, padded with
+    ``GENRES``) and a numerical feature, from default_rng(seed); the padding
+    item's row all padding and 0."""
+    rng = np.random.default_rng(seed)
+    genres = np.full((NUM_ITEMS + 1, GENRE_SLOTS), GENRES, np.int32)
+    for item in range(NUM_ITEMS):
+        drawn = rng.choice(GENRES, int(rng.integers(1, GENRE_SLOTS + 1)), replace=False)
+        genres[item, : len(drawn)] = drawn
+    numeric = np.append(rng.normal(size=NUM_ITEMS), 0.0).astype(np.float32)
+    return genres, numeric
+
+
+def family_embedders(device) -> dict:
+    """A SASRec at the bench.py width over item ids, a genre list in each
+    pooling and a numerical feature, tables drawn by
+    ``xavier_normal_embed_init``, ``use_flash=True``, ``CEFused``: eager steps,
+    a K=8 graph bitwise its eager steps, the first steps' losses held to the
+    CPU port's and the trained logits too."""
+    from replay_tpu_torch.data import FeatureHint, FeatureType
+    from replay_tpu_torch.data.nn import TensorFeatureInfo, TensorSchema
+    from replay_tpu_torch.nn.embedding import xavier_normal_embed_init
+    from replay_tpu_torch.nn.loss import CEFused
+    from replay_tpu_torch.nn.sequential.sasrec import SasRec
+    from replay_tpu_torch.nn.train import Trainer
+    from replay_tpu_torch.ops import fused_ce
+    from replay_tpu_torch.ops.flash_attention import flash_attention
+
+    genres, numeric = genre_tables(SEED)
+    schema = TensorSchema([
+        TensorFeatureInfo("item_id", FeatureType.CATEGORICAL, is_seq=True, feature_hint=FeatureHint.ITEM_ID,
+                          cardinality=NUM_ITEMS, embedding_dim=EMBEDDING_DIM),
+        TensorFeatureInfo("genres", FeatureType.CATEGORICAL_LIST, is_seq=True, cardinality=GENRES,
+                          embedding_dim=EMBEDDING_DIM),
+        TensorFeatureInfo("score", FeatureType.NUMERICAL, is_seq=True, tensor_dim=1, embedding_dim=EMBEDDING_DIM),
+    ])
+    width = dict(embedding_dim=EMBEDDING_DIM, num_blocks=NUM_BLOCKS, num_heads=NUM_HEADS, max_sequence_length=SEQ_LEN,
+                 use_flash=True)
+
+    def with_features(batch):
+        ids = batch["feature_tensors"]["item_id"]
+        return dict(batch, feature_tensors={"item_id": ids, "genres": genres[ids], "score": numeric[ids]})
+
+    batches = [with_features(next_item_batch(TRAIN_BATCH, SEQ_LEN, seed)) for seed in range(FAMILY_SCAN_K)]
+    query = with_features(held_out_windows(64)[0])
+    kernels = (flash_attention, fused_ce.fused_lse_forward, fused_ce.fused_lse_dh, fused_ce.fused_lse_dw)
+    record = {}
+    reset_counts(*kernels)
+
+    def make(pooling, on):
+        model = SasRec(schema, embedding_init=xavier_normal_embed_init(), device=on,
+                       generator=torch.Generator().manual_seed(SEED), **width)
+        # the SASRec body embeds with the default pooling, as in JAX: set each here
+        model.body.embedder.embedder("genres").pooling = pooling
+        return model
+
+    for pooling in FAMILY_POOLINGS:
+        model = make(pooling, device)
+        initial = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        trainer = Trainer(model, CEFused(), device=device)
+        cpu_trainer = Trainer(make(pooling, "cpu"), CEFused(), device="cpu")
+        state = trainer.init_state(batches[0], params=initial)
+        cpu_state = cpu_trainer.init_state(batches[0], params={k: v.cpu() for k, v in initial.items()})
+        before = counted(kernels)
+        card_losses = [float(trainer.train_step(state, b)[1]) for b in batches[:FAMILY_CPU_STEPS]]
+        per_step = {n: (c - before[n]) // FAMILY_CPU_STEPS for n, c in counted(kernels).items()}
+        cpu_losses = [float(cpu_trainer.train_step(cpu_state, b)[1]) for b in batches[:FAMILY_CPU_STEPS]]
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(card_losses, cpu_losses))
+        graph, state = graph_vs_eager(trainer, initial, batches, kernels, per_step)
+        with torch.no_grad():
+            got = trainer.model.forward_inference(
+                {k: torch.as_tensor(v, device=device) for k, v in query["feature_tensors"].items()},
+                torch.as_tensor(query["padding_mask"], device=device),
+            )
+        params = {k: v.detach().clone() for k, v in state.params.items()}
+        cpu = held_to_cpu_port(lambda: make(pooling, "cpu"), params, query, got, torch.float32)
+        row = {"losses": card_losses, "cpu_losses": cpu_losses, "loss_rel_diff": loss_err, "graph": graph,
+               "cpu_port": cpu, "per_step_launches": per_step}
+        emit("family", row=f"embedders_{pooling}", **row)
+        if not loss_err <= TRAIN_LOSS_RTOL:
+            raise AssertionError(f"family embedders ({pooling}): losses against the CPU port's: {row}")
+        record[pooling] = row
+        del trainer, state, cpu_trainer
+        release()
+    record["launches"] = counted(kernels)
+    return record
+
+
+def family_embedding_backward(device) -> dict:
+    """Each ``FAMILY_EMBED_CASES`` table's gradient from uniform lookups, by
+    torch's CUDA embedding backward and by ``table_gradient``: whether four
+    runs on the same inputs repeat bit for bit, their largest difference, and
+    ms a call; and which of the two the port's ``Embed`` takes there."""
+    from replay_tpu_torch.nn.layers import DETERMINISTIC_LOOKUPS_PER_ROW, table_gradient
+
+    generator = torch.Generator(device=device).manual_seed(SEED)
+    record = {}
+    for name, rows, dim, shape in FAMILY_EMBED_CASES:
+        ids = torch.randint(0, rows, shape, device=device, generator=generator)
+        grad = torch.randn(*shape, dim, device=device, generator=generator)
+        ways = {
+            "torch": lambda: torch.ops.aten.embedding_dense_backward(grad, ids, rows, -1, False),
+            "fixed_order": lambda: table_gradient(ids, grad, rows),
+        }
+        row = {"rows": rows, "dim": dim, "lookups": ids.numel(),
+               "embed_takes": "fixed_order" if ids.numel() >= DETERMINISTIC_LOOKUPS_PER_ROW * rows else "torch"}
+        results = {}
+        for way, fn in ways.items():
+            outs = [fn() for _ in range(4)]
+            results[way] = outs[0]
+            row[way] = {"repeats_bitwise": all(torch.equal(outs[0], o) for o in outs[1:]),
+                        "spread": max((outs[0] - o).abs().max().item() for o in outs[1:]), "ms": eager_ms(fn, 20, 5)}
+        row["max_abs_diff"] = (results["torch"] - results["fixed_order"]).abs().max().item()
+        emit("family", row=f"embedding_backward_{name}", **row)
+        if not row["fixed_order"]["repeats_bitwise"]:
+            raise AssertionError(f"family: table_gradient did not repeat: {row}")
+        record[name] = row
+    return record
+
+
+def family_phase(device) -> dict:
+    """The rest of the SASRec family on the card (see ``FAMILY_*``): remat
+    and scan_blocks over K5 and K4, the diff encoder, TiSasRec, the list and
+    numerical embedders; one ``{"phase": "family", "row": ...}`` line each."""
+    started = time.perf_counter()
+    record = {
+        "remat_k5": family_remat_k5(device),
+        "remat_k4": family_remat_k4(device),
+        "diff": family_diff(device),
+        "tisasrec": family_tisasrec(device),
+        "embedders": family_embedders(device),
+        "embedding_backward": family_embedding_backward(device),
+    }
+    record["phase_s"] = time.perf_counter() - started
+    emit("family", row="summary", phase_s=record["phase_s"])
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this script runs only on the GPU", file=sys.stderr)
@@ -5477,10 +6138,11 @@ def main() -> int:
     stream = stream_phase(device)
     scaled = scale_phase(device)
     continual = continual_phase(device)
+    family = family_phase(device)
 
     kernels = kernel_records(
         k4, fused, tiled_records, served, serviced, retrieval, serialized, trained, longseq, bert4rec, twotower,
-        lifecycle, stream, observed, scaled, continual,
+        lifecycle, stream, observed, scaled, continual, family,
     )
     emit("kernels", kernels=[{k: r[k] for k in ("name", "launches", "passed")} for r in kernels])
     print(card, flush=True)
@@ -5512,7 +6174,7 @@ def k4_entry(name: str, record: dict, by_path: dict) -> dict:
 
 def kernel_records(
     k4, fused, tiled_records, served, serviced, retrieval, serialized, trained, longseq, bert4rec, twotower, lifecycle,
-    stream, observed, scaled, continual,
+    stream, observed, scaled, continual, family,
 ) -> list:
     """The kernels line: every kernel of the paths driven, one entry per
     instantiation a path runs, with its launches there (counted through graph
@@ -5523,6 +6185,10 @@ def kernel_records(
         "serialize": serialized["launches"],
         "train": trained["flash_attention"], "train_graph": trained["graph"]["flash_attention"],
         "observe": observed["flash_attention"],
+        # the family phase at the bench.py width: remat "dots" (each block's
+        # forward twice a step), the SASRec over list and numerical features
+        "family_remat_k4": family["remat_k4"]["bench"]["launches"]["flash_attention"],
+        "family_embedders": family["embedders"]["launches"]["flash_attention"],
     }
     kernels = [k4_entry("flash_attention", k4[("serve", torch.float32)], k4_paths)]
     # K4 on the BERT4Rec (D=75, bidirectional) and TwoTower (D=32, causal)
@@ -5537,6 +6203,8 @@ def kernel_records(
             }
             if dtype == torch.float32:
                 by_path[f"{model}_serve"] = result["serve"]["k4_launches"]
+            if model == "bert4rec" and dtype == torch.float32:
+                by_path["family_remat_k4_bert4rec"] = family["remat_k4"]["bert4rec"]["launches"]
             kernels.append(k4_entry(f"flash_attention_{model}{suffix}", k4[(model, dtype)], by_path))
     # K4 at notebook 09's width (D=32, batch 32, f32): the lifecycle's
     # notebook run, its training graphs, tails and validation
@@ -5557,8 +6225,11 @@ def kernel_records(
         ("fused_lse_forward", "K1", 132), ("fused_lse_dh", "K2", 156), ("fused_lse_dw", "K3", 177),
     )
     fused_paths = (
-        ("", "train_f32", {"train": trained, "train_graph": trained["graph"], "observe": observed}),
-        ("_longseq_bf16_hidden", "longseq_bf16_hidden", {"longseq_train": longseq["train"], "longseq_train_graph": longseq["graph"]}),
+        ("", "train_f32", {"train": trained, "train_graph": trained["graph"], "observe": observed,
+                           "family_remat_k4": family["remat_k4"]["bench"]["launches"],
+                           "family_embedders": family["embedders"]["launches"]}),
+        ("_longseq_bf16_hidden", "longseq_bf16_hidden", {"longseq_train": longseq["train"], "longseq_train_graph": longseq["graph"],
+                                                         "family_remat_k5": family["remat_k5"]["launches"]}),
         ("_longseq_f32", "longseq_f32", {"longseq_f32_train": longseq["f32_train"]}),
     )
     fused_paths += (("_notebook", "notebook", {"lifecycle_cefused": lifecycle["cefused"]["launches"]}),)
@@ -5602,7 +6273,9 @@ def kernel_records(
     k5_paths = (
         ("flash_attention_tiled", "longseq", "mma", torch.bfloat16,
          {"longseq_train": longseq["train"]["flash_attention_tiled"], "longseq_serve": longseq["serve"],
-          "longseq_train_graph": longseq["graph"]["flash_attention_tiled"]}),
+          "longseq_train_graph": longseq["graph"]["flash_attention_tiled"],
+          # remat on K5 (each block's forward twice a step), eager and on graphs
+          "family_remat_k5": family["remat_k5"]["launches"]["flash_attention_tiled"]}),
         ("flash_attention_tiled_f32", "longseq", "tf32x3", torch.float32,
          {"longseq_f32_forward": longseq["f32"], "longseq_f32_train": longseq["f32_train"]["flash_attention_tiled"]}),
         # BERT4Rec's tiled route, non-causal at L=100: the bf16 trainer, the f32 forward

@@ -17,16 +17,20 @@ on kernels K1–K3 (the fused catalog log-sum-exp and its gradients) and K4 with
 its gradient; the long-sequence route, ``SasRec(use_flash="tiled")`` on
 kernel K5 (length-tiled attention, no ``[B, 1, L, L]`` mask), for training and
 serving, with bf16 compute (``Trainer(precision="bf16")``, ``SasRec(dtype=...)``);
-``ScoringService`` with brute-force retrieval; the compiled programs as CUDA
-graphs; BERT4Rec (masked-LM) and TwoTower (in-batch negatives) on the same
-kernels, with the batch transforms (``nn.transform``) and the sampled and
-weighted cross-entropy losses; and notebook 09's training lifecycle: the
-pandas-free ``SequentialDataset``, ``SequenceBatcher`` and
-``validation_batches`` (``data.nn``), checkpoints (``utils.checkpoint``),
-resume, best-state tracking and early stop, recovery and preemption in
-``Trainer.fit``, the event sinks, and dropout inside captured chunks. Still to
-come, in ``ROADMAP.md``'s order: quantized and IVF retrieval, the tokenizer
-and label encoders (pandas), the parquet and packed batchers, profiling,
-tracing and health in ``fit``, the vocabulary, the other losses and models,
-distributed training and the serving fleet.
+``ScoringService`` with brute-force, int8 and IVF retrieval and the exact
+rescore; the compiled programs as CUDA graphs; BERT4Rec (masked-LM) and
+TwoTower (in-batch negatives) on the same kernels, with the batch transforms
+(``nn.transform``); notebook 09's training lifecycle from a raw log (the
+pandas-free front end, the tokenizer and label encoders, ``SequenceBatcher``,
+the packed and parquet batchers, checkpoints and exact resume, recovery and
+preemption, dropout inside captured chunks) and the rest of ``Trainer.fit``
+(health, tracing, profiling, the roofline, the metrics plane, the flight
+recorder); every loss of the JAX package and the vocabulary surgery
+(``resize_vocabulary``, ``finetune``); and the rest of the SASRec family:
+remat and ``scan_blocks`` (``Trainer(remat_policy=...)``, the attention
+kernels run again in the backward's recompute), the differential-attention
+encoder, TiSasRec, and the list, numerical and identity embedders. Still to
+come, in ``ROADMAP.md``'s order: the rest of the single-device API, the
+metric classes, distributed training, the serving fleet, the classical and
+experimental models, and the port's benchmark.
 """

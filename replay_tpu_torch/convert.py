@@ -1,17 +1,23 @@
 """Weights carried across between the JAX package and the port.
 
 ``flax_to_torch`` maps a JAX model's param tree (``SasRec``, ``Bert4Rec``,
-``TwoTower``: nested dicts of arrays, with or without the outer ``"params"``
+``TwoTower``, ``TiSasRec``: nested dicts of arrays, with or without the outer ``"params"``
 key) onto the port's ``state_dict``; ``torch_to_flax`` is its inverse, and a
 round trip is exact. The port's modules carry the flax names, so a path maps
 by swapping ``/`` for ``.`` and renaming the leaf:
 
 * ``Dense.kernel`` ``[in, out]`` → ``Linear.weight`` ``[out, in]`` (transposed;
   a bias-free ``Dense`` has no ``bias`` on either side);
-* ``LayerNorm.scale`` → ``weight``;
-* ``Embed.embedding`` → ``weight``;
+* ``LayerNorm.scale`` and ``RMSNorm.scale`` → ``weight``;
+* ``Embed.embedding`` → ``weight`` (the feature tables, list features'
+  included, and TiSasRec's ``interval_bias``);
 * ``bias`` and raw params (``positional_embedding``, Bert4Rec's
-  ``mask_embedding``) carry over as they are.
+  ``mask_embedding``, the differential attention's ``lambda_*``) carry over
+  as they are.
+
+A scanned encoder (``scan_blocks=True``: ``encoder/blocks/block/...``) stacks
+every leaf on a leading layer axis; the rules apply per layer, so a stacked
+kernel ``[N, in, out]`` becomes a weight ``[N, out, in]``.
 
 Optimizer state carries across with ``opt_state_from_jax``: optax's chain
 state (Adam's ``count``, ``mu`` and ``nu`` trees, momentum's ``trace``, a
@@ -38,6 +44,10 @@ from replay_tpu_torch.models.ann import MIPSIndex
 from replay_tpu_torch.models.ivf import IVFConfig, IVFState
 
 
+# the port's modules whose ``weight`` is a flax ``Embed``'s ``embedding``
+_EMBED_MODULES = ("table", "interval_bias")
+
+
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
     flat: Dict[str, np.ndarray] = {}
     for key, value in tree.items():
@@ -57,7 +67,7 @@ def flax_to_torch(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     for path, value in _flatten(params).items():
         *parents, leaf = path.split("/")
         if leaf == "kernel":
-            leaf, value = "weight", value.T
+            leaf, value = "weight", np.swapaxes(value, -1, -2)
         elif leaf in ("scale", "embedding"):
             leaf = "weight"
         state[".".join([*parents, leaf])] = torch.tensor(np.ascontiguousarray(value))
@@ -72,12 +82,14 @@ def torch_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
         *parents, leaf = name.split(".")
         value = tensor.detach().cpu().numpy()
         if leaf == "weight":
-            if value.ndim == 1:
+            # a scanned stack's leaves carry a leading layer axis
+            rank = value.ndim - ("blocks" in parents)
+            if rank == 1:
                 leaf = "scale"
-            elif parents[-1] == "table":
+            elif parents[-1] in _EMBED_MODULES:
                 leaf = "embedding"
             else:
-                leaf, value = "kernel", value.T
+                leaf, value = "kernel", np.swapaxes(value, -1, -2)
         node = tree
         for parent in parents:
             node = node.setdefault(parent, {})

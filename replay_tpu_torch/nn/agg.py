@@ -3,8 +3,10 @@
 Counterpart of ``replay_tpu/nn/agg.py``: ``SumAggregator`` and
 ``PositionAwareAggregator`` (scale by √d, add a learned positional table,
 dropout — the SASRec input block), in the embeddings' dtype: the √d factor and
-the positional rows are cast to it first, as the JAX module casts them.
-``ConcatAggregator`` comes with the models that use it.
+the positional rows are cast to it first, as the JAX module casts them; and
+``ConcatAggregator`` (the features concatenated in sorted-key order, then a
+``Dense`` named ``proj``). flax's ``Dense`` learns its input width at the first
+call; here it is the ``input_dim`` argument, the sum of the features' widths.
 """
 
 from __future__ import annotations
@@ -15,6 +17,9 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from replay_tpu_torch.nn.layers import Dense
+from replay_tpu_torch.nn.utils import init_dense
 
 
 class SumAggregator(nn.Module):
@@ -30,6 +35,21 @@ class SumAggregator(nn.Module):
         for a in arrays[1:]:
             total = total + a
         return total
+
+
+class ConcatAggregator(nn.Module):
+    """Concatenate embeddings in sorted-key order and project to ``output_dim``."""
+
+    def __init__(self, input_dim: int, output_dim: int, dtype: torch.dtype = torch.float32) -> None:
+        super().__init__()
+        self.proj = Dense(input_dim, output_dim, dtype)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        init_dense(self.proj, generator)
+
+    def forward(self, embeddings: Dict[str, torch.Tensor]) -> torch.Tensor:
+        stacked = torch.cat([embeddings[name] for name in sorted(embeddings)], dim=-1)
+        return self.proj(stacked)
 
 
 class PositionAwareAggregator(nn.Module):

@@ -10,6 +10,16 @@ projections are four ``Dense`` layers with bias named ``query``/``key``/
 ``value``/``out``, as the flax module's four ``Dense`` — not
 ``nn.MultiheadAttention``'s fused ``in_proj`` — so weights map one to one; they
 compute in the module's ``dtype``.
+
+Also ``RMSNorm`` and ``MultiHeadDifferentialAttention`` (Differential
+Transformer attention, arXiv 2410.05258: two softmax maps per head, the second
+subtracted with a learned λ, a per-head ``RMSNorm`` and the ``1 − λ_init``
+output scale). Its query and key projections split into ``2H`` maps that
+alternate between a head's first and second map (``w1 = maps[:, 0::2]``,
+``w2 = maps[:, 1::2]``), and its values into ``H`` maps of width
+``2·head_dim``, as the JAX module splits them. It runs on the unfused route
+only, with the ``[B, 1, L, L]`` mask, whatever route the model names: the JAX
+module has no kernel route either.
 """
 
 from __future__ import annotations
@@ -119,5 +129,90 @@ class MultiHeadAttention(nn.Module):
             out = dot_product_attention(
                 q, k, v, mask, use_flash=self.use_flash, padding_mask=padding_mask, causal=causal,
             )
+        out = self.out(out.transpose(-3, -2).reshape(*lead, dim))
+        return F.dropout(out, self.dropout_rate, training=not deterministic)
+
+
+class RMSNorm(nn.Module):
+    """RMS normalization over the last axis (no mean subtraction), in the
+    input's dtype; the flax ``scale`` is ``weight`` here."""
+
+    def __init__(self, dim: int, epsilon: float = 1e-6, dtype: torch.dtype = torch.float32) -> None:
+        super().__init__()
+        self.epsilon = epsilon
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.ones(dim))
+
+    @torch.no_grad()
+    def reset_parameters(self) -> None:
+        nn.init.ones_(self.weight)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        norm = torch.sqrt(torch.mean(torch.square(x), dim=-1, keepdim=True) + self.epsilon)
+        return x / norm * self.weight.to(x.dtype)
+
+
+class MultiHeadDifferentialAttention(nn.Module):
+    """Differential attention: softmax(Q1K1) - lambda * softmax(Q2K2) per head.
+
+    lambda = exp(lq1 . lk1) - exp(lq2 . lk2) + lambda_init, with per-head RMSNorm and
+    the (1 - lambda_init) output scaling from the paper. The four projections
+    have no bias."""
+
+    def __init__(
+        self,
+        embedding_dim: int,
+        num_heads: int,
+        lambda_init: float = 0.8,
+        dropout_rate: float = 0.0,
+        dtype: torch.dtype = torch.float32,
+    ) -> None:
+        super().__init__()
+        if embedding_dim % (2 * num_heads):
+            msg = f"embedding dim {embedding_dim} must be divisible by 2*num_heads ({2 * num_heads})"
+            raise ValueError(msg)
+        self.num_heads = num_heads
+        self.lambda_init = lambda_init
+        self.dropout_rate = dropout_rate
+        head_dim = embedding_dim // (2 * num_heads)
+        self.query = Dense(embedding_dim, embedding_dim, dtype, bias=False)
+        self.key = Dense(embedding_dim, embedding_dim, dtype, bias=False)
+        self.value = Dense(embedding_dim, embedding_dim, dtype, bias=False)
+        self.lambda_q1 = nn.Parameter(torch.zeros(head_dim))
+        self.lambda_k1 = nn.Parameter(torch.zeros(head_dim))
+        self.lambda_q2 = nn.Parameter(torch.zeros(head_dim))
+        self.lambda_k2 = nn.Parameter(torch.zeros(head_dim))
+        self.head_norm = RMSNorm(2 * head_dim, dtype=dtype)
+        self.out = Dense(embedding_dim, embedding_dim, dtype, bias=False)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for dense in (self.query, self.key, self.value):
+            init_dense(dense, generator)
+        for lam in (self.lambda_q1, self.lambda_k1, self.lambda_q2, self.lambda_k2):
+            nn.init.normal_(lam, std=0.1, generator=generator)
+        self.head_norm.reset_parameters()
+        init_dense(self.out, generator)
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor, deterministic: bool = True) -> torch.Tensor:
+        *lead, dim = x.shape
+        maps = 2 * self.num_heads
+        head_dim = dim // maps
+        # two attention maps per head, interleaved: [B, 2H, L, D/2H]
+        q = self.query(x).reshape(*lead, maps, head_dim).transpose(-3, -2)
+        k = self.key(x).reshape(*lead, maps, head_dim).transpose(-3, -2)
+        v = self.value(x).reshape(*lead, self.num_heads, 2 * head_dim).transpose(-3, -2)
+        # a fill on the device, not a host copy: CUDA graphs capture this too
+        scale = 1.0 / torch.sqrt(torch.full((), head_dim, dtype=x.dtype, device=x.device))
+        scores = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale + mask.to(x.dtype)
+        weights = torch.softmax(scores, dim=-1)
+        w1, w2 = weights[:, 0::2], weights[:, 1::2]  # [B, H, L, L]
+        lam = (
+            torch.exp(torch.dot(self.lambda_q1, self.lambda_k1))
+            - torch.exp(torch.dot(self.lambda_q2, self.lambda_k2))
+            + self.lambda_init
+        ).to(x.dtype)
+        out = torch.einsum("bhqk,bhkd->bhqd", w1 - lam * w2, v)  # [B, H, L, 2*head_dim]
+        out = self.head_norm(out) * (1.0 - self.lambda_init)
         out = self.out(out.transpose(-3, -2).reshape(*lead, dim))
         return F.dropout(out, self.dropout_rate, training=not deterministic)

@@ -16,6 +16,8 @@ with a weight-tying head.
 * Attention is the padding-only bidirectional mask on every route:
   ``use_flash=False`` (unfused), ``True`` (kernel K4) or ``"tiled"`` (kernel
   K5, non-causal).
+* The encoder is SASRec's, with its ``remat``, ``remat_policy`` and
+  ``scan_blocks`` (:mod:`replay_tpu_torch.nn.sequential.sasrec.transformer`).
 
 Training batches carry ``token_mask`` (True = visible) from
 ``TokenMaskTransform``; the targets are the original ids at the masked
@@ -73,6 +75,9 @@ class Bert4RecBody(nn.Module):
         dropout_rate: float = 0.0,
         activation: str = "gelu",
         num_passes_over_block: int = 1,
+        remat: bool = False,
+        remat_policy=None,  # a selective-checkpoint policy (Trainer(remat_policy=...))
+        scan_blocks: bool = False,  # one block over stacked [layers, ...] params
         use_flash=False,  # False | True (kernel K4) | "tiled" (kernel K5, long L)
         excluded_features: tuple = (),
         dtype: torch.dtype = torch.float32,
@@ -94,6 +99,9 @@ class Bert4RecBody(nn.Module):
             hidden_dim=hidden_dim or embedding_dim * 4,
             dropout_rate=dropout_rate,
             activation=activation,
+            remat=remat,
+            remat_policy=remat_policy,
+            scan_blocks=scan_blocks,
             use_flash=use_flash,
             dtype=dtype,
         )
@@ -171,13 +179,11 @@ class Bert4Rec(nn.Module):
         generator: Optional[torch.Generator] = None,
     ) -> None:
         super().__init__()
-        if remat or remat_policy is not None or scan_blocks:
-            msg = "remat and scan_blocks are not ported yet: ROADMAP.md queue 1, 'The rest of the SASRec family'"
-            raise NotImplementedError(msg)
         device = resolve_device(device)
         self.embedding_dim = embedding_dim
         self.num_blocks = num_blocks
         self.max_sequence_length = max_sequence_length
+        self.remat = remat
         self.use_flash = use_flash
         self.dtype = dtype
         config = dict(
@@ -189,6 +195,9 @@ class Bert4Rec(nn.Module):
             dropout_rate=dropout_rate,
             activation=activation,
             num_passes_over_block=num_passes_over_block,
+            remat=remat,
+            remat_policy=remat_policy,
+            scan_blocks=scan_blocks,
             use_flash=use_flash,
             excluded_features=excluded_features,
             dtype=dtype,

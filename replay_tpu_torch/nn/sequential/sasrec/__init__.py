@@ -1,4 +1,5 @@
 from .model import SasRec, SasRecBody
-from .transformer import SasRecTransformerLayer
+from .ti_model import TiSasRec
+from .transformer import DiffTransformerLayer, SasRecTransformerLayer
 
-__all__ = ["SasRec", "SasRecBody", "SasRecTransformerLayer"]
+__all__ = ["DiffTransformerLayer", "SasRec", "SasRecBody", "SasRecTransformerLayer", "TiSasRec"]

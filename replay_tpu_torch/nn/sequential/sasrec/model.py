@@ -8,7 +8,8 @@ candidates; ``forward_inference`` scores the LAST position.
 
 Module names follow the flax param tree (``body.embedder.embedding_item_id.
 table``, ``body.aggregator.positional_embedding``, ``body.encoder.block_<i>``,
-``body.final_norm``), so :mod:`replay_tpu_torch.convert` maps weights one to
+``body.final_norm``; ``body.encoder.blocks.block`` with ``[N, ...]`` leaves
+under ``scan_blocks``), so :mod:`replay_tpu_torch.convert` maps weights one to
 one. Weights are drawn from an explicit ``torch.Generator`` on the CPU and then
 moved to ``device``, so one seed gives the same model on every device.
 
@@ -19,6 +20,14 @@ are bf16 while every parameter stays f32 (the precision ladder's bf16 rung,
 ``False`` (unfused, a ``[B, 1, L, L]`` mask), ``True`` (kernel K4, the same
 mask) or ``"tiled"`` (kernel K5, the long-sequence route: no ``[B, 1, L, L]``
 tensor at all).
+
+``encoder_type="diff"`` swaps the encoder for the Differential Transformer
+(``DiffTransformerLayer``); as in JAX it ignores ``remat``, ``remat_policy``,
+``scan_blocks`` and ``use_flash`` (with ``use_flash=True`` it takes the
+``[B, 1, L, L]`` mask and launches no kernel), and the ``"tiled"`` route
+refuses it. ``remat`` / ``remat_policy`` / ``scan_blocks`` are the SASRec
+encoder's (:mod:`.transformer`); ``embedding_init`` (e.g.
+``nn.embedding.xavier_normal_embed_init()``) draws every feature table.
 """
 
 from __future__ import annotations
@@ -38,7 +47,7 @@ from replay_tpu_torch.nn.mask import attention_mask_for_route
 from replay_tpu_torch.obs.health import sow_stage_stats
 from replay_tpu_torch.obs.profile import scope
 
-from .transformer import SasRecTransformerLayer
+from .transformer import DiffTransformerLayer, SasRecTransformerLayer
 
 ENCODER_TYPES = ("sasrec", "diff")
 
@@ -57,9 +66,13 @@ class SasRecBody(nn.Module):
         dropout_rate: float = 0.0,
         activation: str = "relu",  # the reference SASRec construction pins relu
         encoder_type: str = "sasrec",
+        remat: bool = False,
+        remat_policy=None,  # a selective-checkpoint policy (Trainer(remat_policy=...))
+        scan_blocks: bool = False,  # one block over stacked [layers, ...] params
         use_flash=False,  # False | True (kernel K4) | "tiled" (kernel K5, long L)
         excluded_features: tuple = (),
         dtype: torch.dtype = torch.float32,
+        embedding_init=None,  # e.g. nn.embedding.xavier_normal_embed_init()
     ) -> None:
         super().__init__()
         if encoder_type not in ENCODER_TYPES:
@@ -73,22 +86,25 @@ class SasRecBody(nn.Module):
                 f"only; '{encoder_type}' would fall back to O(L^2) attention"
             )
             raise ValueError(msg)
-        if encoder_type == "diff":
-            msg = "encoder_type='diff' is not ported yet: ROADMAP.md queue 1, 'The rest of the SASRec family'"
-            raise NotImplementedError(msg)
         self.use_flash = use_flash
-        self.embedder = SequenceEmbedding(schema, excluded_features=excluded_features, dtype=dtype)
+        self.embedder = SequenceEmbedding(
+            schema, excluded_features=excluded_features, dtype=dtype, embedding_init=embedding_init
+        )
         self.aggregator = PositionAwareAggregator(embedding_dim, max_sequence_length, dropout_rate)
-        self.encoder = SasRecTransformerLayer(
-            embedding_dim,
+        common = dict(
             num_blocks=num_blocks,
             num_heads=num_heads,
             hidden_dim=hidden_dim or embedding_dim * 4,
             dropout_rate=dropout_rate,
-            activation=activation,
-            use_flash=use_flash,
             dtype=dtype,
         )
+        if encoder_type == "sasrec":
+            self.encoder = SasRecTransformerLayer(
+                embedding_dim, remat=remat, remat_policy=remat_policy, scan_blocks=scan_blocks,
+                use_flash=use_flash, activation=activation, **common,
+            )
+        else:
+            self.encoder = DiffTransformerLayer(embedding_dim, **common)
         self.final_norm = LayerNorm(embedding_dim, dtype)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -140,9 +156,13 @@ class SasRec(nn.Module):
         dropout_rate: float = 0.0,
         activation: str = "relu",
         encoder_type: str = "sasrec",
+        remat: bool = False,
+        remat_policy=None,  # a selective-checkpoint policy (Trainer(remat_policy=...))
+        scan_blocks: bool = False,  # one block over stacked [layers, ...] params
         use_flash=False,  # False | True (kernel K4) | "tiled" (kernel K5, long L)
         excluded_features: tuple = (),
         dtype: torch.dtype = torch.float32,  # compute dtype; parameters stay f32
+        embedding_init=None,  # e.g. nn.embedding.xavier_normal_embed_init()
         device: DeviceLike = "cuda",
         generator: Optional[torch.Generator] = None,
     ) -> None:
@@ -151,6 +171,7 @@ class SasRec(nn.Module):
         self.embedding_dim = embedding_dim
         self.num_blocks = num_blocks
         self.max_sequence_length = max_sequence_length
+        self.remat = remat
         self.use_flash = use_flash
         self.dtype = dtype
         config = dict(
@@ -162,9 +183,13 @@ class SasRec(nn.Module):
             dropout_rate=dropout_rate,
             activation=activation,
             encoder_type=encoder_type,
+            remat=remat,
+            remat_policy=remat_policy,
+            scan_blocks=scan_blocks,
             use_flash=use_flash,
             excluded_features=excluded_features,
             dtype=dtype,
+            embedding_init=embedding_init,
         )
         # what clone() rebuilds the model from
         self._config = dict(schema=schema, device=device, **config)

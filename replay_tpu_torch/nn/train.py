@@ -16,10 +16,15 @@ per-scope device time and every program's roofline
 (:mod:`replay_tpu_torch.obs.profile`, :mod:`replay_tpu_torch.obs.roofline`),
 the live metrics plane (:mod:`replay_tpu_torch.obs.metrics`, ``exporter``,
 ``slo``) and the flight recorder (:mod:`replay_tpu_torch.obs.blackbox`). The
-mesh, sharding and remat arguments are later slices (``ROADMAP.md`` queue
-1). ``precision="bf16"`` is the JAX trainer's: the model computes in
+mesh and sharding arguments are later slices (``ROADMAP.md`` queue 1).
+``precision="bf16"`` is the JAX trainer's: the model computes in
 bf16 while the flat parameter buffer, the optimizer state and the sentinel
-stay f32 (:mod:`replay_tpu_torch.nn.precision`).
+stay f32 (:mod:`replay_tpu_torch.nn.precision`). ``remat_policy`` is the JAX
+trainer's too: the model is cloned with ``remat=True`` and the resolved
+policy (:func:`_resolve_remat_policy`, :mod:`replay_tpu_torch.nn.remat`), so
+each encoder block's forward, attention kernels included, runs again in the
+backward pass; the recompute reads the forward's dropout draws back, so a
+remat step, eager or captured, equals a step without remat.
 
 What carries over exactly:
 
@@ -102,6 +107,7 @@ from replay_tpu_torch.models.ann import top_k as _top_k
 from replay_tpu_torch.nn.compiled import bind
 from replay_tpu_torch.nn.graphs import Graph, capture, runner, signature
 from replay_tpu_torch.nn.precision import Precision
+from replay_tpu_torch.nn.remat import checkpoint_dots, checkpoint_dots_with_no_batch_dims
 from replay_tpu_torch.obs import health as health_module
 from replay_tpu_torch.obs import profile as profile_module
 from replay_tpu_torch.obs.collectors import CompileTracker, MemoryMonitor, StepTelemetry
@@ -604,11 +610,58 @@ class _ChunkGraph:
     state_tensors: List[torch.Tensor]
 
 
+class _LayoutCheckedManager:
+    """A fit's checkpoint manager whose saves carry the trainer's layout mark
+    and whose restores refuse a checkpoint of the other layout
+    (:meth:`Trainer._check_layout`); everything else is the manager's."""
+
+    def __init__(self, manager: Any, trainer: "Trainer") -> None:
+        self._manager = manager
+        self._trainer = trainer
+
+    def __getattr__(self, name: str) -> Any:
+        return getattr(self._manager, name)
+
+    def save(self, step: int, state: Any, history=None, metadata=None, process_metadata=None) -> None:
+        metadata = {**(metadata or {}), **self._trainer._layout_metadata()}
+        self._manager.save(step, state, history=history, metadata=metadata, process_metadata=process_metadata)
+
+    def restore(self, template: Any, step: Optional[int] = None) -> Any:
+        step = step if step is not None else self._manager.latest_step()
+        try:
+            metadata = self._manager.metadata(step) if step is not None else {}
+        except (OSError, ValueError):
+            metadata = None  # unreadable: the manager's restore says so
+        if isinstance(metadata, dict):
+            self._trainer._check_layout(metadata, f"step_{step}")
+        return self._manager.restore(template, step=step)
+
+
 def _sync(value: Any) -> None:
     """Wait for a device value (a span fenced on the loss, as JAX's
     ``block_until_ready``)."""
     if isinstance(value, torch.Tensor) and value.is_cuda:
         torch.cuda.current_stream(value.device).synchronize()
+
+
+def _resolve_remat_policy(policy: Any):
+    """``Trainer(remat_policy=...)`` spellings → a selective-checkpoint policy
+    function (or None = save nothing, i.e. full rematerialization)."""
+    if policy is True or policy == "full":
+        return None  # recompute everything
+    if isinstance(policy, str):
+        names = {"dots": checkpoint_dots, "dots_no_batch": checkpoint_dots_with_no_batch_dims}
+        if policy not in names:
+            msg = (
+                f"unknown remat_policy {policy!r}; use 'full', 'dots', "
+                "'dots_no_batch', or a selective-checkpoint policy callable"
+            )
+            raise ValueError(msg)
+        return names[policy]
+    if callable(policy):
+        return policy
+    msg = f"remat_policy must be a string, True, or callable; got {policy!r}"
+    raise ValueError(msg)
 
 
 # --------------------------------------------------------------------------- #
@@ -633,6 +686,14 @@ class Trainer:
         rung's (its parameters, and so the optimizer state, stay f32), and
         loss-consumed logits are up-cast to the rung's f32 accumulation dtype.
         ``None`` (default) changes nothing.
+    :param remat_policy: activation checkpointing for the encoder stack:
+        ``"full"`` (or ``True``: recompute every block activation in the
+        backward), ``"dots"`` (keep the matrix products' outputs, recompute
+        the rest), ``"dots_no_batch"`` (keep only the products without a batch
+        dimension), or a torch selective-checkpoint policy function. The model
+        is cloned with ``remat=True`` and the policy; a model without a
+        ``remat`` field (TwoTower, TiSasRec) is refused. ``None`` (default)
+        leaves remat off.
     :param device: ``"cuda"`` by default; raises without a card unless given
         ``"cpu"``. The model is moved there.
     :param label_field / mask fields: batch keys, as in the JAX trainer.
@@ -662,6 +723,7 @@ class Trainer:
     health: Optional[HealthConfig] = None
     precision: Optional[Any] = None
     device: DeviceLike = "cuda"
+    remat_policy: Optional[Any] = None
 
     def __post_init__(self) -> None:
         if isinstance(self.loss, str):
@@ -683,6 +745,18 @@ class Trainer:
         self.precision = Precision.resolve(self.precision)
         if self.precision is not None:
             self.model = self.precision.apply_to_model(self.model)
+        if self.remat_policy is not None:
+            # activation-checkpointed blocks: clone the model with remat on
+            # and the policy plumbed to its encoder stack
+            if not hasattr(self.model, "remat"):
+                msg = (
+                    f"remat_policy={self.remat_policy!r} needs a model with a "
+                    f"remat field (SasRec/Bert4Rec); {type(self.model).__name__} "
+                    "has none"
+                )
+                raise ValueError(msg)
+            policy = _resolve_remat_policy(self.remat_policy)
+            self.model = self.model.clone(remat=True, remat_policy=policy)
         self.device = resolve_device(self.device)
         self.model.to(self.device)
         self._tx = self.optimizer.create()
@@ -1421,6 +1495,8 @@ class Trainer:
         One deviation: a resumed epoch's ``train_loss`` covers the whole
         epoch (the JAX fit averages only the steps after the resume).
         """
+        if checkpoint_manager is not None:
+            checkpoint_manager = _LayoutCheckedManager(checkpoint_manager, self)
         if checkpoint_manager is not None and not self.history:
             # resume: earlier epochs' records survive the restart
             self.history = list(checkpoint_manager.history())
@@ -2292,15 +2368,37 @@ class Trainer:
         the dropout generator's state) to ``path`` (``.npz`` + ``.json``)."""
         from replay_tpu_torch.utils.checkpoint import save_pytree
 
-        save_pytree(path, state, {"step": state.step}, backend=backend)
+        save_pytree(path, state, {"step": state.step, **self._layout_metadata()}, backend=backend)
 
     def restore_checkpoint(self, path: str, example_batch: Batch) -> TrainState:
         """Rebuild a state from disk into a fresh ``init_state``'s template."""
-        from replay_tpu_torch.utils.checkpoint import restore_pytree
+        from replay_tpu_torch.utils.checkpoint import load_metadata, restore_pytree
 
+        self._check_layout(load_metadata(path), path)
         state = restore_pytree(path, self.init_state(example_batch))
         self._bind(state)
         return state
+
+    def _layout_metadata(self) -> Dict[str, Any]:
+        """A checkpoint's mark of the scanned encoder layout (flax's
+        ``nn.scan`` tree, ``[N, ...]`` leaves under ``blocks``), which the
+        flat parameter buffer cannot show: the loop layout holds as many
+        values in another order. Nothing for the loop layout, whose metadata
+        stays the JAX trainer's."""
+        scanned = any(getattr(module, "scan_blocks", False) for module in self.model.modules())
+        return {"scan_blocks": True} if scanned else {}
+
+    def _check_layout(self, metadata: Mapping[str, Any], where: str) -> None:
+        """Refuse a checkpoint of the other encoder layout, as the JAX
+        restore refuses the other param tree."""
+        saved, current = bool(metadata.get("scan_blocks")), bool(self._layout_metadata())
+        if saved != current:
+            layouts = {True: "scan_blocks=True (stacked [N, ...] blocks)", False: "the loop layout (block_<i>)"}
+            msg = (
+                f"checkpoint {where} holds {layouts[saved]} but the model has {layouts[current]}: "
+                "checkpoints do not mix across scan_blocks"
+            )
+            raise ValueError(msg)
 
     # -- eval / predict ---------------------------------------------------- #
     def _eval_program(self, key: Tuple[Any, ...]) -> Callable[..., Any]:

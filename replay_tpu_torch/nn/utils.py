@@ -27,7 +27,7 @@ _ACTIVATIONS = {
 }
 
 # std of a unit normal truncated at ±2, which lecun_normal divides out
-_TRUNCATED_STD = 0.87962566103423978
+TRUNCATED_STD = 0.87962566103423978
 
 
 def create_activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -41,7 +41,7 @@ def create_activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
 @torch.no_grad()
 def init_dense(dense: nn.Linear, generator: torch.Generator) -> None:
     """flax ``Dense`` defaults: lecun-normal kernel truncated at ±2σ, zero bias."""
-    std = math.sqrt(1.0 / dense.in_features) / _TRUNCATED_STD
+    std = math.sqrt(1.0 / dense.in_features) / TRUNCATED_STD
     nn.init.trunc_normal_(dense.weight, std=std, a=-2 * std, b=2 * std, generator=generator)
     if dense.bias is not None:
         nn.init.zeros_(dense.bias)

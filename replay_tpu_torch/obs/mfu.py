@@ -10,7 +10,11 @@ analysis of a compiled program; the port has no compiler to ask, so
   ``replay_tpu_torch::flash_attention_tiled_forward`` (K5) get formulas of
   their own (:func:`attention_flops`: ``4·B·H·Lq·Lk·D``, every score, as
   torch's formula for ``scaled_dot_product_attention`` counts them); their
-  gradients are torch ops and counted as such. K1–K3 (``CEFused``'s fused
+  gradients are torch ops and counted as such. A remat step's recompute
+  (``nn/remat.py``) runs inside the counted backward, so its ops count
+  again, K4's and K5's formulas included, and what a selective policy saves
+  does not: the compiled cost of a ``jax.checkpoint`` program counts the
+  same. K1–K3 (``CEFused``'s fused
   head) are ``ctypes`` calls, opaque to the counter on the card, and their
   plain versions run outside the counter on the CPU (``ops/counts.py::
   opaque``), so that one program counts the same on both: the head's work

@@ -10,7 +10,10 @@ graph (``nn/graphs.py``). So the counts equal the kernels the card ran, eager
 or replayed, as a profiler trace of the same work shows them.
 
 Captures are looked up by stream, not by thread: autograd runs a captured
-backward on its own worker thread, on the stream of the forward.
+backward on its own worker thread, on the stream of the forward. A remat
+step's recompute (``nn/remat.py``) launches K4 and K5 again inside that
+backward: those launches count like any other, so a remat step counts each
+attention kernel twice a block.
 
 The ``ctypes`` kernels (K1–K3) are invisible to PyTorch's dispatch-mode
 counters (``obs/mfu.py``'s FLOP and byte counts): each reports its costs

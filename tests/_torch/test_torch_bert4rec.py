@@ -173,8 +173,13 @@ def test_unported_routes_and_packed_rows_raise():
         port_model()({"item_id": torch.tensor(ids)}, torch.tensor(mask), segment_ids=torch.ones(BATCH, SEQ_LEN))
     with pytest.raises(NotImplementedError, match="distributed training"):
         port_model("ring")({"item_id": torch.tensor(ids)}, torch.tensor(mask))
-    with pytest.raises(NotImplementedError, match="remat"):
-        port_model(remat=True)
+    # remat is ported (tests/_torch/test_torch_remat.py): a remat model's
+    # hidden states are the plain model's
+    rematted = port_model(remat=True, remat_policy=None)
+    assert rematted.remat and rematted.body.encoder.remat
+    with torch.no_grad():
+        tensors = ({"item_id": torch.tensor(ids)}, torch.tensor(mask))
+        assert torch.equal(rematted(*tensors), port_model()(*tensors))
     # the vocabulary surgery is ported (tests/_torch/test_torch_vocabulary.py):
     # a BERT4Rec trainer grows its table and refuses a shrink
     trainer = Trainer(port_model(), CE(), device="cpu")

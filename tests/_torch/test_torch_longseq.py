@@ -243,12 +243,15 @@ def test_tiled_route_builds_no_square_mask(params, monkeypatch):
 
 def test_misuse_guards_match_jax():
     """A non-SASRec encoder on the tiled route is refused at construction (the
-    JAX refusal), and an unknown encoder is a ValueError."""
+    JAX refusal), and an unknown encoder is a ValueError. The diff encoder is
+    ported (tests/_torch/test_torch_sasrec_family.py): off the tiled route it
+    builds, on the unfused route and with use_flash=True alike."""
     for bad in ("diff", "nope"):
         with pytest.raises(ValueError, match="tiled" if bad == "diff" else "Unknown encoder_type"):
             SasRec(port_model().body.embedder.schema, encoder_type=bad, use_flash="tiled", device="cpu", **WIDTH)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        SasRec(port_model().body.embedder.schema, encoder_type="diff", device="cpu", **WIDTH)
+    for use_flash in (False, True):
+        diff = SasRec(port_model().body.embedder.schema, encoder_type="diff", use_flash=use_flash, device="cpu", **WIDTH)
+        assert type(diff.body.encoder).__name__ == "DiffTransformerLayer"
 
 
 # --------------------------------------------------------------------------- #

@@ -26,7 +26,7 @@ from replay_tpu_torch.data import FeatureHint, FeatureType
 from replay_tpu_torch.data.nn import TensorFeatureInfo, TensorSchema
 from replay_tpu_torch.nn.compiled import CompiledInference
 from replay_tpu_torch.nn.sequential import Bert4Rec, TwoTower
-from replay_tpu_torch.nn.sequential.sasrec import SasRec
+from replay_tpu_torch.nn.sequential.sasrec import SasRec, TiSasRec
 from replay_tpu_torch.ops import build
 from replay_tpu_torch.nn.loss import CE
 from replay_tpu_torch.nn.train import Trainer
@@ -114,6 +114,8 @@ def test_pyarrow_is_imported_only_inside_functions(path):
         ("obs", ("events", "trace", "collectors", "health", "profile", "mfu", "roofline", "metrics", "exporter", "slo", "blackbox")),
         ("models", ("ann", "ivf")), ("serve", ("service", "batcher", "pipeline", "promote", "quant")),
         ("nn.transform", ("transforms", "template")), ("nn.sequential.bert4rec", ("model",)),
+        ("nn", ("embedding", "agg", "attention", "ffn", "remat", "train")),
+        ("nn.sequential.sasrec", ("model", "transformer", "ti_model")),
         ("nn.sequential.twotower", ("model", "reader")),
         ("utils", ("checkpoint", "faults", "types", "serde")),
         ("data.nn", ("iterator", "partitioning", "ragged", "sequential_dataset", "prefetch", "sequence_tokenizer")),
@@ -183,6 +185,7 @@ def test_entry_points_need_cuda_unless_asked_for_the_cpu(monkeypatch):
         "Trainer": lambda **kw: Trainer(model, CE(), **kw),
         "Bert4Rec": lambda **kw: Bert4Rec(_schema(), embedding_dim=8, num_blocks=1, max_sequence_length=4, **kw),
         "TwoTower": lambda **kw: TwoTower(_schema(), embedding_dim=8, num_blocks=1, max_sequence_length=4, **kw),
+        "TiSasRec": lambda **kw: TiSasRec(_schema(), embedding_dim=8, num_blocks=1, max_sequence_length=4, **kw),
     }
     for name, call in calls.items():
         for kwargs in ({}, {"device": "cuda"}):

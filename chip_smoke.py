@@ -192,7 +192,9 @@ import contextlib
 import functools
 import json
 import math
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2771,6 +2773,103 @@ def goodput_sums(events) -> list:
     return [sum(e.payload["goodput"]["fractions"].values()) for e in events if "goodput" in e.payload]
 
 
+OBSERVE_API_K = 3  # the steps of the graph that utils.profiling.trace and StepTimer read
+
+
+def trace_kernel_counts(path: str, names) -> dict:
+    """Each kernel's events in an exported Chrome trace, by ``TRACE_NAMES``."""
+    from replay_tpu_torch.obs.profile import load_capture
+
+    kernels = [e.get("name", "") for e in load_capture(path) if e.get("cat") == "kernel"]
+    return {name: sum(1 for k in kernels if re.search(TRACE_NAMES[name], k)) for name in names}
+
+
+def profiling_api_checks(make_trainer, batches, counters, steps_per_sec: float) -> dict:
+    """The profiling API on the observe phase's trainer (graphs of
+    ``OBSERVE_API_K`` steps, each captured before it is read):
+
+    * ``utils.profiling.trace`` around one replay (``OBSERVE_API_K`` steps):
+      each kernel's name in the exported trace as often as ``ops/counts.py``
+      counted its launches, and those launches a step as the model predicts
+      (K4 once a block, K1–K3 once);
+    * ``utils.StepTimer`` over replays: its samples/s beside the phase's own
+      (the plain fit's steady steps/s times the batch);
+    * ``TensorBoardLogger`` on a short ``fit``: history and weights equal to
+      the same fit without it; event files written where a backend is
+      installed, else exactly one warning.
+    """
+    import logging
+    import tempfile
+
+    from replay_tpu_torch.obs import TensorBoardLogger
+    from replay_tpu_torch.obs import events as events_module
+    from replay_tpu_torch.obs.profile import latest_capture
+    from replay_tpu_torch.utils import StepTimer, trace
+
+    chunks = [batches[i:i + OBSERVE_API_K] for i in range(0, 5 * OBSERVE_API_K, OBSERVE_API_K)]
+    trainer = make_trainer()
+    state = trainer.init_state(batches[0])
+    state, _ = trainer.train_steps(state, chunks[0])  # the capture
+    root = tempfile.mkdtemp(prefix="observe-api-")
+    before = {fn.__name__: fn.launches for fn in counters}
+    with trace(f"{root}/trace"):
+        state, _ = trainer.train_steps(state, chunks[1])
+        torch.cuda.synchronize()
+    launched = {fn.__name__: fn.launches - before[fn.__name__] for fn in counters}
+    traced = trace_kernel_counts(latest_capture(f"{root}/trace"), launched)
+    predicted = {name: OBSERVE_API_K * (NUM_BLOCKS if name == "flash_attention" else 1) for name in launched}
+    if traced != launched or launched != predicted:
+        raise AssertionError(f"observe: utils.profiling.trace holds {traced}, counted {launched}, predicted {predicted}")
+
+    timer = StepTimer(warmup_steps=1, samples_per_step=OBSERVE_API_K * TRAIN_BATCH)
+    for chunk in chunks[2:] * 3:
+        state, _ = trainer.train_steps(state, chunk)
+        timer.tick(state.flat_params)
+    timed = timer.finish(state.flat_params)
+
+    messages = []
+
+    class Catch(logging.Handler):
+        def emit(self, record):
+            if "no tensorboard backend" in record.getMessage():
+                messages.append(record.getMessage())
+
+    handler = Catch()
+    logging.getLogger("replay_tpu_torch").addHandler(handler)
+    runs = {}
+    try:
+        for name in ("plain", "tensorboard"):
+            fitted = make_trainer()
+            sinks = [TensorBoardLogger(f"{root}/tensorboard")] if name == "tensorboard" else []
+            end = fitted.fit(
+                batches[:2 * OBSERVE_API_K], state=fitted.init_state(batches[0]), scan_chunk=OBSERVE_API_K,
+                loggers=sinks, log_every=0,
+            )
+            for sink in sinks:
+                sink.close()
+            runs[name] = (list(fitted.history), end.flat_params.clone())
+    finally:
+        logging.getLogger("replay_tpu_torch").removeHandler(handler)
+    backend = events_module._load_summary_writer() is not None
+    written = sorted(os.listdir(f"{root}/tensorboard")) if os.path.isdir(f"{root}/tensorboard") else []
+    board = {
+        "backend": backend, "event_files": len(written), "warnings": len(messages),
+        "outcome": "wrote event files" if written else "warned once, dropped the events" if len(messages) == 1 else "neither",
+        "history_equal": runs["plain"][0] == runs["tensorboard"][0],
+        "weights_equal": bool(torch.equal(runs["plain"][1], runs["tensorboard"][1])),
+    }
+    if not (board["history_equal"] and board["weights_equal"]) or (written if not backend else not written) or (
+        not backend and len(messages) != 1
+    ):
+        raise AssertionError(f"observe: TensorBoardLogger on a short fit: {board}")
+    shutil.rmtree(root, ignore_errors=True)
+    return {
+        "trace": {"launched": launched, "traced": traced, "predicted": predicted},
+        "step_timer": {**timed, "phase_samples_per_sec": steps_per_sec * TRAIN_BATCH},
+        "tensorboard": board,
+    }
+
+
 def observe_phase(device) -> dict:
     """The bench.py-width SasRec(use_flash=True) trainer with CEFused through
     fit(scan_chunk=32) four times from the same weights and batches: plain,
@@ -2781,7 +2880,8 @@ def observe_phase(device) -> dict:
     against their counted launches and their scopes (encoder, loss), goodput
     sums, one SLO violation, the scrapes and the ring; prints the step's MFU,
     each program's and each serving bucket's roofline, the per-scope device
-    time and the overheads."""
+    time and the overheads; then the profiling API (``profiling_api_checks``:
+    ``utils.profiling.trace``, ``StepTimer``, ``TensorBoardLogger``)."""
     import tempfile
 
     from replay_tpu_torch.data import FeatureHint, FeatureType
@@ -2949,6 +3049,11 @@ def observe_phase(device) -> dict:
             "min_step_ms": rl["min_step_seconds"] * 1e3, "hbm_peak_bytes": record.get("hbm_peak_bytes"),
         }
 
+    def make_trainer():
+        model = SasRec(schema, use_flash=True, generator=torch.Generator().manual_seed(SEED), **width)
+        return Trainer(model, CEFused(), optimizer=OptimizerFactory(name="adam", learning_rate=1e-3), device=device)
+
+    api = profiling_api_checks(make_trainer, batches, counters, plain_times["steps_per_sec"])
     overhead = {
         "plain": plain_times, "health": health_times, "tracer": tracer_times, "observed_wall_s": observed_wall,
         "health_wall_ratio": health_times["wall_s"] / plain_times["wall_s"],
@@ -2964,7 +3069,7 @@ def observe_phase(device) -> dict:
         goodput=end["goodput"], spans=end["spans"], compile=compiled, overhead=overhead,
         slo_violations=len(violations), scrapes=len(scrapes), flight_records=len(flight.records),
         health={k: health_record[k] for k in ("grad_norm_global", "logits", "embedding_coverage") if k in health_record},
-        seconds=time.perf_counter() - started,
+        profiling_api=api, seconds=time.perf_counter() - started,
     )
     return launches
 
@@ -3725,13 +3830,46 @@ def literal_pool_step(make_model, batch, initial, dtype, device) -> dict:
     return record
 
 
+def query_embedding_checks(trainer, state, held: dict, logits: torch.Tensor, blocks: int) -> dict:
+    """``predict_query_embeddings`` on the ``held`` windows through the query
+    graph (K4 counted from 0: one replay, and a capture's warm-up where the
+    shape is new; ``predict_top_k`` through the catalog captured it), bitwise
+    the eager program, and times the item tower against ``logits``
+    (``forward_inference``'s scores of the same windows) within ``SERVE_TOL``,
+    the top 10 pinned."""
+    from replay_tpu_torch.ops.flash_attention import flash_attention
+
+    device = trainer.device
+    warmups = trainer._eval_runner.warmups
+    reset_counts(flash_attention)
+    query_ids, embeddings = trainer.predict_query_embeddings(state, [held])
+    torch.cuda.synchronize()
+    query = {"k4_launches": flash_attention.launches, "captures": trainer._eval_runner.warmups - warmups}
+    with eager_evaluation(trainer):
+        _, eager_embeddings = trainer.predict_query_embeddings(state, [held])
+    with torch.no_grad():
+        scored = torch.as_tensor(embeddings, device=device) @ trainer.model.encode_items(item_feature_tensors=None).T
+    query.update(
+        rows=len(query_ids), bitwise_eager=bool(np.array_equal(embeddings, eager_embeddings)),
+        max_abs_err_vs_forward_inference=float((scored - logits).abs().max()),
+        ranks_pinned=pinned_top10(scored, logits, SERVE_TOL),
+    )
+    on_graph = device.type != "cuda" or any(key[0] == "queries" for key in trainer._eval_runner.keys)
+    if (query["k4_launches"] != blocks * (1 + query["captures"]) or not on_graph or not query["bitwise_eager"] or query["max_abs_err_vs_forward_inference"] > SERVE_TOL
+            or len(query_ids) != len(logits)):
+        raise AssertionError(f"twotower predict_query_embeddings: {query}")
+    return query
+
+
 def twotower_phase(device) -> dict:
     """bench_suite.py's twotower row on K4 (D=32, causal): the trainer in f32
     and bf16 compute with ``CESampled`` over the in-batch pool
     (``model_training``), the pool scored once a batch; one step with the
     pool's literal form, its memory or its OOM; ``predict_top_k`` through the
-    catalog cache against ``forward_inference``'s top-k; the serving programs
-    (``model_serving``)."""
+    catalog cache against ``forward_inference``'s top-k;
+    ``predict_query_embeddings`` on the query graph against the eager program
+    and, times the item tower, against ``forward_inference``; the serving
+    programs (``model_serving``)."""
     from replay_tpu_torch.nn.loss import CESampled
     from replay_tpu_torch.nn.sequential.twotower import TwoTower
     from replay_tpu_torch.nn.train import Trainer
@@ -3782,6 +3920,7 @@ def twotower_phase(device) -> dict:
     pinned = np.minimum(previous, gaps) > 2 * score_err
     if score_err > 1e-5 or not np.array_equal(items[pinned], want_items[:, :10][pinned]):
         raise AssertionError(f"twotower predict_top_k: scores differ by {score_err}, or a pinned rank differs")
+    query = query_embedding_checks(trainer, state, held, want, TT_BLOCKS)
     del trainer, state
     release()
     serving = model_serving(
@@ -3790,9 +3929,10 @@ def twotower_phase(device) -> dict:
     emit(
         "twotower", items=MODEL_ITEMS, embedding_dim=TT_DIM, heads=TT_HEADS, blocks=TT_BLOCKS, seq_len=TT_LEN,
         batch=MODEL_BATCH, pool=MODEL_BATCH, train=training, literal_pool=literal,
-        predict_top_k={"score_max_abs_err": score_err, "ranks_pinned": int(pinned.sum())}, serve=serving,
+        predict_top_k={"score_max_abs_err": score_err, "ranks_pinned": int(pinned.sum())},
+        predict_query_embeddings=query, serve=serving,
     )
-    return {"train": training, "serve": serving}
+    return {"train": training, "serve": serving, "query_embeddings": query}
 
 
 def notebook_events(seed: int):
@@ -4121,6 +4261,111 @@ def evaluation_checks(trainer, states, batches, metric_kwargs: dict, blocks: int
     return record
 
 
+# the trainer's per-user metrics that OfflineMetrics computes too, and its
+# classes of them; notebook 09's test metrics (BASELINE.md:18)
+NB_TRAINER_METRICS = ("recall", "precision", "map", "ndcg", "mrr", "hitrate")
+NB_OFFLINE_NAMES = {"recall": "Recall", "precision": "Precision", "map": "MAP", "ndcg": "NDCG", "mrr": "MRR", "hitrate": "HitRate"}
+NB_BASELINE_TEST = {"Recall@10": 0.1499, "MAP@10": 0.0469, "Precision@10": 0.0150}
+# the trainer sums in f32 on the card, OfflineMetrics in f64 on the host
+OFFLINE_TOL = 1e-5
+
+
+def split_table(dataset, query_ids=None):
+    """A tokenized split as a (query_id, item_id) ``ColumnTable``, one row an
+    event, in the split's order; only the queries in ``query_ids`` where given."""
+    from replay_tpu_torch.utils.types import ColumnTable
+
+    column = dataset.item_id_column
+    rows = range(len(dataset)) if query_ids is None else np.flatnonzero(np.isin(dataset.query_ids, query_ids))
+    sequences = [dataset.get_sequence(i, column) for i in rows]
+    return ColumnTable({
+        "query_id": np.repeat(np.asarray(dataset.query_ids)[list(rows)], [len(q) for q in sequences]),
+        "item_id": np.concatenate(sequences) if sequences else np.zeros(0, np.int64),
+    })
+
+
+def offline_evaluation(trainer, best, batches, train, test_gt, items: int) -> dict:
+    """Notebook 09's test evaluation (cell 41) on the best state, from one
+    count of K4 at 0 (the main path of this part):
+
+    * ``validate`` with the six per-user metrics, ``predict_dataframe``,
+      ``predict_top_k`` and ``predict_query_embeddings`` over the test
+      batches, on the evaluation graphs; K4 = blocks × (4 replays a batch +
+      the new captures' warm-ups: the query program's one, on the card);
+    * ``OfflineMetrics`` ([Recall, Precision, MAP, NDCG, MRR, HitRate,
+      Coverage, Novelty, Surprisal]) on the host over ``predict_dataframe``'s
+      table, the test targets of the same queries and the train split: each
+      of the six within ``OFFLINE_TOL`` of ``validate``'s;
+    * ``predict_dataframe`` bitwise ``predict_top_k``;
+    * the query embeddings times the item table: the top 10 of
+      ``predict_top_k`` at every rank clear of its neighbours (``pinned_top10``).
+    """
+    from replay_tpu_torch.metrics import (
+        MAP, MRR, NDCG, Coverage, HitRate, Novelty, OfflineMetrics, Precision, Recall, Surprisal,
+    )
+    from replay_tpu_torch.ops.flash_attention import flash_attention
+
+    listed = list(batches)
+    k = max(NB_TOP_K)
+    runner = trainer._eval_runner
+    warmups = runner.warmups
+    reset_counts(flash_attention)
+    test_metrics = trainer.validate(best, listed, metrics=NB_TRAINER_METRICS, top_k=NB_TOP_K, item_count=items)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    table = trainer.predict_dataframe(best, listed, k=k)
+    dataframe_s = time.perf_counter() - t0
+    queries, top_items, top_scores = trainer.predict_top_k(best, listed, k)
+    t0 = time.perf_counter()
+    query_ids, embeddings = trainer.predict_query_embeddings(best, listed)
+    embeddings_s = time.perf_counter() - t0
+    launches = flash_attention.launches
+    captures = runner.warmups - warmups
+    expected = NB_BLOCKS * (4 * len(listed) + captures)
+
+    gt = split_table(test_gt, queries)
+    t0 = time.perf_counter()
+    train_table = split_table(train)
+    train_table_s = time.perf_counter() - t0
+    metrics = [cls(list(NB_TOP_K)) for cls in (Recall, Precision, MAP, NDCG, MRR, HitRate, Coverage, Novelty, Surprisal)]
+    t0 = time.perf_counter()
+    offline = OfflineMetrics(metrics)(table, gt, train=train_table)
+    offline_s = time.perf_counter() - t0
+    by_class = {}  # each class alone: where the host's seconds go
+    for metric in metrics:
+        t0 = time.perf_counter()
+        OfflineMetrics([metric])(table, gt, train=train_table)
+        by_class[type(metric).__name__] = time.perf_counter() - t0
+    differences = {
+        f"{name}@{cut}": abs(offline[f"{NB_OFFLINE_NAMES[name]}@{cut}"] - test_metrics[f"{name}@{cut}"])
+        for name in NB_TRAINER_METRICS for cut in NB_TOP_K
+    }
+    bitwise = (
+        np.array_equal(table["query_id"], np.repeat(queries, k)) and np.array_equal(table["item_id"], top_items.reshape(-1))
+        and np.array_equal(table["rating"], top_scores.reshape(-1))
+    )
+    with torch.no_grad():
+        scored = torch.as_tensor(embeddings, device=trainer.device) @ trainer.model.get_item_weights().T
+    want = torch.full_like(scored, -math.inf)
+    want.scatter_(1, torch.as_tensor(top_items, device=want.device), torch.as_tensor(top_scores, device=want.device))
+    record = {
+        "test_batches": len(listed), "queries": len(queries), "gt_rows": len(gt), "k": k,
+        "k4_launches": launches, "k4_expected": expected, "new_captures": captures,
+        "predict_dataframe_s": dataframe_s, "predict_query_embeddings_s": embeddings_s,
+        "offline_metrics_s": offline_s, "offline_metrics_s_by_class": by_class, "train_rows": len(train_table),
+        "train_table_s": train_table_s, "offline_metrics": offline, "trainer_test": dict(test_metrics),
+        "max_difference": max(differences.values()), "differences": differences, "tol": OFFLINE_TOL,
+        "dataframe_bitwise_top_k": bool(bitwise), "embedding_ids_equal": bool(np.array_equal(query_ids, queries)),
+        "embedding_ranks_pinned": pinned_top10(scored, want, SERVE_TOL),
+        "beside_baseline": {name: {"port": offline[name], "notebook_09": value} for name, value in NB_BASELINE_TEST.items()},
+    }
+    if (launches != expected or captures != (1 if trainer.device.type == "cuda" else 0) or not bitwise
+            or not record["embedding_ids_equal"] or record["max_difference"] > OFFLINE_TOL
+            or not all(math.isfinite(v) for v in offline.values())):
+        raise AssertionError(f"lifecycle: the test evaluation through OfflineMetrics and the predictions fails: {record}")
+    return record
+
+
 def top_k_times(device, cases) -> list:
     """``models/ann.py::top_k`` (``jax.lax.top_k``'s tie order) against a bare
     ``torch.topk`` at the evaluation shapes, device ms a call (``graph_ms``),
@@ -4174,7 +4419,10 @@ def lifecycle_phase(device) -> dict:
         K4 launches counted through the replays (the main path: the count
         starts at 0 with the run and is read at its end), the history, the
         best epoch's state returned; the evaluation graphs against the eager
-        programs (``evaluation_checks``); then the best state on the test split;
+        programs (``evaluation_checks``); then the best state on the test split
+        through ``validate``, ``predict_dataframe``, ``predict_top_k``,
+        ``predict_query_embeddings`` and ``OfflineMetrics``, from a K4 count of
+        its own (``offline_evaluation``);
     (c) the same run preempted mid-epoch 2 by ``SignalAtStep(SIGTERM)``, then
         ``fit(resume=True)``: returned state, history, best step and final
         checkpoint bitwise (b)'s;
@@ -4366,10 +4614,14 @@ def lifecycle_phase(device) -> dict:
         metric_kwargs = dict(metrics=fit_kwargs["metrics"], top_k=NB_TOP_K, item_count=items)
         evaluation = evaluation_checks(trainer, (best, trace_state), val_batches, metric_kwargs, NB_BLOCKS)
         emit("lifecycle", run="evaluation", **evaluation)
-        test_metrics = trainer.validate(
-            best, (pipes["validate"](b) for b in validation_batches(test_history, test_gt, NB_BATCH, NB_LEN)),
-            metrics=("ndcg", "recall", "map"), top_k=NB_TOP_K, item_count=items,
+        # the test split: validate, predict_dataframe, predict_top_k and
+        # predict_query_embeddings on the graphs, OfflineMetrics on the host
+        offline = offline_evaluation(
+            trainer, best, (pipes["validate"](b) for b in validation_batches(test_history, test_gt, NB_BATCH, NB_LEN)),
+            train, test_gt, items,
         )
+        emit("lifecycle", run="offline_metrics", **offline)
+        test_metrics = offline["trainer_test"]
         ckpt_bytes = sum(p.stat().st_size for p in (root / "b").glob(f"step_{final_step}.*"))
         notebook = {
             "epochs": NB_EPOCHS, "K": NB_SCAN_K, "steps": steps, "wall_s": wall,
@@ -4382,7 +4634,7 @@ def lifecycle_phase(device) -> dict:
             "peak_memory_bytes": peak, "k4_launches": k4_launches, "capture_warmups": captures,
             "eval_capture_warmups": eval_captures, "evaluation": evaluation,
             "history": history, "best_epoch": best_epoch, "best_step": best_step, "returned_best": returned_best,
-            "test": dict(test_metrics),
+            "test": dict(test_metrics), "test_k4_launches": offline["k4_launches"],
         }
         record["notebook"] = notebook
         emit("lifecycle", run="notebook", **notebook)
@@ -6203,6 +6455,8 @@ def kernel_records(
             }
             if dtype == torch.float32:
                 by_path[f"{model}_serve"] = result["serve"]["k4_launches"]
+            if model == "twotower" and dtype == torch.float32:
+                by_path["twotower_query_embeddings"] = result["query_embeddings"]["k4_launches"]
             if model == "bert4rec" and dtype == torch.float32:
                 by_path["family_remat_k4_bert4rec"] = family["remat_k4"]["bert4rec"]["launches"]
             kernels.append(k4_entry(f"flash_attention_{model}{suffix}", k4[(model, dtype)], by_path))
@@ -6211,7 +6465,8 @@ def kernel_records(
     # and bench_continual.py's loop at the same width (the continual phase)
     kernels.append(
         k4_entry("flash_attention_notebook", k4[("notebook", torch.float32)],
-                 {"lifecycle": lifecycle["notebook"]["k4_launches"], "continual": continual["k4_launches"]})
+                 {"lifecycle": lifecycle["notebook"]["k4_launches"], "lifecycle_test": lifecycle["notebook"]["test_k4_launches"],
+                  "continual": continual["k4_launches"]})
     )
     # K4 at the catalog-scaling width (B=512, D=64, causal, bf16): each
     # scale row's eager steps and K=8 graphs

@@ -29,8 +29,14 @@ recorder); every loss of the JAX package and the vocabulary surgery
 (``resize_vocabulary``, ``finetune``); and the rest of the SASRec family:
 remat and ``scan_blocks`` (``Trainer(remat_policy=...)``, the attention
 kernels run again in the backward's recompute), the differential-attention
-encoder, TiSasRec, and the list, numerical and identity embedders. Still to
-come, in ``ROADMAP.md``'s order: the rest of the single-device API, the
-metric classes, distributed training, the serving fleet, the classical and
+encoder, TiSasRec, and the list, numerical and identity embedders; notebook
+09's test evaluation (``Trainer.predict_dataframe`` and
+``predict_query_embeddings`` on the evaluation graphs, ``OfflineMetrics``,
+``Experiment`` and every offline metric class on the host, returning
+``ColumnTable``s) and the rest of the single-device API (``utils.trace``,
+``StepTimer``, ``TensorBoardLogger``, ``MetricsBuilder.load_state``,
+``metrics_to_df``, ``UniformBatching``, ``DefaultAttentionMask``,
+``CompileTracker.wrap``). Still to come, in ``ROADMAP.md``'s order:
+distributed training, the serving fleet and the run report, the classical and
 experimental models, and the port's benchmark.
 """

@@ -14,12 +14,16 @@ one CUDA graph per static arguments and input shapes, which a trainer keeps
 across its evaluation passes; elsewhere, and for a builder given none,
 eagerly.
 Adding each batch's sums to the running totals stays outside them, as in JAX.
+:meth:`MetricsBuilder.load_state` takes a state back (the port's, or the JAX
+builder's as numpy), and :func:`metrics_to_df` arranges a flat ``name@k``
+mapping as a table.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Hashable, Mapping, Optional, Sequence
 
+import numpy as np
 import torch
 
 from replay_tpu_torch.device import to_device
@@ -204,8 +208,22 @@ class MetricsBuilder:
 
     def state(self) -> dict:
         """Accumulated state as a dict of tensors: the additive ``sums`` and
-        ``count``, and ``coverage``'s boolean item-presence bitmaps."""
+        ``count``, and ``coverage``'s boolean item-presence bitmaps. Summed
+        across builders (an all-reduce), a bitmap becomes per-item
+        multiplicities, which :meth:`load_state` collapses back."""
         return {"sums": dict(self._sums), "count": self._count, "coverage": dict(self._coverage)}
+
+    def load_state(self, state: dict) -> None:
+        """Take ``state`` (this builder's :meth:`state`, a sum of several, or
+        the JAX builder's as numpy) as the accumulated state; coverage
+        entries collapse to ``!= 0``, so an item seen by several builders
+        counts once."""
+        def tensor(value):  # a copy of an array (JAX's are read-only)
+            return value if isinstance(value, torch.Tensor) else torch.tensor(np.asarray(value))
+
+        self._sums = {name: tensor(value) for name, value in state["sums"].items()}
+        self._count = tensor(state["count"]).to(torch.int32)
+        self._coverage = {key: tensor(value) != 0 for key, value in state.get("coverage", {}).items()}
 
     def get_metrics(self) -> Mapping[str, float]:
         """Mean per-user metrics (+ coverage fraction) accumulated so far."""
@@ -215,3 +233,21 @@ class MetricsBuilder:
         for name, bitmap in self._coverage.items():
             out[name] = float(torch.sum(bitmap != 0)) / float(self._item_count)
         return dict(sorted(out.items()))
+
+
+def metrics_to_df(metrics: Mapping[str, float]):
+    """Arrange a flat ``name@k`` mapping as a (metric × k) table: a ``metric``
+    column (names in sorted order), then one ``@k`` column per k in
+    ascending order, NaN where a metric lacks that k."""
+    from replay_tpu_torch.utils.types import ColumnTable
+
+    rows: Dict[str, Dict[int, float]] = {}
+    for key, value in metrics.items():
+        name, k = key.split("@")
+        rows.setdefault(name, {})[int(k)] = value
+    names = sorted(rows)
+    ks = sorted({k for row in rows.values() for k in row})
+    table = {"metric": np.array(names, dtype=object)}
+    for k in ks:
+        table[f"@{k}"] = np.array([rows[name].get(k, np.nan) for name in names], dtype=np.float64)
+    return ColumnTable(table)

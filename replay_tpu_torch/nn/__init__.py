@@ -11,6 +11,7 @@ from .embedding import (
     xavier_normal_embed_init,
 )
 from .ffn import PointWiseFeedForward, SwiGLU, SwiGLUEncoder
+from .mask import DefaultAttentionMask, bidirectional_attention_mask, causal_attention_mask, padding_mask_from_ids
 from .postprocess import SeenItemsFilter
 from .precision import PARITY_REL_TOL, Precision, fit_parity_record
 from .train import LRSchedulerFactory, OptimizerFactory, PreemptionHandler, RecoveryPolicy, Trainer, TrainState
@@ -20,6 +21,7 @@ __all__ = [
     "CategoricalListEmbedding",
     "CompiledInference",
     "ConcatAggregator",
+    "DefaultAttentionMask",
     "IdentityEmbedding",
     "MultiHeadAttention",
     "MultiHeadDifferentialAttention",
@@ -40,8 +42,11 @@ __all__ = [
     "SeenItemsFilter",
     "TrainState",
     "Trainer",
+    "bidirectional_attention_mask",
+    "causal_attention_mask",
     "fit_parity_record",
     "loss",
+    "padding_mask_from_ids",
     "params_mismatch",
     "xavier_normal_embed_init",
 ]

@@ -58,6 +58,20 @@ def bidirectional_attention_mask(
     return _additive(padding_mask[:, None, :].expand(batch, length, length), deterministic, dtype)
 
 
+class DefaultAttentionMask:
+    """Build the causal mask from a reference feature's padding (config-friendly shim)."""
+
+    def __init__(self, reference_feature: str, padding_value: int = 0) -> None:
+        self.reference_feature = reference_feature
+        self.padding_value = padding_value
+
+    def __call__(self, feature_tensors, deterministic: bool = False, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        ids = feature_tensors[self.reference_feature]
+        return causal_attention_mask(
+            padding_mask_from_ids(ids, self.padding_value), deterministic=deterministic, dtype=dtype
+        )
+
+
 def segment_attention_mask(
     padding_mask: torch.Tensor,
     segment_ids: torch.Tensor,

@@ -71,7 +71,8 @@ rebuilt at the new size, and every captured program of the old shapes (chunk
 graphs, evaluation graphs) is dropped.
 
 Evaluation: the programs the JAX trainer jits for ``validate``,
-``predict_top_k`` and ``predict_logits`` (``eval_logits``, ``encode_items``,
+``predict_top_k``, ``predict_dataframe``, ``predict_logits`` and
+``predict_query_embeddings`` (``eval_logits``, ``encode_items``,
 ``get_query_embeddings``, and the metric sums) replay CUDA graphs on the card,
 one per program and input shape, each reading a static copy of the
 parameters that every evaluation call copies in once (so a graph never reads
@@ -79,6 +80,8 @@ weights that training, a rollback or another state changed since); on the
 CPU the same programs run eagerly. A capture or replay that fails raises.
 Postprocessors, the top-k (``models/ann.py::top_k``, ``jax.lax.top_k``'s
 order among ties) and the running metric totals run between the replays.
+``predict_dataframe`` returns a :class:`~replay_tpu_torch.utils.types.ColumnTable`
+where the JAX trainer returns a pandas frame (the port never imports pandas).
 """
 
 from __future__ import annotations
@@ -115,6 +118,7 @@ from replay_tpu_torch.obs.events import ConsoleLogger, JsonlLogger, MultiLogger,
 from replay_tpu_torch.obs.health import HealthConfig
 from replay_tpu_torch.obs.profile import scope
 from replay_tpu_torch.obs.trace import Tracer, goodput_breakdown, traced_iterator
+from replay_tpu_torch.utils.types import ColumnTable
 
 logger = logging.getLogger("replay_tpu_torch")
 
@@ -2541,14 +2545,19 @@ class Trainer:
         features = None if features is None else to_device(features, self.device)
         return self._evaluate("items", params, {"item_feature_tensors": features})
 
-    def _catalog_logits(self, params: Mapping[str, torch.Tensor], batch: Batch, catalog: torch.Tensor) -> torch.Tensor:
-        """Query embeddings scored against the precomputed catalog (the
-        product outside the program, as in the JAX trainer)."""
+    def _query_embeddings(self, params: Mapping[str, torch.Tensor], batch: Batch) -> torch.Tensor:
+        """The ``"queries"`` program (``get_query_embeddings``) on a batch on
+        the trainer's device."""
         self._refuse_dropped_segments(batch, (), "get_query_embeddings")
-        queries = self._evaluate(
+        return self._evaluate(
             "queries", params,
             {"feature_tensors": batch[self.feature_field], "padding_mask": batch[self.padding_mask_field]},
         )
+
+    def _catalog_logits(self, params: Mapping[str, torch.Tensor], batch: Batch, catalog: torch.Tensor) -> torch.Tensor:
+        """Query embeddings scored against the precomputed catalog (the
+        product outside the program, as in the JAX trainer)."""
+        queries = self._query_embeddings(params, batch)
         with torch.no_grad():
             return queries @ catalog.T
 
@@ -2623,3 +2632,34 @@ class Trainer:
         scores = np.concatenate(all_scores) if all_scores else np.zeros((0, k), np.float32)
         queries = np.concatenate(all_queries) if all_queries else np.arange(items.shape[0])
         return queries, items, scores
+
+    def predict_dataframe(self, state: TrainState, batches: Iterable[Batch], k: int, **kwargs) -> ColumnTable:
+        """:meth:`predict_top_k` as a tidy ``query_id``, ``item_id``,
+        ``rating`` table (the PandasTopItemsCallback equivalent): each query
+        repeated ``k`` times, its items best first. A :class:`ColumnTable`
+        where the JAX trainer returns a pandas frame."""
+        queries, items, scores = self.predict_top_k(state, batches, k, **kwargs)
+        return ColumnTable(
+            {"query_id": np.repeat(queries, k), "item_id": items.reshape(-1), "rating": scores.reshape(-1)}
+        )
+
+    def predict_query_embeddings(self, state: TrainState, batches: Iterable[Batch]):
+        """Last-position query embeddings [N, E] (the reference
+        QueryEmbeddingsPredictionCallback), e.g. for two-stage features: the
+        ``"queries"`` program (``get_query_embeddings``; a CUDA graph per
+        input shape on the card), the ``valid`` rows kept. Returns
+        ``(query_ids, embeddings)``, the ids ``arange(N)`` where the batches
+        carry no ``query_id``."""
+        chunks, queries = [], []
+        params = None
+        for batch in batches:
+            params = self._eval_params(state) if params is None else params
+            batch = to_device(batch, self.device)
+            embeddings = self._query_embeddings(params, batch).cpu().numpy()
+            valid = batch["valid"].cpu().numpy() if "valid" in batch else np.ones(embeddings.shape[0], bool)
+            chunks.append(embeddings[valid])
+            if "query_id" in batch:
+                queries.append(batch["query_id"].cpu().numpy()[valid])
+        embeddings = np.concatenate(chunks) if chunks else np.zeros((0, 0))
+        query_ids = np.concatenate(queries) if queries else np.arange(len(embeddings))
+        return query_ids, embeddings

@@ -12,9 +12,11 @@ names (``bytes_in_use``, ``peak_bytes_in_use``).
 from __future__ import annotations
 
 import contextlib
+import functools
 import time
-from typing import Any, Dict, Hashable, Optional, Sequence
+from typing import Any, Callable, Dict, Hashable, Mapping, Optional, Sequence
 
+import numpy as np
 import torch
 
 
@@ -142,8 +144,9 @@ class CompileTracker:
     program's call counts one build when its ``key`` (a shape) is new and
     attributes the call's wall time to it; kernel libraries that
     :mod:`replay_tpu_torch.ops.build` compiles inside the call are counted
-    under ``kernel:<name>`` with their own seconds. A run at fixed shapes
-    shows one build per program; more is a shape leak.
+    under ``kernel:<name>`` with their own seconds. :meth:`wrap` does the
+    same for a plain function, keyed by its arguments' shapes and dtypes. A
+    run at fixed shapes shows one build per program; more is a shape leak.
     """
 
     def __init__(self) -> None:
@@ -175,6 +178,21 @@ class CompileTracker:
             for library, seconds in build.BUILD_LOG[builds_before:]:
                 self._add(f"kernel:{library}", seconds)
 
+    def wrap(self, fn: Callable, name: Optional[str] = None) -> Callable:
+        """``fn`` with each call under :meth:`observe`, keyed by the shapes and
+        dtypes of its tensor and array arguments (and the structure around
+        them): the first call at each key counts one build of ``name`` (the
+        function's name by default), as a JAX retrace would."""
+        label = name or getattr(fn, "__name__", "fn")
+        self._traces.setdefault(label, 0)
+
+        @functools.wraps(fn)
+        def observed(*args, **kwargs):
+            with self.observe(label, _shape_key((args, kwargs))):
+                return fn(*args, **kwargs)
+
+        return observed
+
     def record(self, name: str, seconds: float) -> None:
         """Count one build of ``name`` that took ``seconds`` (a graph capture)."""
         self._add(name, seconds)
@@ -200,6 +218,19 @@ class CompileTracker:
             }
             for name, count in sorted(self._traces.items())
         }
+
+
+def _shape_key(value: Any) -> Hashable:
+    """What a call is built for: tensors and arrays by shape and dtype, inside
+    the structure of the mappings and sequences around them; any other value
+    by its type."""
+    if isinstance(value, (torch.Tensor, np.ndarray)):
+        return tuple(value.shape), str(value.dtype)
+    if isinstance(value, Mapping):
+        return tuple((key, _shape_key(item)) for key, item in value.items())
+    if isinstance(value, (list, tuple)):
+        return tuple(_shape_key(item) for item in value)
+    return type(value).__name__
 
 
 class MemoryMonitor:

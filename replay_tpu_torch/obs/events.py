@@ -40,8 +40,10 @@ The scoring service emits its own family::
 
 Every event flattens to one JSON-able dict (``event`` + ``time`` + optional
 ``step``/``epoch`` + the payload), so a run directory's ``events.jsonl`` is a
-self-describing artifact. The TensorBoard sink is not copied: the card
-machine has no tensorboard (``ROADMAP.md`` queue 1, item 5).
+self-describing artifact. :class:`TensorBoardLogger` writes scalars and
+histograms through tensorboardX or ``torch.utils.tensorboard`` where either is
+installed; with neither it warns once and drops every event, as the JAX
+sink does.
 """
 
 from __future__ import annotations
@@ -210,12 +212,97 @@ class JsonlLogger(RunLogger):
             self._fh.close()
 
 
-class TensorBoardLogger(RunLogger):
-    """Not ported: the card machine has no tensorboard."""
+def _load_summary_writer():
+    """Resolve a TensorBoard SummaryWriter class, or None when no backend is
+    installed (tensorboardX, then torch's bundled writer)."""
+    try:
+        from tensorboardX import SummaryWriter
 
-    def __init__(self, *args: Any, **kwargs: Any) -> None:
-        msg = "TensorBoardLogger is not ported yet: ROADMAP.md queue 1, item 5, 'The rest of Trainer.fit'"
-        raise NotImplementedError(msg)
+        return SummaryWriter
+    except ImportError:
+        pass
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+
+        return SummaryWriter
+    except ImportError:
+        return None
+
+
+class TensorBoardLogger(RunLogger):
+    """Scalar + histogram writer over an optional TensorBoard backend.
+
+    Missing backend → a warning once, then every call is a no-op: attaching
+    this logger can never break a training run. ``health`` payloads
+    (:mod:`.health`) are routed specially: scalar leaves become ``health/...``
+    scalars, vector leaves (per-head attention entropies) become histograms
+    via :meth:`log_histogram`.
+    """
+
+    def __init__(self, log_dir: str) -> None:
+        self.log_dir = str(log_dir)
+        writer_cls = _load_summary_writer()
+        if writer_cls is None:
+            logger.warning(
+                "TensorBoardLogger: no tensorboard backend installed "
+                "(tensorboardX or torch); events will be dropped"
+            )
+            self._writer = None
+        else:
+            self._writer = writer_cls(self.log_dir)
+
+    @staticmethod
+    def _scalars(payload: Mapping[str, Any]):
+        """Numeric payload entries, flattening one dict level — the trainer
+        nests epoch/validation metrics under a ``record`` key."""
+        for key, value in payload.items():
+            if isinstance(value, Mapping):
+                for sub_key, sub_value in value.items():
+                    if not isinstance(sub_value, bool) and isinstance(sub_value, (int, float)):
+                        yield f"{key}/{sub_key}", sub_value
+            elif not isinstance(value, bool) and isinstance(value, (int, float)):
+                yield key, value
+
+    def log_histogram(self, tag: str, values: Any, step: int = 0) -> None:
+        """Write one histogram; a no-op when no backend (or a writer without
+        ``add_histogram``) is installed — the scalar path's contract."""
+        if self._writer is None or not hasattr(self._writer, "add_histogram"):
+            return
+        import numpy as np
+
+        array = np.asarray(values, dtype=np.float64).reshape(-1)
+        array = array[np.isfinite(array)]
+        if array.size:
+            self._writer.add_histogram(tag, array, global_step=int(step))
+
+    def _log_health(self, health: Mapping[str, Any], step: int) -> None:
+        from .health import flatten_health
+
+        for tag, value in flatten_health(health).items():
+            if isinstance(value, (list, tuple)):
+                self.log_histogram(tag, value, step)
+            elif not isinstance(value, bool) and isinstance(value, (int, float)):
+                self._writer.add_scalar(tag, float(value), global_step=step)
+
+    def log_event(self, event: TrainerEvent) -> None:
+        if self._writer is None:
+            return
+        step = int(event.step) if event.step is not None else 0
+        # `health` is routed whole through _log_health (scalars + histograms);
+        # letting _scalars flatten it too would double-log its top level
+        payload = {k: v for k, v in event.payload.items() if k != "health"}
+        for key, value in self._scalars(payload):
+            tag = key if event.event == "on_train_step" else f"{event.event}/{key}"
+            self._writer.add_scalar(tag, float(value), global_step=step)
+        health = event.payload.get("health")
+        if isinstance(health, Mapping) and event.event == "on_train_step":
+            # epoch-end events repeat the last fetched record: logging it again
+            # would double-count the histogram timeline
+            self._log_health(health, step)
+
+    def close(self) -> None:
+        if self._writer is not None:
+            self._writer.close()
 
 
 class MultiLogger(RunLogger):

@@ -142,15 +142,16 @@ def _settle(margin: float) -> None:
 
 
 @contextlib.contextmanager
-def profiled_window(primer=None, margin: float = TRACE_MARGIN_S):
+def profiled_window(primer=None, margin: float = TRACE_MARGIN_S, with_stack: bool = False):
     """A profiler whose recording starts warm: ``primer()`` (if any) runs as
     its warm-up cycle (traced, then dropped), and the block's work is the one
     active cycle that ``key_averages()`` and ``events()`` read, ``margin``
-    seconds inside each end of the window (on the card). Yields the profiler."""
+    seconds inside each end of the window (on the card). ``with_stack``
+    records Python function events too. Yields the profiler."""
     from torch.profiler import profile, schedule
 
     plan = schedule(wait=0, warmup=1, active=1, repeat=1)
-    with profile(activities=_activities(), schedule=plan) as prof:
+    with profile(activities=_activities(), schedule=plan, with_stack=with_stack) as prof:
         if primer is not None:
             primer()
         _settle(margin)
@@ -168,15 +169,15 @@ class _Window:
 
 
 @contextlib.contextmanager
-def trace(profile_dir: str, primer=None):
+def trace(profile_dir: str, primer=None, with_stack: bool = False):
     """A profile window: the named scopes open, a :func:`profiled_window`
-    recording (warmed by ``primer()`` where one is given), and its Chrome
-    trace written into ``profile_dir`` as ``<host>.<pid>.<time_ns>.pt.trace.json``
-    when the block ends (the counterpart of the JAX package's
-    ``utils.profiling.trace``)."""
+    recording (warmed by ``primer()`` where one is given; Python function
+    events where ``with_stack``), and its Chrome trace written into
+    ``profile_dir`` as ``<host>.<pid>.<time_ns>.pt.trace.json`` when the
+    block ends (what :func:`replay_tpu_torch.utils.profiling.trace` opens)."""
     os.makedirs(profile_dir, exist_ok=True)
     window = _Window()
-    with profiled_window(primer) as prof:
+    with profiled_window(primer, with_stack=with_stack) as prof:
         with scopes_on():
             yield window
     path = os.path.join(profile_dir, f"{socket.gethostname()}.{os.getpid()}.{time.time_ns()}.pt.trace.json")

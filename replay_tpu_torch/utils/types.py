@@ -6,7 +6,8 @@ Spark where installed. The card machine has none of them, so the port keeps
 one table type of its own, :class:`ColumnTable` (an ordered set of named
 numpy columns of one length), and one reader, :func:`as_table`, that takes a
 frame by duck type (``.columns`` and ``frame[name].to_numpy()``) or a mapping
-of name to values. The port never imports pandas.
+of name to values. The port never imports pandas. :func:`df_backend` names a
+frame's engine from its class's module, without importing the engine.
 """
 
 from __future__ import annotations
@@ -109,4 +110,22 @@ def as_table(data: Any) -> ColumnTable:
     if isinstance(data, Mapping):
         return ColumnTable(data)
     msg = f"expected a frame, a ColumnTable or a mapping of columns, got {type(data).__name__}"
+    raise TypeError(msg)
+
+
+def df_backend(df) -> str:
+    """The backend name of a dataframe: ``"pandas"``, ``"polars"`` or
+    ``"spark"`` by its class's module (no engine is imported), or
+    ``"column_table"`` for the port's own table."""
+    if isinstance(df, ColumnTable):
+        return "column_table"
+    for klass in type(df).__mro__:
+        root = klass.__module__.split(".")[0]
+        if root == "pandas" and klass.__name__ == "DataFrame":
+            return "pandas"
+        if root == "polars" and klass.__name__ == "DataFrame":
+            return "polars"
+        if root == "pyspark" and klass.__name__ == "DataFrame":
+            return "spark"
+    msg = f"Unsupported dataframe type: {type(df)}"
     raise TypeError(msg)

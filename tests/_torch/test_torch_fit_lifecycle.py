@@ -216,10 +216,10 @@ def test_every_unported_fit_argument_still_raises(name, tmp_path):
         assert "device_time" not in end and "goodput" not in end
 
 
-def test_console_and_multi_loggers_print_the_jax_lines(caplog):
+def test_console_and_multi_loggers_print_the_jax_lines(caplog, monkeypatch):
     """The same fit events through the JAX ``ConsoleLogger`` and the port's
     give the same lines; ``MultiLogger`` fans out to every sink; the
-    TensorBoard sink raises, naming its item."""
+    TensorBoard sink builds and writes the events' scalars."""
     from replay_tpu.obs import events as jax_events
     from replay_tpu_torch.obs import events as port_events
 
@@ -240,5 +240,13 @@ def test_console_and_multi_loggers_print_the_jax_lines(caplog):
         assert len(sinks[1].events) == len(script)
         lines.append([r.getMessage() for r in caplog.records if r.name == name])
     assert lines[0] == lines[1] and len(lines[1]) == 5
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        port_events.TensorBoardLogger("runs")
+    scalars = []
+    writer = type("Writer", (), {
+        "__init__": lambda self, log_dir: None, "close": lambda self: None,
+        "add_scalar": lambda self, tag, value, global_step=None: scalars.append((tag, value, global_step)),
+    })
+    monkeypatch.setattr(port_events, "_load_summary_writer", lambda: writer)
+    board = port_events.TensorBoardLogger("runs")
+    for event, step, epoch, payload in script:
+        board.log_event(port_events.TrainerEvent(event=event, step=step, epoch=epoch, payload=payload))
+    assert ("loss", 4.5, 2) in scalars and ("on_epoch_end/record/epoch", 0.0, 7) in scalars

@@ -117,7 +117,8 @@ def test_pyarrow_is_imported_only_inside_functions(path):
         ("nn", ("embedding", "agg", "attention", "ffn", "remat", "train")),
         ("nn.sequential.sasrec", ("model", "transformer", "ti_model")),
         ("nn.sequential.twotower", ("model", "reader")),
-        ("utils", ("checkpoint", "faults", "types", "serde")),
+        ("utils", ("checkpoint", "faults", "types", "serde", "profiling")),
+        ("metrics", ("builder", "base", "descriptors", "ranking", "beyond_accuracy", "ncis", "offline_metrics")),
         ("data.nn", ("iterator", "partitioning", "ragged", "sequential_dataset", "prefetch", "sequence_tokenizer")),
         ("data.nn", ("packing", "parquet", "module", "schema_builder")),
         ("data", ("dataset", "dataset_label_encoder", "schema")),
@@ -127,8 +128,9 @@ def test_pyarrow_is_imported_only_inside_functions(path):
 )
 def test_the_rules_reach_every_subpackage(subpackage, modules):
     """The walk above and the source scan below cover the service slice's,
-    the model slice's, the training lifecycle's and the data front end's
-    subpackages by name, so that a move cannot drop them silently."""
+    the model slice's, the training lifecycle's, the data front end's and
+    the offline metrics' subpackages by name, so that a move cannot drop them
+    silently."""
     walked = {m.name for m in pkgutil.walk_packages(replay_tpu_torch.__path__, "replay_tpu_torch.")}
     scanned = {str(p.relative_to(REPO)) for p in _sources()}
     folder = subpackage.replace(".", "/")

@@ -11,7 +11,9 @@ traffic, its retrieval (int8 table, IVF index, exact rescore) at
 ``bench_suite.py`` ``sasrec_l1024_tiled`` width, BERT4Rec and TwoTower
 (training and serving) at ``bench_suite.py``'s ``bert4rec`` and ``twotower``
 widths, notebook 09's training lifecycle (checkpoints, preemption and
-resume, recovery, dropout in captured chunks), bench_suite.py's stream rows (packed rows, the
+resume, recovery, dropout in captured chunks), bench_fleet.py's serving fleet (three replicas on
+one card behind the router, socket replicas in processes of their own, the observability plane),
+bench_suite.py's stream rows (packed rows, the
 parquet stream) and catalog-scaling rows (SCE, gBCE at 1M items, CEFused at 100k),
 bench_continual.py's growing-catalog loop (vocabulary surgery, finetune, a grown
 generation served), the rest of the SASRec family (remat and scan_blocks over K5 and
@@ -190,7 +192,21 @@ replays. Phases, one JSON line each:
                  (with its ``remat_policy="dots"`` twin); each rank's launches against its trace
                  of one step. ``python3 chip_smoke.py --nccl-probe`` shows NCCL refusing two
                  ranks on one card;
-14. ``kernels`` — every ported kernel with its launches on the paths driven.
+14. ``fleet`` — bench_fleet.py at its defaults (``FLEET_*``): three ``ScoringService`` replicas of
+                 the ``service`` model in full mode, on K4's graphs, behind ``ServingFleet``'s
+                 consistent-hash router, each with a ``QualityMonitor``, a live ``Tracer`` and an
+                 events shard; a Zipf population of 1,000,000 users; the single-replica baseline, a
+                 closed loop of 8 × 48 requests, Poisson arrivals at 300/s for 6 s, a profiled second
+                 (busy share, K4 in the trace = K4 counted), the drain-and-swap rollout to new
+                 weights (no error), a replica closed and started again mid-traffic, the router over
+                 one bare replica; socket chaos with three ``python -m replay_tpu_torch.serve.remote``
+                 processes on the card, one SIGKILLed (its device memory freed, its flight ring read)
+                 and respawned on a fresh port; every primary response to a history-carrying request
+                 held to the unfused model with its generation's weights; the merged trace, the
+                 port's ``obs.report`` over the run directory and ``build_postmortem``; fleet qps,
+                 p50/p99 beside the baseline, the arrival rate reached, locality, reroutes, hedges,
+                 retries, failover gaps, startup times, the quality block, K4 launches;
+15. ``kernels`` — every ported kernel with its launches on the paths driven.
 
 Every trainer's device time per step comes from a profiler trace that agrees
 with a second trace of the same steps (``device_time_per_step``). Then the
@@ -202,8 +218,10 @@ the CPU. It needs one CUDA device and ``nvcc``.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import functools
+import itertools
 import json
 import math
 import os
@@ -215,12 +233,17 @@ import sys
 import threading
 import time
 
-import numpy as np
-import torch
+# kineto reports the device records it drops (out of a profiler window's
+# range) only when it logs at INFO: lost_records reports that count.
+# Set before torch loads kineto.
+os.environ.setdefault("KINETO_LOG_LEVEL", "1")
 
-from replay_tpu_torch.obs.mfu import PEAK_BF16_TFLOPS, PEAK_F32_TFLOPS, PEAK_TF32_TFLOPS
-from replay_tpu_torch.obs.profile import TRACE_MARGIN_S, TRACE_NAMES, device_events, profiled_window  # noqa: F401
-from replay_tpu_torch.obs.roofline import PEAK_HBM_GBPS
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from replay_tpu_torch.obs.mfu import PEAK_BF16_TFLOPS, PEAK_F32_TFLOPS, PEAK_TF32_TFLOPS  # noqa: E402
+from replay_tpu_torch.obs.profile import TRACE_MARGIN_S, TRACE_NAMES, device_events, profiled_window  # noqa: E402, F401
+from replay_tpu_torch.obs.roofline import PEAK_HBM_GBPS  # noqa: E402
 
 # bench_serve.py's model: MovieLens-1M catalog, E=64, 2 blocks, 1 head, L=50
 NUM_ITEMS, EMBEDDING_DIM, NUM_BLOCKS, NUM_HEADS, SEQ_LEN = 3706, 64, 2, 1, 50
@@ -415,6 +438,10 @@ KERNEL_SHAPES = (
     # bench_suite.py's catalog-scaling rows: batch 512, 2 heads of E=128
     # (D=64), L=50, causal
     ("scale", 512, 2, 50, 64, 1, "train"),
+    # the demo SASRec that remote.py's server processes run (64 items, E=8,
+    # 1 head, L=12: D=8, one partial chunk of keys) at its batch buckets
+    ("demo", 8, 1, 12, 8, 1, "eval"),
+    ("demo_b1", 1, 1, 12, 8, 1, "eval"),
 )
 
 # bench_suite.py's bert4rec and twotower rows (:333-379, :828-829): the
@@ -547,6 +574,31 @@ FAMILY_EMBED_CASES = (
     ("item_table", NUM_ITEMS + 1, EMBEDDING_DIM, (TRAIN_BATCH, SEQ_LEN)),
 )
 
+
+# bench_fleet.py's defaults (:91-110, :135-144): FLEET_REPLICAS replicas of
+# the bench_serve.py SASRec in full mode (every item scored), batch buckets
+# (1, 8, 64), max wait 2 ms, a cache of 4,096 users each, cold misses on the
+# fallback floor, heartbeats every 0.1 s, hedges at the fleet's own p99; a
+# Zipf (a=1.3) population of 1,000,000 users whose histories (1–99 items)
+# are drawn from the user's id on first touch; a closed loop of 8 clients x
+# 48 requests, then Poisson arrivals at 300/s for 6 s (3 s for the
+# single-replica baseline); the drain-and-swap rollout to the weights x1.001;
+# a replica closed for the middle third of 6 s of traffic; socket chaos with
+# 3 server processes of the demo SASRec (64 items, L=12, D=8, 1 block) at
+# 100/s, one SIGKILLed and respawned. Waits: a request, FLEET_WAIT_S; a
+# server's start (torch, the CUDA context, the graph captures), FLEET_STARTUP_S.
+FLEET_REPLICAS, FLEET_USERS, FLEET_CLIENTS, FLEET_CLOSED_REQUESTS = 3, 1_000_000, 8, 48
+FLEET_RATE, FLEET_SECONDS, FLEET_CHAOS_SECONDS, FLEET_ZIPF_A = 300, 6, 6, 1.3
+FLEET_CACHE, FLEET_MAX_WAIT_MS, FLEET_HEARTBEAT_S, FLEET_SWAP_SCALE = 4096, 2.0, 0.1, 1.001
+FLEET_SOCKET_REPLICAS, FLEET_SOCKET_RATE, FLEET_SOCKET_ITEMS, FLEET_SOCKET_LEN = 3, 100, 64, 12
+FLEET_SOCKET_DIM, FLEET_SOCKET_BLOCKS = 8, 1
+FLEET_SOCKET_ARGS = (
+    "--num-items", str(FLEET_SOCKET_ITEMS), "--seq-len", str(FLEET_SOCKET_LEN),
+    "--embedding-dim", str(FLEET_SOCKET_DIM), "--num-blocks", str(FLEET_SOCKET_BLOCKS),
+)
+FLEET_WAIT_S, FLEET_STARTUP_S = 120.0, 120.0
+# users of the cache probe (fleet_cache_probe), a burst each step
+FLEET_PROBE_USERS = 48
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
@@ -1395,73 +1447,131 @@ def percentile_ms(latencies: list, q: float) -> float:
     return ordered[min(len(ordered) - 1, max(math.ceil(q * len(ordered)) - 1, 0))] * 1e3
 
 
-def open_loop(client, seconds: float, rng) -> dict:
-    """bench_serve.py's open loop (:1168-1194): Poisson arrivals at
-    SERVICE_RATE for ``seconds``; waits (bounded) until every request is
-    answered. Returns the requests with their histories, latencies, errors."""
+def open_loop(submit, seconds: float, rng, rate: float = SERVICE_RATE, wait_s: float = SERVICE_WAIT_S, classify=repr) -> dict:
+    """Poisson arrivals at ``rate`` for ``seconds`` (bench_serve.py's open
+    loop, :1168-1194; bench_fleet.py's ``_run_open_loop``, :309-369):
+    ``submit(rng)`` sends one request and returns (future, items); latency is
+    read on completion callbacks. Every request is then waited for, ``wait_s``
+    at most: the rest are hung, and the caller fails on them. Returns the
+    records (items, future), the latencies, ``classify(exception)`` of each
+    failed request, the cancelled and hung counts, the arrival rate the
+    submitting thread reached and the elapsed time."""
     latencies, errors, lock = [], [], threading.Lock()
-    records, done = [], [0]
+    records, done, cancelled = [], [0], [0]
 
     def on_done(submitted_at):
         def callback(future):
             latency = time.perf_counter() - submitted_at
             with lock:
                 done[0] += 1
-                if future.exception() is None:
+                if future.cancelled():
+                    cancelled[0] += 1
+                elif future.exception() is None:
                     latencies.append(latency)
                 else:
-                    errors.append(repr(future.exception()))
+                    errors.append(classify(future.exception()))
 
         return callback
 
     start = time.perf_counter()
     while time.perf_counter() < start + seconds:
-        user = int(rng.integers(0, SERVICE_USERS))
         submitted_at = time.perf_counter()
-        future, items = client.request(rng, user)
+        future, items = submit(rng)
         future.add_done_callback(on_done(submitted_at))
         records.append((items, future))
-        time.sleep(min(float(rng.exponential(1.0 / SERVICE_RATE)), 1.0))
-    deadline = time.perf_counter() + SERVICE_WAIT_S
+        gap = float(rng.exponential(1.0 / rate))
+        if gap > 0.0005:
+            time.sleep(min(gap, 1.0))
+    arrival_s = time.perf_counter() - start
+    deadline = time.perf_counter() + wait_s
     while True:
         with lock:
-            if done[0] >= len(records):
+            if done[0] >= len(records) or time.perf_counter() > deadline:
                 break
-        if time.perf_counter() > deadline:
-            raise AssertionError(f"open loop: {len(records) - done[0]} requests unanswered after {SERVICE_WAIT_S} s")
         time.sleep(0.002)
     elapsed = time.perf_counter() - start
-    return {"records": records, "latencies": latencies, "errors": errors, "elapsed": elapsed}
+    with lock:
+        return {
+            "records": records, "latencies": list(latencies), "errors": list(errors), "cancelled": cancelled[0],
+            "hung": sum(not future.done() for _, future in records), "arrival_rate": len(records) / arrival_s,
+            "elapsed": elapsed,
+        }
 
 
-def profiled_open_second(client, rng) -> dict:
-    """One more second of open-loop arrivals under ``torch.profiler``: device
-    time (kernels and copies, summed) per second of wall clock, and K4's
-    kernels in the trace, which must equal its launches in the same window
-    (a trace that lost events fails the run)."""
+def lost_records(prof, launched: int, per_replay: int) -> dict:
+    """Where a window traced fewer K4 kernels than were counted, its Chrome
+    trace read by launch call (``obs/profile.py::kernels_by_launch``). A
+    graph runs all its nodes or none, so a ``cudaGraphLaunch`` that shows
+    some but not all of its replay's ``per_replay`` K4 records ran them all:
+    what it lacks is a record the profiler lost. ``profilers`` is True where
+    that accounts for every counted launch: the trace's K4 kernels plus
+    those missing from such launches equal the count, and no K4 kernel lacks
+    its launch call. Also kineto's count of records it dropped as out of its
+    window (None where it logged none)."""
+    import tempfile
+
+    from replay_tpu_torch.obs.profile import kernels_by_launch, out_of_range_records
+
+    with tempfile.TemporaryDirectory() as scratch:
+        path = os.path.join(scratch, "window.json")
+        prof.export_chrome_trace(path)
+        reading = kernels_by_launch(path, TRACE_NAMES["flash_attention"])
+        out_of_range = out_of_range_records(path)
+    partial = [n for n in reading["graph_launches"] if n < per_replay]
+    missing = sum(per_replay - n for n in partial)
+    return {
+        "launched": launched, "traced": reading["kernels"], "graph_launches": len(reading["graph_launches"]),
+        "partial_graph_launches": partial, "missing_from_partial": missing, "eager": reading["eager"],
+        "orphans": reading["orphans"], "out_of_range": out_of_range,
+        "profilers": reading["orphans"] == 0 and reading["kernels"] + missing == launched,
+    }
+
+
+def profiled_open_second(
+    submit, rng, rate: float = SERVICE_RATE, classify=repr, quiet=torch.cuda.synchronize, per_replay: int = NUM_BLOCKS
+) -> dict:
+    """One more second of ``open_loop`` arrivals under ``torch.profiler``,
+    between two ``quiet()`` calls (no work left queued or running on the
+    card): device time (kernels and copies, summed) per second of wall clock,
+    and K4's kernels in the trace, which must equal its launches in the same
+    window. Late in a long process the profiler can lose a single kernel
+    record of a graph replay (one K4 of 2, in about one window of two, on an
+    H100): a window that traced fewer is read by launch call
+    (:func:`lost_records`), and passes only where every counted launch is in
+    the trace and each missing record belongs to a replay that the trace
+    shows ran (``per_replay`` K4 kernels a graph). Any other loss fails the
+    run."""
     from torch.autograd import DeviceType
 
     from replay_tpu_torch.ops.flash_attention import flash_attention
 
-    # the warm-up cycle runs one small kernel of its own: a service request
-    # there would add to the counts the phase checks
-    with profiled_window(lambda: torch.ones(1, device="cuda").add_(1)) as prof:
+    def primer():  # one small kernel of its own: a request would add to the counts checked
+        torch.ones(1, device="cuda").add_(1)
+
+    with profiled_window(primer) as prof:
+        quiet()
         before = flash_attention.launches
         t0 = time.perf_counter()
-        second = open_loop(client, 1.0, rng)
+        loop = open_loop(submit, 1.0, rng, rate, classify=classify)
+        quiet()
         wall = time.perf_counter() - t0
     launched = flash_attention.launches - before
     device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    device_ms = sum(e.self_device_time_total for e in device) / 1e3
     traced_k4 = sum(e.count for e in device if "attention_forward" in e.key)
+    lost = None
     if traced_k4 != launched:
-        raise AssertionError(f"the profiled second traced {traced_k4} K4 kernels of {launched} launched")
+        lost = lost_records(prof, launched, per_replay)
+        if lost["traced"] != traced_k4 or not lost["profilers"]:
+            raise AssertionError(f"the profiled second traced {traced_k4} K4 kernels of {launched} launched: {lost}")
+    device_ms = sum(e.self_device_time_total for e in device) / 1e3
     device.sort(key=lambda e: -e.self_device_time_total)
     return {
-        **second,
+        **loop,
         "device_ms_per_s": device_ms / wall,
         "device_busy_share": device_ms / (wall * 1e3),
         "traced_k4_kernels": traced_k4,
+        "k4_launched_in_window": launched,
+        "lost_records": lost,
         "top_device_ms": {e.key[:60]: e.self_device_time_total / 1e3 for e in device[:5]},
     }
 
@@ -1576,8 +1686,12 @@ def service_phase(device) -> dict:
         closed_batches = events.named("on_serve_batch")[seed_batches:]
 
         open_rng = np.random.default_rng(7)
-        opened = open_loop(client, SERVICE_SECONDS, open_rng)
-        profiled = profiled_open_second(client, open_rng)
+
+        def submit(rng):
+            return client.request(rng, int(rng.integers(0, SERVICE_USERS)))
+
+        opened = open_loop(submit, SERVICE_SECONDS, open_rng)
+        profiled = profiled_open_second(submit, open_rng)
     finally:
         service.close()
     launches = flash_attention.launches
@@ -1586,6 +1700,8 @@ def service_phase(device) -> dict:
     # checks: no errors, every response primary, K4 once per block per encode
     # batch and nothing else, every closed-loop and every 8th open-loop
     # response against the direct path
+    if opened["hung"] or profiled["hung"]:
+        raise AssertionError(f"service: {opened['hung'] + profiled['hung']} open-loop requests unanswered after {SERVICE_WAIT_S} s")
     open_records = [
         (items, f.result(timeout=0)) for items, f in opened["records"] + profiled["records"]
         if f.exception(timeout=0) is None
@@ -1646,7 +1762,10 @@ def service_phase(device) -> dict:
         checked=reading["checked"], pinned_ranks=reading["pinned_ranks"], max_score_err=reading["max_score_err"],
         tol=SERVE_TOL, bitwise=bitwise, stale_cache_control=control,
         goodput_fractions=end["goodput"]["fractions"], goodput_wall_s=end["goodput"]["wall_seconds"],
-        profiled_second={k: profiled[k] for k in ("device_ms_per_s", "device_busy_share", "traced_k4_kernels", "top_device_ms")}
+        profiled_second={
+            k: profiled[k]
+            for k in ("device_ms_per_s", "device_busy_share", "traced_k4_kernels", "lost_records", "top_device_ms")
+        }
         | {"requests": len(profiled["records"])},
         rerank_weights=rerank.tolist(), allocated_left_by_the_phase_bytes=left_allocated, stats=stats,
         graphs=graphs,
@@ -6888,6 +7007,778 @@ def distributed_phase(device) -> dict:
     return record
 
 
+class FleetTraffic:
+    """bench_fleet.py's returning-user mix (``Traffic``, :200-255) over a Zipf
+    population: a user's first request sends the whole history (1–99 items
+    drawn from the user's id), later ones are pure hits (70%), one-item
+    advances (20%) or history resends (10%). Each request comes back with the
+    history it carried, or None for hits and advances: their window is the
+    answering replica's cached one, which failover and hedging can leave
+    behind the client's. One lock of a stripe per user keeps a history's
+    update and its submit in one order."""
+
+    def __init__(self, population: int, num_items: int, seq_len: int) -> None:
+        self.population, self.num_items, self.seq_len = int(population), int(num_items), int(seq_len)
+        self.histories = {}
+        self._lock = threading.Lock()
+        self._stripe = [threading.Lock() for _ in range(256)]
+
+    def pick_user(self, rng) -> int:
+        return int(rng.zipf(FLEET_ZIPF_A)) % self.population
+
+    def history_for(self, user: int) -> list:
+        with self._lock:
+            history = self.histories.get(user)
+            if history is None:
+                user_rng = np.random.default_rng(900_000 + user)
+                history = user_rng.integers(0, self.num_items, size=int(user_rng.integers(1, 2 * self.seq_len))).tolist()
+                self.histories[user] = history
+            return history
+
+    def submit(self, target, rng, user=None):
+        if user is None:
+            user = self.pick_user(rng)
+        with self._stripe[user % len(self._stripe)]:
+            with self._lock:
+                seeded = user in self.histories
+            history = self.history_for(user)
+            draw = rng.random() if seeded else 1.0
+            if draw < 0.7:
+                return target.submit(user), None
+            if draw < 0.9:
+                new_item = int(rng.integers(0, self.num_items))
+                history.append(new_item)
+                return target.submit(user, new_items=[new_item]), None
+            items = list(history)
+            return target.submit(user, history=items), items
+
+    def reanchor(self, target, user: int):
+        """The client's answer to a cold-cache refusal of an advance: resend
+        the whole history (it both answers and seeds the new home)."""
+        with self._stripe[user % len(self._stripe)]:
+            items = list(self.history_for(user))
+            return target.submit(user, history=items), items
+
+    @property
+    def touched(self) -> int:
+        with self._lock:
+            return len(self.histories)
+
+
+def fleet_classify(exc) -> str:
+    """bench_fleet.py's error taxonomy (``_classify``, :258-282); anything
+    else is ``error`` and fails the phase."""
+    from replay_tpu_torch.serve import CircuitOpen, DeadlineExceeded, NoHealthyReplica, RequestShed, ServiceClosed
+
+    for kind, types in (
+        ("shed", RequestShed), ("deadline_missed", DeadlineExceeded), ("circuit_refused", CircuitOpen),
+        ("no_healthy", NoHealthyReplica), ("service_closed", ServiceClosed), ("cold_reanchor_needed", KeyError),
+    ):
+        if isinstance(exc, types):
+            return kind
+    return "error"
+
+
+def fleet_closed_loop(target, traffic, seed: int) -> dict:
+    """FLEET_CLIENTS threads × FLEET_CLOSED_REQUESTS requests, each waited for
+    (bounded); a request still unanswered past FLEET_WAIT_S is a hang."""
+    records, errors, lock = [], [], threading.Lock()
+
+    def client(index: int) -> None:
+        rng = np.random.default_rng(seed + index)
+        for _ in range(FLEET_CLOSED_REQUESTS):
+            future, items = traffic.submit(target, rng)
+            try:
+                response = future.result(timeout=FLEET_WAIT_S)
+            except Exception as exc:  # noqa: BLE001 — classified below
+                with lock:
+                    errors.append(exc)
+                continue
+            with lock:
+                records.append((items, response))
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True) for i in range(FLEET_CLIENTS)]
+    start = time.perf_counter()
+    for thread in threads:
+        thread.start()
+    for thread in threads:
+        thread.join(timeout=FLEET_WAIT_S * 2)
+    elapsed = time.perf_counter() - start
+    if any(thread.is_alive() for thread in threads):
+        raise AssertionError("fleet: a closed-loop client never finished")
+    return {"qps": FLEET_CLIENTS * FLEET_CLOSED_REQUESTS / elapsed, "records": records, "errors": errors}
+
+
+def fleet_summary(loop: dict) -> dict:
+    """An ``open_loop`` through the fleet as bench_fleet.py reports it: qps,
+    p50 and p99 of the answered, errors by kind of its taxonomy, and the
+    answered requests' (items, response)."""
+    kinds = dict(collections.Counter(loop["errors"]))
+    if loop["cancelled"]:
+        kinds["cancelled"] = loop["cancelled"]
+    latencies, submitted = loop["latencies"], len(loop["records"])
+    return {
+        "submitted": submitted, "answered": len(latencies), "arrival_rate": loop["arrival_rate"],
+        "qps": len(latencies) / loop["elapsed"], "p50_ms": percentile_ms(latencies, 0.5) if latencies else None,
+        "p99_ms": percentile_ms(latencies, 0.99) if latencies else None, "hung_requests": loop["hung"],
+        "errors_by_kind": kinds, "error_rate": sum(kinds.values()) / max(submitted, 1), "elapsed_s": loop["elapsed"],
+        "records": [
+            (items, f.result()) for items, f in loop["records"] if f.done() and not f.cancelled() and f.exception() is None
+        ],
+    }
+
+
+def fleet_open_loop(target, traffic, rate: float, seconds: float, seed: int) -> dict:
+    """``open_loop`` of ``traffic`` through ``target`` (a fleet or one
+    service), FLEET_WAIT_S at most for each answer, summarised."""
+    def submit(rng):
+        return traffic.submit(target, rng)
+
+    return fleet_summary(open_loop(submit, seconds, np.random.default_rng(seed), rate, FLEET_WAIT_S, fleet_classify))
+
+
+def fleet_hit_rate(services) -> float:
+    """State reuse across replicas (hits + advances over answered): the
+    locality numerator (bench_fleet.py's ``_fleet_hit_rate``)."""
+    reused = answered = 0
+    for service in services:
+        stats = service.stats()
+        reused += stats["served_from"]["hit"] + stats["served_from"]["advance"]
+        answered += stats["answered"]
+    return reused / answered if answered else 0.0
+
+
+def fleet_quiet(fleet) -> None:
+    """Wait (bounded) until no replica holds queued or in-flight work, then
+    for the card: a hedge's losing twin, already in a batch when its client
+    was answered, may still be replaying after the client returned."""
+    deadline = time.perf_counter() + FLEET_WAIT_S
+    while not all(handle.service.batcher.idle for handle in fleet.handles.values()):
+        if time.perf_counter() > deadline:
+            raise AssertionError("fleet: a replica never went idle")
+        time.sleep(0.002)
+    torch.cuda.synchronize()
+
+
+def fleet_drain_swap(fleet, traffic, candidate: dict) -> dict:
+    """bench_fleet.py's rollout under load (``_run_drain_swap``, :653-720):
+    FLEET_CLIENTS threads keep scoring while every replica in turn is
+    drained, hot-swapped to ``candidate`` and rejoined. A cold-cache refusal
+    of an advance is re-anchored with the whole history; any other error
+    fails the phase."""
+    records, latencies, errors, reanchors, lock, stop = [], [], [], [0], threading.Lock(), threading.Event()
+
+    def client(index: int) -> None:
+        rng = np.random.default_rng(7000 + index)
+        while not stop.is_set():
+            user = traffic.pick_user(rng)
+            started = time.perf_counter()
+            future, items = traffic.submit(fleet, rng, user=user)
+            try:
+                try:
+                    response = future.result(timeout=FLEET_WAIT_S)
+                except KeyError:
+                    future, items = traffic.reanchor(fleet, user)
+                    response = future.result(timeout=FLEET_WAIT_S)
+                    with lock:
+                        reanchors[0] += 1
+            except Exception as exc:  # noqa: BLE001 — counted, must be none
+                with lock:
+                    errors.append(repr(exc))
+                continue
+            with lock:
+                records.append((items, response))
+                latencies.append(time.perf_counter() - started)
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True) for i in range(FLEET_CLIENTS)]
+    for thread in threads:
+        thread.start()
+    time.sleep(0.1)
+    swap_start = time.perf_counter()
+    results = fleet.rolling_swap(candidate, label="fleet-rollout")
+    swap_seconds = time.perf_counter() - swap_start
+    time.sleep(0.1)
+    stop.set()
+    for thread in threads:
+        thread.join(timeout=FLEET_WAIT_S + 10)
+    if any(thread.is_alive() for thread in threads):
+        raise AssertionError("fleet: a drain-and-swap client never finished")
+    if errors:
+        raise AssertionError(f"fleet: drain-and-swap saw {len(errors)} errors: {errors[:3]}")
+    return {
+        "replicas_swapped": sum(1 for r in results if "generation" in r),
+        "drained": sum(1 for r in results if r.get("drained")),
+        "generations": sorted({r["generation"] for r in results if "generation" in r}),
+        "requests": len(latencies), "reanchors": reanchors[0], "errors": 0,
+        "p50_ms": percentile_ms(latencies, 0.5), "p99_ms": percentile_ms(latencies, 0.99),
+        "rollout_seconds": swap_seconds,
+        "served_generations": sorted({r.generation for _, r in records}), "records": records,
+    }
+
+
+def fleet_chaos(fleet, traffic, victim: str) -> dict:
+    """bench_fleet.py's in-process chaos (``_run_chaos``, :384-488): open-loop
+    traffic for FLEET_CHAOS_SECONDS; at a third the victim's service is
+    closed, a probe measures the failover gap (kill → the first answer for a
+    user homed on the victim), at two thirds it starts again and the monitor
+    must see it healthy."""
+    before = fleet.stats()
+    box, done = {}, threading.Event()
+
+    def generator():
+        box["record"] = fleet_open_loop(fleet, traffic, FLEET_RATE, FLEET_CHAOS_SECONDS, seed=31)
+        done.set()
+
+    thread = threading.Thread(target=generator, daemon=True)
+    thread.start()
+    time.sleep(FLEET_CHAOS_SECONDS / 3.0)
+    probe_user = next((u for u in list(traffic.histories) if fleet.ring.route(u) == victim), None)
+    if probe_user is None:
+        probe_user = next(u for u in range(traffic.population) if fleet.ring.route(u) == victim)
+        traffic.history_for(probe_user)
+    handle = fleet.handles[victim]
+    kill_at = time.perf_counter()
+    handle.service.close()
+    gap_ms = served_by = replica = trace_id = None
+    probe_rng = np.random.default_rng(47)
+    while time.perf_counter() < kill_at + max(10.0, FLEET_CHAOS_SECONDS):
+        future, _ = traffic.submit(fleet, probe_rng, user=probe_user)
+        try:
+            response = future.result(timeout=5.0)
+        except Exception:  # noqa: BLE001 — the gap is these failures
+            time.sleep(0.01)
+            continue
+        gap_ms = (time.perf_counter() - kill_at) * 1e3
+        served_by, replica, trace_id = response.served_by, response.replica, response.trace_id
+        break
+    time.sleep(max(FLEET_CHAOS_SECONDS * 2.0 / 3.0 - (time.perf_counter() - kill_at), 0.0))
+    dead_observed = fleet.health().get(victim)
+    handle.service.start()
+    revived, revive_start = False, time.perf_counter()
+    while time.perf_counter() < revive_start + max(5.0, 20 * FLEET_HEARTBEAT_S):
+        if fleet.health().get(victim) == "healthy":
+            revived = True
+            break
+        time.sleep(FLEET_HEARTBEAT_S)
+    if not done.wait(timeout=FLEET_CHAOS_SECONDS + FLEET_WAIT_S + 20):
+        raise AssertionError("fleet: the chaos traffic never finished")
+    after = fleet.stats()
+    record = box["record"]
+    return {
+        "killed": victim, "dead_observed": dead_observed, "revived": revived, "failover_gap_ms": gap_ms,
+        "failover_served_by": served_by, "failover_replica": replica, "failover_trace_id": trace_id,
+        "reroutes": after["reroutes"] - before["reroutes"], "retries": after["retries"] - before["retries"],
+        "failovers": after["failovers"] - before["failovers"], **{k: v for k, v in record.items() if k != "records"},
+        "records": record["records"],
+    }
+
+
+def process_rss(pids) -> dict:
+    """Each process's resident host memory (``VmRSS``); the card's share of
+    the server processes is read from its free memory (a machine may hide
+    other processes from ``nvidia-smi``)."""
+    out = {}
+    for pid in pids:
+        with contextlib.suppress(OSError), open(f"/proc/{pid}/status") as fh:
+            out[str(pid)] = next((line.split()[1] + " kB" for line in fh if line.startswith("VmRSS")), None)
+    return out
+
+
+def fleet_socket_chaos(run_dir: str, device) -> dict:
+    """bench_fleet.py's socket chaos (``_run_socket_chaos``, :491-650) on the
+    card: FLEET_SOCKET_REPLICAS ``python -m replay_tpu_torch.serve.remote``
+    processes (each its own CUDA context and graphs, the demo SASRec on K4)
+    behind ``RemoteReplica``s, open-loop traffic, one server SIGKILLed a third
+    of the way in and respawned on a fresh port at two thirds; the startup
+    time and each process's memory; the members' ``/snapshot``s federated;
+    the victim's flight ring read after the kill. The card's free memory
+    before the spawn, with the servers up, after the kill (which must give
+    the victim's share back) and after the respawn. Every server's K4
+    launches since it started taking requests (``GET /launches``; the
+    victim's read just before the kill): each must have launched K4, and a
+    survivor once per block of each encode batch and capture warm-up. Every
+    primary answer with a window is held to the demo model on the unfused
+    attention in this process (the servers' seed-0 weights)."""
+    from replay_tpu_torch.obs import FleetFederator, read_flight
+    from replay_tpu_torch.serve import RemoteReplica, ReplicaServerProcess, ScoringEngine, ServingFleet
+    from replay_tpu_torch.serve.remote import DEMO_BATCH_BUCKETS, _demo_model
+    from replay_tpu_torch.utils import KillAtStep
+
+    widths = (FLEET_SOCKET_ITEMS, FLEET_SOCKET_LEN, FLEET_SOCKET_DIM, FLEET_SOCKET_BLOCKS, device)
+    demo_params = _demo_model(*widths).state_dict()
+    plain = ScoringEngine(_demo_model(*widths, use_flash=False), demo_params, batch_buckets=DEMO_BATCH_BUCKETS, device=device)
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (os.path.dirname(os.path.abspath(__file__)), env.get("PYTHONPATH")) if p)
+    servers = [
+        ReplicaServerProcess(
+            env=env, args=["--device", device.type, *FLEET_SOCKET_ARGS], startup_timeout_s=FLEET_STARTUP_S,
+            flight_path=os.path.join(run_dir, f"flight.s{i}.ring"), metrics_port=0,
+        )
+        for i in range(FLEET_SOCKET_REPLICAS)
+    ]
+    def free_mib():
+        return torch.cuda.mem_get_info(device)[0] / 2**20 if device.type == "cuda" else None
+
+    free = {"before": free_mib()}
+    try:
+        spawn_start = time.perf_counter()
+        for server in servers:  # the servers start and capture at once
+            server.spawn(wait=False)
+        for server in servers:
+            server.wait_ready()
+        spawn_seconds = time.perf_counter() - spawn_start
+        free["servers_up"] = free_mib()
+        replicas = {f"s{i}": RemoteReplica(server) for i, server in enumerate(servers)}
+        fleet = ServingFleet(replicas, heartbeat_interval_s=FLEET_HEARTBEAT_S, heartbeat_misses=3)
+        traffic = FleetTraffic(10_000, FLEET_SOCKET_ITEMS, FLEET_SOCKET_LEN)
+        victim, victim_server = "s1", servers[1]
+        with fleet:
+            box, done = {}, threading.Event()
+
+            def generator():
+                box["record"] = fleet_open_loop(fleet, traffic, FLEET_SOCKET_RATE, FLEET_CHAOS_SECONDS, seed=53)
+                done.set()
+
+            thread = threading.Thread(target=generator, daemon=True)
+            thread.start()
+            time.sleep(FLEET_CHAOS_SECONDS / 3.0)
+            memory = process_rss([s.pid for s in servers])
+            federated = FleetFederator([s.metrics_url for s in servers], port=0).scrape()
+            probe_user = next(u for u in range(traffic.population) if fleet.ring.route(u) == victim)
+            with contextlib.suppress(Exception):  # seeding is best-effort
+                fleet.score(probe_user, history=traffic.history_for(probe_user), timeout=FLEET_WAIT_S)
+            launches = {f"{victim}_killed": replicas[victim].launches()}
+            kill_at = time.perf_counter()
+            KillAtStep(pid=victim_server.pid).fire()
+            sigkill_rc = victim_server.proc.wait(timeout=30)
+            flight = read_flight(victim_server.flight_path)
+            freed_by = time.perf_counter() + 10.0  # the CUDA runtime frees a dead context shortly after
+            while free["servers_up"] is not None and time.perf_counter() < freed_by:
+                free["after_kill"] = free_mib()
+                if free["after_kill"] > free["servers_up"] + 64:
+                    break
+                time.sleep(0.05)
+            gap_ms = replica = None
+            probe_rng = np.random.default_rng(59)
+            while time.perf_counter() < kill_at + max(10.0, FLEET_CHAOS_SECONDS):
+                future, _ = traffic.submit(fleet, probe_rng, user=probe_user)
+                try:
+                    response = future.result(timeout=5.0)
+                except Exception:  # noqa: BLE001 — the gap is these failures
+                    time.sleep(0.01)
+                    continue
+                gap_ms, replica = (time.perf_counter() - kill_at) * 1e3, response.replica
+                break
+            time.sleep(max(FLEET_CHAOS_SECONDS * 2.0 / 3.0 - (time.perf_counter() - kill_at), 0.0))
+            dead_observed = fleet.health().get(victim)
+            old_address = replicas[victim].address
+            respawn_start = time.perf_counter()
+            victim_server.respawn()
+            respawn_seconds = time.perf_counter() - respawn_start
+            free["after_respawn"] = free_mib()
+            address_changed = replicas[victim].address != old_address
+            revived, revive_start = False, time.perf_counter()
+            while time.perf_counter() < revive_start + max(5.0, 30 * FLEET_HEARTBEAT_S):
+                if fleet.health().get(victim) == "healthy":
+                    revived = True
+                    break
+                time.sleep(FLEET_HEARTBEAT_S)
+            if not done.wait(timeout=FLEET_CHAOS_SECONDS + FLEET_WAIT_S + 20):
+                raise AssertionError("fleet: the socket-chaos traffic never finished")
+            # the respawned server comes up after the traffic's end: users
+            # homed on it send their windows, which its own graphs answer
+            rejoined = []
+            homed = (u for u in range(traffic.population) if fleet.ring.route(u) == victim)
+            for user in itertools.islice(homed, 8) if revived else ():
+                items = list(traffic.history_for(user))
+                rejoined.append((items, fleet.score(user, history=items, timeout=FLEET_WAIT_S)))
+            stats = fleet.stats()
+            # a hedge's losing twin runs on in its server: read until two
+            # reads agree (bounded)
+            previous, settled_by = None, time.perf_counter() + 10.0
+            while time.perf_counter() < settled_by:
+                current = {rid: replica.launches() for rid, replica in replicas.items()}
+                if current == previous:
+                    break
+                previous = current
+                time.sleep(0.2)
+            launches.update(current)
+        record = box["record"]
+        kinds = record["errors_by_kind"]
+        direct = fleet_direct_check(plain, {0: demo_params}, record["records"] + rejoined, seq_len=FLEET_SOCKET_LEN)
+        direct["rejoined_answers_by"] = dict(collections.Counter(f"{r.replica}/{r.served_by}" for _, r in rejoined))
+        out = {
+            "replicas": FLEET_SOCKET_REPLICAS, "killed": victim, "sigkill_rc": sigkill_rc,
+            "dead_observed": dead_observed, "revived": revived, "respawned_address_changed": address_changed,
+            "failover_gap_ms": gap_ms, "failover_replica": replica, "spawn_seconds": spawn_seconds,
+            "respawn_seconds": respawn_seconds, "host_rss": memory, "free_device_mib": free,
+            "federated_rows": federated.registry.value("replay_serve_rows_total"),
+            "federated_batches": federated.registry.value("replay_serve_batches_total"),
+            "federated_members": len(federated.members), "federation_errors": federated.errors,
+            "flight_last_seqno": flight.last_seqno, "flight_records_recovered": flight.recovered,
+            "torn_tail": flight.torn_tail, "taxonomy_only": kinds.get("error", 0) == 0,
+            "reroutes": stats["reroutes"], "retries": stats["retries"], "hedges": stats["hedges"],
+            "k4_launches": sum(counted["flash_attention"] for counted in launches.values()),
+            "launches_by_server": launches, "direct": direct,
+            **{k: v for k, v in record.items() if k != "records"},
+        }
+    finally:
+        for server in servers:
+            server.terminate()
+    for name, counted in launches.items():
+        settled = name.endswith("_killed") or counted["flash_attention"] == FLEET_SOCKET_BLOCKS * (
+            counted["encode_calls"] + counted["warmups"]
+        )
+        if counted["flash_attention"] < 1 or not settled:
+            raise AssertionError(f"fleet: server {name} launched K4 {counted['flash_attention']} times: {counted}")
+    if direct["checked"] < 1 or direct["rejoined_answers_by"] != {f"{victim}/primary": 8}:
+        raise AssertionError(f"fleet: the socket answers held to the direct path: {direct}")
+    if out["hung_requests"] or not out["taxonomy_only"] or out["sigkill_rc"] != -9:
+        raise AssertionError(f"fleet: socket chaos {out}")
+    if out["dead_observed"] != "dead" or not out["revived"] or not out["respawned_address_changed"]:
+        raise AssertionError(f"fleet: the killed server was not declared dead, respawned and taken back: {out}")
+    if free["servers_up"] is not None and free.get("after_kill", 0.0) <= free["servers_up"] + 64:
+        raise AssertionError(f"fleet: the SIGKILLed server's device memory was not freed: {free}")
+    return out
+
+
+def quality_observe_us(descriptor, records) -> float:
+    """Host microseconds of one ``QualityMonitor.observe`` of a full-catalog
+    response (the work each replica's serve worker does per response before
+    resolving it), over ``records`` fed to a fresh monitor."""
+    from replay_tpu_torch.obs import QualityMonitor
+    from replay_tpu_torch.serve import ScoreRequest
+
+    monitor = QualityMonitor(descriptor)
+    requests = [(ScoreRequest(user_id=r.user_id, history=items), r) for items, r in records]
+    start = time.perf_counter()
+    for request, response in requests:
+        monitor.observe(response, request)
+    return (time.perf_counter() - start) / max(len(requests), 1) * 1e6
+
+
+def fleet_cache_probe(fleet, traffic, users, kinds, seed: int) -> list:
+    """Bursts of requests for ``users`` through the quiet fleet, one burst
+    per entry of ``kinds``: ``history`` (the whole window), ``hit`` (nothing)
+    or ``advance`` (one new item). Each answer comes back with the window the
+    client holds after its request: a hit or an advance answers from the home
+    replica's cached state, which must hold that window (the traffic never
+    draws these users, so no failover or hedge moved them), and after a swap
+    a hit on a state of the old generation must re-encode on the new one."""
+    rng = np.random.default_rng(seed)
+    records = []
+    for kind in kinds:
+        sent = []
+        for user in users:
+            history = traffic.history_for(user)
+            if kind == "history":
+                future = fleet.submit(user, history=list(history))
+            elif kind == "hit":
+                future = fleet.submit(user)
+            else:
+                history.append(int(rng.integers(0, traffic.num_items)))
+                future = fleet.submit(user, new_items=history[-1:])
+            sent.append((list(history), future))
+        records += [(items, future.result(timeout=FLEET_WAIT_S)) for items, future in sent]
+        fleet_quiet(fleet)
+    return records
+
+
+def fleet_direct_check(plain, generations: dict, records, seq_len: int = SEQ_LEN) -> dict:
+    """Every primary response of ``records`` with a window (a request that
+    carried its history, or one of ``fleet_cache_probe``), held to the
+    unfused model's logits for that window (the last ``seq_len`` items) at
+    the response's batch bucket and with the weights of the response's
+    generation: one that mixed two generations matches neither. Returns the
+    reading; fails the phase on a response beyond SERVE_TOL."""
+    from replay_tpu_torch.serve import make_window
+
+    groups, skipped = {}, {}
+    for items, response in records:
+        if items is None:
+            continue
+        if response.served_by != "primary":
+            skipped[response.served_by] = skipped.get(response.served_by, 0) + 1
+            continue
+        if response.generation not in generations:
+            raise AssertionError(f"fleet: a response of generation {response.generation}, not one of {sorted(generations)}")
+        groups.setdefault((response.batch_bucket, response.generation), []).append((items, response))
+    checked, max_err, failures = 0, 0.0, []
+    for (bucket, generation), group in sorted(groups.items()):
+        for start in range(0, len(group), bucket):
+            chunk = group[start : start + bucket]
+            rows = [make_window(items, seq_len) for items, _ in chunk]
+            rows += rows[:1] * (bucket - len(rows))
+            logits, _ = plain.encode(
+                seq_len, np.stack([r[0] for r in rows]), np.stack([r[1] for r in rows]), params=generations[generation]
+            )
+            want = logits[: len(chunk)].double().cpu().numpy()
+            for (items, response), row in zip(chunk, want):
+                got = np.asarray(response.scores, np.float64)
+                if got.shape != row.shape or not np.isfinite(got).all():
+                    failures.append(f"user {response.user_id}: scores {got.shape}")
+                    continue
+                err = float(np.abs(got - row).max())
+                max_err = max(max_err, err)
+                checked += 1
+                if err > SERVE_TOL:
+                    failures.append(f"user {response.user_id} (gen {generation}, bucket {bucket}): max err {err}")
+    if failures:
+        raise AssertionError(f"fleet responses differ from the direct path: {failures[:5]} ({len(failures)})")
+    return {"checked": checked, "max_score_err": max_err, "not_primary": skipped, "tol": SERVE_TOL}
+
+
+def fleet_report(run_dir: str) -> dict:
+    """The run directory through the port's run report (``python -m
+    replay_tpu_torch.obs.report``, text and ``--json``) and its post-mortem;
+    either raising or exiting non-zero fails the phase."""
+    import io
+
+    from replay_tpu_torch.obs import report
+    from replay_tpu_torch.obs.postmortem import build_postmortem, render_postmortem
+
+    outputs = {}
+    for mode, argv in (("text", [run_dir]), ("json", [run_dir, "--json"]), ("postmortem", [run_dir, "--postmortem", "--json"])):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            code = report.main(argv)
+        if code != 0:
+            raise AssertionError(f"fleet: obs.report {mode} exited {code}: {out.getvalue()[-2000:]}")
+        outputs[mode] = out.getvalue()
+    summary = json.loads(outputs["json"])
+    fleet = summary.get("fleet") or {}
+    missing = {f"r{i}" for i in range(FLEET_REPLICAS)} - set(fleet.get("per_replica") or {})
+    if missing or not summary.get("tail_attribution") or "tail attribution" not in outputs["text"]:
+        raise AssertionError(f"fleet: the report lacks replicas {sorted(missing)} or the tail attribution")
+    post = build_postmortem(run_dir)
+    render_postmortem(post)
+    return {
+        "report_lines": len(outputs["text"].splitlines()),
+        "fleet_section": {k: fleet.get(k) for k in ("health_transitions", "failover_events", "hedge_events", "requests", "reroutes")},
+        "tail_attribution_p99": (summary["tail_attribution"]["quantiles"].get("p99") or {}).get("fractions"),
+        "postmortem": {
+            key: {k: v for k, v in proc.items() if k in ("flight_records_recovered", "torn_tail", "dead", "last_flight_record")}
+            for key, proc in post["processes"].items() if key.startswith("s")
+        },
+        "rings": len(post["rings"]), "torn_tails": post["torn_tails"], "unreadable_rings": post["unreadable_rings"],
+    }
+
+
+def fleet_models(device):
+    """The fleet's SASRec at bench_serve.py's width on K4, its unfused twin,
+    the weights, the popularity fallback and the quality monitors' shared
+    popularity descriptor (one popularity draw for both)."""
+    from replay_tpu_torch.data import FeatureHint, FeatureType
+    from replay_tpu_torch.data.nn import TensorFeatureInfo, TensorSchema
+    from replay_tpu_torch.nn.sequential.sasrec import SasRec
+    from replay_tpu_torch.obs import PopularityDescriptor
+    from replay_tpu_torch.serve import FallbackScorer
+
+    schema = TensorSchema(
+        TensorFeatureInfo(
+            "item_id", FeatureType.CATEGORICAL, is_seq=True, feature_hint=FeatureHint.ITEM_ID,
+            cardinality=NUM_ITEMS, embedding_dim=EMBEDDING_DIM,
+        )
+    )
+    width = dict(
+        embedding_dim=EMBEDDING_DIM, num_blocks=NUM_BLOCKS, num_heads=NUM_HEADS, max_sequence_length=SEQ_LEN,
+        dropout_rate=0.0, device=device,
+    )
+    model = SasRec(schema, use_flash=True, generator=torch.Generator().manual_seed(SEED), **width)
+    plain_model = SasRec(schema, use_flash=False, **width)
+    popularity = np.random.default_rng(SEED).integers(0, NUM_ITEMS, size=8192)
+    fallback = FallbackScorer.from_interactions(popularity, NUM_ITEMS)
+    descriptor = PopularityDescriptor.from_train({0: popularity.tolist()}, num_items=NUM_ITEMS)
+    return model, plain_model, model.state_dict(), fallback, descriptor
+
+
+def fleet_service(model, params, fallback, device, logger=None, tracer=None, quality=None):
+    """One replica (or the baseline) as bench_fleet.py builds them: full
+    mode, FLEET_CACHE entries, cold misses answered by the fallback."""
+    from replay_tpu_torch.serve import FallbackScorer, ScoringService
+
+    return ScoringService(
+        model, params, batch_buckets=BATCH_BUCKETS, max_wait_ms=FLEET_MAX_WAIT_MS, cache_capacity=FLEET_CACHE,
+        logger=logger, tracer=tracer, cold_miss="fallback", fallback=FallbackScorer(fallback.item_scores),
+        quality=quality, device=device,
+    )
+
+
+def fleet_phase(device) -> dict:
+    """bench_fleet.py on the card at its defaults (module constants FLEET_*):
+    FLEET_REPLICAS ``ScoringService`` replicas of the bench_serve.py SASRec on
+    K4 behind the consistent-hash router, each with a ``QualityMonitor`` over
+    one shared popularity descriptor, a live ``Tracer`` and an events shard;
+    the single-replica baseline, the closed and open loops, a profiled
+    second, the drain-and-swap rollout, in-process chaos and socket chaos;
+    every primary response to a history-carrying request held to the unfused
+    model with its generation's weights; the merged trace, the run report and
+    the post-mortem. Returns K4's launches on the main path."""
+    import tempfile
+
+    from replay_tpu_torch.obs import JsonlLogger, QualityMonitor, Tracer, merge_traces
+    from replay_tpu_torch.ops.flash_attention import flash_attention
+    from replay_tpu_torch.serve import ScoringEngine, ServingFleet
+
+    model, plain_model, params, fallback, descriptor = fleet_models(device)
+    candidate = {k: v * FLEET_SWAP_SCALE if v.is_floating_point() else v for k, v in params.items()}
+    plain = ScoringEngine(plain_model, params, batch_buckets=BATCH_BUCKETS, device=device)
+    run_dir = tempfile.mkdtemp(prefix="fleet_run_")
+
+    def build(logger=None, tracer=None, quality=None):
+        return fleet_service(model, params, fallback, device, logger=logger, tracer=tracer, quality=quality)
+
+    try:
+        build_start = time.perf_counter()
+        fleet_logger = JsonlLogger(run_dir, mode="w")
+        replica_loggers = [JsonlLogger(run_dir, mode="w", process_index=i + 1) for i in range(FLEET_REPLICAS)]
+        router_tracer = Tracer(enabled=True)
+        tracers = {f"r{i}": Tracer(enabled=True) for i in range(FLEET_REPLICAS)}
+        services = {
+            rid: build(replica_loggers[i], tracers[rid], QualityMonitor(descriptor)) for i, rid in enumerate(tracers)
+        }
+        baseline = build()
+        build_seconds = time.perf_counter() - build_start
+        engines = [s.engine for s in (*services.values(), baseline)]
+        warmups_before = sum(e.graph_counts()["encode"]["warmups"] for e in engines)
+
+        # the main path: K4's count starts at 0 here and is read once the fleet closes
+        flash_attention.launches = 0
+        traffic = FleetTraffic(FLEET_USERS, NUM_ITEMS, SEQ_LEN)
+        with baseline:
+            single_closed = fleet_closed_loop(baseline, traffic, seed=100)
+            single_open = fleet_open_loop(baseline, traffic, FLEET_RATE, max(FLEET_SECONDS / 2.0, 1.0), seed=11)
+            single_hit_rate = fleet_hit_rate([baseline])
+        # fresh histories: the fleet builds its own cache locality
+        traffic = FleetTraffic(FLEET_USERS, NUM_ITEMS, SEQ_LEN)
+        fleet = ServingFleet(
+            services, hedge_ms=None, heartbeat_interval_s=FLEET_HEARTBEAT_S, logger=fleet_logger, tracer=router_tracer,
+        )
+        with fleet:
+            closed = fleet_closed_loop(fleet, traffic, seed=200)
+            steady = fleet_open_loop(fleet, traffic, FLEET_RATE, FLEET_SECONDS, seed=21)
+            fleet_hit = fleet_hit_rate(services.values())
+            profiled = profiled_open_second(
+                lambda rng: traffic.submit(fleet, rng), np.random.default_rng(41), FLEET_RATE, fleet_classify,
+                functools.partial(fleet_quiet, fleet),
+            )
+            profiled["second"] = fleet_summary(profiled)
+            # users the traffic never draws (ids past the population): their
+            # hits and advances are held to the windows they sent, before the
+            # rollout and after it
+            probe_traffic = FleetTraffic(FLEET_USERS, NUM_ITEMS, SEQ_LEN)
+            probe_users = range(FLEET_USERS, FLEET_USERS + FLEET_PROBE_USERS)
+            probe_before = fleet_cache_probe(fleet, probe_traffic, probe_users, ("history", "hit", "advance", "hit"), 43)
+            drain_swap = fleet_drain_swap(fleet, traffic, candidate)
+            probe_after = fleet_cache_probe(fleet, probe_traffic, probe_users, ("hit", "advance", "hit"), 47)
+            chaos = fleet_chaos(fleet, traffic, victim="r1")
+            final = fleet.stats()
+            per_replica = {}
+            for rid, service in services.items():
+                stats, router = service.stats(), final["per_replica"][rid]
+                per_replica[rid] = {
+                    "routed": router["routed"], "answered": stats["answered"], "cache_hit_rate": stats["cache_hit_rate"],
+                    "errors": stats["errors"], "health": router["health"], "health_transitions": router["health_transitions"],
+                    "hedges": router["hedges"], "hedge_wins": router["hedge_wins"],
+                    "hedge_cancelled": router["hedge_cancelled"], "retries": router["retries"],
+                }
+        torch.cuda.synchronize()
+        launches = flash_attention.launches
+        encode_calls = sum(e.encode_calls for e in engines)
+        warmups = sum(e.graph_counts()["encode"]["warmups"] for e in engines) - warmups_before
+
+        hung = sum(part["hung_requests"] for part in (single_open, steady, profiled["second"], chaos))
+        kinds = {}
+        for part in (single_open, steady, profiled["second"], chaos):
+            for kind, count in part["errors_by_kind"].items():
+                kinds[kind] = kinds.get(kind, 0) + count
+        for exc in single_closed["errors"] + closed["errors"]:
+            kinds[fleet_classify(exc)] = kinds.get(fleet_classify(exc), 0) + 1
+        if hung or kinds.get("error"):
+            raise AssertionError(f"fleet: {hung} hung requests, errors by kind {kinds}")
+        if launches < 1 or launches != NUM_BLOCKS * (encode_calls + warmups):
+            raise AssertionError(f"fleet: K4 ran {launches} times, not {NUM_BLOCKS} x ({encode_calls} + {warmups})")
+        if chaos["dead_observed"] != "dead" or not chaos["revived"]:
+            raise AssertionError(f"fleet: the closed replica was not declared dead and taken back: {chaos['dead_observed']}")
+        records = (
+            single_closed["records"] + single_open["records"] + closed["records"] + steady["records"]
+            + profiled["second"]["records"] + drain_swap["records"] + chaos["records"]
+        )
+        reading = fleet_direct_check(plain, {0: params, 1: candidate}, records)
+        probe = fleet_direct_check(plain, {0: params, 1: candidate}, probe_before + probe_after)
+        probe["served_from"] = dict(collections.Counter(r.served_from for _, r in probe_before + probe_after))
+        probe["after_swap_generations"] = sorted({r.generation for _, r in probe_after})
+        if probe["checked"] != len(probe_before) + len(probe_after) or probe["after_swap_generations"] != [1]:
+            raise AssertionError(f"fleet: the cache probe's answers were not all primary on their generation: {probe}")
+        observe_us = quality_observe_us(descriptor, closed["records"])
+        # the router alone: the bare baseline replica (no tracer, logger or
+        # monitor) behind a fleet of one, the same closed loop on fresh users
+        with ServingFleet({"r0": baseline}, hedge_ms=None, heartbeat_interval_s=FLEET_HEARTBEAT_S) as solo:
+            router_only = fleet_closed_loop(solo, FleetTraffic(FLEET_USERS, NUM_ITEMS, SEQ_LEN), seed=300)
+        if router_only["errors"]:
+            raise AssertionError(f"fleet: the one-replica fleet saw errors {router_only['errors'][:3]}")
+
+        socket = fleet_socket_chaos(run_dir, device)
+        merge_traces({"router": router_tracer, **tracers}, os.path.join(run_dir, "trace.json"))
+        locality = fleet_hit / single_hit_rate if single_hit_rate else None
+        record = {
+            "metric": "fleet_qps", "value": steady["qps"], "unit": "req/s", "qps": steady["qps"],
+            "arrival_rate": steady["arrival_rate"], "closed_loop_qps": closed["qps"], "p50_ms": steady["p50_ms"],
+            "p99_ms": steady["p99_ms"], "replicas": FLEET_REPLICAS, "users_population": FLEET_USERS,
+            "users_touched": traffic.touched, "requests": final["requests"], "fleet_error_rate": final["error_rate"],
+            "hung_requests": hung, "errors_by_kind": kinds, "reroutes": final["reroutes"],
+            "reroute_rate": final["reroute_rate"], "retries": final["retries"], "hedges": final["hedges"],
+            "hedge_wins": final["hedge_wins"], "hedge_cancelled": final["hedge_cancelled"],
+            "failovers": final["failovers"], "cache_hit_rate": fleet_hit, "single_replica_qps": single_closed["qps"],
+            "single_replica_open_qps": single_open["qps"], "single_replica_p50_ms": single_open["p50_ms"],
+            "single_replica_p99_ms": single_open["p99_ms"], "single_replica_hit_rate": single_hit_rate,
+            "cache_hit_locality": locality, "qps_vs_single": closed["qps"] / single_closed["qps"],
+            "per_replica": per_replica, "quality": final.get("quality"),
+            "latency_exemplars": final["latency_exemplars"],
+            "replica_shards": {str(i + 1): f"r{i}" for i in range(FLEET_REPLICAS)},
+            "drain_swap": {k: v for k, v in drain_swap.items() if k != "records"},
+            "chaos": {k: v for k, v in chaos.items() if k != "records"}, "socket_chaos": socket,
+            "batch_buckets": list(BATCH_BUCKETS), "open_loop_rate": FLEET_RATE, "open_loop_seconds": FLEET_SECONDS,
+            "clients": FLEET_CLIENTS, "build_seconds": build_seconds,
+        }
+        fleet_logger.log_record(record)
+        fleet_logger.close()
+        for logger in replica_loggers:
+            logger.close()
+        report = fleet_report(run_dir)
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+    quality = record["quality"] or {}
+    emit(
+        "fleet", part="steady", router_only_closed_qps=router_only["qps"], **{k: record[k] for k in (
+            "qps", "arrival_rate", "closed_loop_qps", "p50_ms", "p99_ms", "single_replica_qps",
+            "single_replica_open_qps", "single_replica_p50_ms", "single_replica_p99_ms", "qps_vs_single",
+            "cache_hit_rate", "single_replica_hit_rate", "cache_hit_locality", "reroutes", "retries", "hedges",
+            "hedge_wins", "hedge_cancelled", "failovers", "hung_requests", "errors_by_kind", "users_touched",
+            "requests", "build_seconds", "per_replica",
+        )},
+        steady_errors_by_kind=steady["errors_by_kind"], single_open_arrival_rate=single_open["arrival_rate"],
+    )
+    emit("fleet", part="profiled_second", requests=profiled["second"]["submitted"], **{k: profiled[k] for k in (
+        "device_ms_per_s", "device_busy_share", "traced_k4_kernels", "k4_launched_in_window", "lost_records",
+        "top_device_ms",
+    )})
+    emit("fleet", part="drain_swap", **record["drain_swap"])
+    emit("fleet", part="chaos", **record["chaos"])
+    emit("fleet", part="socket_chaos", **socket)
+    emit("fleet", part="quality", observe_us=observe_us, joins=quality.get("joins"),
+         online_hitrate_cum=quality.get("online_hitrate_cum"),
+         drift_psi_max=quality.get("drift_psi_max"),
+         per_replica_observed={rid: q.get("observed") for rid, q in (quality.get("per_replica") or {}).items()})
+    emit("fleet", part="checks", k4_launches=launches, encode_batches=encode_calls, capture_warmups=warmups,
+         num_blocks=NUM_BLOCKS, direct=reading, cache_probe=probe, report=report)
+    emit("fleet", part="sharded_retrieval", run=False,
+         reason="bench_fleet.py:723 needs MIPSIndex(mesh=...), the mesh-sharded index of the rest of item 9")
+    release()
+    return {"launches": launches, "socket_launches": socket["k4_launches"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this script runs only on the GPU", file=sys.stderr)
@@ -6926,10 +7817,11 @@ def main() -> int:
     continual = continual_phase(device)
     family = family_phase(device)
     distributed = distributed_phase(device)
+    fleet = fleet_phase(device)
 
     kernels = kernel_records(
         k4, fused, tiled_records, served, serviced, retrieval, serialized, trained, longseq, bert4rec, twotower,
-        lifecycle, stream, observed, scaled, continual, family, distributed,
+        lifecycle, stream, observed, scaled, continual, family, distributed, fleet,
     )
     emit("kernels", kernels=[{k: r[k] for k in ("name", "launches", "passed")} for r in kernels])
     print(card, flush=True)
@@ -6961,7 +7853,7 @@ def k4_entry(name: str, record: dict, by_path: dict) -> dict:
 
 def kernel_records(
     k4, fused, tiled_records, served, serviced, retrieval, serialized, trained, longseq, bert4rec, twotower, lifecycle,
-    stream, observed, scaled, continual, family, distributed,
+    stream, observed, scaled, continual, family, distributed, fleet,
 ) -> list:
     """The kernels line: every kernel of the paths driven, one entry per
     instantiation a path runs, with its launches there (counted through graph
@@ -6978,6 +7870,8 @@ def kernel_records(
         "family_embedders": family["embedders"]["launches"]["flash_attention"],
         # the dp row's two ranks at the same width, summed
         "distributed_dp": distributed["dp"]["launches_total"]["flash_attention"],
+        # the fleet's in-process replicas and its single-replica baseline
+        "fleet": fleet["launches"],
     }
     kernels = [k4_entry("flash_attention", k4[("serve", torch.float32)], k4_paths)]
     # K4 on the BERT4Rec (D=75, bidirectional) and TwoTower (D=32, causal)
@@ -7010,6 +7904,9 @@ def kernel_records(
     scale_paths = {f"scale_{row}": count for row, count in scaled["k4"].items()}
     scale_paths.update({f"scale_{row}_graph": count for row, count in scaled["k4_graph"].items()})
     kernels.append(k4_entry("flash_attention_scale_bf16", k4[("scale", torch.bfloat16)], scale_paths))
+    # K4 at the demo server's width (D=8, L=12, f32, batch buckets 1 and 8;
+    # timed at 8): the fleet phase's server processes, each counting its own
+    kernels.append(k4_entry("flash_attention_demo", k4[("demo", torch.float32)], {"fleet_socket": fleet["socket_launches"]}))
     # K1–K3, one entry per kernel and instantiation on the paths: f32 at the
     # bench.py width (train), bf16 hidden states at the long-sequence width
     # (the bf16 trainer), f32 there (the f32 trainer)

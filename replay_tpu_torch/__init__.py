@@ -41,8 +41,13 @@ encoder, TiSasRec, and the list, numerical and identity embedders; notebook
 ``torch.distributed`` ranks, data parallelism, the vocab-sharded ``CEFusedTP``
 head on K1–K3 per catalog shard, ring attention over the sequence
 (``use_flash="ring"``), the multi-process checkpoint backend and the worker
-launcher). Still to come, in ``ROADMAP.md``'s order: the serving fleet and the
-run report, the classical and experimental models, the port's benchmark, and
-the rest of distributed training (the mesh-sharded retrieval index, graph
-capture of mesh steps with NCCL).
+launcher); and the serving fleet with the observability plane
+(:mod:`replay_tpu_torch.serve`: ``ServingFleet`` behind the consistent-hash
+router, in-process and HTTP replicas (``python -m replay_tpu_torch.serve.remote``),
+``PromotionController``; the service's metrics, SLO, quality and flight-ring
+planes; :mod:`replay_tpu_torch.obs`: the quality monitor, fleet federation,
+merged traces, ``python -m replay_tpu_torch.obs.report`` and post-mortems).
+Still to come, in ``ROADMAP.md``'s order: the classical and experimental
+models, the port's benchmark, and the rest of distributed training (the
+mesh-sharded retrieval index, graph capture of mesh steps with NCCL).
 """

@@ -33,6 +33,8 @@ from __future__ import annotations
 import io
 import json
 import struct
+import threading
+import weakref
 from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -124,13 +126,31 @@ class _Program(nn.Module):
         return self._run(self.model, *args)
 
 
+# one lock per model: ``functional_call`` swaps the module's parameters for
+# the length of the call, so two threads binding one model at once (the serve
+# workers of services that share it) would each run on the other's weights
+_BIND_LOCKS: "weakref.WeakKeyDictionary[nn.Module, threading.RLock]" = weakref.WeakKeyDictionary()
+_BIND_LOCKS_GUARD = threading.Lock()
+
+
+def _bind_lock(model: nn.Module) -> threading.RLock:
+    with _BIND_LOCKS_GUARD:
+        lock = _BIND_LOCKS.get(model)
+        if lock is None:
+            lock = _BIND_LOCKS[model] = threading.RLock()
+        return lock
+
+
 def bind(model: nn.Module, run: Callable[..., Any]) -> Callable[..., Any]:
     """``(params, *args) -> run(model, *args)`` with ``model``'s weights taken
-    from ``params``: the eager program, which each CUDA graph captures."""
+    from ``params``: the eager program, which each CUDA graph captures. Calls
+    on one model are serialised across threads (a CUDA graph's replay binds
+    nothing and is not)."""
     program = _Program(model, run)
+    lock = _bind_lock(model)
 
     def call(params: Params, *args):
-        with torch.no_grad():
+        with lock, torch.no_grad():
             return functional_call(
                 program, {f"model.{name}": value for name, value in params.items()}, args,
                 strict=True,

@@ -33,10 +33,29 @@ The scoring service emits its own family::
                                consecutive failures — one per transition)
       on_degrade*             (traffic rerouted down the degradation ladder:
                                to cache_only/fallback, reason; throttled)
+      on_quality_window*      (obs.quality: one per role per closed window —
+                               coverage, novelty, surprisal, popularity,
+                               intra-list diversity, score entropy/margin,
+                               online prequential hitrate/MRR/NDCG and the
+                               PSI drift state)
+      on_drift_warning*       (PSI crossed the drift threshold on some series;
+                               latched — one warning per excursion, throttled)
     on_serve_end              (request totals, cache hit rate, batch fill
                                ratio, queue-wait stats, shed/deadline-miss/
                                degradation totals, breaker stats, serve
                                goodput)
+
+and the fleet router (``serve/fleet.py``) one level above that::
+
+    on_fleet_start            (replica ids, vnodes, hedge/backoff config)
+      on_replica_health*      (one per health transition: replica, from, to,
+                               reason — heartbeat/gauge driven)
+      on_failover*            (a replica declared dead: replica, reason,
+                               ~fraction of users rerouted)
+      on_hedge*               (a slow request raced on a second replica:
+                               user, primary, hedge target)
+    on_fleet_end              (request/reroute/retry/hedge totals, per-replica
+                               routing counts, router-observed p50/p99)
 
 Every event flattens to one JSON-able dict (``event`` + ``time`` + optional
 ``step``/``epoch`` + the payload), so a run directory's ``events.jsonl`` is a
@@ -385,8 +404,136 @@ class ConsoleLogger(RunLogger):
             logger.warning(
                 "preemption (%s) at step %s: checkpoint saved, exiting", event.payload.get("signal"), event.step
             )
+        elif event.event == "on_shed":
+            logger.warning(
+                "overload: %s request(s) shed on lane %s (depth %s/%s)",
+                event.payload.get("count", 1),
+                event.payload.get("lane"),
+                event.payload.get("depth"),
+                event.payload.get("max_depth"),
+            )
+        elif event.event == "on_breaker":
+            logger.warning(
+                "circuit breaker %s -> %s (%s consecutive failure(s))",
+                event.payload.get("from"),
+                event.payload.get("to"),
+                event.payload.get("consecutive_failures"),
+            )
+        elif event.event == "on_degrade":
+            logger.warning(
+                "degraded: %s request(s) rerouted to %s (%s)",
+                event.payload.get("count", 1),
+                event.payload.get("to"),
+                event.payload.get("reason"),
+            )
+        elif event.event == "on_replica_health":
+            to_state = event.payload.get("to")
+            emit = logger.warning if to_state in ("degraded", "dead") else logger.info
+            emit(
+                "fleet replica %s: %s -> %s (%s)",
+                event.payload.get("replica"),
+                event.payload.get("from"),
+                to_state,
+                event.payload.get("reason"),
+            )
+        elif event.event == "on_failover":
+            logger.warning(
+                "fleet failover: replica %s dead (%s) — ~%.0f%% of users "
+                "rerouted along the ring",
+                event.payload.get("replica"),
+                event.payload.get("reason"),
+                100.0 * (event.payload.get("users_fraction") or 0.0),
+            )
+        elif event.event == "on_hedge":
+            logger.warning(
+                "fleet hedge: user %s slow on %s — racing %s",
+                event.payload.get("user_id"),
+                event.payload.get("primary"),
+                event.payload.get("hedge"),
+            )
+        elif event.event == "on_fleet_start":
+            logger.info(
+                "fleet up: %s replica(s) %s (vnodes=%s, hedge_ms=%s, "
+                "max_retries=%s)",
+                len(event.payload.get("replicas") or ()),
+                event.payload.get("replicas"),
+                event.payload.get("vnodes"),
+                event.payload.get("hedge_ms"),
+                event.payload.get("max_retries"),
+            )
+        elif event.event == "on_fleet_end":
+            logger.info(
+                "fleet down: %s request(s) on %s replica(s) — %s rerouted, "
+                "%s retried, %s hedged (%s won), p99 %.1f ms",
+                event.payload.get("requests"),
+                event.payload.get("replicas"),
+                event.payload.get("reroutes"),
+                event.payload.get("retries"),
+                event.payload.get("hedges"),
+                event.payload.get("hedge_wins"),
+                event.payload.get("p99_ms") or 0.0,
+            )
+        elif event.event == "on_swap":
+            logger.info(
+                "weight swap (%s): generation %s -> %s%s",
+                event.payload.get("reason"),
+                event.payload.get("from_generation"),
+                event.payload.get("to_generation"),
+                " [recompiled]" if event.payload.get("recompiled") else "",
+            )
+        elif event.event == "on_promotion":
+            logger.info(
+                "canary PROMOTED: generation %s (from %s) after %s clean "
+                "evaluation(s)",
+                event.payload.get("generation"),
+                event.payload.get("from_generation"),
+                event.payload.get("clean_evals"),
+            )
+        elif event.event == "on_rollback":
+            logger.warning(
+                "canary ROLLED BACK: generation %s -> %s (rules: %s)",
+                event.payload.get("generation"),
+                event.payload.get("restored_generation"),
+                ", ".join(event.payload.get("rules") or []) or "<manual>",
+            )
+        elif event.event == "on_quality_window":
+            drift = event.payload.get("drift") or {}
+            logger.info(
+                "quality[%s] @%s req: hitrate@%s %.4f (cum %.4f, %s joins), "
+                "coverage %.3f, novelty %.3f, surprisal %.3f, ild %.3f, "
+                "drift psi %.3f",
+                event.payload.get("role"),
+                event.payload.get("requests"),
+                event.payload.get("k"),
+                event.payload.get("online_hitrate") or 0.0,
+                event.payload.get("online_hitrate_cum") or 0.0,
+                event.payload.get("joins"),
+                event.payload.get("coverage") or 0.0,
+                event.payload.get("novelty") or 0.0,
+                event.payload.get("surprisal") or 0.0,
+                event.payload.get("ild") or 0.0,
+                (drift.get("max") if isinstance(drift, Mapping) else None) or 0.0,
+            )
+        elif event.event == "on_drift_warning":
+            logger.warning(
+                "DRIFT: psi %.3f on %s series crossed %.2f (max %.3f) — "
+                "serving distribution shifted",
+                event.payload.get("psi") or 0.0,
+                event.payload.get("series"),
+                event.payload.get("threshold") or 0.0,
+                event.payload.get("psi_max") or 0.0,
+            )
         elif event.event == "on_epoch_end":
             logger.info("epoch %s: %s", event.epoch, event.payload.get("record"))
+        elif event.event == "on_serve_end":
+            logger.info(
+                "serve complete: %s request(s), cache hit rate %.1f%%, "
+                "batch fill %.1f%%, mean queue wait %.2f ms",
+                event.payload.get("requests"),
+                100.0 * (event.payload.get("cache_hit_rate") or 0.0),
+                100.0 * (event.payload.get("batch_fill_ratio") or 0.0),
+                event.payload.get("queue_wait_ms_mean") or 0.0,
+            )
         elif event.event == "on_fit_end":
             summary = {k: event.payload.get(k) for k in ("telemetry", "peak_memory_bytes") if k in event.payload}
             logger.info("fit complete: %s", summary)

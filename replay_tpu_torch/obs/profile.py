@@ -58,6 +58,8 @@ __all__ = [
     "attribute_capture",
     "attribute_events",
     "device_events",
+    "kernels_by_launch",
+    "out_of_range_records",
     "device_op_times",
     "kernel_scopes",
     "latest_capture",
@@ -98,6 +100,16 @@ TRACE_NAMES = {
 # long after its last kernel has finished (chip_trace_probe.py takes traces
 # with and without it).
 TRACE_MARGIN_S = 0.05
+
+# kineto drops a device record whose time, put on the host's clock, falls
+# outside its window, and counts it in a log line ("Record counts:
+# Out-of-range = N") that an exported trace carries under "INFO" when kineto
+# logs at INFO (``KINETO_LOG_LEVEL=1``). That conversion can be off by far
+# more than TRACE_MARGIN_S: in one window of a fleet's traffic on an H100 the
+# device's clock read 0.37-0.51 s late against the host, and the trace kept
+# 40 of 204 K4 kernels with 7,223 records out of range
+# (chip_trace_probe.py --fleet-windows).
+_OUT_OF_RANGE = re.compile(r"Record counts: Out-of-range = (\d+)")
 
 _DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 _RUNTIME_CATEGORIES = ("cuda_runtime", "cuda_driver")
@@ -194,6 +206,53 @@ def device_events(events) -> list:
         e for e in events
         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0 and not e.key.startswith("ProfilerStep")
     ]
+
+
+def out_of_range_records(path: str) -> Optional[int]:
+    """The device records that kineto dropped as out of its window's range,
+    read from an exported Chrome trace's log lines; None where the trace
+    carries no such line (kineto logged above INFO, or a CPU run)."""
+    with open(path) as fh:
+        payload = json.load(fh)
+    counts = [
+        int(found.group(1))
+        for level in ("INFO", "WARNING")
+        for line in payload.get(level) or ()
+        for found in [_OUT_OF_RANGE.search(str(line))]
+        if found
+    ]
+    return sum(counts) if counts else None
+
+
+def kernels_by_launch(path: str, pattern: str) -> Dict[str, Any]:
+    """The kernels whose name matches ``pattern`` in an exported Chrome
+    trace, by the launch call of their correlation id: ``kernels`` in all,
+    ``graph_launches`` (the count of them in each ``cudaGraphLaunch`` that
+    holds one, in the trace's order), ``eager`` (those of any other launch
+    call) and ``orphans`` (those whose launch call is not in the trace)."""
+    name = re.compile(pattern)
+    events = load_capture(path)
+    calls = {
+        e["args"]["correlation"]: str(e.get("name", "")) for e in events
+        if e.get("cat") in _RUNTIME_CATEGORIES and "correlation" in (e.get("args") or {})
+    }
+    found: Dict[Any, int] = {}
+    orphans = 0
+    for e in events:
+        if e.get("cat") != "kernel" or not name.search(str(e.get("name", ""))):
+            continue
+        correlation = (e.get("args") or {}).get("correlation")
+        if correlation in calls:
+            found[correlation] = found.get(correlation, 0) + 1
+        else:
+            orphans += 1
+    graphs = [n for c, n in found.items() if "GraphLaunch" in calls[c]]
+    return {
+        "kernels": sum(found.values()) + orphans,
+        "graph_launches": graphs,
+        "eager": sum(n for c, n in found.items() if "GraphLaunch" not in calls[c]),
+        "orphans": orphans,
+    }
 
 
 # --------------------------------------------------------------------------- #

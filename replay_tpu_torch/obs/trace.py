@@ -2,9 +2,10 @@
 
 Copied from ``replay_tpu/obs/trace.py`` (host-only: no array framework, no
 numpy): the spans, the Chrome-trace export and the goodput fractions the
-scoring service records. The fleet's ``merge_traces`` and
-``tail_attribution`` are not copied; they come with the serving fleet
-(ROADMAP.md queue 1, "The serving fleet and the observability plane").
+scoring service records. The serving fleet's
+``merge_traces`` (per-shard traces onto one time axis, one labeled track
+each) and ``tail_attribution`` (the per-hop latency mix of the slowest
+requests) are copied too.
 
 * :class:`Tracer` records nestable spans via ``with tracer.span(name):``.
   Thread-safe (per-thread nesting stacks, one lock on the event list), so the
@@ -27,15 +28,18 @@ import json
 import os
 import threading
 import time
-from typing import Any, Dict, Iterable, Iterator, List, Mapping, Optional
+from typing import Any, Dict, Iterable, Iterator, List, Mapping, Optional, Sequence, Tuple
 
 __all__ = [
     "GOODPUT_SPANS",
+    "REQUEST_HOP_SPANS",
     "SERVE_GOODPUT_SPANS",
     "TraceContext",
     "Tracer",
     "goodput_breakdown",
     "lifecycle_span",
+    "merge_traces",
+    "tail_attribution",
     "traced_iterator",
 ]
 
@@ -73,6 +77,24 @@ SERVE_GOODPUT_SPANS = (
     "score",
     "retrieve",
     "rerank",
+)
+
+# one fleet request's hops, in timeline order: the router's hash lookup
+# ("route"), its hedge/backoff waits, then the replica-side serving phases.
+# These are the rows of the report's "tail attribution" section — every span
+# recorded with a ``trace_id`` (or batch-level ``trace_ids``) arg under one of
+# these names is attributed to that request; the residual inside the
+# root "request" span is "other" (dispatch handoffs, future resolution,
+# device-queue time the host spans do not cover).
+REQUEST_HOP_SPANS = (
+    "route",
+    "queue_wait",
+    "batch_build",
+    "score",
+    "retrieve",
+    "rerank",
+    "backoff_wait",
+    "hedge_wait",
 )
 
 # the spans that make up the stepping pipeline: the denominator of the
@@ -439,3 +461,162 @@ def goodput_breakdown(
         "fractions": fractions,
         "input_starvation": starvation,
     }
+
+
+def merge_traces(
+    shards: Mapping[str, Any], path: Optional[str] = None
+) -> Dict[str, Any]:
+    """Merge per-shard Chrome traces into ONE trace with labeled tracks.
+
+    ``shards`` maps a track label ("router", "r0", ...) to a :class:`Tracer`
+    or an already-exported Chrome trace dict. Each shard becomes its own
+    process track: a distinct ``pid`` plus a ``process_name`` metadata event
+    (``ph="M"``) carrying the label, which is how Perfetto titles the track.
+    Shards run on independent ``perf_counter`` epochs; their timestamps are
+    aligned onto the EARLIEST shard's epoch via each trace's
+    ``otherData.trace_epoch_unix`` (the wall clock at tracer construction), so
+    a request's router spans and its replica spans line up on one time axis.
+
+    Returns the merged trace dict; when ``path`` is given also writes it
+    there (the fleet's single ``trace.json``).
+    """
+    chrome: Dict[str, Dict[str, Any]] = {}
+    for label, shard in shards.items():
+        trace = shard.to_chrome_trace() if hasattr(shard, "to_chrome_trace") else shard
+        chrome[str(label)] = trace
+    epochs = {
+        label: float((trace.get("otherData") or {}).get("trace_epoch_unix") or 0.0)
+        for label, trace in chrome.items()
+    }
+    base_epoch = min(epochs.values()) if epochs else 0.0
+    merged: List[Dict[str, Any]] = []
+    tracks: Dict[str, int] = {}
+    for index, (label, trace) in enumerate(chrome.items()):
+        pid = index + 1
+        tracks[label] = pid
+        offset_us = (epochs[label] - base_epoch) * 1e6
+        merged.append(
+            {
+                "name": "process_name",
+                "ph": "M",
+                "ts": 0,
+                "pid": pid,
+                "tid": 0,
+                "args": {"name": label},
+            }
+        )
+        for event in trace.get("traceEvents", ()):
+            if event.get("ph") == "M":
+                continue  # shard-local metadata is superseded by the track label
+            record = dict(event)
+            record["pid"] = pid
+            record["ts"] = round(float(event.get("ts", 0.0)) + offset_us, 3)
+            merged.append(record)
+    merged.sort(key=lambda e: (e.get("ph") != "M", e.get("ts", 0.0)))
+    out = {
+        "traceEvents": merged,
+        "displayTimeUnit": "ms",
+        "otherData": {"trace_epoch_unix": base_epoch, "tracks": tracks},
+    }
+    if path is not None:
+        directory = os.path.dirname(os.path.abspath(path))
+        os.makedirs(directory, exist_ok=True)
+        with open(path, "w") as fh:
+            json.dump(out, fh)
+    return out
+
+
+def _event_trace_ids(event: Mapping[str, Any]) -> Tuple[str, ...]:
+    """The request(s) a trace event belongs to: a scalar ``trace_id`` arg for
+    per-request spans, a ``trace_ids`` list for batch-level spans shared by
+    every co-riding request (each gets the full batch duration — request-
+    centric attribution: "MY batch spent X ms scoring")."""
+    args = event.get("args")
+    if not args:
+        return ()
+    trace_id = args.get("trace_id")
+    if trace_id:
+        return (str(trace_id),)
+    trace_ids = args.get("trace_ids")
+    if trace_ids:
+        return tuple(str(t) for t in trace_ids)
+    return ()
+
+
+def tail_attribution(
+    trace_events: Iterable[Mapping[str, Any]],
+    quantiles: Sequence[float] = (0.5, 0.99),
+    root: str = "request",
+    hops: Sequence[str] = REQUEST_HOP_SPANS,
+) -> Optional[Dict[str, Any]]:
+    """Decompose completed requests' latency into per-hop fractions.
+
+    Groups Chrome trace events by ``trace_id``: each root span (``root``,
+    recorded by the fleet router over a request's full submit→answer window)
+    defines one completed request's latency; every hop span sharing its
+    trace_id contributes its duration. Per request the hop fractions are
+    clipped to the root window (concurrent hops — a hedge twin racing the
+    primary — can overlap; renormalized like :func:`goodput_breakdown`) and
+    the residual is ``other``, so each request's fractions sum to 1.0.
+
+    For each quantile ``q`` the attribution is the MEAN hop mix over the
+    slowest ``(1 - q)`` share of requests (nearest-rank tail subset): "what do
+    the p99 requests spend their time on", not "what does the p99 request
+    spend". Returns ``None`` when no root span carries a trace_id (tracing
+    was off or nothing completed).
+    """
+    roots: Dict[str, float] = {}
+    hop_seconds: Dict[str, Dict[str, float]] = {}
+    hop_set = set(hops)
+    for event in trace_events:
+        if event.get("ph") == "M":
+            continue
+        name = event.get("name")
+        ids = _event_trace_ids(event)
+        if not ids:
+            continue
+        dur_s = max(float(event.get("dur") or 0.0), 0.0) / 1e6
+        if name == root:
+            roots[ids[0]] = max(roots.get(ids[0], 0.0), dur_s)
+        elif name in hop_set:
+            for tid in ids:
+                per_hop = hop_seconds.setdefault(tid, {})
+                per_hop[name] = per_hop.get(name, 0.0) + dur_s
+    if not roots:
+        return None
+    per_request: List[Tuple[float, Dict[str, float]]] = []
+    for trace_id, total in sorted(roots.items(), key=lambda kv: kv[1]):
+        fractions: Dict[str, float] = {}
+        tracked = 0.0
+        per_hop = hop_seconds.get(trace_id, {})
+        for name in hops:
+            seconds = min(max(per_hop.get(name, 0.0), 0.0), total) if total > 0 else 0.0
+            tracked += seconds
+            fractions[name] = seconds / total if total > 0 else 0.0
+        if total > 0 and tracked > total:
+            for name in hops:
+                fractions[name] *= total / tracked
+            tracked = total
+        fractions["other"] = (total - tracked) / total if total > 0 else 1.0
+        per_request.append((total, fractions))
+    n = len(per_request)
+    out: Dict[str, Any] = {
+        "requests": n,
+        "hops": list(hops) + ["other"],
+        "quantiles": {},
+    }
+    for q in quantiles:
+        start = min(int(float(q) * n), n - 1)
+        subset = per_request[start:]
+        means: Dict[str, float] = {}
+        for name in out["hops"]:
+            means[name] = sum(f[name] for _, f in subset) / len(subset)
+        # exact residual: the averaged mix must still sum to 1.0 bit-for-bit
+        means["other"] = max(1.0 - sum(means[name] for name in hops), 0.0)
+        key = f"p{int(round(float(q) * 100)):02d}"
+        out["quantiles"][key] = {
+            "latency_ms": subset[0][0] * 1e3,
+            "n": len(subset),
+            "fractions": means,
+        }
+    return out

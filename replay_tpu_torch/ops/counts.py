@@ -33,6 +33,10 @@ Launch = Tuple[Any, Optional[str]]
 # the stream handle (an int) of every capture in progress -> its launch list
 _RECORDING: Dict[int, List[Launch]] = {}
 _LOCK = threading.Lock()
+# the counts themselves: several serve workers replay their graphs at once
+# (a fleet of services on one card), and ``+=`` on an attribute is a
+# read-modify-write that loses updates between threads
+_COUNT_LOCK = threading.Lock()
 # the open cost sinks of obs/mfu.py::program_costs (any thread: autograd runs
 # the backward on a worker thread)
 _COST_SINKS: List[List[Dict[str, float]]] = []
@@ -40,9 +44,10 @@ _COST_SINKS: List[List[Dict[str, float]]] = []
 
 def add(wrapper, variant: Optional[str] = None) -> None:
     """Add one launch to ``wrapper``'s counts (and its ``variant``'s)."""
-    wrapper.launches += 1
-    if variant is not None:
-        wrapper.launches_by_variant[variant] += 1
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+        if variant is not None:
+            wrapper.launches_by_variant[variant] += 1
 
 
 def launched(wrapper, stream: int, variant: Optional[str] = None) -> None:

@@ -20,6 +20,11 @@ refusals, on WHEN to come back:
   restart budget); every pending future is failed with this rather than left
   to hang.
 
+* :class:`NoHealthyReplica` — the FLEET-level refusal (``serve/fleet.py``):
+  no replica on the user's ring order could take the request (all dead,
+  draining, or every retry exhausted). Carries the fleet's health map at
+  refusal time.
+
 All subclass :class:`ServeError` (itself a ``RuntimeError``), so
 ``except ServeError`` catches exactly the service's own refusals while real
 engine exceptions — the thing the breaker counts — pass through untouched.
@@ -88,6 +93,35 @@ class CircuitOpen(ServeError):
         self.retry_after_s = retry_after_s
         hint = f"; retry after ~{retry_after_s:.3f}s" if retry_after_s is not None else ""
         super().__init__(f"scoring engine circuit is open{hint}")
+
+
+class ServiceClosed(ServeError):
+    """The service stopped; this request will never be served.
+
+    The message deliberately contains "not running": the micro-batcher's
+    pre-resilience contract (``RuntimeError`` matching that phrase) stays
+    intact for existing callers.
+    """
+
+    def __init__(self, detail: str = "service is not running") -> None:
+        super().__init__(detail)
+
+
+class NoHealthyReplica(ServeError):
+    """The fleet router found no replica able to take this request.
+
+    :param replicas: replica ids consulted (the ring membership at refusal).
+    :param cause: the last per-replica refusal, when the router got that far
+        (e.g. the final :class:`RequestShed` after retries were exhausted).
+    """
+
+    def __init__(self, replicas=(), cause: Optional[BaseException] = None) -> None:
+        self.replicas = list(replicas)
+        self.cause = cause
+        detail = f" (last refusal: {cause!r})" if cause is not None else ""
+        super().__init__(
+            f"no healthy replica among {self.replicas or '<empty fleet>'}{detail}"
+        )
 
 
 class ServiceClosed(ServeError):

@@ -58,17 +58,19 @@ the pipeline's ``retrieve``/``rerank`` spans; ``on_serve_start`` /
 ``on_serve_end`` carries the serve goodput breakdown (``SERVE_GOODPUT_SPANS``
 fractions, summing to 1.0).
 
-Not ported yet (``NotImplementedError`` naming ROADMAP.md queue 1, "The
-serving fleet and the observability plane"): the ``metrics_port``,
-``slo_rules``, ``quality`` and ``flight_path`` arguments, which need the
-JAX package's metrics exporter, SLO watchdog, quality monitor and flight
-recorder.
+The same event fan-out feeds the service's four optional planes, as in the
+JAX service: the live metrics registry and its ``/metrics`` endpoint
+(``metrics_port``), SLO rules evaluated at batch cadence (``slo_rules``), the
+model-quality monitor (``quality``) and the SIGKILL-proof flight ring
+(``flight_path``). None of them touches the device.
 """
 
 from __future__ import annotations
 
 import contextlib
 import copy
+import logging
+import os
 import threading
 import time
 from concurrent.futures import Future
@@ -95,9 +97,7 @@ from .pipeline import CandidatePipeline
 from .promote import ROLES, ParamStore, in_canary_slice
 from .request import PendingRequest, ScoreRequest, ScoreResponse, make_window
 
-# the JAX service's arguments this port refuses until their planes are ported
-_UNPORTED_ARGS = ("metrics_port", "slo_rules", "quality", "flight_path")
-_UNPORTED_ITEM = "ROADMAP.md queue 1, 'The serving fleet and the observability plane'"
+logger = logging.getLogger("replay_tpu_torch")
 
 
 class ScoringService:
@@ -126,11 +126,27 @@ class ScoringService:
         keeps the degradation visible). ``new_items`` requests error in BOTH
         modes — an interaction that cannot land must never be masked by a
         success response.
+    :param metrics_port: serve a live Prometheus ``/metrics`` endpoint (+
+        ``/snapshot`` JSON) for the service's lifetime — qps, batch fill,
+        queue-wait histograms, shed/degrade/breaker counters bridged from the
+        serve event stream. ``0`` binds an ephemeral port (read
+        :attr:`metrics_exporter`); a busy port degrades to a logged no-op.
+    :param slo_rules: :class:`~replay_tpu_torch.obs.SLORule` set evaluated
+        after every dispatched batch; breaches emit ``on_slo_violation``
+        through the attached ``logger`` and count in the registry.
+    :param flight_path: record every serve event into a SIGKILL-proof mmap
+        flight ring (:mod:`replay_tpu_torch.obs.blackbox`) at this path.
+        Defaults to ``$REPLAY_TPU_FLIGHT_PATH`` when set. A SIGKILLed
+        replica's last batches, sheds and breaker flips stay readable via
+        ``read_flight`` — the evidence ``obs.report --postmortem``
+        reconstructs.
+    :param quality: a :class:`~replay_tpu_torch.obs.QualityMonitor` watching
+        every resolved response (online prequential hitrate/NDCG, coverage,
+        novelty, drift); its gauges ride the same registry and
+        ``stats()["quality"]`` returns its snapshot. A monitor that raises
+        is detached; the responses keep flowing.
     :param device: where the engine and its programs run; ``"cuda"`` unless
         the caller asks for the CPU (``device="cpu"``, as the tests do).
-    :param metrics_port, slo_rules, quality, flight_path: the JAX service's
-        live-metrics, SLO, quality and flight-recorder planes; not ported,
-        anything but ``None`` raises ``NotImplementedError``.
     """
 
     def __init__(
@@ -160,10 +176,6 @@ class ScoringService:
         quality: Optional[Any] = None,
         device: DeviceLike = "cuda",
     ) -> None:
-        for name, value in zip(_UNPORTED_ARGS, (metrics_port, slo_rules, quality, flight_path)):
-            if value is not None:
-                msg = f"ScoringService({name}=...) is not ported yet: {_UNPORTED_ITEM}"
-                raise NotImplementedError(msg)
         if retrieval is not None and candidates is not None:
             msg = "retrieval mode and a fixed candidate slate are mutually exclusive"
             raise ValueError(msg)
@@ -253,6 +265,56 @@ class ScoringService:
         self._goodput_t0: Dict[str, float] = {}
         self._wall_t0 = 0.0
         self._started = False
+        # live metrics plane (obs.metrics / obs.exporter / obs.slo): the
+        # service's own event stream bridged into a scrapeable registry —
+        # no new instrumentation hooks, the _emit fan-out IS the bridge
+        self.metrics_registry = None
+        self.metrics_exporter = None
+        self._metrics_logger = None
+        if metrics_port is not None or slo_rules:
+            from replay_tpu_torch.obs.exporter import MetricsExporter
+            from replay_tpu_torch.obs.metrics import MetricsLogger
+            from replay_tpu_torch.obs.slo import SLOWatchdog
+
+            self._metrics_logger = MetricsLogger()
+            self.metrics_registry = self._metrics_logger.registry
+            if slo_rules:
+                self._metrics_logger.watchdog = SLOWatchdog(
+                    slo_rules, self.metrics_registry, emit=self._route_event
+                )
+            if metrics_port is not None:
+                # the structured /healthz (format=json) serves the heartbeat
+                # document, so a REMOTE fleet monitor can drive ReplicaHealth
+                # from a pure scrape of this port (serve.remote)
+                self.metrics_exporter = MetricsExporter(
+                    self.metrics_registry,
+                    port=metrics_port,
+                    health_source=self.heartbeat,
+                )
+        # quality plane (obs.quality): same zero-new-hooks pattern — the
+        # monitor watches resolved responses and emits on_quality_window /
+        # on_drift_warning back through THIS service's _emit fan-out, so its
+        # gauges ride the existing metrics bridge, exporter and SLO watchdog
+        self.quality = quality
+        if quality is not None:
+            quality.bind(self._emit, self._emit_throttled)
+        # flight recorder (obs.blackbox): same attach-the-sink pattern — the
+        # _emit fan-out carries every serve event into the SIGKILL-proof ring
+        self._blackbox = None
+        flight_path = flight_path or os.environ.get("REPLAY_TPU_FLIGHT_PATH")
+        if flight_path:
+            from replay_tpu_torch.obs.blackbox import BlackboxLogger
+
+            try:
+                self._blackbox = BlackboxLogger(
+                    flight_path,
+                    meta={"role": "serve", "pid": os.getpid(), "mode": self.mode},
+                )
+            except OSError as exc:
+                logger.warning(
+                    "flight recorder: cannot open %s (%s); service runs unrecorded",
+                    flight_path, exc,
+                )
 
     # -- lifecycle ---------------------------------------------------------- #
     def start(self) -> "ScoringService":
@@ -261,6 +323,8 @@ class ScoringService:
         self._started = True
         self._goodput_t0 = self.tracer.snapshot()
         self._wall_t0 = self.tracer.wall_seconds()
+        if self.metrics_exporter is not None:
+            self.metrics_exporter.start()
         self.batcher.start()
         self._emit(
             "on_serve_start",
@@ -286,6 +350,13 @@ class ScoringService:
             return
         self.batcher.stop()
         self._started = False
+        if self.quality is not None:
+            # partial windows land before the terminal event — the last
+            # quality gauges are in the registry when on_serve_end snapshots
+            try:
+                self.quality.flush()
+            except Exception:  # noqa: BLE001 — telemetry must not fail close
+                pass
         self._flush_throttled()
         payload = dict(self.stats())
         snapshot = self.tracer.snapshot()
@@ -301,6 +372,15 @@ class ScoringService:
         self._emit("on_serve_end", payload)
         if self.trace_path and self.tracer.enabled:
             self.tracer.save(self.trace_path)
+        if self._blackbox is not None:
+            # one msync after the terminal event — durability against machine
+            # loss; SIGKILL durability never depended on this close landing
+            self._blackbox.close()
+        if self.metrics_exporter is not None:
+            # after the terminal event: the final gauges (hit rate, shed
+            # rate) land in the registry before the endpoint disappears, and
+            # registry/snapshot stay readable on metrics_registry afterwards
+            self.metrics_exporter.close()
         # the engines' CUDA graphs and pools: a restarted service captures anew
         for engine in {id(e): e for e in (self.engine, *self.store.engines())}.values():
             engine.close()
@@ -855,6 +935,7 @@ class ScoringService:
     ) -> None:
         response = self._fallback_response(request)
         response.role = role
+        self._observe_quality(response, request)
         if self._safe_set_result(future, response):
             with self._count_lock:
                 # under _count_lock: += on the scorer attribute is a
@@ -1246,6 +1327,11 @@ class ScoringService:
                         if self._counts_for_role(role, item):
                             self._role_stats[role]["errors"] += 1
                 continue
+            # observe BEFORE resolving: a client that saw result() return is
+            # guaranteed its response was already counted by the quality
+            # monitor — the reconciliation contract the online/offline parity
+            # test (and the fleet's join accounting) leans on
+            self._observe_quality(response, item.request)
             if not self._safe_set_result(item.future, response):
                 with self._count_lock:
                     self._cancelled += 1
@@ -1342,10 +1428,42 @@ class ScoringService:
     _safe_fail = staticmethod(safe_fail)
     _safe_set_result = staticmethod(safe_set_result)
 
+    def _observe_quality(self, response: ScoreResponse, request: ScoreRequest) -> None:
+        """Feed one resolved response to the quality monitor. A broken monitor
+        detaches itself rather than poison the serving path: quality telemetry
+        is strictly best-effort."""
+        monitor = self.quality
+        if monitor is None:
+            return
+        try:
+            monitor.observe(response, request)
+        except Exception:  # noqa: BLE001
+            self.quality = None
+            logger.exception(
+                "quality monitor raised; detached — responses keep flowing "
+                "unobserved"
+            )
+
     # -- accounting --------------------------------------------------------- #
-    def _emit(self, event: str, payload: Dict[str, Any]) -> None:
+    def _route_event(self, event: TrainerEvent) -> None:
+        """Fan one event out to the metrics bridge, the flight ring and the
+        user sink (the SLO watchdog's emit target too, so violations land in
+        all of them)."""
+        if self._metrics_logger is not None:
+            self._metrics_logger.log_event(event)
+        if self._blackbox is not None:
+            self._blackbox.log_event(event)
         if self.logger is not None:
-            self.logger.log_event(TrainerEvent(event=event, payload=payload))
+            self.logger.log_event(event)
+
+    def _emit(self, event: str, payload: Dict[str, Any]) -> None:
+        if (
+            self._metrics_logger is None
+            and self._blackbox is None
+            and self.logger is None
+        ):
+            return
+        self._route_event(TrainerEvent(event=event, payload=payload))
 
     def _emit_throttled(
         self, key: str, event: str, payload: Dict[str, Any], min_interval: float = 0.5
@@ -1469,7 +1587,8 @@ class ScoringService:
                 if canary is not None
                 else None
             ),
-            # the quality plane is not ported: no monitor, as in a JAX
-            # service built without one
-            "quality": None,
+            # the quality plane (obs.quality): pure-JSON monitor snapshot —
+            # per-role windowed telemetry + online prequential cumulatives +
+            # PSI drift state. None when no monitor is attached
+            "quality": self.quality.snapshot() if self.quality is not None else None,
         }

@@ -1,8 +1,8 @@
-"""Deterministic fault injection for training (docs/robustness.md).
+"""Deterministic fault injection for training and serving (docs/robustness.md).
 
-Counterpart of the training side of ``replay_tpu/utils/faults.py``: the
-failure modes ``Trainer.fit`` must survive, injected through one small
-harness so every recovery path runs reproducibly:
+Counterpart of ``replay_tpu/utils/faults.py``: the failure modes
+``Trainer.fit`` and the scoring service must survive, injected through one
+small harness so every recovery path runs reproducibly:
 
 * :class:`NaNInjector` poisons chosen batches of a stream (the non-finite
   sentinel and the ``RecoveryPolicy`` rollback);
@@ -11,20 +11,28 @@ harness so every recovery path runs reproducibly:
 * :class:`KillAtStep` SIGKILLs a process at a chosen batch index (no handler
   runs: recovery must come from the checkpoints' atomic writes);
 * :func:`truncate_file` chops a checkpoint payload as a crash mid-write would
-  (``CheckpointManager``'s integrity scan).
+  (``CheckpointManager``'s integrity scan);
+* :class:`EngineErrorAt` makes a wrapped callable (e.g.
+  ``ScoringEngine.encode``) raise :class:`InjectedFault` at chosen call
+  indices (the serve circuit breaker and future-failure paths);
+* :class:`LatencySpike` delays a wrapped callable at chosen call indices
+  (deadline enforcement, queue-bound shedding and the client-side
+  ``score(timeout=...)`` abandonment drop).
 
-Positions are 0-based global batch indices counted across every ``wrap``
-call of one injector, so a multi-epoch ``fit`` stream hits the same absolute
-positions whatever the epoch boundaries. The serving injectors
-(``EngineErrorAt``, ``LatencySpike``, ``wrap_method``) wait for ``ROADMAP.md``
-queue 1, item 10.
+Positions are 0-based global indices (batch indices for the stream
+injectors, call indices for the callable injectors) counted across every
+``wrap`` call of one injector, so a multi-epoch ``fit`` stream — or a
+long-lived serve worker — hits the same absolute positions whatever the
+epoch boundaries.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import signal
-from typing import Any, Dict, Iterable, Iterator, Optional, Sequence
+import time
+from typing import Any, Callable, Dict, Iterable, Iterator, Optional, Sequence
 
 import numpy as np
 
@@ -166,3 +174,72 @@ def truncate_file(path: str, keep_fraction: float = 0.5, keep_bytes: Optional[in
     with open(path, "r+b") as fh:
         fh.truncate(keep)
     return keep
+
+
+class _CallIndexInjector:
+    """Shared scaffolding for the callable injectors: one GLOBAL call-index
+    counter across every ``wrap()`` target (the callable analog of the stream
+    injectors' global batch indices), ``injected_at`` recording the calls that
+    fired, and a :meth:`_fire` hook run BEFORE the wrapped call — raising from
+    it suppresses the call entirely, returning lets it proceed."""
+
+    def __init__(self, at_calls: Iterable[int]) -> None:
+        self.at_calls = frozenset(int(c) for c in at_calls)
+        self.position = 0  # global call index across wrap() targets
+        self.injected_at: list = []
+
+    def _fire(self, position: int) -> None:
+        raise NotImplementedError
+
+    def wrap(self, fn: Callable) -> Callable:
+        @functools.wraps(fn)
+        def wrapped(*args, **kwargs):
+            position = self.position
+            self.position += 1
+            if position in self.at_calls:
+                self.injected_at.append(position)
+                self._fire(position)
+            return fn(*args, **kwargs)
+
+        return wrapped
+
+
+class EngineErrorAt(_CallIndexInjector):
+    """Make a wrapped callable raise :class:`InjectedFault` at the given
+    global call indices — the serve-side chaos injector.
+
+    >>> injector = EngineErrorAt(at_calls=range(3))
+    >>> # service.engine.encode = injector.wrap(service.engine.encode)
+    >>> # the first 3 encodes now fail; consecutive failures trip the breaker
+
+    The fault raises BEFORE the wrapped call, so an injected failure costs no
+    device work — exactly like a transport/runtime error surfacing at
+    dispatch. ``injected_at`` records the call indices that actually fired.
+    """
+
+    def _fire(self, position: int) -> None:
+        msg = f"injected engine error at call {position}"
+        raise InjectedFault(msg)
+
+
+class LatencySpike(_CallIndexInjector):
+    """Delay a wrapped callable by ``duration_s`` at the given global call
+    indices — models a device stall / host GC pause / network hiccup without
+    changing any result. ``injected_at`` records the calls that slept.
+    """
+
+    def __init__(self, at_calls: Iterable[int], duration_s: float = 0.05) -> None:
+        super().__init__(at_calls)
+        self.duration_s = float(duration_s)
+
+    def _fire(self, position: int) -> None:
+        time.sleep(self.duration_s)
+
+
+def wrap_method(obj: Any, name: str, injector: Any) -> Any:
+    """Instance-patch ``obj.name`` with ``injector.wrap`` (chaos entrypoint:
+    ``wrap_method(service.engine, "encode", EngineErrorAt(...))``). Returns
+    the original bound method so callers can restore it."""
+    original = getattr(obj, name)
+    setattr(obj, name, injector.wrap(original))
+    return original

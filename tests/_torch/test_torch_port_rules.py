@@ -69,6 +69,9 @@ def test_importing_the_port_loads_no_jax():
         "replay_tpu_torch.nn.compiled", "replay_tpu_torch.ops.counts", "replay_tpu_torch.data.nn.prefetch",
         "replay_tpu_torch.nn.vocabulary", "replay_tpu_torch.nn.loss.bce", "replay_tpu_torch.nn.loss.sce",
         "replay_tpu_torch.nn.loss.login_ce", "replay_tpu_torch.nn.loss.logout_ce",
+        "replay_tpu_torch.serve.fleet", "replay_tpu_torch.serve.remote", "replay_tpu_torch.serve.router",
+        "replay_tpu_torch.obs.quality", "replay_tpu_torch.obs.report", "replay_tpu_torch.obs.federate",
+        "replay_tpu_torch.obs.postmortem",
     } <= set(names)
     code = (
         "import importlib, sys\n"
@@ -136,13 +139,15 @@ def test_pyarrow_is_imported_only_inside_functions(path):
         ("preprocessing", ("label_encoder",)),
         ("splitters", ("base", "strategies")),
         ("parallel", ("distributed", "launch", "sharding", "sharded_ce", "ring", "introspect", "mesh")),
+        ("serve", ("errors", "router", "fleet", "remote")),
+        ("obs", ("quality", "federate", "report", "postmortem")),
     ],
 )
 def test_the_rules_reach_every_subpackage(subpackage, modules):
     """The walk above and the source scan below cover the service slice's,
-    the model slice's, the training lifecycle's, the data front end's and
-    the offline metrics' subpackages by name, so that a move cannot drop them
-    silently."""
+    the model slice's, the training lifecycle's, the data front end's, the
+    offline metrics' and the serving fleet's subpackages by name, so that a
+    move cannot drop them silently."""
     walked = {m.name for m in pkgutil.walk_packages(replay_tpu_torch.__path__, "replay_tpu_torch.")}
     scanned = {str(p.relative_to(REPO)) for p in _sources()}
     folder = subpackage.replace(".", "/")

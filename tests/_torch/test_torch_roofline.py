@@ -234,6 +234,40 @@ def test_attribute_capture_on_a_hand_written_trace(tmp_path):
         profile.attribute_capture(str(tmp_path / "nothing"))
 
 
+def test_out_of_range_records_and_kernels_by_launch_read_from_the_trace(tmp_path):
+    line = (
+        "INFO:2026-10-18 18:08:02 121:121 CuptiActivityProfiler.cpp:408] Record counts: Out-of-range = 7223, "
+        "Blocklisted runtime = 907, Invalid ext correlations = 0, CPU GPU out-of-order = 1480, "
+        "Unexpected CUDA events = 0, CUPTI stopped early? = 0"
+    )
+    logged, silent = tmp_path / "logged.json", tmp_path / "silent.json"
+    logged.write_text(json.dumps({"traceEvents": hand_written_trace(), "INFO": ["Processed 13310 GPU records", line]}))
+    silent.write_text(json.dumps({"traceEvents": hand_written_trace(), "INFO": ["Processed 13310 GPU records"]}))
+    assert profile.out_of_range_records(str(logged)) == 7223
+    assert profile.out_of_range_records(str(silent)) is None
+    # three replays of a two-block encode: the second lost one K4 record; one
+    # eager K4 (the hand-written trace's), and one whose launch call is absent
+    k4 = "void attention_forward<float, 2>(float const*)"
+    replays = [
+        event("cuda_runtime", "cudaGraphLaunch", 600 + 10 * corr, 1, 1, correlation=corr) for corr in (20, 21, 22)
+    ]
+    kernels = [
+        event("kernel", name, 2000 + 10 * i, 1, 7, correlation=corr)
+        for i, (corr, name) in enumerate([(20, k4), (20, "k_a"), (20, k4), (21, k4), (21, "k_a"), (22, k4), (22, k4)])
+    ]
+    orphan = event("kernel", k4, 3000, 1, 7, correlation=99)
+    replayed = tmp_path / "replayed.json"
+    replayed.write_text(json.dumps({"traceEvents": hand_written_trace() + replays + kernels + [orphan]}))
+    pattern = profile.TRACE_NAMES["flash_attention"]
+    assert profile.kernels_by_launch(str(replayed), pattern) == {
+        "kernels": 7, "graph_launches": [2, 1, 2], "eager": 1, "orphans": 1,
+    }
+    # graph launches with no K4 kernel (the hand-written trace's) are not listed
+    assert profile.kernels_by_launch(str(logged), pattern) == {
+        "kernels": 1, "graph_launches": [], "eager": 1, "orphans": 0,
+    }
+
+
 def test_a_cpu_fit_with_a_profile_window_attributes_its_host_ops(tmp_path):
     events = []
 

@@ -12,7 +12,7 @@ Then, on the port alone, the contracts ``tests/serve/test_service_parity.py``
 and ``tests/serve/test_service_resilience.py`` hold for JAX: bitwise fill,
 co-rider and row-order independence within a bucket, advance = re-encode,
 cache-only = pure hit, the breaker and the degradation ladder, deadlines,
-shedding, close, hot swaps and the refused arguments. Every wait is bounded
+shedding, close, hot swaps and the four plane arguments. Every wait is bounded
 (``WAIT_S``), and every service is closed in a ``finally``.
 """
 
@@ -50,7 +50,6 @@ from replay_tpu_torch.serve import (
     ScoringService,
     ServiceClosed,
 )
-from replay_tpu_torch.serve.service import _UNPORTED_ARGS
 
 NUM_ITEMS, DIM, BLOCKS, HEADS, SEQ_LEN = 40, 16, 2, 2, 16
 LENGTHS, BATCHES = (8, SEQ_LEN), (1, 4)
@@ -60,6 +59,8 @@ ATOL = RTOL = 1e-5
 WAIT_S = 10.0
 MAX_WAIT_MS = 40.0  # long enough that 2-4 back-to-back submits share one batch
 HISTORY = [3, 1, 4, 1, 5]
+# the service planes the JAX service takes as arguments
+PLANE_ARGS = ("metrics_port", "slo_rules", "quality", "flight_path")
 
 
 def _jax_model():
@@ -415,10 +416,30 @@ def test_same_shape_publish_and_promote_is_bitwise(setup, mode):
             fresh.close()
 
 
-@pytest.mark.parametrize("name", _UNPORTED_ARGS)
-def test_refused_arguments_name_their_roadmap_item(setup, name):
-    with pytest.raises(NotImplementedError, match=f"{name}=.*ROADMAP.md queue 1, 'The serving fleet and the observability plane'"):
-        _service(setup, **{name: 0})
+@pytest.mark.parametrize("name", PLANE_ARGS)
+def test_refused_arguments_name_their_roadmap_item(setup, name, tmp_path):
+    """The four plane arguments the service once refused (naming their
+    roadmap item) are now accepted, each wiring its plane: the exporter, the
+    SLO watchdog, the quality monitor and the flight ring."""
+    from replay_tpu_torch.obs import PopularityDescriptor, QualityMonitor, SLORule, read_flight
+
+    value = {
+        "metrics_port": 0,
+        "slo_rules": [SLORule("replay_serve_rows_total", ">", 0.0, name="rows")],
+        "quality": QualityMonitor(PopularityDescriptor.from_train({0: [1, 2, 3]}, num_items=NUM_ITEMS)),
+        "flight_path": str(tmp_path / "flight.ring"),
+    }[name]
+    service = _service(setup, **{name: value})
+    with service:
+        service.score("u", history=HISTORY, timeout=WAIT_S)
+        if name == "metrics_port":
+            assert service.metrics_exporter.url.startswith("http://")
+        if name == "slo_rules":
+            assert service.metrics_registry.value("replay_slo_violations_total", labels={"rule": "rows"}) == 1.0
+        if name == "quality":
+            assert service.stats()["quality"]["observed"] == 1
+    if name == "flight_path":
+        assert read_flight(value).records[-1]["event"] == "on_serve_end"
 
 
 def test_service_defaults_to_the_card(setup, monkeypatch):
